@@ -1,0 +1,538 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py        # from the repository root, on a CUDA machine
+
+Phases (any failure exits non-zero):
+
+1. device  — needs ``torch.cuda.is_available()``; prints the card's name and
+   power limit as ``nvidia-smi`` reports them.
+2. build   — compiles the hand-written CUDA kernels from the sources in this
+   checkout (``nvcc``, sm_90a) and prints the build seconds.
+3. kernels — each paged-attention kernel against its plain PyTorch version
+   on the card: bf16 at the main path's widths (KVH 5, G 3, D 64, page 16)
+   within 2e-2 absolute (f32 accumulation, bf16 output: a few bf16 ulps of
+   outputs of magnitude ~1), one f32 case within 1e-3, and dead rows (idle
+   slots, padded chunk rows, length 0) bit-exact zeros; the cases cover
+   lengths 0, 1 and page+-1, partial last pages, a chunk straddling a page
+   with valid < C, dead rows among live ones and shuffled physical pages.
+   Then times each kernel, its plain version and a library yardstick
+   (``F.scaled_dot_product_attention`` on the gathered dense K/V, which the
+   port never calls) at the shapes of one engine step, cycling over 32
+   layers' pools as a step does.
+4. engine  — full-width smollm-360m (bf16, seeded random weights) served by
+   ``ContinuousBatchingEngine(max_slots=8, page_size=16, prefill_chunk=64)``:
+   16 requests of 100-600 prompt tokens (half share a 128-token prefix),
+   32 new tokens each, greedy and seeded top-p. Every request must finish
+   by length, the prefix index must hit, and each kernel's launch count
+   (reset just before this run) must be > 0: the decode-only, chunk-only
+   and mixed routes all ran. Prints tok/s, TTFT and ITL, then a
+   torch.profiler window over a second run (device busy share, the
+   paged-attention kernels' share of it, the top device ops).
+5. parity  — the same engine in f32 with TF32 off, once through the kernels
+   and once through the plain versions (``attn_impl="ref"``): the greedy
+   token streams must be identical. Depth is cut to 2 layers for this
+   phase: the random-weight model amplifies f32 rounding differences with
+   depth until the argmax flips (the phase prints the one-chunk logit gap
+   at 32 and at 2 layers to show it).
+
+The line before the last is ``{"kernels": [...]}``; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+KERNEL_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
+REPLACES = {
+    "paged_attention_bkgd": "src/repro/kernels/paged_attention.py:141",
+    "paged_prefill_attention_ckgd": "src/repro/kernels/paged_attention.py:289",
+    "paged_mixed_attention_rkgd": "src/repro/kernels/paged_attention.py:443",
+}
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
+BF16_FLOP_PER_S = 989e12       # dense bf16 tensor-core peak
+F32_FLOP_PER_S = 67e12         # f32 outside the tensor cores
+BF16_TOL, F32_TOL = 2e-2, 1e-3
+KVH, G, D, PAGE, LAYERS = 5, 3, 64, 16, 32
+SLOTS, CHUNK, MAX_LEN = 8, 64, 704
+PARITY_LAYERS = 2
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _pools(torch, n_pages, dtype, layers=1, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (layers, n_pages, PAGE, KVH, D)
+    k = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    v = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    return k, v
+
+
+def _tables(torch, rows, mp, n_pages, seed):
+    """Rows of distinct physical pages in shuffled order (never the null
+    page 0)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.stack([torch.randperm(n_pages - 1, generator=g,
+                                       device="cuda")[:mp] + 1
+                        for _ in range(rows)]).int().contiguous()
+
+
+def check_kernels(torch, ops):
+    """Run every kernel against its plain version; returns max abs error
+    per kernel over the bf16 cases and logs the f32 ones."""
+    mp, n_pages = 44, 400
+    errs = {}
+
+    def compare(name, got, want, dead, tol, label):
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if not err <= tol:
+            raise AssertionError(f"{name} [{label}]: max abs err {err} > {tol}")
+        if dead is not None and dead.any() and not (got[dead] == 0).all():
+            raise AssertionError(f"{name} [{label}]: dead rows not exact 0")
+        return err
+
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        label = str(dtype).removeprefix("torch.")
+        kp, vp = _pools(torch, n_pages, dtype, seed=1)
+        kp, vp = kp[0], vp[0]
+        g = torch.Generator(device="cuda").manual_seed(2)
+        # decode: idle slot, 1, page-1, page, page+1, partial pages
+        lengths = torch.tensor([0, 1, 15, 16, 17, 33, 250, 631],
+                               dtype=torch.int32, device="cuda")
+        tables = _tables(torch, SLOTS, mp, n_pages, seed=3)
+        q = torch.randn(SLOTS, KVH * G, D, generator=g, device="cuda").to(dtype)
+        e_dec = compare(
+            "paged_attention_bkgd",
+            ops.paged_attention(q, kp, vp, tables, lengths),
+            ops.paged_attention(q, kp, vp, tables, lengths, impl="ref"),
+            lengths == 0, tol, label)
+        # prefill: a chunk straddling a page with valid < C, a full chunk
+        # from position 0, and an all-padding chunk
+        qc = torch.randn(CHUNK, KVH * G, D, generator=g,
+                         device="cuda").to(dtype)
+        e_pre = 0.0
+        for start, valid in ((23, 41), (0, CHUNK), (300, 0)):
+            st = torch.tensor(start, dtype=torch.int32, device="cuda")
+            va = torch.tensor(valid, dtype=torch.int32, device="cuda")
+            dead = torch.arange(CHUNK, device="cuda") >= valid
+            e_pre = max(e_pre, compare(
+                "paged_prefill_attention_ckgd",
+                ops.paged_prefill_attention(qc, kp, vp, tables[5], st, va),
+                ops.paged_prefill_attention(qc, kp, vp, tables[5], st, va,
+                                            impl="ref"),
+                dead, tol, f"{label} start={start} valid={valid}"))
+        # mixed: decode rows (one idle) + a chunk straddling a page with a
+        # dead suffix, every row its own table row
+        cpos = torch.arange(CHUNK, dtype=torch.int32, device="cuda")
+        last_pos = torch.cat([lengths - 1,
+                              torch.where(cpos < 41, 23 + cpos, -1)])
+        mtables = torch.cat([tables, tables[5:6].expand(CHUNK, mp)])
+        mtables = mtables.contiguous()
+        qm = torch.cat([q, qc])
+        e_mix = compare(
+            "paged_mixed_attention_rkgd",
+            ops.paged_mixed_attention(qm, kp, vp, mtables, last_pos),
+            ops.paged_mixed_attention(qm, kp, vp, mtables, last_pos,
+                                      impl="ref"),
+            last_pos < 0, tol, label)
+        log(f"kernel check {label}: decode {e_dec:.3e}, prefill {e_pre:.3e}, "
+            f"mixed {e_mix:.3e} (bound {tol})")
+        if dtype == torch.bfloat16:
+            errs = {"paged_attention_bkgd": e_dec,
+                    "paged_prefill_attention_ckgd": e_pre,
+                    "paged_mixed_attention_rkgd": e_mix}
+    return errs
+
+
+def _time_ms(torch, fn, iters=64, warmup=8):
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for i in range(iters):
+        fn(i)
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def _bound(n_positions, rows_attended, q_rows, tables_elems, scalars, elt):
+    """Least time for the function: every K/V position it must read (each
+    (page, offset) once, all kv heads), q in, out back, its int32 tables and
+    positions; against the operations of QK^T and PV over the attended
+    positions. Returns (ms, 'bytes' | 'operations')."""
+    kv_bytes = 2 * n_positions * KVH * D * elt
+    qo_bytes = 2 * q_rows * KVH * G * D * elt
+    nbytes = kv_bytes + qo_bytes + 4 * (tables_elems + scalars)
+    flops = 4 * D * KVH * G * rows_attended
+    rate = BF16_FLOP_PER_S if elt == 2 else F32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def time_kernels(torch, F, ops, ref):
+    """kernel / plain / library times (ms) and the bound, at the shapes of
+    one full-width engine step, cycling through 32 layers' pools so each
+    launch finds its pages outside L2 as in a real step."""
+    mp = -(-MAX_LEN // PAGE)
+    n_pages = SLOTS * mp + 1
+    dt = torch.bfloat16
+    kp, vp = _pools(torch, n_pages, dt, layers=LAYERS, seed=5)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    lengths = torch.randint(100, 632, (SLOTS,), generator=g, device="cuda",
+                            dtype=torch.int32)
+    tables = _tables(torch, SLOTS, mp, n_pages, seed=7)
+    q = torch.randn(SLOTS, KVH * G, D, generator=g, device="cuda").to(dt)
+    qc = torch.randn(CHUNK, KVH * G, D, generator=g, device="cuda").to(dt)
+    start = torch.tensor(256, dtype=torch.int32, device="cuda")
+    valid = torch.tensor(CHUNK, dtype=torch.int32, device="cuda")
+    cpos = torch.arange(CHUNK, dtype=torch.int32, device="cuda")
+    last_pos = torch.cat([lengths - 1, 256 + cpos])
+    mtables = torch.cat([tables, tables[0:1].expand(CHUNK, mp)]).contiguous()
+    qm = torch.cat([q, qc])
+    scale = D ** -0.5
+
+    def layer(i):
+        return kp[i % LAYERS], vp[i % LAYERS]
+
+    def dense(tbl, n):
+        """Gathered dense K/V for SDPA: (rows, H, n, D) over the q heads."""
+        def gather(pool):
+            x = pool[tbl.long()].reshape(tbl.shape[0], -1, KVH, D)[:, :n]
+            return x.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+        return [(gather(kp[i]), gather(vp[i])) for i in range(LAYERS)]
+
+    lens = lengths.tolist()
+    n_max = max(lens)
+    dec_dense = dense(tables, n_max)
+    dec_mask = (torch.arange(n_max, device="cuda")[None, :]
+                < lengths[:, None])[:, None, None, :]
+    pre_dense = dense(tables[0:1], 256 + CHUNK)
+    kpos = torch.arange(256 + CHUNK, device="cuda")
+    pre_mask = (kpos[None, :] <= 256 + cpos[:, None])[None, None]
+    mix_n = max(n_max, 256 + CHUNK)
+    mix_dense = dense(mtables, mix_n)
+    mix_mask = (torch.arange(mix_n, device="cuda")[None, :]
+                <= last_pos[:, None])[:, None, None, :]
+
+    rows = {
+        "paged_attention_bkgd": dict(
+            kernel=lambda i: ops.paged_attention(
+                q, *layer(i), tables, lengths, scale=scale),
+            plain=lambda i: ref.paged_attention_ref(
+                q, *layer(i), tables, lengths, scale=scale),
+            library=lambda i: F.scaled_dot_product_attention(
+                q[:, :, None], *dec_dense[i % LAYERS],
+                attn_mask=dec_mask),
+            bound=_bound(sum(lens), sum(lens), SLOTS, SLOTS * mp, SLOTS, 2)),
+        "paged_prefill_attention_ckgd": dict(
+            kernel=lambda i: ops.paged_prefill_attention(
+                qc, *layer(i), tables[0], start, valid, scale=scale),
+            plain=lambda i: ref.paged_prefill_attention_ref(
+                qc, *layer(i), tables[0], start, valid, scale=scale),
+            library=lambda i: F.scaled_dot_product_attention(
+                qc.transpose(0, 1)[None], *pre_dense[i % LAYERS],
+                attn_mask=pre_mask),
+            bound=_bound(256 + CHUNK, sum(257 + c for c in range(CHUNK)),
+                         CHUNK, mp, 2, 2)),
+        "paged_mixed_attention_rkgd": dict(
+            kernel=lambda i: ops.paged_mixed_attention(
+                qm, *layer(i), mtables, last_pos, scale=scale),
+            plain=lambda i: ref.paged_mixed_attention_ref(
+                qm, *layer(i), mtables, last_pos, scale=scale),
+            library=lambda i: F.scaled_dot_product_attention(
+                qm[:, :, None], *mix_dense[i % LAYERS],
+                attn_mask=mix_mask),
+            # the chunk shares slot 0's table: its positions are slot 0's
+            bound=_bound(sum(lens) + max(0, 256 + CHUNK - lens[0]),
+                         sum(lens) + sum(257 + c for c in range(CHUNK)),
+                         SLOTS + CHUNK, (SLOTS + CHUNK) * mp, SLOTS + CHUNK,
+                         2)),
+    }
+    out = {}
+    for name, r in rows.items():
+        # plain, kernel, kernel, plain: compare within one call, in turns
+        p1 = _time_ms(torch, r["plain"])
+        k1 = _time_ms(torch, r["kernel"])
+        k2 = _time_ms(torch, r["kernel"])
+        p2 = _time_ms(torch, r["plain"])
+        lib = _time_ms(torch, r["library"])
+        out[name] = dict(ms=min(k1, k2), plain_ms=min(p1, p2),
+                         library_ms=lib, bound_ms=r["bound"][0],
+                         bound_by=r["bound"][1])
+        log(f"timing {name}: kernel {k1:.4f}/{k2:.4f} ms, plain "
+            f"{p1:.4f}/{p2:.4f} ms, sdpa {lib:.4f} ms, bound "
+            f"{r['bound'][0]:.5f} ms ({r['bound'][1]})")
+    del dec_dense, pre_dense, mix_dense
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 4-5: the engine
+# ---------------------------------------------------------------------------
+
+
+def _requests(serving, n, rng, sampled_every):
+    shared = rng.integers(1, 49152, 128).tolist()
+    reqs = []
+    for i in range(n):
+        plen = int(rng.integers(100, 601))
+        if i % 2 == 0:
+            prompt = shared + rng.integers(1, 49152, plen - 128).tolist()
+        else:
+            prompt = rng.integers(1, 49152, plen).tolist()
+        sp = (serving.SamplingParams(temperature=0.8, top_p=0.9,
+                                     max_new_tokens=32, seed=1000 + i)
+              if sampled_every and i % sampled_every == 1 else
+              serving.SamplingParams(max_new_tokens=32, seed=1000 + i))
+        reqs.append(serving.Request(f"r{i}", prompt, sampling=sp))
+    return reqs
+
+
+def _drive(torch, engine, reqs):
+    handles = [engine.submit(r) for r in reqs]
+    steps = 0
+    while not engine.idle:
+        engine.step()
+        steps += 1
+    torch.cuda.synchronize()
+    return handles, steps
+
+
+def run_engine(torch, np, cfg, serving, models, pk, card):
+    from repro_torch.serving.metrics import latency_percentiles
+
+    params = models.build_model(cfg, device="cuda").init(seed=0)
+    engine_kw = dict(max_len=MAX_LEN, max_slots=SLOTS, page_size=PAGE,
+                     prefill_chunk=CHUNK, device="cuda")
+    engine = serving.ContinuousBatchingEngine(cfg, params, **engine_kw)
+    rng = np.random.default_rng(0)
+    # warm-up (cuBLAS handles, allocator, first launches): not measured
+    _drive(torch, engine, _requests(serving, 2, rng, sampled_every=2))
+    engine = serving.ContinuousBatchingEngine(cfg, params, **engine_kw)
+    reqs = _requests(serving, 16, rng, sampled_every=2)
+    pk.reset_launches()
+    t0 = time.perf_counter()
+    handles, steps = _drive(torch, engine, reqs)
+    wall = time.perf_counter() - t0
+    launches = dict(pk.LAUNCHES)
+    results = [h.result() for h in handles]
+    bad = [(r.uid, r.finish_reason.value) for r in results
+           if r.finish_reason.value != "length" or len(r.tokens) != 32]
+    if bad:
+        raise AssertionError(f"requests not finished by length: {bad}")
+    hits = engine.cache.stats["prefix_hits"]
+    if hits <= 0:
+        raise AssertionError("no prefix hits on the shared-prefix requests")
+    if not all(launches[k] > 0 for k in launches):
+        raise AssertionError(f"a route never ran its kernel: {launches}")
+    for r in results:
+        toks = np.asarray(r.tokens)
+        if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+            raise AssertionError(f"{r.uid}: token out of vocab")
+    lat = latency_percentiles(results)
+    n_tok = sum(len(r.tokens) for r in results)
+    st = engine.stats
+    log(f"engine {cfg.name} bf16 on {card}: {len(results)}/{len(reqs)} "
+        f"requests, {n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} tok/s;"
+        f" TTFT p50 {lat['ttft_ms'][0]:.1f} ms p99 {lat['ttft_ms'][2]:.1f} ms;"
+        f" ITL p50 {lat['itl_ms'][0]:.2f} ms p99 {lat['itl_ms'][2]:.2f} ms")
+    log(f"engine steps {steps}: decode_steps {st['decode_steps']}, "
+        f"prefill_chunks {st['prefill_chunks']}, preemptions "
+        f"{st['preemptions']}, prefix hits {hits} "
+        f"({engine.cache.stats['prefix_tokens_reused']} tokens reused); "
+        f"kernel launches {launches} over {LAYERS} layers per dispatch")
+    log("utilization: " + engine.utilization.format())
+    del engine
+    trace_engine(torch, np, cfg, serving, params, engine_kw)
+    return launches
+
+
+def trace_engine(torch, np, cfg, serving, params, engine_kw):
+    """Where a step's time goes: a torch.profiler window over a fresh
+    engine serving 8 greedy requests. Device busy = the sum of the device
+    times the profiler recorded (one stream, so no overlap) over the
+    window's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    engine = serving.ContinuousBatchingEngine(cfg, params, **engine_kw)
+    reqs = _requests(serving, 8, np.random.default_rng(5), sampled_every=0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, steps = _drive(torch, engine, reqs)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def device_us(evt):
+        return getattr(evt, "self_device_time_total",
+                       getattr(evt, "self_cuda_time_total", 0.0))
+
+    events = [e for e in prof.key_averages() if device_us(e) > 0]
+    busy_ms = sum(device_us(e) for e in events) / 1e3
+    if busy_ms <= 0:
+        log("trace: the profiler recorded no device time (not measured)")
+        return
+    attn_ms = sum(device_us(e) for e in events
+                  if "paged_attention_kernel" in e.key) / 1e3
+    top = sorted(events, key=device_us, reverse=True)[:6]
+    log(f"trace: {steps} steps in {wall_ms:.1f} ms wall "
+        f"({wall_ms / steps:.2f} ms/step); device busy {busy_ms:.1f} ms = "
+        f"{100 * busy_ms / wall_ms:.1f}% (idle {100 - 100 * busy_ms / wall_ms:.1f}%);"
+        f" paged-attention kernels {attn_ms:.1f} ms = "
+        f"{100 * attn_ms / busy_ms:.1f}% of busy; "
+        f"{sum(e.count for e in events)} device ops")
+    for e in top:
+        log(f"trace top: {device_us(e) / 1e3:9.2f} ms x{e.count:6d}  {e.key[:90]}")
+
+
+def _chunk_logits(torch, np, model, impl):
+    """Logits of one 64-token prompt chunk into an empty pool."""
+    cfg = model.cfg
+    model.attn_impl = impl
+    shape = (cfg.num_layers, 6, PAGE, KVH, D)  # null page, 4 pages, sink
+    pages = {"k": torch.zeros(shape, device="cuda"),
+             "v": torch.zeros(shape, device="cuda")}
+    row = torch.tensor([1, 2, 3, 4], dtype=torch.int32, device="cuda")
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        1, cfg.vocab_size, CHUNK).astype(np.int32)).cuda()
+    start = torch.tensor(0, dtype=torch.int32, device="cuda")
+    valid = torch.tensor(CHUNK, dtype=torch.int32, device="cuda")
+    return model.prefill_chunk(pages, row, toks, start, valid)[:cfg.vocab_size]
+
+
+def run_parity(torch, np, cfg, serving, models):
+    """f32 with TF32 off: the engine through the kernels vs through the
+    plain versions (``attn_impl="ref"``), greedy streams identical.
+
+    The random-weight model is chaotic in depth: a perturbation of the
+    attention output at f32 rounding level (the kernels' online softmax sums
+    in another order than the plain versions) grows by orders of magnitude
+    per few layers, so at 32 layers the greedy argmax flips on noise while at
+    2 layers it cannot. The phase prints the one-chunk logit gap at both
+    depths, then asserts stream identity at PARITY_LAYERS (full width, depth
+    cut)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"parity: f32, TF32 off (matmul.allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32}, cudnn.allow_tf32="
+        f"{torch.backends.cudnn.allow_tf32})")
+    for layers in (LAYERS, PARITY_LAYERS):
+        cfg32 = dataclasses.replace(cfg, dtype="float32", num_layers=layers)
+        model = models.build_model(cfg32, device="cuda")
+        model.init(seed=1)
+        a = _chunk_logits(torch, np, model, "auto")
+        b = _chunk_logits(torch, np, model, "ref")
+        gap = (a - b).abs().max().item()
+        top2 = b.topk(2).values
+        log(f"parity: {layers} layers, one 64-token chunk: max |logit "
+            f"kernel - plain| = {gap:.3e}, argmax {a.argmax().item()} vs "
+            f"{b.argmax().item()}, plain top-2 margin "
+            f"{(top2[0] - top2[1]).item():.3e}")
+        if layers == PARITY_LAYERS and not gap < 1e-3:
+            raise AssertionError(f"kernel vs plain logits differ by {gap}")
+        del model
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                num_layers=PARITY_LAYERS)
+    params = models.build_model(cfg32, device="cuda").init(seed=1)
+    streams = {}
+    for impl in ("auto", "ref"):
+        engine = serving.ContinuousBatchingEngine(
+            cfg32, params, max_len=MAX_LEN, max_slots=4, page_size=PAGE,
+            prefill_chunk=CHUNK, attn_impl=impl, device="cuda")
+        rng = np.random.default_rng(3)
+        reqs = [serving.Request(
+            f"g{i}", rng.integers(1, 49152, int(rng.integers(70, 200))).tolist(),
+            sampling=serving.SamplingParams(max_new_tokens=16))
+            for i in range(5)]
+        handles, _ = _drive(torch, engine, reqs)
+        streams[impl] = [list(h.tokens) for h in handles]
+    if streams["auto"] != streams["ref"]:
+        raise AssertionError(f"f32 kernel vs plain streams differ: {streams}")
+    log(f"parity: {PARITY_LAYERS} layers, full width: "
+        f"{len(streams['auto'])} greedy streams of 16 tokens identical "
+        f"through kernels and plain versions")
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 1
+    if not (SRC / "repro_torch").is_dir():
+        print(f"chip_smoke: {SRC / 'repro_torch'} not found: run from a "
+              f"checkout of the repository", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    from repro_torch import models, serving
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import paged_attention as pk
+
+    card = card_line()
+    log(card)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+
+    t0 = time.perf_counter()
+    build.build()
+    log(f"build: {time.perf_counter() - t0:.1f} s "
+        f"({', '.join(f'{n} {s:.1f} s' for n, s in build.build_seconds.items())})")
+    ptxas = build.build_log.get("paged_attention", "")
+    if ptxas:  # empty when the library was already built
+        regs = sorted({int(n) for n in re.findall(r"Used (\d+) registers",
+                                                  ptxas)})
+        spills = sorted({int(n) for n in re.findall(
+            r"(\d+) bytes spill stores", ptxas)})
+        log(f"ptxas: registers per thread {regs}, spill-store bytes {spills} "
+            f"over {ptxas.count('Compiling entry function')} kernel instances")
+
+    errs = check_kernels(torch, ops)
+    times = time_kernels(torch, F, ops, ref)
+    cfg = get_arch("smollm-360m")
+    launches = run_engine(torch, np, cfg, serving, models, pk, card)
+    run_parity(torch, np, cfg, serving, models)
+
+    kernels = [dict(name=name, route="cuda", source=KERNEL_SOURCE,
+                    replaces=REPLACES[name], launches=launches[name],
+                    max_abs_err=errs[name], **times[name])
+               for name in REPLACES]
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

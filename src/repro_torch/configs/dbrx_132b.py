@@ -1,0 +1,17 @@
+"""dbrx-132b — MoE 16e top-4, fine-grained [hf:databricks/dbrx-base; unverified]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="dbrx-132b",
+    family="moe",
+    num_layers=40,
+    d_model=6144,
+    num_heads=48,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=10752,
+    vocab_size=100352,
+    num_experts=16,
+    experts_per_token=4,
+    rope_theta=500000.0,
+)

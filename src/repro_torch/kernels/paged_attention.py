@@ -1,0 +1,183 @@
+"""ctypes wrappers for the paged-attention CUDA kernels (``csrc/paged_attention.cu``).
+
+Three kernels over the serving page pool, each replacing a Pallas TPU
+kernel of the JAX package:
+
+* ``paged_attention_bkgd``         — decode (``repro/kernels/paged_attention.py``
+  ``paged_attention_bkgd``);
+* ``paged_prefill_attention_ckgd`` — chunked prefill of one sequence
+  (``paged_prefill_attention_ckgd``);
+* ``paged_mixed_attention_rkgd``   — the fused mixed step
+  (``paged_mixed_attention_rkgd``).
+
+Shapes follow the JAX kernels: q arrives grouped ``(N, KVH, G, D)`` and the
+output has the same shape and dtype. Each wrapper checks device, dtype,
+shape and contiguity, launches on ``torch.cuda.current_stream()``, raises
+when the launch reports an error, and adds one to its entry of
+:data:`LAUNCHES` per launch. They accept CUDA tensors only: the plain
+versions for the CPU live in :mod:`repro_torch.kernels.ref` and the choice
+between the two is :mod:`repro_torch.kernels.ops`'.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+# launches per kernel since the last reset_launches()
+LAUNCHES = {"paged_attention_bkgd": 0, "paged_prefill_attention_ckgd": 0,
+            "paged_mixed_attention_rkgd": 0}
+
+HEAD_DIMS = (64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_lib = None
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = build.load("paged_attention")
+        decode_like = [_P, _P, _P, _P, _P, _P] + [_I] * 6 + [ctypes.c_float,
+                                                             _I, _P]
+        for fn in (lib.paged_attention_decode, lib.paged_attention_mixed):
+            fn.argtypes = decode_like
+            fn.restype = _I
+        lib.paged_attention_prefill.argtypes = (
+            [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I, _P])
+        lib.paged_attention_prefill.restype = _I
+        _lib = lib
+    return _lib
+
+
+def _check(q, k_pages, v_pages, ints: dict):
+    """Validate the operands shared by all three kernels; returns
+    (kvh, group, d, page, dtype code)."""
+    if q.dim() != 4 or k_pages.dim() != 4:
+        raise ValueError(f"q must be (N, KVH, G, D) and pages (P, page, KVH, "
+                         f"D); got {tuple(q.shape)}, {tuple(k_pages.shape)}")
+    n, kvh, group, d = q.shape
+    _, page, pkvh, pd = k_pages.shape
+    if (pkvh, pd) != (kvh, d) or v_pages.shape != k_pages.shape:
+        raise ValueError(f"page pool {tuple(k_pages.shape)} / "
+                         f"{tuple(v_pages.shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not supported (kernels: {HEAD_DIMS})")
+    if q.dtype not in _DTYPES or k_pages.dtype != q.dtype \
+            or v_pages.dtype != q.dtype:
+        raise TypeError(f"q/k/v must share a dtype in {list(_DTYPES)}; got "
+                        f"{q.dtype}, {k_pages.dtype}, {v_pages.dtype}")
+    tensors = {"q": q, "k_pages": k_pages, "v_pages": v_pages, **ints}
+    for name, t in tensors.items():
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"{name} must be a CUDA tensor on {q.device} "
+                             f"(got {t.device}); the CPU path is ref.py")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in ints.items():
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+    return kvh, group, d, page, _DTYPES[q.dtype]
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: error {err}")
+
+
+def _stream(q) -> int:
+    return torch.cuda.current_stream(q.device).cuda_stream
+
+
+def paged_attention_bkgd(
+    q: torch.Tensor,             # (B, KVH, G, D) grouped query, one token per seq
+    k_pages: torch.Tensor,       # (P, page, KVH, D)
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,  # (B, MP) int32
+    lengths: torch.Tensor,       # (B,) int32
+    *,
+    scale: float | None = None,
+) -> torch.Tensor:
+    kvh, group, d, page, dt = _check(
+        q, k_pages, v_pages,
+        {"block_tables": block_tables, "lengths": lengths})
+    b = q.shape[0]
+    if block_tables.dim() != 2 or block_tables.shape[0] != b \
+            or lengths.shape != (b,):
+        raise ValueError(f"block_tables {tuple(block_tables.shape)} / lengths "
+                         f"{tuple(lengths.shape)} do not match batch {b}")
+    mp = block_tables.shape[1]
+    out = torch.empty_like(q)
+    err = _library().paged_attention_decode(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        b, kvh, group, d, page, mp,
+        scale if scale is not None else d ** -0.5, dt, _stream(q))
+    _raise_on(err, "paged_attention_bkgd")
+    LAUNCHES["paged_attention_bkgd"] += 1
+    return out
+
+
+def paged_prefill_attention_ckgd(
+    q: torch.Tensor,            # (C, KVH, G, D) grouped chunk queries, ONE seq
+    k_pages: torch.Tensor,      # (P, page, KVH, D)
+    v_pages: torch.Tensor,
+    block_table: torch.Tensor,  # (MP,) int32 the sequence's block-table row
+    start: torch.Tensor,        # int32 device scalar: positions already cached
+    valid: torch.Tensor,        # int32 device scalar: real chunk tokens
+    *,
+    scale: float | None = None,
+) -> torch.Tensor:
+    kvh, group, d, page, dt = _check(
+        q, k_pages, v_pages,
+        {"block_table": block_table, "start": start, "valid": valid})
+    if block_table.dim() != 1 or start.numel() != 1 or valid.numel() != 1:
+        raise ValueError("block_table must be (MP,), start/valid scalars")
+    c = q.shape[0]
+    out = torch.empty_like(q)
+    err = _library().paged_attention_prefill(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        block_table.data_ptr(), start.data_ptr(), valid.data_ptr(),
+        out.data_ptr(), c, kvh, group, d, page, block_table.shape[0],
+        scale if scale is not None else d ** -0.5, dt, _stream(q))
+    _raise_on(err, "paged_prefill_attention_ckgd")
+    LAUNCHES["paged_prefill_attention_ckgd"] += 1
+    return out
+
+
+def paged_mixed_attention_rkgd(
+    q: torch.Tensor,             # (R, KVH, G, D) grouped query, one row per row
+    k_pages: torch.Tensor,       # (P, page, KVH, D)
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,  # (R, MP) int32, one block-table row per row
+    last_pos: torch.Tensor,      # (R,) int32 last attendable position, -1 = dead
+    *,
+    scale: float | None = None,
+) -> torch.Tensor:
+    kvh, group, d, page, dt = _check(
+        q, k_pages, v_pages,
+        {"block_tables": block_tables, "last_pos": last_pos})
+    r = q.shape[0]
+    if block_tables.dim() != 2 or block_tables.shape[0] != r \
+            or last_pos.shape != (r,):
+        raise ValueError(f"block_tables {tuple(block_tables.shape)} / "
+                         f"last_pos {tuple(last_pos.shape)} do not match {r} "
+                         f"rows")
+    out = torch.empty_like(q)
+    err = _library().paged_attention_mixed(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        block_tables.data_ptr(), last_pos.data_ptr(), out.data_ptr(),
+        r, kvh, group, d, page, block_tables.shape[1],
+        scale if scale is not None else d ** -0.5, dt, _stream(q))
+    _raise_on(err, "paged_mixed_attention_rkgd")
+    LAUNCHES["paged_mixed_attention_rkgd"] += 1
+    return out

@@ -1,0 +1,4 @@
+from repro_torch.models.api import Model, build_model
+from repro_torch.models.convert import params_from_jax
+
+__all__ = ["Model", "build_model", "params_from_jax"]

@@ -1,0 +1,188 @@
+"""Attention blocks over the serving page pool: GQA + RoPE (+ optional qk-norm).
+
+The three paged entry points mirror ``repro/models/attention.py``: each
+writes the rows' new K/V into this layer's page pool IN PLACE, then attends
+through ``kernels.ops`` (the hand-written kernel for CUDA tensors, the plain
+version for CPU tensors).
+
+Rows that must not write (idle slots, dead rows, chunk padding, null-page
+table entries) write into the pool's SINK page instead: the pool carries
+one extra page past the ``num_pages`` the block tables can name (see
+``serving/kv_cache.py``), so the scatter needs no boolean row filter (which
+would synchronise with the host every layer) and no out-of-bounds index.
+Nothing ever reads the sink.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models.common import ParamSpec, apply_rope, rms_norm, rope_table
+
+
+def attn_param_specs(cfg: ModelConfig, stacked: int | None = None) -> dict:
+    """QKV/O projections (+ qk-norm scales). ``stacked``: leading layer dim.
+
+    Uses the *effective* (possibly padded) head counts; padded o-proj rows
+    are zero-init so padding is output-identical at init.
+    """
+    d, h, kvh, hd = cfg.d_model, cfg.eff_heads, cfg.eff_kv_heads, cfg.head_dim
+    pre = (stacked,) if stacked else ()
+    pax = ("stack",) if stacked else ()
+    wo_init = "zeros" if cfg.num_heads_padded else "normal"
+    specs = {
+        "wq": ParamSpec(pre + (d, h, hd), pax + ("embed", "heads", "head_dim")),
+        "wk": ParamSpec(pre + (d, kvh, hd), pax + ("embed", "kv_heads", "head_dim")),
+        "wv": ParamSpec(pre + (d, kvh, hd), pax + ("embed", "kv_heads", "head_dim")),
+        "wo": ParamSpec(pre + (h, hd, d), pax + ("heads", "head_dim", "embed"),
+                        init=wo_init),
+    }
+    if cfg.qk_norm:
+        specs["q_norm"] = ParamSpec(pre + (hd,), pax + (None,), init="ones")
+        specs["k_norm"] = ParamSpec(pre + (hd,), pax + (None,), init="ones")
+    return specs
+
+
+def _project_qkv(p, x, cfg: ModelConfig, positions: torch.Tensor | None,
+                 rope: bool):
+    """x (B,S,D) -> q (B,S,H,Dh), k/v (B,S,KVH,Dh), rope-rotated."""
+    b, s, d = x.shape
+
+    def proj(w):
+        return (x @ w.reshape(d, -1)).reshape(b, s, w.shape[1], w.shape[2])
+
+    q, k, v = proj(p["wq"]), proj(p["wk"]), proj(p["wv"])
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if rope:
+        assert positions is not None
+        cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    return q, k, v
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """(N, H, Dh) attention output -> (N, D) through wo (H, Dh, D)."""
+    n = out.shape[0]
+    return out.reshape(n, -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+def _paged_scatter(layer_pages: dict, k_rows: torch.Tensor,
+                   v_rows: torch.Tensor, phys: torch.Tensor,
+                   off: torch.Tensor) -> None:
+    """Write per-row K/V (rows, KVH, Dh) into this layer's page pool in
+    place at (phys, off). Rows routed to the sink page land where nobody
+    reads; every other (page, offset) pair is unique, so the write order
+    does not matter."""
+    idx = (phys.long(), off.long())
+    layer_pages["k"].index_put_(idx, k_rows.to(layer_pages["k"].dtype))
+    layer_pages["v"].index_put_(idx, v_rows.to(layer_pages["v"].dtype))
+
+
+def _sink(layer_pages: dict) -> int:
+    return layer_pages["k"].shape[0] - 1
+
+
+def _table_at(tables: torch.Tensor, logical: torch.Tensor) -> torch.Tensor:
+    """tables[r, logical[r]] per row, the logical page clamped into the
+    table (only rows that then go to the sink can exceed it)."""
+    col = logical.long().clamp(0, tables.shape[1] - 1)[:, None]
+    return tables.gather(1, col)[:, 0]
+
+
+def decode_self_attention_paged(
+    p: dict,
+    x: torch.Tensor,             # (S, 1, D) one token per in-flight slot
+    layer_pages: dict,           # {"k": (P+1,page,KVH,Dh), "v": ...}, updated in place
+    block_tables: torch.Tensor,  # (S, MP) int32
+    lengths: torch.Tensor,       # (S,) int32 tokens already cached per slot
+    cfg: ModelConfig,
+    *,
+    rope: bool = True,
+    attn_impl: str = "auto",
+) -> torch.Tensor:
+    """Continuous-batching decode: write the new K/V into each slot's current
+    page, then attend over the block table. Per-slot positions (= lengths)
+    drive RoPE, so slots at different depths coexist in one batch. Idle
+    slots (block-table entry 0 = the null page) write into the sink."""
+    positions = lengths[:, None]  # (S, 1) absolute position of the new token
+    q, k, v = _project_qkv(p, x, cfg, positions, rope)
+    page = layer_pages["k"].shape[1]
+    phys = _table_at(block_tables, lengths // page)
+    phys = torch.where(phys == 0, _sink(layer_pages), phys)
+    _paged_scatter(layer_pages, k[:, 0], v[:, 0], phys, lengths % page)
+    out = ops.paged_attention(
+        q[:, 0], layer_pages["k"], layer_pages["v"], block_tables,
+        lengths + 1, scale=cfg.head_dim ** -0.5, impl=attn_impl,
+    ).to(x.dtype)  # (S, H, Dh)
+    return _out_proj(out, p["wo"])[:, None, :]
+
+
+def prefill_chunk_attention_paged(
+    p: dict,
+    x: torch.Tensor,            # (1, C, D) one chunk of ONE sequence's prompt
+    layer_pages: dict,          # {"k": (P+1,page,KVH,Dh), "v": ...}, updated in place
+    block_table: torch.Tensor,  # (MP,) int32 the sequence's block-table row
+    start: torch.Tensor,        # int32 scalar: positions already in the pages
+    valid: torch.Tensor,        # int32 scalar: real (non-padded) chunk tokens
+    cfg: ModelConfig,
+    *,
+    rope: bool = True,
+    attn_impl: str = "auto",
+) -> torch.Tensor:
+    """Chunked prefill: write the chunk's K/V into the sequence's pages,
+    then attend each chunk position over the paged prefix + the chunk itself
+    (causal). RoPE uses absolute positions ``start + i``. Padded positions
+    (>= valid) write into the sink and return garbage the caller discards."""
+    c = x.shape[1]
+    ci = torch.arange(c, dtype=torch.int32, device=x.device)
+    positions = start + ci
+    q, k, v = _project_qkv(p, x, cfg, positions, rope)
+    page = layer_pages["k"].shape[1]
+    logical = (positions // page).long().clamp_max(block_table.shape[0] - 1)
+    phys = torch.where(ci < valid, block_table[logical], _sink(layer_pages))
+    _paged_scatter(layer_pages, k[0], v[0], phys, positions % page)
+    out = ops.paged_prefill_attention(
+        q[0], layer_pages["k"], layer_pages["v"], block_table, start, valid,
+        scale=cfg.head_dim ** -0.5, impl=attn_impl,
+    ).to(x.dtype)  # (C, H, Dh)
+    return _out_proj(out, p["wo"])[None]
+
+
+def mixed_step_attention_paged(
+    p: dict,
+    x: torch.Tensor,             # (R, 1, D) one token per row (decode + chunk)
+    layer_pages: dict,           # {"k": (P+1,page,KVH,Dh), "v": ...}, updated in place
+    block_tables: torch.Tensor,  # (R, MP) int32, one block-table row per row
+    positions: torch.Tensor,     # (R,) int32 absolute position per row, -1 = dead
+    cfg: ModelConfig,
+    *,
+    rope: bool = True,
+    attn_impl: str = "auto",
+    num_decode: int | None = None,
+) -> torch.Tensor:
+    """Fused mixed step: decode rows AND one prefill chunk's rows write their
+    K/V in one scatter, THEN every row attends its own block table up to its
+    own position. Because the scatter lands before any row reads, chunk row
+    i sees chunk rows ``< i`` exactly as the chunk-only path does. Dead
+    rows (``positions = -1``) write into the sink and return exact zeros.
+
+    ``num_decode`` forwards the structure hint to
+    :func:`repro_torch.kernels.ops.paged_mixed_attention` (the plain version
+    gathers the chunk's K/V once; the kernel ignores it)."""
+    live = positions >= 0
+    pos = positions.clamp_min(0)
+    q, k, v = _project_qkv(p, x, cfg, pos[:, None], rope)
+    page = layer_pages["k"].shape[1]
+    phys = _table_at(block_tables, pos // page)
+    phys = torch.where(live & (phys != 0), phys, _sink(layer_pages))
+    _paged_scatter(layer_pages, k[:, 0], v[:, 0], phys, pos % page)
+    out = ops.paged_mixed_attention(
+        q[:, 0], layer_pages["k"], layer_pages["v"], block_tables, positions,
+        scale=cfg.head_dim ** -0.5, impl=attn_impl, num_decode=num_decode,
+    ).to(x.dtype)  # (R, H, Dh)
+    return _out_proj(out, p["wo"])[:, None, :]

@@ -1,0 +1,262 @@
+"""Decoder-only LM, dense family, with the paged serving entry points.
+
+One ``nn.Module`` holding the same stacked ``(L, ...)`` parameters as
+``repro/models/lm.py`` (names ``embed``, ``final_norm``, ``layers.ln1``,
+``layers.attn.wq`` ...), on an explicit device. Three entry points serve
+the continuous-batching engine, each a Python loop over the layers:
+
+  * ``decode_step_paged``  — one token per in-flight slot
+  * ``prefill_chunk``      — one fixed-size prompt chunk of one sequence
+  * ``mixed_step_paged``   — decode rows + one chunk in one pass
+
+Each writes K/V into the page pool in place and returns f32 logits. Vocab
+is padded to a multiple of 256, as in the JAX package.
+
+Not ported yet: training (``loss_fn``), the dense-cache ``prefill`` /
+``decode_step`` (ROADMAP A.7), ``verify_step_paged`` (A.6), and the moe,
+vlm (A.7), ssm and hybrid (A.8) families.
+"""
+
+from __future__ import annotations
+
+import zlib
+from typing import Any
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.common import ParamSpec, flatten_tree, rms_norm, swiglu
+
+VOCAB_PAD_MULTIPLE = 256
+
+_NOT_PORTED = {
+    "moe": "ROADMAP A.7 (moe family)",
+    "vlm": "ROADMAP A.7 (vlm path)",
+    "ssm": "ROADMAP A.8 (SSM and hybrid)",
+    "hybrid": "ROADMAP A.8 (SSM and hybrid)",
+    "audio": "ROADMAP A.11 (encoder-decoder)",
+}
+
+
+def mlp_param_specs(cfg: ModelConfig, stacked: int | None = None) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    pre = (stacked,) if stacked else ()
+    pax = ("stack",) if stacked else ()
+    return {
+        "w_gate": ParamSpec(pre + (d, f), pax + ("embed", "ff")),
+        "w_up": ParamSpec(pre + (d, f), pax + ("embed", "ff")),
+        "w_down": ParamSpec(pre + (f, d), pax + ("ff", "embed")),
+    }
+
+
+def padded_vocab(cfg: ModelConfig) -> int:
+    v = cfg.vocab_size
+    return ((v + VOCAB_PAD_MULTIPLE - 1) // VOCAB_PAD_MULTIPLE) * VOCAB_PAD_MULTIPLE
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device(device)``; asking for CUDA without a card raises
+    instead of quietly running on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but no CUDA device is "
+                           f"available; pass device='cpu' to run on the CPU")
+    return device
+
+
+def _register(module: nn.Module, specs: dict, default_dtype: str,
+              device: torch.device) -> None:
+    for key, val in specs.items():
+        if isinstance(val, ParamSpec):
+            dt = getattr(torch, val.dtype or default_dtype)
+            module.register_parameter(key, nn.Parameter(
+                torch.empty(val.shape, dtype=dt, device=device),
+                requires_grad=False))
+        else:
+            child = nn.Module()
+            _register(child, val, default_dtype, device)
+            module.add_module(key, child)
+
+
+class DecoderLM(nn.Module):
+    """Dense decoder-only LM; the port's counterpart of ``repro``'s
+    ``DecoderLM`` for the paged serving path."""
+
+    def __init__(self, cfg: ModelConfig, *, device="cuda",
+                 attn_impl: str = "auto"):
+        super().__init__()
+        assert not cfg.is_encoder_decoder
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"family {cfg.family!r} is not ported yet: "
+                f"{_NOT_PORTED.get(cfg.family, 'ROADMAP A')}")
+        self.cfg = cfg
+        self.attn_impl = attn_impl
+        self.device = resolve_device(device)
+        _register(self, self.param_specs(), cfg.dtype, self.device)
+        self._layer_views: list[dict] | None = None
+        self._unembed_cache: tuple | None = None
+
+    # ------------------------------------------------------------------
+    # params
+    # ------------------------------------------------------------------
+    def param_specs(self) -> dict:
+        cfg = self.cfg
+        L, D = cfg.num_layers, cfg.d_model
+        vp = padded_vocab(cfg)
+        specs: dict[str, Any] = {
+            "embed": ParamSpec((vp, D), ("vocab", None), init="embed", scale=0.02),
+            "final_norm": ParamSpec((D,), (None,), init="ones"),
+        }
+        if not cfg.tie_embeddings:
+            specs["unembed"] = ParamSpec((D, vp), (None, "vocab"))
+        specs["layers"] = {
+            "ln1": ParamSpec((L, D), ("stack", None), init="ones"),
+            "attn": attn.attn_param_specs(cfg, stacked=L),
+            "ln2": ParamSpec((L, D), ("stack", None), init="ones"),
+            "mlp": mlp_param_specs(cfg, stacked=L),
+        }
+        return specs
+
+    @torch.no_grad()
+    def init(self, seed: int = 0) -> dict[str, torch.Tensor]:
+        """Fill every parameter with seeded random values (drawn on the
+        model's device from a ``torch.Generator`` per parameter, seeded
+        from ``seed`` and the parameter's name, so adding a parameter never
+        reshuffles the others) and return the state dict. The init rules
+        and scales are the JAX package's; the random streams are not."""
+        gen = torch.Generator(device=self.device)
+        for name, spec in flatten_tree(self.param_specs()).items():
+            p = self.get_parameter(name)
+            if spec.init == "zeros":
+                p.zero_()
+                continue
+            if spec.init == "ones":
+                p.fill_(1.0)
+                continue
+            if spec.init == "embed":
+                scale = spec.scale if spec.scale is not None else 1.0
+            else:
+                fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+                scale = (spec.scale if spec.scale is not None
+                         else 1.0 / np.sqrt(fan_in))
+            gen.manual_seed((seed << 32) + zlib.crc32(name.encode()))
+            p.copy_(torch.randn(spec.shape, generator=gen, device=self.device,
+                                dtype=torch.float32) * scale)
+        return self.state_dict()
+
+    def _layers(self) -> list[dict]:
+        """Per-layer views of the stacked parameters, nested like the JAX
+        tree (``{"ln1", "attn": {...}, "ln2", "mlp": {...}}``)."""
+        if self._layer_views is None:
+            stack = self.layers
+
+            def views(mod: nn.Module, l: int) -> dict:
+                out = {k: p[l] for k, p in mod.named_parameters(recurse=False)}
+                for k, child in mod.named_children():
+                    out[k] = views(child, l)
+                return out
+
+            self._layer_views = [views(stack, l)
+                                 for l in range(self.cfg.num_layers)]
+        return self._layer_views
+
+    def _unembed(self, x: torch.Tensor) -> torch.Tensor:
+        """(N, S, D) -> (N, S, Vp) f32 logits. The product runs in f32 on
+        the weight's values (bf16 operands into f32 logits, like the JAX
+        unembed's ``preferred_element_type=f32``): a bf16 matmul would round
+        the logits. The f32 copy of a bf16 weight is made once and kept
+        until the weight changes."""
+        w = self.embed if self.cfg.tie_embeddings else self.unembed
+        key = (w.data_ptr(), w._version)
+        if self._unembed_cache is None or self._unembed_cache[0] != key:
+            wf = w.detach().float()
+            self._unembed_cache = (key, wf.t() if self.cfg.tie_embeddings else wf)
+        return x.float() @ self._unembed_cache[1]
+
+    def _block(self, pl: dict, x: torch.Tensor, attend) -> torch.Tensor:
+        cfg = self.cfg
+        x = x + attend(pl["attn"], rms_norm(x, pl["ln1"], cfg.norm_eps))
+        h = rms_norm(x, pl["ln2"], cfg.norm_eps)
+        mlp = pl["mlp"]
+        return x + swiglu(h, mlp["w_gate"], mlp["w_up"], mlp["w_down"])
+
+    def _as_scalar(self, v) -> torch.Tensor:
+        return torch.as_tensor(v, dtype=torch.int32, device=self.device)
+
+    # ------------------------------------------------------------------
+    # paged decode (continuous batching)
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def decode_step_paged(self, pages, block_tables, lengths, tokens):
+        """One token per in-flight slot against the paged KV pool.
+
+        pages: {"k": (L,P+1,page,KVH,Dh), "v": ...} — the shared page pool
+        (with its sink page), written in place. block_tables (S, MP) int32,
+        lengths (S,) int32 (tokens already cached per slot; idle slots are
+        0), tokens (S, 1) int. Returns logits (S, Vp) f32.
+        """
+        cfg = self.cfg
+        x = self.embed[tokens.long()]  # (S,1,D)
+        for l, pl in enumerate(self._layers()):
+            cl = {"k": pages["k"][l], "v": pages["v"][l]}
+            x = self._block(pl, x, lambda p, h: attn.decode_self_attention_paged(
+                p, h, cl, block_tables, lengths, cfg, attn_impl=self.attn_impl))
+        x = rms_norm(x, self.final_norm, cfg.norm_eps)
+        return self._unembed(x)[:, 0]
+
+    @torch.no_grad()
+    def mixed_step_paged(self, pages, block_tables, positions, tokens, *,
+                         num_decode: int, chunk_valid):
+        """Fused mixed step: ``num_decode`` decode rows plus one prefill
+        chunk's rows in ONE forward pass over the paged KV pool.
+
+        tokens (R, 1) with R = num_decode + C; block_tables (R, MP) int32
+        (chunk rows repeat the chunk slot's row); positions (R,) int32, -1
+        for dead rows. ``chunk_valid`` (int32 scalar) selects the chunk's
+        sampling row ``num_decode + max(chunk_valid - 1, 0)``. Returns
+        logits (num_decode + 1, Vp) f32: one row per decode slot plus the
+        chunk's row (meaningful on the prompt's final chunk only).
+        """
+        cfg = self.cfg
+        x = self.embed[tokens.long()]  # (R,1,D)
+        for l, pl in enumerate(self._layers()):
+            cl = {"k": pages["k"][l], "v": pages["v"][l]}
+            x = self._block(pl, x, lambda p, h: attn.mixed_step_attention_paged(
+                p, h, cl, block_tables, positions, cfg,
+                attn_impl=self.attn_impl, num_decode=num_decode))
+        row = num_decode + (self._as_scalar(chunk_valid) - 1).clamp_min(0)
+        xc = x.index_select(0, row.reshape(1).long())
+        x = torch.cat([x[:num_decode], xc], dim=0)  # (S+1, 1, D)
+        x = rms_norm(x, self.final_norm, cfg.norm_eps)
+        return self._unembed(x)[:, 0]
+
+    # ------------------------------------------------------------------
+    # chunked prefill (continuous batching)
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def prefill_chunk(self, pages, block_table, tokens, start, valid):
+        """One fixed-size prefill chunk of ONE sequence, written into its
+        existing page set.
+
+        block_table (MP,) int32; tokens (C,) int; start / valid int32
+        scalars (positions already resident; real tokens in this padded
+        chunk). Returns logits (Vp,) f32 of chunk position ``valid - 1`` —
+        meaningful on the prompt's final chunk.
+        """
+        cfg = self.cfg
+        start, valid = self._as_scalar(start), self._as_scalar(valid)
+        x = self.embed[tokens.long()][None]  # (1,C,D)
+        for l, pl in enumerate(self._layers()):
+            cl = {"k": pages["k"][l], "v": pages["v"][l]}
+            x = self._block(pl, x, lambda p, h: attn.prefill_chunk_attention_paged(
+                p, h, cl, block_table, start, valid, cfg,
+                attn_impl=self.attn_impl))
+        # negative index wraps like JAX's dynamic slice: valid 0 -> row C-1
+        row = torch.remainder(valid - 1, x.shape[1])
+        x = x.index_select(1, row.reshape(1).long())
+        x = rms_norm(x, self.final_norm, cfg.norm_eps)
+        return self._unembed(x)[0, 0]

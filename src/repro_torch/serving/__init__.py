@@ -1,0 +1,61 @@
+"""Serving layer: one engine protocol over a paged, prefix-shared KV cache.
+
+``repro_torch.serving.api`` is the single public surface — :class:`EngineCore`
+(``submit``/``step``/``cancel``/``abort_all``), :class:`SamplingParams`,
+:class:`RequestHandle` streaming, typed :class:`FinishReason`, and pluggable
+:class:`AdmissionPolicy` queues (all carried over from ``repro.serving``
+unchanged). ``ContinuousBatchingEngine`` is the ported hot path — continuous
+admission, chunked prefill fused with decode, copy-on-write prefix sharing
+with parked prefix pages (``repro_torch.serving.kv_tiers``) — running its
+paged attention through the hand-written CUDA kernels on the card.
+
+Still to port (ROADMAP A): the lockstep ``GenerationEngine``, the fleet,
+speculative decoding and the SSM engine.
+"""
+
+from repro_torch.serving.api import (
+    AdmissionPolicy,
+    DeadlineAdmission,
+    EngineCore,
+    FIFOAdmission,
+    FinishReason,
+    PriorityAdmission,
+    Request,
+    RequestHandle,
+    Result,
+    SamplingParams,
+    StreamEvent,
+    UnsupportedConfigError,
+    request_from_message,
+)
+from repro_torch.serving.engine import ContinuousBatchingEngine
+from repro_torch.serving.kv_cache import PagedKVCache, PagePool
+from repro_torch.serving.kv_tiers import KVTierManager
+from repro_torch.serving.metrics import (
+    FleetMetrics,
+    format_latency,
+    latency_percentiles,
+)
+
+__all__ = [
+    "AdmissionPolicy",
+    "ContinuousBatchingEngine",
+    "DeadlineAdmission",
+    "EngineCore",
+    "FIFOAdmission",
+    "FinishReason",
+    "FleetMetrics",
+    "KVTierManager",
+    "PagedKVCache",
+    "PagePool",
+    "PriorityAdmission",
+    "Request",
+    "RequestHandle",
+    "Result",
+    "SamplingParams",
+    "StreamEvent",
+    "UnsupportedConfigError",
+    "format_latency",
+    "latency_percentiles",
+    "request_from_message",
+]

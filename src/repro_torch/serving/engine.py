@@ -1,0 +1,395 @@
+"""Continuous-batching generation engine over the paged KV cache.
+
+``ContinuousBatchingEngine`` implements the
+:class:`repro_torch.serving.api.EngineCore` protocol — ``submit() ->
+RequestHandle``, ``step() -> list[StreamEvent]``, ``cancel(uid)``,
+``abort_all()`` — over the shared lifecycle machinery in
+:class:`repro_torch.serving.api.EngineBase`. It is built from two layers:
+
+* a host-side :class:`repro_torch.serving.scheduler.Scheduler` — admission
+  order, chunked-prefill interleaving, prefix-sharing deferral, preemption
+  victim selection, page accounting and decode-batch assembly, all plain
+  Python/numpy with no device dispatch (the JAX package's, unchanged);
+* a device-side :class:`repro_torch.serving.executor.ModelExecutor` — one
+  model step + sampling per engine step on the engine's device, through the
+  hand-written paged-attention kernels on the card.
+
+Sampling (per-request temperature / top-k / top-p / seed) is keyed off
+``(seed, token_index)`` with JAX's own bit stream, so a request's tokens
+equal the JAX engine's and survive preemption byte-for-byte.
+
+Ported: both step modes (``fused``, ``interleaved``), chunked prefill,
+copy-on-write prefix sharing with the parked-page tier, preemption and the
+admission policies. Not ported yet, and raising: speculative decoding
+(ROADMAP A.6), int8 pages and the host/persist tiers (A.5), whole-prompt
+prefill ``prefill_chunk=None`` (A.7, it needs the flash kernel), and the
+lockstep ``GenerationEngine`` (A.7).
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.models.lm import resolve_device
+from repro_torch.serving.api import (
+    AdmissionPolicy,
+    EngineBase,
+    FinishReason,
+    Request,
+    Result,
+    StreamEvent,
+    validate_request,
+)
+from repro_torch.serving.executor import ModelExecutor
+from repro_torch.serving.kv_cache import PagedKVCache, cdiv
+from repro_torch.serving.kv_tiers import KVTierManager
+from repro_torch.serving.metrics import UtilizationMetrics
+from repro_torch.serving.scheduler import Scheduler, Sequence
+
+__all__ = ["ContinuousBatchingEngine", "Request", "Result"]
+
+
+class ContinuousBatchingEngine(EngineBase):
+    """Paged-KV continuous batcher for the dense decoder.
+
+    Protocol adapter over the scheduler/executor split: the
+    :class:`Scheduler` decides (host-only), the :class:`ModelExecutor`
+    computes (device-only, one dispatch per step over ``max_slots``
+    fixed-width slots; idle or prefilling slots are masked), and this class
+    translates between them and the lifecycle: handles, stream events,
+    typed finishes, preemption-transparent requeueing.
+
+    With prefix sharing on, a :class:`~repro_torch.serving.kv_tiers.KVTierManager`
+    (``kv_tiers``; default follows ``prefix_sharing``) parks released
+    prefix pages instead of freeing them, reclaiming them lazily under pool
+    pressure. ``params`` is the model's state dict (``DecoderLM.init`` or
+    :func:`repro_torch.models.params_from_jax`); ``device`` is where the
+    model, the page pool and every step live (``"cuda"`` unless the caller
+    asks for ``"cpu"``).
+    """
+
+    def __init__(
+        self,
+        cfg,
+        params,
+        *,
+        max_len: int = 256,
+        max_slots: int = 8,
+        page_size: int = 16,
+        num_pages: int | None = None,
+        seed: int = 0,
+        attn_impl: str | None = None,
+        prefill_chunk: int | None = 64,
+        prefix_sharing: bool = True,
+        admission: AdmissionPolicy | None = None,
+        max_preemptions: int | None = None,
+        step_mode: str = "fused",
+        token_budget: int | None = None,
+        kv_quant: str = "none",
+        kv_tiers: bool | None = None,
+        host_pages: int = 0,
+        persist_dir: str | None = None,
+        speculative: str = "off",
+        device="cuda",
+    ):
+        assert not cfg.is_encoder_decoder, "paged engine is decoder-only"
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"family {cfg.family!r}: only the dense paged path is ported "
+                f"(moe/vlm: ROADMAP A.7; ssm/hybrid: A.8)")
+        if speculative != "off":
+            raise NotImplementedError(
+                "speculative decoding is not ported yet (ROADMAP A.6)")
+        if kv_quant != "none":
+            raise NotImplementedError(
+                f"kv_quant={kv_quant!r}: int8 pages are not ported yet "
+                f"(ROADMAP A.5)")
+        if host_pages or persist_dir is not None:
+            raise NotImplementedError(
+                "the host-RAM and persisted KV tiers are not ported yet "
+                "(ROADMAP A.5)")
+        if not prefill_chunk:
+            raise NotImplementedError(
+                "whole-prompt prefill (prefill_chunk=None/0) needs the flash "
+                "kernel and is not ported yet (ROADMAP A.7)")
+        if prefill_chunk < 1:
+            raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
+        if step_mode not in ("fused", "interleaved"):
+            raise ValueError(
+                f"step_mode must be 'fused' or 'interleaved', got {step_mode!r}"
+            )
+        if token_budget is not None and token_budget < 1:
+            raise ValueError(f"token_budget must be >= 1, got {token_budget}")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.max_len = max_len
+        self.max_slots = max_slots
+        self.max_preemptions = max_preemptions
+        self.prefill_chunk = prefill_chunk
+        self.prefix_sharing = prefix_sharing
+        self.step_mode = step_mode
+        self.token_budget = token_budget
+        if kv_tiers is None:
+            kv_tiers = self.prefix_sharing
+        self.tiers = (KVTierManager() if kv_tiers and self.prefix_sharing
+                      else None)
+        self.cache = PagedKVCache(
+            num_layers=cfg.num_layers,
+            num_kv_heads=cfg.eff_kv_heads,
+            head_dim=cfg.head_dim,
+            dtype=getattr(torch, cfg.dtype),
+            max_slots=max_slots,
+            max_context=max_len,
+            page_size=page_size,
+            num_pages=num_pages,
+            tiers=self.tiers,
+            device=self.device,
+        )
+        self.scheduler = Scheduler(
+            self.cache,
+            prefill_chunk=prefill_chunk,
+            chunked=True,
+            prefix_sharing=self.prefix_sharing,
+            token_budget=token_budget,
+        )
+        self.executor = ModelExecutor(
+            cfg, params, self.cache, max_len=max_len, device=self.device,
+            attn_impl=attn_impl,
+        )
+        self.model = self.executor.model
+        self.params = self.executor.params
+        self._init_api(admission=admission, seed=seed)
+        self.utilization = UtilizationMetrics()
+        self.stats.update({"decode_steps": 0, "prefills": 0,
+                           "prefill_chunks": 0, "preemptions": 0})
+
+    # ------------------------------------------------------------------
+    # EngineBase hooks
+    # ------------------------------------------------------------------
+    def _validate(self, request: Request) -> None:
+        validate_request(request, max_len=self.max_len)
+        worst = cdiv(len(request.prompt) + request.sampling.max_new_tokens,
+                     self.cache.page_size)
+        if worst > self.cache.num_pages - 1:
+            raise ValueError(
+                f"request {request.uid}: needs {worst} KV pages, pool has "
+                f"{self.cache.num_pages - 1} — it could never be scheduled"
+            )
+
+    def _release_slot(self, slot: int) -> Sequence:
+        return self.scheduler.release(slot)
+
+    def _cancel_active(self, uid: str) -> bool:
+        slot = self.scheduler.find(uid)
+        if slot is None:
+            return False
+        seq = self._release_slot(slot)
+        self._finish_handle(seq.handle, FinishReason.CANCELLED)
+        return True
+
+    # ------------------------------------------------------------------
+    # protocol surface
+    # ------------------------------------------------------------------
+    @property
+    def idle(self) -> bool:
+        return not (len(self.admission) or self.scheduler.slots
+                    or self._events)
+
+    def capacity(self) -> int:
+        return max(0, self.cache.free_slot_count - len(self.admission))
+
+    # ------------------------------------------------------------------
+    # admission
+    # ------------------------------------------------------------------
+    def _first_token(self, slot: int, seq: Sequence, tok: int) -> None:
+        """Prompt fully cached: deliver the sampled first token (attempt
+        index 0 — after a preemption the handle de-duplicates it)."""
+        now = time.perf_counter()
+        seq.tokens.append(tok)
+        self.scheduler.begin_decode(slot)
+        self.stats["prefills"] += 1
+        if self._deliver(seq.handle, tok, 0, now):
+            # finish event lands in THIS step's batch
+            self._release_slot(slot)
+
+    def _admit(self) -> int:
+        now = time.perf_counter()
+        self._expire_queue(now)
+        admitted = 0
+        while True:
+            req = self.admission.peek(now)
+            if req is None or not self.scheduler.can_place(req):
+                break
+            self.admission.pop(now)
+            self.scheduler.place(req, self._handles[req.uid])
+            admitted += 1
+        return admitted
+
+    def _prefill_step(self) -> bool:
+        """Advance the oldest in-flight prefill by one fixed-size chunk
+        (scheduler picks, executor dispatches)."""
+        work = self.scheduler.next_prefill()
+        if work is None:
+            return False
+        tok = self.executor.prefill_chunk(work)
+        self.stats["prefill_chunks"] += 1
+        if self.scheduler.complete_chunk(work):
+            self._first_token(work.slot, work.seq, tok)
+        return True
+
+    def _handle_preempted(self, seq: Sequence) -> None:
+        """Bookkeeping for a sequence the scheduler evicted under pool
+        pressure: requeue transparently (already-streamed deltas are never
+        re-emitted) or finish ``preempted`` past ``max_preemptions``."""
+        self.stats["preemptions"] += 1
+        h = seq.handle
+        h.preemptions += 1
+        if (self.max_preemptions is not None
+                and h.preemptions > self.max_preemptions):
+            self._finish_handle(
+                h, FinishReason.PREEMPTED,
+                error=f"request {h.uid}: preempted {h.preemptions} times "
+                      f"(max_preemptions={self.max_preemptions})",
+            )
+        else:
+            self._events.append(
+                StreamEvent(h.uid, "preempted", t=time.perf_counter())
+            )
+            self.admission.requeue(seq.request, h.arrival)
+
+    # ------------------------------------------------------------------
+    # stepping
+    # ------------------------------------------------------------------
+    def step(self) -> list[StreamEvent]:
+        """Run one engine step and return the lifecycle events produced
+        (token deltas, finishes, preemptions).
+
+        ``step_mode="fused"`` (default): admit, build ONE token-budgeted
+        :class:`~repro_torch.serving.scheduler.StepPlan` and dispatch it —
+        every decode slot and (at most) one prefill chunk in a single
+        executor call. ``step_mode="interleaved"`` runs one chunk dispatch,
+        then one decode dispatch; both modes produce byte-identical
+        streams."""
+        if self.step_mode == "interleaved":
+            return self._step_interleaved()
+        return self._step_fused()
+
+    def _record_batch(self, decode_rows: int, prefill_live: int,
+                      rows: int, fused: bool) -> None:
+        self.utilization.record_batch(
+            decode_rows=decode_rows, prefill_rows=prefill_live,
+            padded_rows=rows - decode_rows - prefill_live, fused=fused,
+        )
+
+    def _dispatch_plan(self, plan) -> np.ndarray | None:
+        """Run one plan through the executor and do the chunk bookkeeping
+        (cursor advance, prefix publication, first-token delivery). Returns
+        the decode tokens for the engine harvest (None: no decode rows)."""
+        chunk, n_dec = plan.chunk, len(plan.decode_slots)
+        rows = n_dec and self.max_slots
+        if chunk is not None:
+            rows += len(chunk.tokens)
+        self._record_batch(n_dec, chunk.valid if chunk else 0, rows,
+                           fused=bool(chunk is not None and n_dec))
+        toks, ctok = self.executor.step(plan)
+        if chunk is not None:
+            self.stats["prefill_chunks"] += 1
+            if self.scheduler.complete_chunk(chunk):
+                self._first_token(chunk.slot, chunk.seq, ctok)
+        return toks
+
+    def _record_tiers(self) -> None:
+        if self.tiers is not None:
+            t = self.tiers
+            self.utilization.record_tiers(
+                parked=t.parked_count, host=t.host_count,
+                persisted=t.persisted_count, counters=t.counters,
+            )
+
+    def _step_fused(self) -> list[StreamEvent]:
+        sched = self.scheduler
+        # publish last step's prefetched pages BEFORE admission matches
+        # against the prefix index (pending pages stay invisible one step)
+        self.cache.tick_tiers()
+        self._admit()
+        # with no decode in flight there is no stall to bound, so drain
+        # chunk-only plans back-to-back until a sequence becomes decodable
+        # (cold start, post-burst refill)
+        while not sched.has_decodable():
+            plan = sched.build_step_plan()
+            if plan.chunk is None:
+                return self._drain_events()
+            self._dispatch_plan(plan)
+            self._admit()
+
+        # every decode row needs a writable page BEFORE the plan captures
+        # block tables (growth/COW dirties them; eviction can also claim
+        # the slot a chunk would have targeted)
+        for seq in sched.ensure_decode_capacity():
+            self._handle_preempted(seq)
+        if not sched.has_decodable():
+            return self._drain_events()  # preemption can empty the decode set
+
+        decoding, slots = sched.occupancy()
+        used, total = sched.page_utilization()
+        self.utilization.record(active=decoding, slots=slots,
+                                pages_used=used, pages_total=total)
+        self._record_tiers()
+        plan = sched.build_step_plan()
+        toks = None
+        if plan.decode_slots or plan.chunk is not None:
+            toks = self._dispatch_plan(plan)
+        self.stats["decode_steps"] += 1
+        now = time.perf_counter()
+        # harvest exactly the slots the plan dispatched — the chunk slot
+        # may have become decodable mid-step and is NOT in this batch
+        for slot in plan.decode_slots:
+            seq = sched.slots[slot]
+            tok = int(toks[slot])
+            sched.append_decoded(slot, tok)
+            if self._deliver(seq.handle, tok, len(seq.tokens) - 1, now):
+                self._release_slot(slot)
+        self._record_tiers()  # post-release: captures end-of-life parking
+        return self._drain_events()
+
+    def _step_interleaved(self) -> list[StreamEvent]:
+        """Pre-fusion step: one chunk dispatch interleaved with one decode
+        dispatch (kept for A/B against the fused step)."""
+        sched = self.scheduler
+        self.cache.tick_tiers()
+        self._admit()
+        ran = self._prefill_step()
+        # the one-chunk-per-step cap exists to bound decode stalls; with no
+        # decode in flight there is nothing to stall, so drain chunks
+        # back-to-back until a sequence becomes decodable
+        while ran and not sched.has_decodable():
+            self._admit()
+            ran = self._prefill_step()
+        if not sched.has_decodable():
+            return self._drain_events()
+
+        for seq in sched.ensure_decode_capacity():
+            self._handle_preempted(seq)
+        if not sched.has_decodable():
+            return self._drain_events()  # preemption can empty the decode set
+
+        decoding, slots = sched.occupancy()
+        used, total = sched.page_utilization()
+        self.utilization.record(active=decoding, slots=slots,
+                                pages_used=used, pages_total=total)
+        self._record_tiers()
+        self._record_batch(decoding, 0, self.max_slots, fused=False)
+        inputs = sched.build_decode_inputs() if sched.dirty else None
+        toks = self.executor.decode(inputs)
+        self.stats["decode_steps"] += 1
+        now = time.perf_counter()
+        for slot, seq in sched.decoding():
+            tok = int(toks[slot])
+            sched.append_decoded(slot, tok)
+            if self._deliver(seq.handle, tok, len(seq.tokens) - 1, now):
+                self._release_slot(slot)
+        self._record_tiers()  # post-release: captures end-of-life parking
+        return self._drain_events()

@@ -36,8 +36,39 @@ Phases (any failure exits non-zero):
    depth until the argmax flips (the phase prints the one-chunk logit gap
    at 32 and at 2 layers to show it).
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.
+6. ssd      — both Mamba2 SSD kernels against their plain versions on the
+   card at mamba2-1.3b widths (H 64, P 64, N 128): bf16 within 5e-2 and
+   f32 within 1e-3 (atol and rtol; the JAX package's SSD bounds). Scan
+   cases: a 64-token chunk whose tail has dt = 0 (valid 41 < C) from a
+   non-zero init_state, a full chunk from a non-zero state, and S = 200
+   over two sequences (four of the kernel's 64-token sub-chunks, ragged
+   end) from zero; decode: 8 slots with 3 idle, in place, the idle slots'
+   state bit for bit unchanged. Then times each kernel and its plain
+   version at one engine step's shapes (decode: 8 slots, 2 of them idle;
+   scan: one 64-token chunk of one sequence), cycling over 48 layers'
+   states.
+7. mamba2   — full-width mamba2-1.3b (bf16, seeded random weights, 48
+   layers) served by ``SSMEngine(max_slots=8, prefill_chunk=64,
+   max_len=512)``: 8 requests of 64-400 prompt tokens, 24 new tokens each,
+   greedy and seeded top-p alternating. Every request must finish by
+   length and both SSD launch counts (reset just before this run) must be
+   > 0. Prints tok/s, TTFT and ITL and a torch.profiler window (device
+   busy share, the SSD kernels' share of it, the top device ops).
+8. mamba2 parity — f32 with TF32 off, at the full 48 layers (the SSD
+   kernels keep the one-chunk logit gap to plain far below the argmax
+   margin, unlike the smollm phase's attention, so no depth cut): the
+   one-chunk logit gap to plain must stay under 1e-3, greedy streams
+   through the kernels equal those through the plain versions
+   (``ssd_impl="ref"``), and a run with one snapshot preemption and one
+   discard preemption gives the same streams as the undisturbed run.
+
+Kernel and plain times are device time per call: the calls are enqueued
+behind a sleep kernel and timed with CUDA events, so the host's per-call
+overhead stays out (``_time_ms``). The whole script takes about 7
+minutes on an H100 (8 s of it the parallel ``nvcc`` builds).
+
+The line before the last is ``{"kernels": [...]}`` (all five ported
+kernels); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -52,19 +83,30 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
-REPLACES = {
-    "paged_attention_bkgd": "src/repro/kernels/paged_attention.py:141",
-    "paged_prefill_attention_ckgd": "src/repro/kernels/paged_attention.py:289",
-    "paged_mixed_attention_rkgd": "src/repro/kernels/paged_attention.py:443",
+PAGED_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
+SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
+# kernel -> (its CUDA source, the Pallas function it replaces)
+KERNELS = {
+    "paged_attention_bkgd": (
+        PAGED_SOURCE, "src/repro/kernels/paged_attention.py:141"),
+    "paged_prefill_attention_ckgd": (
+        PAGED_SOURCE, "src/repro/kernels/paged_attention.py:289"),
+    "paged_mixed_attention_rkgd": (
+        PAGED_SOURCE, "src/repro/kernels/paged_attention.py:443"),
+    "ssd_scan_bshp": (SSD_SOURCE, "src/repro/kernels/ssd_scan.py:89"),
+    "ssd_decode_step_bh": (SSD_SOURCE, "src/repro/kernels/ssd_scan.py:146"),
 }
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12       # dense bf16 tensor-core peak
 F32_FLOP_PER_S = 67e12         # f32 outside the tensor cores
 BF16_TOL, F32_TOL = 2e-2, 1e-3
+SLEEP_CYCLES = 200_000_000     # ~0.1 s at the H100's ~1.98 GHz boost clock
 KVH, G, D, PAGE, LAYERS = 5, 3, 64, 16, 32
 SLOTS, CHUNK, MAX_LEN = 8, 64, 704
 PARITY_LAYERS = 2
+# mamba2-1.3b: SSD widths, layers, and the engine's shape
+SSD_H, SSD_P, SSD_N, M_LAYERS, M_MAX_LEN = 64, 64, 128, 48, 512
+SSD_BF16_TOL, SSD_F32_TOL = 5e-2, 1e-3
 
 
 def log(msg: str) -> None:
@@ -169,11 +211,16 @@ def check_kernels(torch, ops):
 
 
 def _time_ms(torch, fn, iters=64, warmup=8):
+    """Device time per call: CUDA events around ``iters`` calls, enqueued
+    while the stream is held by a sleep kernel, so the calls run back to
+    back and the host's Python and launch overhead (tens of microseconds
+    per call, more than some kernels take) stays out of the measurement."""
     for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     t0.record()
     for i in range(iters):
         fn(i)
@@ -295,6 +342,170 @@ def time_kernels(torch, F, ops, ref):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the SSD kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _ssd_inputs(torch, g, b, s, dtype, layers=None):
+    """The JAX package's SSD test distribution (tests/test_kernels.py) at
+    mamba2 widths: x ~ N(0, 1), dt in [0.1, 1), A in (-1.1, -0.1], B/C ~
+    N(0, 1/N); with ``layers``, a leading layer axis on all but A."""
+    pre = (layers,) if layers else ()
+    x = torch.randn(pre + (b, s, SSD_H, SSD_P), generator=g,
+                    device="cuda").to(dtype)
+    dt = 0.1 + 0.9 * torch.rand(pre + (b, s, SSD_H), generator=g,
+                                device="cuda")
+    A = -torch.rand(SSD_H, generator=g, device="cuda") - 0.1
+    bc = [(torch.randn(pre + (b, s, SSD_N), generator=g, device="cuda")
+           / SSD_N ** 0.5).to(dtype) for _ in range(2)]
+    return x, dt, A, bc[0], bc[1]
+
+
+def check_ssd_kernels(torch, ops):
+    """Both SSD kernels against their plain versions; returns the max abs
+    error per kernel over the bf16 cases and logs the f32 ones."""
+    errs = {}
+
+    def compare(name, got, want, tol, label):
+        torch.cuda.synchronize()
+        got, want = got.float(), want.float()
+        err = (got - want).abs().max().item()
+        bad = ((got - want).abs() > tol + tol * want.abs()).sum().item()
+        if bad or not err == err:
+            raise AssertionError(f"{name} [{label}]: {bad} elements outside "
+                                 f"atol=rtol={tol} (max abs err {err})")
+        return err
+
+    for dtype, tol in ((torch.bfloat16, SSD_BF16_TOL),
+                       (torch.float32, SSD_F32_TOL)):
+        label = str(dtype).removeprefix("torch.")
+        g = torch.Generator(device="cuda").manual_seed(11)
+        e_scan = 0.0
+        for b, s, valid, with_init in ((1, CHUNK, 41, True),
+                                       (1, CHUNK, CHUNK, True),
+                                       (2, 200, 200, False)):
+            x, dt, A, Bm, Cm = _ssd_inputs(torch, g, b, s, dtype)
+            dt[:, valid:] = 0.0
+            init = (torch.randn(b, SSD_H, SSD_P, SSD_N, generator=g,
+                                device="cuda") if with_init else None)
+            y, fs = ops.ssd_scan(x, dt, A, Bm, Cm, init_state=init)
+            yr, fsr = ops.ssd_scan(x, dt, A, Bm, Cm, init_state=init,
+                                   impl="ref")
+            case = f"{label} B={b} S={s} valid={valid} init={with_init}"
+            e_scan = max(e_scan,
+                         compare("ssd_scan_bshp y", y, yr, tol, case),
+                         compare("ssd_scan_bshp state", fs, fsr, tol, case))
+        state = torch.randn(SLOTS, SSD_H, SSD_P, SSD_N, generator=g,
+                            device="cuda")
+        x, dt, A, Bm, Cm = _ssd_inputs(torch, g, SLOTS, 1, dtype)
+        step = (x[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0])
+        active = torch.tensor([1, 0, 1, 1, 0, 1, 0, 1], dtype=torch.int32,
+                              device="cuda")
+        yr, sr = ops.ssd_decode_step(state.clone(), *step, active=active,
+                                     impl="ref")
+        old = state.clone()
+        y, s_out = ops.ssd_decode_step(state, *step, active=active)
+        if s_out.data_ptr() != state.data_ptr():
+            raise AssertionError("ssd_decode_step_bh: made a copy of the "
+                                 "state instead of advancing it in place")
+        idle = active == 0
+        if not torch.equal(state[idle], old[idle]):
+            raise AssertionError("ssd_decode_step_bh: an idle slot's state "
+                                 "changed")
+        e_dec = max(compare("ssd_decode_step_bh y", y, yr, tol, label),
+                    compare("ssd_decode_step_bh state", state, sr, tol,
+                            label))
+        log(f"ssd kernel check {label}: scan {e_scan:.3e}, decode "
+            f"{e_dec:.3e} (atol=rtol={tol}); idle slots untouched")
+        if dtype == torch.bfloat16:
+            errs = {"ssd_scan_bshp": e_scan, "ssd_decode_step_bh": e_dec}
+    return errs
+
+
+def _ssd_bound(b, s, elt, decode, written=None):
+    """Least time for one SSD call at mamba2 widths: the bytes it must move
+    (inputs read once, outputs written once; the f32 state read for all b
+    rows and written for the ``written`` rows, all b unless given: the
+    in-place decode step writes only its active slots) against its
+    operations at the inputs' type's peak. The scan counts the chunked
+    algorithm at the kernel's 64-token chunk: causal C B^T, the decay mask,
+    the causal (scores)(x dt), C state and the state update.
+    Returns (ms, 'bytes' | 'operations')."""
+    h, p, n = SSD_H, SSD_P, SSD_N
+    written = b if written is None else written
+    state_bytes = (b + written) * h * p * n * 4
+    if decode:
+        nbytes = (state_bytes + 2 * b * h * p * elt + b * h * 4 + h * 4
+                  + 2 * b * n * elt + b * 4)
+        flops = 5 * b * h * p * n + b * h * p
+    else:
+        nbytes = (state_bytes + 2 * b * s * h * p * elt + b * s * h * 4
+                  + h * 4 + 2 * b * s * n * elt)
+        q = min(64, s)
+        pairs = q * (q + 1) // 2
+        per_chunk = (2 * pairs * n + h * pairs + 2 * h * p * pairs
+                     + 4 * h * q * p * n + h * p * n)
+        flops = b * (-(-s // q)) * per_chunk
+    rate = BF16_FLOP_PER_S if elt == 2 else F32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def time_ssd_kernels(torch, ops):
+    """kernel / plain times (ms) and the bound at the shapes of one
+    full-width mamba2 engine step (bf16): decode over 8 slots (2 idle, so
+    the bound counts 6 slots' state written back) in place, and one 64-token prefill chunk of one sequence from a carried
+    state, each cycling through 48 layers' states so every launch finds
+    its state outside L2, as in a real step. No single PyTorch call
+    computes either function: library_ms is null."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    dt_ = torch.bfloat16
+    bank = torch.randn(M_LAYERS, SLOTS, SSD_H, SSD_P, SSD_N, generator=g,
+                       device="cuda")
+    dx, ddt, A, dB, dC = _ssd_inputs(torch, g, SLOTS, 1, dt_, M_LAYERS)
+    active = torch.tensor([1, 1, 1, 0, 1, 1, 0, 1], dtype=torch.int32,
+                          device="cuda")
+    init = torch.randn(M_LAYERS, 1, SSD_H, SSD_P, SSD_N, generator=g,
+                       device="cuda")
+    sx, sdt, _, sB, sC = _ssd_inputs(torch, g, 1, CHUNK, dt_, M_LAYERS)
+
+    def decode(impl):
+        def fn(i):
+            l = i % M_LAYERS
+            ops.ssd_decode_step(bank[l], dx[l, :, 0], ddt[l, :, 0], A,
+                                dB[l, :, 0], dC[l, :, 0], active=active,
+                                impl=impl)
+        return fn
+
+    def scan(impl):
+        def fn(i):
+            l = i % M_LAYERS
+            ops.ssd_scan(sx[l], sdt[l], A, sB[l], sC[l], init_state=init[l],
+                         impl=impl)
+        return fn
+
+    n_active = int(active.sum().item())
+    rows = {"ssd_decode_step_bh": (decode, _ssd_bound(SLOTS, 1, 2, True,
+                                                       n_active)),
+            "ssd_scan_bshp": (scan, _ssd_bound(1, CHUNK, 2, False))}
+    out = {}
+    for name, (make, bound) in rows.items():
+        p1 = _time_ms(torch, make("ref"), iters=96)
+        k1 = _time_ms(torch, make("auto"), iters=96)
+        k2 = _time_ms(torch, make("auto"), iters=96)
+        p2 = _time_ms(torch, make("ref"), iters=96)
+        out[name] = dict(ms=min(k1, k2), plain_ms=min(p1, p2),
+                         library_ms=None, bound_ms=bound[0],
+                         bound_by=bound[1])
+        log(f"timing {name}: kernel {k1:.4f}/{k2:.4f} ms, plain "
+            f"{p1:.4f}/{p2:.4f} ms, no library call, bound "
+            f"{bound[0]:.5f} ms ({bound[1]})")
+    del bank, init
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phases 4-5: the engine
 # ---------------------------------------------------------------------------
 
@@ -371,19 +582,22 @@ def run_engine(torch, np, cfg, serving, models, pk, card):
         f"kernel launches {launches} over {LAYERS} layers per dispatch")
     log("utilization: " + engine.utilization.format())
     del engine
-    trace_engine(torch, np, cfg, serving, params, engine_kw)
+    _trace(torch,
+           lambda: serving.ContinuousBatchingEngine(cfg, params, **engine_kw),
+           _requests(serving, 8, np.random.default_rng(5), sampled_every=0),
+           ("paged_attention_kernel",), "paged-attention kernels")
     return launches
 
 
-def trace_engine(torch, np, cfg, serving, params, engine_kw):
+def _trace(torch, make_engine, reqs, kernel_keys, label):
     """Where a step's time goes: a torch.profiler window over a fresh
-    engine serving 8 greedy requests. Device busy = the sum of the device
-    times the profiler recorded (one stream, so no overlap) over the
-    window's wall time."""
+    engine serving ``reqs``. Device busy = the sum of the device times the
+    profiler recorded (one stream, so no overlap) over the window's wall
+    time; the kernels' share sums the device ops whose name holds one of
+    ``kernel_keys``."""
     from torch.profiler import ProfilerActivity, profile
 
-    engine = serving.ContinuousBatchingEngine(cfg, params, **engine_kw)
-    reqs = _requests(serving, 8, np.random.default_rng(5), sampled_every=0)
+    engine = make_engine()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -399,14 +613,14 @@ def trace_engine(torch, np, cfg, serving, params, engine_kw):
     if busy_ms <= 0:
         log("trace: the profiler recorded no device time (not measured)")
         return
-    attn_ms = sum(device_us(e) for e in events
-                  if "paged_attention_kernel" in e.key) / 1e3
+    kern_ms = sum(device_us(e) for e in events
+                  if any(k in e.key for k in kernel_keys)) / 1e3
     top = sorted(events, key=device_us, reverse=True)[:6]
     log(f"trace: {steps} steps in {wall_ms:.1f} ms wall "
         f"({wall_ms / steps:.2f} ms/step); device busy {busy_ms:.1f} ms = "
         f"{100 * busy_ms / wall_ms:.1f}% (idle {100 - 100 * busy_ms / wall_ms:.1f}%);"
-        f" paged-attention kernels {attn_ms:.1f} ms = "
-        f"{100 * attn_ms / busy_ms:.1f}% of busy; "
+        f" {label} {kern_ms:.1f} ms = "
+        f"{100 * kern_ms / busy_ms:.1f}% of busy; "
         f"{sum(e.count for e in events)} device ops")
     for e in top:
         log(f"trace top: {device_us(e) / 1e3:9.2f} ms x{e.count:6d}  {e.key[:90]}")
@@ -480,6 +694,149 @@ def run_parity(torch, np, cfg, serving, models):
         f"through kernels and plain versions")
 
 
+# ---------------------------------------------------------------------------
+# phases 7-8: the mamba2 SSM engine
+# ---------------------------------------------------------------------------
+
+
+def _mamba_requests(serving, n, rng, sampled_every, max_new=24,
+                    lo=64, hi=400):
+    reqs = []
+    for i in range(n):
+        prompt = rng.integers(1, 50280, int(rng.integers(lo, hi + 1)))
+        sp = (serving.SamplingParams(temperature=0.8, top_p=0.9,
+                                     max_new_tokens=max_new, seed=2000 + i)
+              if sampled_every and i % sampled_every == 1 else
+              serving.SamplingParams(max_new_tokens=max_new, seed=2000 + i))
+        reqs.append(serving.Request(f"m{i}", prompt.tolist(), sampling=sp))
+    return reqs
+
+
+def run_mamba_engine(torch, np, cfg, serving, models, sk, card):
+    """Full-width mamba2-1.3b through the SSM engine; returns the SSD
+    kernels' launch counts over the measured run."""
+    from repro_torch.serving.metrics import latency_percentiles
+
+    params = models.build_model(cfg, device="cuda").init(seed=0)
+    engine_kw = dict(max_len=M_MAX_LEN, max_slots=SLOTS,
+                     prefill_chunk=CHUNK, device="cuda")
+    rng = np.random.default_rng(20)
+    # warm-up (cuBLAS handles, allocator, first launches): not measured
+    _drive(torch, serving.SSMEngine(cfg, params, **engine_kw),
+           _mamba_requests(serving, 2, rng, sampled_every=2, max_new=4))
+    engine = serving.SSMEngine(cfg, params, **engine_kw)
+    reqs = _mamba_requests(serving, 8, rng, sampled_every=2)
+    sk.reset_launches()
+    t0 = time.perf_counter()
+    handles, steps = _drive(torch, engine, reqs)
+    wall = time.perf_counter() - t0
+    launches = dict(sk.LAUNCHES)
+    results = [h.result() for h in handles]
+    bad = [(r.uid, r.finish_reason.value) for r in results
+           if r.finish_reason.value != "length" or len(r.tokens) != 24]
+    if bad:
+        raise AssertionError(f"requests not finished by length: {bad}")
+    if not all(launches[k] > 0 for k in launches):
+        raise AssertionError(f"an SSD kernel never ran: {launches}")
+    for r in results:
+        toks = np.asarray(r.tokens)
+        if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+            raise AssertionError(f"{r.uid}: token out of vocab")
+    lat = latency_percentiles(results)
+    n_tok = sum(len(r.tokens) for r in results)
+    st = engine.stats
+    log(f"engine {cfg.name} bf16 on {card}: {len(results)}/{len(reqs)} "
+        f"requests ({sum(len(r.prompt) for r in reqs)} prompt tokens), "
+        f"{n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} tok/s;"
+        f" TTFT p50 {lat['ttft_ms'][0]:.1f} ms p99 {lat['ttft_ms'][2]:.1f} ms;"
+        f" ITL p50 {lat['itl_ms'][0]:.2f} ms p99 {lat['itl_ms'][2]:.2f} ms")
+    log(f"engine steps {steps}: decode_steps {st['decode_steps']}, "
+        f"prefill_chunks {st['prefill_chunks']}, preemptions "
+        f"{st['preemptions']}; kernel launches {launches} over {M_LAYERS} "
+        f"layers per dispatch; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log("utilization: " + engine.utilization.format())
+    del engine
+    _trace(torch, lambda: serving.SSMEngine(cfg, params, **engine_kw),
+           _mamba_requests(serving, 8, np.random.default_rng(21),
+                           sampled_every=0),
+           ("ssd_scan_kernel", "ssd_decode_kernel"), "SSD kernels")
+    return launches
+
+
+def _drive_preempting(torch, engine, reqs):
+    """_drive with one snapshot preemption and then one discard preemption
+    of the youngest decoding request, each at the first third step where
+    something is decoding."""
+    handles = [engine.submit(r) for r in reqs]
+    plan, steps = [True, False], 0
+    while not engine.idle:
+        engine.step()
+        steps += 1
+        if plan and steps % 3 == 0 and engine.preempt_youngest(
+                snapshot=plan[0]) is not None:
+            plan.pop(0)
+    torch.cuda.synchronize()
+    st = engine.stats
+    if plan or st["preemptions"] != 2 or st["restores"] != 1:
+        raise AssertionError(f"preemptions not taken as planned: {st}")
+    return handles
+
+
+def run_mamba_parity(torch, np, cfg, serving, models):
+    """f32 with TF32 off, at the full 48 layers: the one-chunk logit gap of
+    the kernels to the plain versions, then the SSM engine through the
+    kernels vs through the plain versions (``ssd_impl="ref"``), and under
+    preemption; greedy streams identical."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model = models.build_model(cfg32, device="cuda")
+    params = model.init(seed=1)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        1, cfg.vocab_size, CHUNK).astype(np.int32)).cuda()
+    logits = {}
+    for impl in ("auto", "ref"):
+        model.ssd_impl = impl
+        bank = serving.SlotStateBank(cfg32, 1, torch.float32, device="cuda")
+        _, logits[impl] = model.prefill_chunk_ssm(bank.state, toks, 50)
+    a, b = logits["auto"][:cfg.vocab_size], logits["ref"][:cfg.vocab_size]
+    gap = (a - b).abs().max().item()
+    top2 = b.topk(2).values
+    log(f"mamba2 parity: f32, TF32 off, {cfg32.num_layers} layers, one "
+        f"64-token chunk (valid 50): max |logit kernel - plain| = {gap:.3e}, "
+        f"argmax {a.argmax().item()} vs {b.argmax().item()}, plain top-2 "
+        f"margin {(top2[0] - top2[1]).item():.3e}")
+    if not gap < 1e-3:
+        raise AssertionError(f"kernel vs plain logits differ by {gap}")
+    del model, bank
+
+    def requests():
+        return _mamba_requests(serving, 5, np.random.default_rng(3),
+                               sampled_every=0, max_new=16, lo=70, hi=200)
+
+    streams = {}
+    for impl in ("auto", "ref"):
+        engine = serving.SSMEngine(cfg32, params, max_len=M_MAX_LEN,
+                                   max_slots=4, prefill_chunk=CHUNK,
+                                   ssd_impl=impl, device="cuda")
+        handles, _ = _drive(torch, engine, requests())
+        streams[impl] = [list(h.tokens) for h in handles]
+        del engine
+    if streams["auto"] != streams["ref"]:
+        raise AssertionError(f"f32 kernel vs plain streams differ: {streams}")
+    engine = serving.SSMEngine(cfg32, params, max_len=M_MAX_LEN, max_slots=4,
+                               prefill_chunk=CHUNK, device="cuda")
+    handles = _drive_preempting(torch, engine, requests())
+    if [list(h.tokens) for h in handles] != streams["auto"]:
+        raise AssertionError("streams under snapshot + discard preemption "
+                             "differ from the undisturbed run")
+    log(f"mamba2 parity: {cfg32.num_layers} layers, full width: "
+        f"{len(streams['auto'])} greedy streams of 16 tokens identical "
+        f"through kernels and plain versions, and through one snapshot and "
+        f"one discard preemption")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -498,6 +855,7 @@ def main() -> int:
     from repro_torch.configs import get_arch
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import paged_attention as pk
+    from repro_torch.kernels import ssd_scan as sk
 
     card = card_line()
     log(card)
@@ -508,25 +866,31 @@ def main() -> int:
     build.build()
     log(f"build: {time.perf_counter() - t0:.1f} s "
         f"({', '.join(f'{n} {s:.1f} s' for n, s in build.build_seconds.items())})")
-    ptxas = build.build_log.get("paged_attention", "")
-    if ptxas:  # empty when the library was already built
+    for lib, ptxas in build.build_log.items():  # empty when already built
         regs = sorted({int(n) for n in re.findall(r"Used (\d+) registers",
                                                   ptxas)})
         spills = sorted({int(n) for n in re.findall(
             r"(\d+) bytes spill stores", ptxas)})
-        log(f"ptxas: registers per thread {regs}, spill-store bytes {spills} "
-            f"over {ptxas.count('Compiling entry function')} kernel instances")
+        log(f"ptxas {lib}: registers per thread {regs}, spill-store bytes "
+            f"{spills} over {ptxas.count('Compiling entry function')} "
+            f"kernel instances")
 
     errs = check_kernels(torch, ops)
     times = time_kernels(torch, F, ops, ref)
     cfg = get_arch("smollm-360m")
     launches = run_engine(torch, np, cfg, serving, models, pk, card)
     run_parity(torch, np, cfg, serving, models)
+    errs.update(check_ssd_kernels(torch, ops))
+    times.update(time_ssd_kernels(torch, ops))
+    mcfg = get_arch("mamba2-1.3b")
+    launches.update(run_mamba_engine(torch, np, mcfg, serving, models, sk,
+                                     card))
+    run_mamba_parity(torch, np, mcfg, serving, models)
 
-    kernels = [dict(name=name, route="cuda", source=KERNEL_SOURCE,
-                    replaces=REPLACES[name], launches=launches[name],
+    kernels = [dict(name=name, route="cuda", source=source,
+                    replaces=replaces, launches=launches[name],
                     max_abs_err=errs[name], **times[name])
-               for name in REPLACES]
+               for name, (source, replaces) in KERNELS.items()]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

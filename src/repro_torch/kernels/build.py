@@ -5,8 +5,11 @@ into ``build/kernels/<name>-<hash>.so`` at the repository root (``build/``
 is git-ignored). The hash covers the source text and the compiler flags, so
 an edited kernel rebuilds on first use and an unchanged one loads from the
 directory. All libraries not yet built compile in parallel, one ``nvcc``
-per source. Nothing here runs at import time: the CPU tests import the
-package on machines with no compiler.
+per source. Building and loading hold one process-wide lock, so engines
+created on several threads at once (the serve driver's workers) compile
+each library once and never load a half-written one. Nothing here runs at
+import time: the CPU tests import the package on machines with no
+compiler.
 
     python -m repro_torch.kernels.build      # build every kernel, print times
 """
@@ -18,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -26,9 +30,10 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
-SOURCES = ("paged_attention",)
+SOURCES = ("paged_attention", "ssd_scan")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_lock = threading.RLock()  # build() and load(); load() calls build()
 # per library: seconds the build took in this process (0.0 = loaded as built)
 build_seconds: dict[str, float] = {}
 # per library: what ptxas reported (registers, shared memory, spills)
@@ -65,6 +70,11 @@ def library_path(name: str) -> Path:
 def build(names=SOURCES) -> dict[str, Path]:
     """Compile every named library that is not built yet, all ``nvcc``
     processes started together; raises with the compiler output on failure."""
+    with _lock:
+        return _build(names)
+
+
+def _build(names) -> dict[str, Path]:
     out = {n: library_path(n) for n in names}
     todo = {n: p for n, p in out.items() if not p.exists()}
     for n in out:
@@ -97,10 +107,11 @@ def build(names=SOURCES) -> dict[str, Path]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library ``name``, built first when needed."""
-    if name not in _loaded:
-        path = build((name,))[name]
-        _loaded[name] = ctypes.CDLL(str(path))
-    return _loaded[name]
+    with _lock:
+        if name not in _loaded:
+            path = build((name,))[name]
+            _loaded[name] = ctypes.CDLL(str(path))
+        return _loaded[name]
 
 
 if __name__ == "__main__":

@@ -1,17 +1,19 @@
-"""Public paged-attention ops: the hand-written CUDA kernel for CUDA
-tensors, the plain PyTorch version for CPU tensors.
+"""Public paged-attention and Mamba2 SSD ops: the hand-written CUDA kernel
+for CUDA tensors, the plain PyTorch version for CPU tensors.
 
 Ops: ``paged_attention`` (single-token decode over the serving page pool),
 ``paged_prefill_attention`` (chunked prefill), ``paged_mixed_attention``
-(decode rows + one prefill chunk, one dispatch per engine step).
+(decode rows + one prefill chunk, one dispatch per engine step),
+``ssd_scan`` / ``ssd_decode_step`` (Mamba2).
 
 ``impl``:
   * "auto" — where the tensors lie decides: a CUDA tensor launches the
-    kernel of :mod:`repro_torch.kernels.paged_attention` (which raises on
+    kernel of :mod:`repro_torch.kernels.paged_attention` or
+    :mod:`repro_torch.kernels.ssd_scan` (which raises on
     anything it does not take; there is no fallback), a CPU tensor runs
     :mod:`repro_torch.kernels.ref`.
-  * "ref"  — the plain version on any device (tests, and ``chip_smoke.py``'s
-    kernel-against-plain comparison).
+  * "ref"  — the plain version on any device (tests, ``chip_smoke.py``'s
+    kernel-against-plain comparison, ``--attn-impl/--ssd-impl ref``).
 
 Contract: :mod:`repro_torch.kernels.ref` is the ground truth; on the card
 each kernel matches it within the bounds ``chip_smoke.py`` states (1e-3 in
@@ -24,6 +26,7 @@ The int8-page variant (``k_scale``/``v_scale``) is not ported yet
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.paged_attention import (
@@ -31,22 +34,27 @@ from repro_torch.kernels.paged_attention import (
     paged_mixed_attention_rkgd,
     paged_prefill_attention_ckgd,
 )
+from repro_torch.kernels.ssd_scan import ssd_decode_step_bh, ssd_scan_bshp
 
 IMPLS = ("auto", "ref")
 
 
-def _use_ref(q: torch.Tensor, impl: str, k_scale, v_scale, op: str) -> bool:
+def _use_plain(t: torch.Tensor, impl: str, op: str) -> bool:
     if impl not in IMPLS:
         raise ValueError(f"{op}: unknown impl {impl!r} (have {IMPLS})")
+    if impl == "ref" or t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"{op}: no kernel for device {t.device}")
+    return False
+
+
+def _use_ref(q: torch.Tensor, impl: str, k_scale, v_scale, op: str) -> bool:
     if k_scale is not None or v_scale is not None:
         raise NotImplementedError(
             f"{op}: int8 pages (k_scale/v_scale) are not ported yet "
             f"(ROADMAP A.5)")
-    if impl == "ref" or q.device.type == "cpu":
-        return True
-    if q.device.type != "cuda":
-        raise ValueError(f"{op}: no kernel for device {q.device}")
-    return False
+    return _use_plain(q, impl, op)
 
 
 def _grouped(q: torch.Tensor, kvh: int) -> torch.Tensor:
@@ -137,3 +145,82 @@ def paged_mixed_attention(
         _grouped(q, k_pages.shape[2]), k_pages, v_pages, block_tables,
         last_pos, scale=scale)
     return out.reshape(q.shape)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD
+# ---------------------------------------------------------------------------
+
+
+def ssd_scan(
+    x: torch.Tensor,   # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H)
+    A: torch.Tensor,   # (H,)
+    Bm: torch.Tensor,  # (B, S, N)
+    Cm: torch.Tensor,  # (B, S, N)
+    *,
+    chunk: int = 256,
+    impl: str = "auto",
+    init_state: torch.Tensor | None = None,  # (B, H, P, N) f32
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan. Returns (y (B,S,H,P), final_state (B,H,P,N) f32).
+
+    S need not divide ``chunk``: the tail is padded with dt=0 positions,
+    which are exact identities on the recurrence (decay exp(0·a)=1, update
+    dt·x=0), and the padded outputs are sliced off. ``init_state``
+    continues a scan from a carried state (chunked prefill). The plain
+    version pads here and runs ``ref.ssd_chunked`` at ``min(chunk, S)``,
+    as the JAX op runs it on the CPU; the kernel pads its own ragged last
+    sub-chunk the same way, loads ``init_state`` as its carried state, and
+    uses a fixed inner chunk of 64 (the result does not depend on the
+    chunk length up to f32 rounding)."""
+    if _use_plain(x, impl, "ssd_scan"):
+        s = x.shape[1]
+        chunk_eff = min(chunk, s)
+        pad = (chunk_eff - s % chunk_eff) % chunk_eff
+        if pad:
+            x = F.pad(x, (0, 0, 0, 0, 0, pad))
+            dt = F.pad(dt, (0, 0, 0, pad))
+            Bm = F.pad(Bm, (0, 0, 0, pad))
+            Cm = F.pad(Cm, (0, 0, 0, pad))
+        y, fs = ref.ssd_chunked(x, dt, A, Bm, Cm, init_state, chunk=chunk_eff)
+        return (y[:, :s] if pad else y), fs
+    if init_state is not None:
+        init_state = init_state.float().contiguous()
+    return ssd_scan_bshp(
+        x.contiguous(), dt.float().contiguous(), A.float().contiguous(),
+        Bm.to(x.dtype).contiguous(), Cm.to(x.dtype).contiguous(), init_state)
+
+
+def ssd_decode_step(
+    state: torch.Tensor,  # (B, H, P, N) f32
+    x_t: torch.Tensor,    # (B, H, P)
+    dt_t: torch.Tensor,   # (B, H)
+    A: torch.Tensor,      # (H,)
+    B_t: torch.Tensor,    # (B, N)
+    C_t: torch.Tensor,    # (B, N)
+    *,
+    impl: str = "auto",
+    active: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Single-token SSD recurrence, advancing ``state`` (f32) IN PLACE.
+    Returns (y (B,H,P), ``state``). The JAX op returns a new state and its
+    engine donates the bank; here the bank is updated where it lies, so
+    the kernel writes only the rows that change. (``ref.ssd_decode_step``
+    is the out-of-place plain form.)
+
+    ``active`` (B,) int gates the state writeback per row: a row with 0
+    keeps its old state untouched (its y still comes from the advanced
+    state), as the JAX engine's ``_mask_state`` gates its bank."""
+    if _use_plain(state, impl, "ssd_decode_step"):
+        y, new = ref.ssd_decode_step(state, x_t, dt_t, A, B_t, C_t)
+        if active is not None:
+            keep = active.to(torch.bool).reshape(-1, 1, 1, 1)
+            new = torch.where(keep, new, state)
+        state.copy_(new)
+        return y, state
+    return ssd_decode_step_bh(
+        state, x_t.contiguous(), dt_t.float().contiguous(),
+        A.float().contiguous(), B_t.to(x_t.dtype).contiguous(),
+        C_t.to(x_t.dtype).contiguous(),
+        active=None if active is None else active.to(torch.int32).contiguous())

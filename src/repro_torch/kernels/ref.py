@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the paged-attention kernels.
+"""Plain PyTorch versions of the paged-attention and Mamba2 SSD kernels.
 
 These are the ground truth the hand-written CUDA kernels are held against
 (``chip_smoke.py`` compares them on the card) and the path every op takes
@@ -16,6 +16,11 @@ masks and exact-zero conventions (``repro/kernels/ref.py``):
 * ``paged_mixed_attention_split_ref`` — the same function evaluated as
   decode rows + one chunk, gathering the chunk's K/V once (what
   ``ops.paged_mixed_attention`` runs on the CPU when given ``num_decode``).
+* ``ssd_sequential``  — the literal Mamba2 recurrence, one token at a time.
+* ``ssd_chunked``     — the block (chunked) decomposition of the same scan,
+  in the JAX package's op order (``ops.ssd_scan`` runs it on the CPU, as
+  the JAX engine runs ``ref.ssd_chunked`` there).
+* ``ssd_decode_step`` — the one-token recurrence of serving decode.
 """
 
 from __future__ import annotations
@@ -151,3 +156,126 @@ def paged_mixed_attention_split_ref(
         q[s:], k_pages, v_pages, block_tables[s], start, valid, scale=scale,
     )
     return torch.cat([dec, chk], dim=0)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD
+# ---------------------------------------------------------------------------
+
+
+def ssd_sequential(
+    x: torch.Tensor,      # (B, S, H, P)
+    dt: torch.Tensor,     # (B, S, H)       softplus-activated step sizes
+    A: torch.Tensor,      # (H,)            negative decay rates
+    Bm: torch.Tensor,     # (B, S, N)       input projection (G=1 group)
+    Cm: torch.Tensor,     # (B, S, N)       output projection
+    init_state: torch.Tensor | None = None,  # (B, H, P, N)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Literal recurrence: h_t = exp(dt_t A) h_{t-1} + dt_t * x_t B_t^T ;
+    y_t = h_t C_t. Returns (y (B,S,H,P) in x.dtype, final state f32)."""
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+    Bf, Cf = Bm.float(), Cm.float()
+    state = (init_state.float() if init_state is not None
+             else torch.zeros((b, h, p, n), dtype=torch.float32,
+                              device=x.device))
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dtf[:, t] * Af[None, :])  # (b,h)
+        upd = torch.einsum("bh,bhp,bn->bhpn", dtf[:, t], xf[:, t], Bf[:, t])
+        state = state * decay[..., None, None] + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", state, Cf[:, t]))
+    return torch.stack(ys, dim=1).to(x.dtype), state
+
+
+def _segsum(dA: torch.Tensor) -> torch.Tensor:
+    """Stable 'segment sum': L[..., i, j] = sum_{k=j+1..i} dA[..., k] for
+    i >= j else -inf. dA (..., Q) -> (..., Q, Q) lower-triangular log-decay
+    matrix."""
+    q = dA.shape[-1]
+    cs = dA.cumsum(dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]  # cs_i - cs_j = sum_{j+1..i}
+    iota = torch.arange(q, device=dA.device)
+    mask = iota[:, None] >= iota[None, :]
+    return diff.masked_fill(~mask, float("-inf"))
+
+
+def ssd_chunked(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    Bm: torch.Tensor,
+    Cm: torch.Tensor,
+    init_state: torch.Tensor | None = None,
+    *,
+    chunk: int = 256,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Block decomposition of the SSD recurrence (matches ssd_sequential).
+
+    Splits S into chunks of length Q; the within-chunk term is a masked
+    attention-like product, the cross-chunk term a scan over chunk states.
+    S must be a multiple of the chunk (``ops.ssd_scan`` pads with dt=0)."""
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    chunk = min(chunk, s)
+    assert s % chunk == 0, (s, chunk)
+    nc = s // chunk
+
+    xf = x.float().reshape(b, nc, chunk, h, p)
+    dtf = dt.float().reshape(b, nc, chunk, h)
+    Bf = Bm.float().reshape(b, nc, chunk, n)
+    Cf = Cm.float().reshape(b, nc, chunk, n)
+    Af = A.float()
+
+    dA = (dtf * Af[None, None, None, :]).movedim(-1, -2)    # (b,nc,h,q)
+    L = torch.exp(_segsum(dA))                              # (b,nc,h,q,q)
+    dA_cs = dA.cumsum(dim=-1)                               # (b,nc,h,q)
+    dA_total = dA_cs[..., -1]                               # (b,nc,h)
+
+    # ---- intra-chunk (diagonal blocks) ----
+    scores = torch.einsum("bcin,bcjn->bcij", Cf, Bf)         # (b,nc,q,q)
+    scores = scores[:, :, None] * L                          # (b,nc,h,q,q)
+    xdt = xf * dtf[..., None]                                # (b,nc,q,h,p)
+    y_diag = torch.einsum("bchij,bcjhp->bcihp", scores, xdt)
+
+    # ---- chunk states: contribution of each chunk to the carried state ----
+    decay_to_end = torch.exp(dA_cs[..., -1:] - dA_cs)        # (b,nc,h,q)
+    states = torch.einsum("bchq,bcqn,bcqhp->bchpn", decay_to_end, Bf, xdt)
+
+    # ---- scan chunk states, keeping the state ENTERING each chunk ----
+    carry = (init_state.float() if init_state is not None
+             else torch.zeros((b, h, p, n), dtype=torch.float32,
+                              device=x.device))
+    entering = []
+    for c in range(nc):
+        entering.append(carry)
+        carry = carry * torch.exp(dA_total[:, c])[..., None, None] \
+            + states[:, c]
+    entering = torch.stack(entering, dim=1)                  # (b,nc,h,p,n)
+
+    # ---- inter-chunk output: y_off[i] = (C_i . state_in) * exp(dA_cs[i]) ----
+    decay_from_start = torch.exp(dA_cs)                      # (b,nc,h,q)
+    y_off = torch.einsum("bcqn,bchpn,bchq->bcqhp", Cf, entering,
+                         decay_from_start)
+
+    y = (y_diag + y_off).reshape(b, s, h, p).to(x.dtype)
+    return y, carry
+
+
+def ssd_decode_step(
+    state: torch.Tensor,  # (B, H, P, N) f32
+    x_t: torch.Tensor,    # (B, H, P)
+    dt_t: torch.Tensor,   # (B, H)
+    A: torch.Tensor,      # (H,)
+    B_t: torch.Tensor,    # (B, N)
+    C_t: torch.Tensor,    # (B, N)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One-token SSD recurrence for serving. Returns (y (B,H,P) in x's
+    dtype, new state f32)."""
+    dtf = dt_t.float()
+    decay = torch.exp(dtf * A.float()[None, :])
+    upd = torch.einsum("bh,bhp,bn->bhpn", dtf, x_t.float(), B_t.float())
+    state = state * decay[..., None, None] + upd
+    y = torch.einsum("bhpn,bn->bhp", state, C_t.float())
+    return y.to(x_t.dtype), state

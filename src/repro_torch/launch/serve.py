@@ -1,8 +1,11 @@
-"""Serving driver: the paged engine behind a bus topic, streaming deltas.
+"""Serving driver: a continuous-batching engine behind a bus topic,
+streaming deltas.
 
 Requests land on the ``requests`` topic (Kafka analogue). Worker threads
-each drive one :class:`repro_torch.serving.ContinuousBatchingEngine`
-through the engine protocol: pull up to ``engine.capacity()`` messages,
+each drive one engine — :class:`repro_torch.serving.ContinuousBatchingEngine`
+for the dense family, :class:`repro_torch.serving.SSMEngine` for the
+pure-SSM (mamba2) family — through the engine protocol: pull up to
+``engine.capacity()`` messages,
 parse them with the shared boundary parser, ``submit()``, and publish each
 :class:`StreamEvent` to ``responses`` as it happens — per-token ``delta``
 messages first, then one terminal ``finish`` message. The HPA analogue
@@ -10,15 +13,18 @@ watches consumer lag and scales workers in [min, max]. The run prints
 p50/p90/p99 time-to-first-token and inter-token latency plus the per-step
 occupancy and page-pool gauges.
 
-The model is the config's dense decoder with seeded random weights on
+The model is the config's decoder with seeded random weights on
 ``--device`` (``cuda`` by default; ``--device cpu`` runs the plain
-attention versions on the CPU, for tests and reduced configs):
+attention and SSD versions on the CPU, for tests and reduced configs):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
       --requests 12 --shared-prefix 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
+      --reduced --device cpu
 
-Only the paged driver role is ported: ``--engine lockstep`` (ROADMAP A.7),
-``--fleet`` and ``--role worker`` (A.9) exit with a message naming their
+Only the driver role of the paged and SSM engines is ported: the hybrid
+(zamba2) family (ROADMAP A.8b), ``--engine lockstep`` (A.7), ``--fleet``
+and ``--role worker`` (A.9) raise or exit with a message naming their
 ROADMAP item; the JAX package's mesh, KV-tier, int8 and speculation flags
 have no counterpart yet (ROADMAP A.5, A.6, A.10).
 """
@@ -53,8 +59,9 @@ def main() -> int:
     ap.add_argument("--admission", choices=["fifo", "priority", "deadline"],
                     default="fifo", help="admission policy for every worker")
     ap.add_argument("--prefill-chunk", type=int, default=64,
-                    help="prefill chunk size (whole-prompt prefill, 0, is "
-                         "not ported: ROADMAP A.7)")
+                    help="prefill chunk size; 0 (whole-prompt prefill) is "
+                         "not ported for the paged engine (ROADMAP A.7) and "
+                         "is one max_len chunk for the SSM engine")
     ap.add_argument("--no-prefix-sharing", action="store_true",
                     help="disable COW prefix-page sharing")
     ap.add_argument("--shared-prefix", type=int, default=0, metavar="N",
@@ -73,6 +80,9 @@ def main() -> int:
                     help="'auto': the CUDA kernels for tensors on the card, "
                          "the plain versions on the CPU; 'ref': the plain "
                          "versions everywhere")
+    ap.add_argument("--ssd-impl", default="auto", choices=["auto", "ref"],
+                    help="the same choice for the SSM engine's SSD scan and "
+                         "decode step")
     ap.add_argument("--fleet", type=int, default=0, metavar="N")
     ap.add_argument("--role", choices=["driver", "worker"], default="driver")
     ap.add_argument("--workdir", default="experiments/serve_run_torch")
@@ -94,6 +104,7 @@ def main() -> int:
         DeadlineAdmission,
         FIFOAdmission,
         PriorityAdmission,
+        SSMEngine,
         UnsupportedConfigError,
         format_latency,
         request_from_message,
@@ -103,10 +114,11 @@ def main() -> int:
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    if cfg.is_encoder_decoder or cfg.family != "dense":
+    use_ssm = cfg.family in ("ssm", "hybrid")  # hybrid: SSMEngine raises
+    if cfg.is_encoder_decoder or not (use_ssm or cfg.family == "dense"):
         raise UnsupportedConfigError(
-            f"{cfg.name} (family={cfg.family!r}): only the dense paged "
-            f"engine is ported (ROADMAP A.7, A.8)")
+            f"{cfg.name} (family={cfg.family!r}): only the dense paged and "
+            f"the pure-SSM engines are ported (ROADMAP A.7, A.11)")
     workdir = Path(args.workdir)
     workdir.mkdir(parents=True, exist_ok=True)
     bus = TopicBus(workdir / "bus")
@@ -141,6 +153,15 @@ def main() -> int:
                 "deadline": DeadlineAdmission}
 
     def make_engine():
+        if use_ssm:
+            return SSMEngine(
+                cfg, params, max_len=max_len,
+                max_slots=max(args.max_batch, 2),
+                prefill_chunk=args.prefill_chunk or None,
+                admission=policies[args.admission](),
+                ssd_impl=args.ssd_impl,
+                device=args.device,
+            )
         return ContinuousBatchingEngine(
             cfg, params, max_len=max_len,
             max_slots=max(args.max_batch, 2),
@@ -247,7 +268,8 @@ def main() -> int:
 
     wall = time.time() - t0
     print(f"served {len(done)}/{args.requests} requests in {wall:.1f}s "
-          f"({len(done)*args.max_new/wall:.1f} tok/s), engine=paged, "
+          f"({len(done)*args.max_new/wall:.1f} tok/s), "
+          f"engine={'ssm' if use_ssm else 'paged'}, "
           f"device={args.device}, admission={args.admission}, "
           f"peak workers={len(threads)}")
     summary = format_latency(latencies)

@@ -4,8 +4,8 @@
     params = model.init(seed)           # seeded random weights (state dict)
     model.load_state_dict(params_from_jax(cfg, tree))  # or the JAX weights
 
-Only the dense decoder is ported; the encoder-decoder (whisper) family
-waits for ROADMAP A.11.
+The dense and ssm decoders are ported; the encoder-decoder (whisper)
+family waits for ROADMAP A.11.
 """
 
 from __future__ import annotations

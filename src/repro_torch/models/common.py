@@ -177,3 +177,13 @@ def sample_tokens(
     g = gumbel_noise(seeds, idx, v)
     sampled = (row / t + g).argmax(dim=-1).to(torch.int32)
     return torch.where(temps > 0.0, sampled, greedy)
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device(device)``; asking for CUDA without a card raises
+    instead of quietly running on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but no CUDA device is "
+                           f"available; pass device='cpu' to run on the CPU")
+    return device

@@ -1,20 +1,25 @@
-"""Decoder-only LM, dense family, with the paged serving entry points.
+"""Decoder-only LM, dense and ssm families, with the serving entry points.
 
 One ``nn.Module`` holding the same stacked ``(L, ...)`` parameters as
 ``repro/models/lm.py`` (names ``embed``, ``final_norm``, ``layers.ln1``,
-``layers.attn.wq`` ...), on an explicit device. Three entry points serve
-the continuous-batching engine, each a Python loop over the layers:
+``layers.attn.wq`` ... for dense, ``layers.ln``, ``layers.mamba.w_z`` ...
+for ssm), on an explicit device. The entry points serve the
+continuous-batching engines, each a Python loop over the layers:
 
-  * ``decode_step_paged``  — one token per in-flight slot
-  * ``prefill_chunk``      — one fixed-size prompt chunk of one sequence
-  * ``mixed_step_paged``   — decode rows + one chunk in one pass
+  * dense (paged KV pool, written in place):
+    ``decode_step_paged`` (one token per in-flight slot), ``prefill_chunk``
+    (one fixed-size prompt chunk of one sequence), ``mixed_step_paged``
+    (decode rows + one chunk in one pass);
+  * ssm (per-slot recurrent state bank): ``decode_step_ssm`` (one token per
+    slot, the bank advanced in place) and ``prefill_chunk_ssm`` (one chunk
+    of one sequence from its carried state).
 
-Each writes K/V into the page pool in place and returns f32 logits. Vocab
-is padded to a multiple of 256, as in the JAX package.
+Each returns f32 logits. Vocab is padded to a multiple of 256, as in the
+JAX package.
 
 Not ported yet: training (``loss_fn``), the dense-cache ``prefill`` /
 ``decode_step`` (ROADMAP A.7), ``verify_step_paged`` (A.6), and the moe,
-vlm (A.7), ssm and hybrid (A.8) families.
+vlm (A.7) and hybrid (A.8b) families.
 """
 
 from __future__ import annotations
@@ -28,15 +33,16 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.common import ParamSpec, flatten_tree, rms_norm, swiglu
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.common import (ParamSpec, flatten_tree, resolve_device,
+                                       rms_norm, swiglu)
 
 VOCAB_PAD_MULTIPLE = 256
 
 _NOT_PORTED = {
     "moe": "ROADMAP A.7 (moe family)",
     "vlm": "ROADMAP A.7 (vlm path)",
-    "ssm": "ROADMAP A.8 (SSM and hybrid)",
-    "hybrid": "ROADMAP A.8 (SSM and hybrid)",
+    "hybrid": "ROADMAP A.8b (hybrid zamba2 engine)",
     "audio": "ROADMAP A.11 (encoder-decoder)",
 }
 
@@ -57,16 +63,6 @@ def padded_vocab(cfg: ModelConfig) -> int:
     return ((v + VOCAB_PAD_MULTIPLE - 1) // VOCAB_PAD_MULTIPLE) * VOCAB_PAD_MULTIPLE
 
 
-def resolve_device(device) -> torch.device:
-    """``torch.device(device)``; asking for CUDA without a card raises
-    instead of quietly running on the CPU."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested but no CUDA device is "
-                           f"available; pass device='cpu' to run on the CPU")
-    return device
-
-
 def _register(module: nn.Module, specs: dict, default_dtype: str,
               device: torch.device) -> None:
     for key, val in specs.items():
@@ -82,19 +78,20 @@ def _register(module: nn.Module, specs: dict, default_dtype: str,
 
 
 class DecoderLM(nn.Module):
-    """Dense decoder-only LM; the port's counterpart of ``repro``'s
-    ``DecoderLM`` for the paged serving path."""
+    """Dense or ssm decoder-only LM; the port's counterpart of ``repro``'s
+    ``DecoderLM`` for the paged and recurrent-state serving paths."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda",
-                 attn_impl: str = "auto"):
+                 attn_impl: str = "auto", ssd_impl: str = "auto"):
         super().__init__()
         assert not cfg.is_encoder_decoder
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "ssm"):
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet: "
                 f"{_NOT_PORTED.get(cfg.family, 'ROADMAP A')}")
         self.cfg = cfg
         self.attn_impl = attn_impl
+        self.ssd_impl = ssd_impl
         self.device = resolve_device(device)
         _register(self, self.param_specs(), cfg.dtype, self.device)
         self._layer_views: list[dict] | None = None
@@ -113,6 +110,12 @@ class DecoderLM(nn.Module):
         }
         if not cfg.tie_embeddings:
             specs["unembed"] = ParamSpec((D, vp), (None, "vocab"))
+        if cfg.family == "ssm":
+            specs["layers"] = {
+                "ln": ParamSpec((L, D), ("stack", None), init="ones"),
+                "mamba": ssm_mod.mamba_param_specs(cfg, stacked=L),
+            }
+            return specs
         specs["layers"] = {
             "ln1": ParamSpec((L, D), ("stack", None), init="ones"),
             "attn": attn.attn_param_specs(cfg, stacked=L),
@@ -150,7 +153,8 @@ class DecoderLM(nn.Module):
 
     def _layers(self) -> list[dict]:
         """Per-layer views of the stacked parameters, nested like the JAX
-        tree (``{"ln1", "attn": {...}, "ln2", "mlp": {...}}``)."""
+        tree (``{"ln1", "attn": {...}, "ln2", "mlp": {...}}``, or
+        ``{"ln", "mamba": {...}}`` for ssm)."""
         if self._layer_views is None:
             stack = self.layers
 
@@ -260,3 +264,64 @@ class DecoderLM(nn.Module):
         x = x.index_select(1, row.reshape(1).long())
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
         return self._unembed(x)[0, 0]
+
+    # ------------------------------------------------------------------
+    # recurrent-state serving (SSM continuous batching)
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def decode_step_ssm(self, state, tokens, active):
+        """One token per in-flight slot against the per-slot state bank.
+
+        state: the ``init_mamba_cache`` tree stacked over layers and
+        batched over slots — ssm (L,S,HN,PN,N) f32 plus conv tails — and
+        advanced IN PLACE (the JAX step donates it and returns the new
+        bank). tokens (S, 1) int is each slot's last token; active (S,)
+        int32 on the model's device masks idle slots, whose state is left
+        untouched (their rows still run; the SSD kernel gates its own
+        writeback, the conv tails are written through the same mask, as
+        the JAX ``_mask_state``). Returns logits (S, Vp) f32."""
+        cfg = self.cfg
+        assert cfg.family == "ssm", cfg.family
+        keep = active.to(torch.bool)[:, None, None]
+        x = self.embed[tokens.long()]  # (S,1,D)
+        for l, pl in enumerate(self._layers()):
+            cl = {k: v[l] for k, v in state.items()}
+            h = rms_norm(x, pl["ln"], cfg.norm_eps)
+            h, new_cl = ssm_mod.mamba_decode(
+                pl["mamba"], h, cl, cfg, ssd_impl=self.ssd_impl,
+                active=active)
+            for k in ("conv_x", "conv_b", "conv_c"):
+                cl[k].copy_(torch.where(keep, new_cl[k], cl[k]))
+            x = x + h
+        x = rms_norm(x, self.final_norm, cfg.norm_eps)
+        return self._unembed(x)[:, 0]
+
+    @torch.no_grad()
+    def prefill_chunk_ssm(self, state_slot, tokens, valid: int):
+        """One fixed-size prefill chunk of ONE sequence through the SSD
+        scan, continuing from the slot's carried state.
+
+        state_slot: one slot's state with the slot axis kept singleton —
+        ssm (L,1,HN,PN,N) f32 plus conv tails; it is not modified. tokens
+        (C,) int; valid (host int) is the number of real tokens in this
+        possibly-padded chunk. Returns (new_state_slot, logits (Vp,) f32)
+        with logits at chunk position ``max(valid - 1, 0)`` — clamped, as
+        the JAX ``prefill_chunk_ssm`` does — meaningful on the prompt's
+        final chunk."""
+        cfg = self.cfg
+        assert cfg.family == "ssm", cfg.family
+        valid = int(valid)
+        x = self.embed[tokens.long()][None]  # (1,C,D)
+        new_state = {k: [] for k in state_slot}
+        for l, pl in enumerate(self._layers()):
+            cl = {k: v[l] for k, v in state_slot.items()}
+            h = rms_norm(x, pl["ln"], cfg.norm_eps)
+            h, new_cl = ssm_mod.mamba_prefill_chunk(
+                pl["mamba"], h, cl, cfg, valid=valid, ssd_impl=self.ssd_impl)
+            for k, v in new_cl.items():
+                new_state[k].append(v)
+            x = x + h
+        row = max(valid - 1, 0)
+        x = rms_norm(x[:, row:row + 1], self.final_norm, cfg.norm_eps)
+        logits = self._unembed(x)[0, 0]
+        return {k: torch.stack(v) for k, v in new_state.items()}, logits

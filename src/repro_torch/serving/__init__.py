@@ -8,9 +8,12 @@ unchanged). ``ContinuousBatchingEngine`` is the ported hot path — continuous
 admission, chunked prefill fused with decode, copy-on-write prefix sharing
 with parked prefix pages (``repro_torch.serving.kv_tiers``) — running its
 paged attention through the hand-written CUDA kernels on the card.
+``SSMEngine`` serves the pure-SSM (mamba2) family over a
+:class:`SlotStateBank` of per-slot recurrent state, through the SSD
+kernels on the card.
 
 Still to port (ROADMAP A): the lockstep ``GenerationEngine``, the fleet,
-speculative decoding and the SSM engine.
+speculative decoding and the hybrid (zamba2) engine.
 """
 
 from repro_torch.serving.api import (
@@ -36,6 +39,7 @@ from repro_torch.serving.metrics import (
     format_latency,
     latency_percentiles,
 )
+from repro_torch.serving.ssm_engine import SlotStateBank, SSMEngine
 
 __all__ = [
     "AdmissionPolicy",
@@ -52,7 +56,9 @@ __all__ = [
     "Request",
     "RequestHandle",
     "Result",
+    "SSMEngine",
     "SamplingParams",
+    "SlotStateBank",
     "StreamEvent",
     "UnsupportedConfigError",
     "format_latency",

@@ -1,0 +1,487 @@
+"""SSM continuous-batching engine: per-slot recurrent state.
+
+Mamba2 serving is the page-pool design turned inside out: a sequence's
+whole history is a CONSTANT-SIZE recurrent state (the ``init_mamba_cache``
+tree — f32 SSD state ``(H, P, N)`` plus three conv tails), so instead of a
+:class:`~repro_torch.serving.kv_cache.PagedKVCache` the engine owns a
+:class:`SlotStateBank` — that tree stacked over layers and batched over
+slots, on the engine's device. Admission binds a request to a bank slot;
+chunked prefill runs the prompt through ``ops.ssd_scan`` (carrying the
+state chunk to chunk, padded tail positions neutralized by dt = 0); decode
+is one model step over every slot per engine step, through
+``ops.ssd_decode_step``, which advances the bank in place and leaves idle
+slots untouched. The decode batch lives on the device packed into ``di``
+(S, 5) int32 and ``df`` (S, 2) f32 and is advanced there, as in
+:class:`~repro_torch.serving.executor.ModelExecutor`, so the steady-state
+loop transfers nothing to the device.
+
+Fault tolerance is where constant-size state pays: :meth:`SSMEngine
+.preempt_youngest` evicts the youngest decoding sequence either by
+discarding its state (default — the requeued request re-prefills and the
+``(seed, token_index)``-keyed sampler regenerates a byte-identical stream,
+already-emitted deltas de-duplicated by the handle) or with
+``snapshot=True`` by parking a host copy of the slot's state, restored
+verbatim at re-admission so the sequence resumes decoding without
+re-prefill.
+
+The port of ``repro/serving/ssm_engine.py`` for the pure-SSM (mamba2)
+family at tp=1. The hybrid (zamba2) family — the shared attention block
+over a paged pool beside the bank — is not ported yet (ROADMAP A.8b).
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.models import build_model
+from repro_torch.models.common import sample_tokens
+from repro_torch.models.lm import resolve_device
+from repro_torch.models.ssm import init_mamba_cache
+from repro_torch.serving.api import (
+    EngineBase,
+    FinishReason,
+    Request,
+    StreamEvent,
+    validate_request,
+)
+from repro_torch.serving.metrics import UtilizationMetrics
+from repro_torch.serving.scheduler import DecodeInputs, Sequence
+
+__all__ = ["SSMEngine", "SlotStateBank"]
+
+
+class SlotStateBank:
+    """The per-slot recurrent-state bank: ``init_mamba_cache`` stacked over
+    layers (leading axis L) and batched over slots (second axis S), as
+    tensors on ``device`` (the card unless the caller asks otherwise).
+
+    The model's decode step advances the bank in place; a prefill chunk's
+    result is written back into its slot. Host-side slot bookkeeping (which
+    slot belongs to which request) lives in the engine; the bank only knows
+    shapes, snapshots and restores."""
+
+    def __init__(self, cfg, max_slots: int, dtype: torch.dtype,
+                 device="cuda") -> None:
+        device = resolve_device(device)
+        mc = init_mamba_cache(cfg, max_slots, dtype, device="meta")
+        self.state: dict[str, torch.Tensor] = {
+            k: torch.zeros((cfg.num_layers,) + tuple(v.shape), dtype=v.dtype,
+                           device=device)
+            for k, v in mc.items()
+        }
+        self.max_slots = max_slots
+
+    def slot(self, slot: int) -> dict[str, torch.Tensor]:
+        """Views of one slot's state, slot axis kept singleton
+        ((L, 1, ...) leaves)."""
+        return {k: v[:, slot:slot + 1] for k, v in self.state.items()}
+
+    def zero(self, slot: int) -> None:
+        for v in self.state.values():
+            v[:, slot].zero_()
+
+    def put(self, slot: int, new: dict[str, torch.Tensor]) -> None:
+        for k, v in self.state.items():
+            v[:, slot:slot + 1].copy_(new[k])
+
+    def snapshot(self, slot: int) -> dict[str, torch.Tensor]:
+        """A host COPY of one slot's full state — (L, ...) leaves with the
+        slot axis dropped. Never a view: on a CPU bank ``.cpu()`` would
+        alias, and a parked snapshot must not change when the slot is
+        reused."""
+        return {k: v[:, slot].to("cpu", copy=True)
+                for k, v in self.state.items()}
+
+    def restore(self, slot: int, snap: dict[str, torch.Tensor]) -> None:
+        """Write a host snapshot back into a (newly allocated) slot."""
+        for k, v in self.state.items():
+            v[:, slot].copy_(snap[k])
+
+
+class SSMExecutor:
+    """Compute half of the SSM engine: the model on its device, the decode
+    step + sampling over every slot, the chunked-prefill step, and the
+    packed device mirrors of the decode batch (``di`` (S, 5) int32 =
+    [active, tokens, top_ks, seeds, idx], ``df`` (S, 2) f32 = [temps,
+    top_ps]; the JAX executor's packing without the block tables and the
+    lengths, which only its hybrid attention reads)."""
+
+    _DI_COLS = 5
+
+    def __init__(self, cfg, params, bank: SlotStateBank, *, device="cuda",
+                 ssd_impl: str | None = None):
+        self.cfg = cfg
+        self.model = build_model(cfg, device=device,
+                                 ssd_impl=ssd_impl or "auto")
+        self.model.load_state_dict(params)
+        self.device = self.model.device
+        self.params = self.model.state_dict()
+        self.bank = bank
+        self._greedy_only = True
+        self._di: torch.Tensor | None = None
+        self._df: torch.Tensor | None = None
+
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        """A device copy of a host array (never an alias)."""
+        return torch.from_numpy(arr.copy()).to(self.device)
+
+    def _pick(self, logits, temps, top_ks, top_ps, seeds, idx, greedy_only):
+        if greedy_only:
+            return logits[..., :self.cfg.vocab_size].argmax(dim=-1).to(
+                torch.int32)
+        return sample_tokens(logits, temps, top_ks, top_ps, seeds, idx,
+                             self.cfg.vocab_size)
+
+    # ------------------------------------------------------------------
+    # decode
+    # ------------------------------------------------------------------
+    def refresh(self, inputs: DecodeInputs) -> None:
+        """Mirror a freshly assembled decode batch to the device (two
+        transfers: packed int32 + packed f32)."""
+        self._greedy_only = inputs.greedy_only
+        s = inputs.tokens.shape[0]
+        di = np.empty((s, self._DI_COLS), np.int32)
+        di[:, 0] = inputs.active
+        di[:, 1] = inputs.tokens[:, 0]
+        di[:, 2] = inputs.top_ks
+        di[:, 3] = inputs.seeds
+        di[:, 4] = inputs.idx
+        self._di = self._to_device(di)
+        self._df = self._to_device(
+            np.stack([inputs.temps, inputs.top_ps], axis=1).astype(np.float32))
+
+    def decode(self, inputs: DecodeInputs | None = None) -> np.ndarray:
+        """Run one decode step; ``None`` reuses the device-advanced batch
+        from last step. Returns the sampled token per slot, (S,) int32 on
+        the host."""
+        if inputs is not None:
+            self.refresh(inputs)
+        di, df = self._di, self._df
+        active = di[:, 0].contiguous()
+        logits = self.model.decode_step_ssm(self.bank.state, di[:, 1:2],
+                                            active)
+        toks = self._pick(logits, df[:, 0], di[:, 2], df[:, 1], di[:, 3],
+                          di[:, 4], self._greedy_only)
+        di[:, 1] = toks
+        di[:, 4] += active
+        return toks.cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # chunked prefill
+    # ------------------------------------------------------------------
+    def prefill_chunk(self, slot: int, seq: Sequence, tokens: np.ndarray,
+                      start: int, valid: int) -> int:
+        """One padded chunk for ``slot``: the slot's state (zeroed first
+        when ``start == 0``, so a recycled slot never leaks its previous
+        occupant — a host decision, no sync), the SSD scan continuation,
+        the advanced state written back, and the chunk's sampled token
+        (the request's first token on the prompt's final chunk)."""
+        sp = seq.request.sampling
+        c = tokens.shape[0]
+        ci = np.empty(c + 2, np.int32)
+        ci[:c] = tokens
+        ci[c:] = (sp.top_k, seq.handle.seed)
+        ci = self._to_device(ci)
+        cf = self._to_device(np.array([sp.temperature, sp.top_p], np.float32))
+        if start == 0:
+            self.bank.zero(slot)
+        new, logits = self.model.prefill_chunk_ssm(self.bank.slot(slot),
+                                                   ci[:c], valid)
+        self.bank.put(slot, new)
+        # the JAX chunk sampler's arguments: temps, top_ks, top_ps, seeds,
+        # and token index 0
+        tok = self._pick(
+            logits[None], cf[0:1], ci[c:c + 1], cf[1:2], ci[c + 1:c + 2],
+            torch.zeros((1,), dtype=torch.int32, device=self.device),
+            sp.temperature <= 0)
+        return int(tok[0])
+
+
+class SSMEngine(EngineBase):
+    """Continuous-batching :class:`~repro_torch.serving.api.EngineCore` for
+    the ``ssm`` (Mamba2) family.
+
+    Same protocol surface and streaming semantics as
+    :class:`~repro_torch.serving.engine.ContinuousBatchingEngine` —
+    continuous admission, chunked prefill interleaved with decode,
+    transparent preemption, ``(seed, token_index)``-keyed sampling — over a
+    :class:`SlotStateBank`. There is deliberately NO ``cache`` attribute:
+    there are no pages, per-request memory is constant, and admission is
+    bounded by slots alone. ``params`` is the model's state dict;
+    ``device`` is where the model, the bank and every step live (``"cuda"``
+    unless the caller asks for ``"cpu"``)."""
+
+    def __init__(self, cfg, params, *, max_len: int = 256,
+                 max_slots: int = 8, prefill_chunk: int | None = 32,
+                 admission=None, seed: int = 0,
+                 max_preemptions: int | None = None,
+                 ssd_impl: str | None = None, device="cuda"):
+        assert not cfg.is_encoder_decoder, "SSM engine is decoder-only"
+        if cfg.family == "hybrid":
+            raise NotImplementedError(
+                f"{cfg.name}: the hybrid (zamba2) engine is not ported yet "
+                f"(ROADMAP A.8b)")
+        assert cfg.family == "ssm", (
+            f"SSMEngine serves recurrent-state families; family "
+            f"{cfg.family!r} should use the paged engine")
+        self.cfg = cfg
+        self.max_len = max_len
+        self.max_slots = max_slots
+        self.max_preemptions = max_preemptions
+        if prefill_chunk == 0:  # CLI convention: 0 disables chunking
+            prefill_chunk = None
+        if prefill_chunk is None:
+            # the state bank has no whole-prompt path; one max_len-sized
+            # chunk is semantically identical (dt=0 padding is exact)
+            prefill_chunk = max_len
+        if prefill_chunk < 1:
+            raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
+        self.prefill_chunk = prefill_chunk
+        self._free = list(range(max_slots - 1, -1, -1))  # pop() -> slot 0 first
+        self.device = resolve_device(device)
+        self.bank = SlotStateBank(cfg, max_slots, getattr(torch, cfg.dtype),
+                                  device=self.device)
+        self.executor = SSMExecutor(cfg, params, self.bank,
+                                    device=self.device, ssd_impl=ssd_impl)
+        self.model = self.executor.model
+        self.params = self.executor.params
+        self.slots: dict[int, Sequence] = {}
+        self._order = 0
+        # uid -> (host state snapshot, attempt token list) parked by
+        # preempt_youngest(snapshot=True)
+        self._snapshots: dict[str, tuple] = {}
+        self._dirty = True
+        self._init_api(admission=admission, seed=seed)
+        self.utilization = UtilizationMetrics()
+        self.stats.update({"decode_steps": 0, "prefills": 0,
+                           "prefill_chunks": 0, "preemptions": 0,
+                           "restores": 0})
+
+    # ------------------------------------------------------------------
+    # EngineBase hooks
+    # ------------------------------------------------------------------
+    def _validate(self, request: Request) -> None:
+        validate_request(request, max_len=self.max_len)
+
+    def _find(self, uid: str) -> int | None:
+        for slot, seq in self.slots.items():
+            if seq.request.uid == uid:
+                return slot
+        return None
+
+    def _cancel_active(self, uid: str) -> bool:
+        slot = self._find(uid)
+        if slot is None:
+            return False
+        seq = self._release(slot)
+        self._finish_handle(seq.handle, FinishReason.CANCELLED)
+        return True
+
+    def _finish_handle(self, h, reason, error=None, now=None):
+        self._snapshots.pop(h.uid, None)  # parked state must not leak
+        super()._finish_handle(h, reason, error=error, now=now)
+
+    # ------------------------------------------------------------------
+    # protocol surface
+    # ------------------------------------------------------------------
+    @property
+    def idle(self) -> bool:
+        return not (len(self.admission) or self.slots or self._events)
+
+    def capacity(self) -> int:
+        return max(0, len(self._free) - len(self.admission))
+
+    # ------------------------------------------------------------------
+    # admission + release
+    # ------------------------------------------------------------------
+    def _release(self, slot: int) -> Sequence:
+        seq = self.slots.pop(slot)
+        self._free.append(slot)
+        self._dirty = True
+        return seq
+
+    def _admit(self) -> int:
+        now = time.perf_counter()
+        self._expire_queue(now)
+        admitted = 0
+        while self._free:
+            req = self.admission.peek(now)
+            if req is None:
+                break
+            slot = self._free.pop()
+            self.admission.pop(now)
+            handle = self._handles[req.uid]
+            self._order += 1
+            seq = Sequence(req, handle, [], order=self._order,
+                           phase="prefill", prefill_pos=0)
+            self.slots[slot] = seq
+            admitted += 1
+            parked = self._snapshots.pop(req.uid, None)
+            if parked is not None:
+                # snapshot-preempted: resume decoding where it left off —
+                # the bank gets the parked state verbatim alongside the
+                # attempt's own token list, whose last entry is the
+                # sampled-but-not-yet-fed pending token
+                snap, attempt_tokens = parked
+                self.bank.restore(slot, snap)
+                seq.tokens = list(attempt_tokens)
+                seq.phase = "decode"
+                seq.prefill_pos = len(req.prompt)
+                self._dirty = True
+                self.stats["restores"] += 1
+        return admitted
+
+    def _first_token(self, slot: int, seq: Sequence, tok: int) -> None:
+        """Prompt fully scanned into the slot state: deliver the sampled
+        first token (attempt index 0 — after a preemption the handle
+        de-duplicates it)."""
+        now = time.perf_counter()
+        seq.tokens.append(tok)
+        seq.phase = "decode"
+        self._dirty = True
+        self.stats["prefills"] += 1
+        if self._deliver(seq.handle, tok, 0, now):
+            self._release(slot)
+
+    # ------------------------------------------------------------------
+    # preemption + snapshot/restore
+    # ------------------------------------------------------------------
+    def preempt_youngest(self, *, snapshot: bool = False) -> str | None:
+        """Evict the youngest decoding sequence; returns its uid (None when
+        nothing is decoding).
+
+        Default: discard the slot's state and requeue the request — it
+        re-prefills on re-admission and the ``(seed, token_index)``-keyed
+        sampler regenerates a byte-identical stream (emitted deltas are
+        de-duplicated). ``snapshot=True`` parks a host copy of the slot's
+        constant-size state instead; re-admission restores it and decoding
+        resumes without re-prefill."""
+        decoding = [(seq.order, slot) for slot, seq in self.slots.items()
+                    if seq.phase == "decode"]
+        if not decoding:
+            return None
+        _, slot = max(decoding)
+        return self._preempt_slot(slot, snapshot=snapshot)
+
+    def _preempt_slot(self, slot: int, snapshot: bool = False) -> str:
+        seq = self.slots[slot]
+        uid = seq.request.uid
+        if snapshot and seq.phase == "decode" and seq.tokens:
+            self._snapshots[uid] = (self.bank.snapshot(slot),
+                                    list(seq.tokens))
+        self._release(slot)
+        self.stats["preemptions"] += 1
+        h = seq.handle
+        h.preemptions += 1
+        if (self.max_preemptions is not None
+                and h.preemptions > self.max_preemptions):
+            self._finish_handle(
+                h, FinishReason.PREEMPTED,
+                error=f"request {uid}: preempted {h.preemptions} times "
+                      f"(max_preemptions={self.max_preemptions})",
+            )
+        else:
+            self._events.append(
+                StreamEvent(uid, "preempted", t=time.perf_counter())
+            )
+            self.admission.requeue(seq.request, h.arrival)
+        return uid
+
+    # ------------------------------------------------------------------
+    # stepping
+    # ------------------------------------------------------------------
+    def _has_decodable(self) -> bool:
+        return any(seq.phase == "decode" for seq in self.slots.values())
+
+    def step(self) -> list[StreamEvent]:
+        """Interleaved step: admit, advance the oldest in-flight prefill by
+        one chunk, then run one decode step over every decoding slot. Cold
+        start (nothing decodable yet) drains prefill chunks back to back so
+        the first token is never gated on an empty decode batch."""
+        self._admit()
+        while not self._has_decodable():
+            if not self._prefill_step():
+                return self._drain_events()
+            self._admit()
+        self._prefill_step()
+        self._decode_once()
+        return self._drain_events()
+
+    def _prefill_step(self) -> bool:
+        cand = [(q.order, s) for s, q in self.slots.items()
+                if q.phase == "prefill"]
+        if not cand:
+            return False
+        _, slot = min(cand)
+        seq = self.slots[slot]
+        prompt = seq.request.prompt
+        c = self.prefill_chunk
+        start = seq.prefill_pos
+        valid = min(c, len(prompt) - start)
+        tokens = np.zeros(c, np.int32)
+        tokens[:valid] = prompt[start:start + valid]
+        tok = self.executor.prefill_chunk(slot, seq, tokens, start, valid)
+        self.stats["prefill_chunks"] += 1
+        self.utilization.record_batch(decode_rows=0, prefill_rows=valid,
+                                      padded_rows=c - valid, fused=False)
+        seq.prefill_pos += valid
+        if seq.prefill_pos >= len(prompt):
+            self._first_token(slot, seq, tok)
+        return True
+
+    def _decode_inputs(self) -> DecodeInputs:
+        s = self.max_slots
+        active = np.zeros(s, np.int32)
+        tokens = np.zeros((s, 1), np.int32)
+        top_ks = np.zeros(s, np.int32)
+        seeds = np.zeros(s, np.int32)
+        idx = np.zeros(s, np.int32)
+        temps = np.zeros(s, np.float32)
+        top_ps = np.ones(s, np.float32)
+        greedy = True
+        for slot, seq in self.slots.items():
+            if seq.phase != "decode":
+                continue
+            sp = seq.request.sampling
+            active[slot] = 1
+            tokens[slot, 0] = seq.tokens[-1]
+            top_ks[slot] = sp.top_k
+            seeds[slot] = seq.handle.seed
+            idx[slot] = len(seq.tokens)
+            temps[slot] = sp.temperature
+            top_ps[slot] = sp.top_p
+            if sp.temperature > 0:
+                greedy = False
+        return DecodeInputs(
+            tokens=tokens, temps=temps, top_ks=top_ks, top_ps=top_ps,
+            seeds=seeds, idx=idx, active=active,
+            block_tables=np.zeros((s, 0), np.int32),
+            lengths=np.zeros(s, np.int32), greedy_only=greedy,
+        )
+
+    def _decode_once(self) -> None:
+        decoding = sorted(s for s, q in self.slots.items()
+                          if q.phase == "decode")
+        if not decoding:
+            return
+        if self._dirty:
+            self.executor.refresh(self._decode_inputs())
+            self._dirty = False
+        toks = self.executor.decode()
+        self.stats["decode_steps"] += 1
+        self.utilization.record(active=len(decoding), slots=self.max_slots,
+                                pages_used=None, pages_total=None)
+        self.utilization.record_batch(
+            decode_rows=len(decoding), prefill_rows=0,
+            padded_rows=self.max_slots - len(decoding), fused=False,
+        )
+        now = time.perf_counter()
+        for slot in decoding:
+            seq = self.slots[slot]
+            tok = int(toks[slot])
+            seq.tokens.append(tok)
+            if self._deliver(seq.handle, tok, len(seq.tokens) - 1, now):
+                self._release(slot)

@@ -3,10 +3,10 @@
 An AST walk of every file under ``src/repro_torch/`` and of
 ``chip_smoke.py`` asserts that none imports ``jax``/``jaxlib`` or any
 ``repro`` module (``repro_torch`` is the port itself), and that no ``try``
-around a paged-attention op or kernel launch has a handler that carries on
-instead of raising, and that no handler anywhere calls a plain version or
-an op: a CUDA tensor reaches its kernel or an error, never the plain
-version behind the caller's back.
+around a paged-attention or SSD op or kernel launch has a handler that
+carries on instead of raising, and that no handler anywhere calls a plain
+version or an op: a CUDA tensor reaches its kernel or an error, never the
+plain version behind the caller's back.
 """
 
 import ast
@@ -23,8 +23,11 @@ KERNEL_CALLS = {
     "paged_attention_bkgd", "paged_prefill_attention_ckgd",
     "paged_mixed_attention_rkgd", "paged_attention_decode",
     "paged_attention_prefill", "paged_attention_mixed",
+    "ssd_scan", "ssd_decode_step", "ssd_scan_bshp", "ssd_decode_step_bh",
+    "ssd_scan_chunked", "ssd_decode",
     # the model steps that reach them
     "decode_step_paged", "prefill_chunk", "mixed_step_paged",
+    "decode_step_ssm", "prefill_chunk_ssm",
 }
 
 
@@ -54,6 +57,7 @@ def _called_names(node):
 def test_port_files_found():
     assert len(PORT_FILES) > 20
     assert (REPO / "src/repro_torch/kernels/csrc/paged_attention.cu").exists()
+    assert (REPO / "src/repro_torch/kernels/csrc/ssd_scan.cu").exists()
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=_ids(PORT_FILES))
@@ -72,10 +76,11 @@ def test_no_fallback_around_kernel_launches(path):
             continue
         for handler in node.handlers:
             called = set(_called_names(handler))
-            assert not {n for n in called if n.startswith("paged_")} | (
+            assert not {n for n in called
+                        if n.startswith(("paged_", "ssd_"))} | (
                 called & KERNEL_CALLS), (
                 f"{path.name}:{handler.lineno}: an except handler runs "
-                f"attention itself (a fallback)")
+                f"attention or the SSD itself (a fallback)")
         body_calls = {n for stmt in node.body for n in _called_names(stmt)}
         if not body_calls & KERNEL_CALLS:
             continue

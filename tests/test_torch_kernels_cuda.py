@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels (paged attention, Mamba2 SSD) against their
+plain versions, on the card.
 
 Marked ``cuda``: these skip without a GPU (the kernels have no CPU mode;
 the CPU suite holds the plain versions against JAX in
@@ -51,3 +52,56 @@ def test_kernels_on_card(dtype):
                                        impl="ref")
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=0)
     assert (out[50:] == 0).all()
+
+
+def _ssd_inputs(g, b, s, h, p, n, dt_):
+    """The JAX package's SSD test distribution (tests/test_kernels.py):
+    x ~ N(0, 1), dt in [0.1, 1), A in (-1.1, -0.1], B/C ~ N(0, 1/N)."""
+    x = torch.randn(b, s, h, p, generator=g, device="cuda").to(dt_)
+    dt = 0.1 + 0.9 * torch.rand(b, s, h, generator=g, device="cuda")
+    A = -torch.rand(h, generator=g, device="cuda") - 0.1
+    Bm = (torch.randn(b, s, n, generator=g, device="cuda") / n ** 0.5).to(dt_)
+    Cm = (torch.randn(b, s, n, generator=g, device="cuda") / n ** 0.5).to(dt_)
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernels_on_card(dtype):
+    """Both SSD kernels against their plain versions at mamba2-1.3b widths
+    (H 64, P 64, N 128): f32 within 1e-3, bf16 within 5e-2 (atol and
+    rtol, the JAX package's SSD bf16 bound). Scan cases: a chunk with a
+    dt = 0 tail (valid < C) from a non-zero init_state, and S spanning
+    several of the kernel's 64-token sub-chunks with a ragged end. Decode:
+    idle slots keep their state bit for bit, in place and out of place."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dt_ = getattr(torch, dtype)
+    tol = 1e-3 if dtype == "float32" else 5e-2
+    g = torch.Generator(device="cuda").manual_seed(0)
+    h, p, n = 64, 64, 128
+    for b, s, valid, with_init in ((1, 64, 41, True), (2, 200, 200, False)):
+        x, dt, A, Bm, Cm = _ssd_inputs(g, b, s, h, p, n, dt_)
+        dt[:, valid:] = 0.0
+        init = (torch.randn(b, h, p, n, generator=g, device="cuda")
+                if with_init else None)
+        y, fs = ops.ssd_scan(x, dt, A, Bm, Cm, init_state=init, chunk=256)
+        yr, fsr = ops.ssd_scan(x, dt, A, Bm, Cm, init_state=init, chunk=256,
+                               impl="ref")
+        torch.testing.assert_close(y.float(), yr.float(), atol=tol, rtol=tol)
+        torch.testing.assert_close(fs, fsr, atol=tol, rtol=tol)
+    b = 8
+    state = torch.randn(b, h, p, n, generator=g, device="cuda")
+    x, dt, A, Bm, Cm = _ssd_inputs(g, b, 1, h, p, n, dt_)
+    x, dt, Bm, Cm = x[:, 0], dt[:, 0], Bm[:, 0], Cm[:, 0]
+    active = torch.tensor([1, 0, 1, 1, 0, 1, 1, 0], dtype=torch.int32,
+                          device="cuda")
+    yr, sr = ops.ssd_decode_step(state.clone(), x, dt, A, Bm, Cm,
+                                 active=active, impl="ref")
+    before = state.clone()
+    y, s_out = ops.ssd_decode_step(state, x, dt, A, Bm, Cm, active=active)
+    assert s_out.data_ptr() == state.data_ptr()
+    idle = active == 0
+    assert torch.equal(state[idle], before[idle])
+    torch.testing.assert_close(state, sr, atol=tol, rtol=tol)
+    torch.testing.assert_close(y.float(), yr.float(), atol=tol, rtol=tol)

@@ -190,5 +190,5 @@ def test_entry_points_refuse_cuda_without_a_card():
     cfg = reduced(ARCHS["smollm-360m"])
     with pytest.raises(RuntimeError, match="CUDA"):
         build_model(cfg)  # device defaults to cuda
-    with pytest.raises(NotImplementedError, match="A.8"):
-        build_model(reduced(ARCHS["mamba2-1.3b"]), device="cpu")
+    with pytest.raises(NotImplementedError, match="A.8b"):
+        build_model(reduced(ARCHS["zamba2-2.7b"]), device="cpu")

@@ -36,7 +36,39 @@ Phases (any failure exits non-zero):
    depth until the argmax flips (the phase prints the one-chunk logit gap
    at 32 and at 2 layers to show it).
 
-6. ssd      — both Mamba2 SSD kernels against their plain versions on the
+6. flash    — the flash-attention kernel against its plain version
+   (``ref.flash_attention_chunked``) at smollm widths (H 15, KVH 5, D 64):
+   bf16 within 2e-2 and f32 within 1e-3. Fixed cases at B 8: causal with
+   Sq = Skv in {1, 64, 100, 256, 300, 512}, causal with Sq 64 < Skv 320,
+   non-causal with Sq 37, Skv 300; at B 1 every whole-prompt bucket from
+   128 to 1024. Then every (B, S) that phases 7 and 8 gave the kernel, as
+   recorded from their prefills (the check runs after them for that
+   reason). The ragged lengths go to the kernel's wrapper directly (the op
+   keeps the reference's Skv-multiple-of-256 rule). Before the engines it
+   times the kernel, its plain version and ``F.scaled_dot_product_attention
+   (..., is_causal=True, enable_gqa=True)`` (which the port never calls) at
+   the two engine shapes: lockstep (B 8, S 256) and whole-prompt (B 1,
+   S 512), cycling over 32 layers' inputs.
+7. lockstep — full-width smollm-360m through ``GenerationEngine(max_batch=8,
+   max_len=512)``: 16 requests of 64-256 prompt tokens (every batch's
+   longest prompt inside the reference's flash contract), 32 new tokens
+   each, greedy and seeded top-p alternating. Every request finishes by
+   length and the flash launch count (reset just before) is 32 per
+   prefilled batch. Prints tok/s, TTFT, ITL and a profiler window.
+8. whole-prompt — full-width smollm-360m through
+   ``ContinuousBatchingEngine(max_slots=8, page_size=16, prefill_chunk=None,
+   max_len=1024)`` (buckets 128-1024, all inside the contract): 8 requests
+   of 100-600 prompt tokens, 32 new each. Flash launches = 32 per
+   admission, decode-kernel launches > 0. Prints tok/s, TTFT, ITL and a
+   profiler window.
+9. whole-prompt parity — f32, TF32 off: the one-prefill logit gap of the
+   flash kernel to its plain version at 32 and at 2 layers, then at 2
+   layers (PARITY_LAYERS, as phase 5) greedy lockstep streams through the
+   kernels equal those through the plain versions, and the whole-prompt
+   paged engine's streams equal the chunked paged engine's and the
+   lockstep engine's (one request at a time) on the same requests.
+
+10. ssd     — both Mamba2 SSD kernels against their plain versions on the
    card at mamba2-1.3b widths (H 64, P 64, N 128): bf16 within 5e-2 and
    f32 within 1e-3 (atol and rtol; the JAX package's SSD bounds). Scan
    cases: a 64-token chunk whose tail has dt = 0 (valid 41 < C) from a
@@ -47,14 +79,14 @@ Phases (any failure exits non-zero):
    version at one engine step's shapes (decode: 8 slots, 2 of them idle;
    scan: one 64-token chunk of one sequence), cycling over 48 layers'
    states.
-7. mamba2   — full-width mamba2-1.3b (bf16, seeded random weights, 48
+11. mamba2  — full-width mamba2-1.3b (bf16, seeded random weights, 48
    layers) served by ``SSMEngine(max_slots=8, prefill_chunk=64,
    max_len=512)``: 8 requests of 64-400 prompt tokens, 24 new tokens each,
    greedy and seeded top-p alternating. Every request must finish by
    length and both SSD launch counts (reset just before this run) must be
    > 0. Prints tok/s, TTFT and ITL and a torch.profiler window (device
    busy share, the SSD kernels' share of it, the top device ops).
-8. mamba2 parity — f32 with TF32 off, at the full 48 layers (the SSD
+12. mamba2 parity — f32 with TF32 off, at the full 48 layers (the SSD
    kernels keep the one-chunk logit gap to plain far below the argmax
    margin, unlike the smollm phase's attention, so no depth cut): the
    one-chunk logit gap to plain must stay under 1e-3, greedy streams
@@ -64,11 +96,13 @@ Phases (any failure exits non-zero):
 
 Kernel and plain times are device time per call: the calls are enqueued
 behind a sleep kernel and timed with CUDA events, so the host's per-call
-overhead stays out (``_time_ms``). The whole script takes about 7
-minutes on an H100 (8 s of it the parallel ``nvcc`` builds).
+overhead stays out (``_time_ms``). The whole script takes about 9
+minutes on an H100 (about 11 s of it the parallel ``nvcc`` builds).
 
-The line before the last is ``{"kernels": [...]}`` (all five ported
-kernels); the last line is ``{"ok": true, "device": {...}}``.
+The line before the last is ``{"kernels": [...]}`` (all six ported
+kernels); each kernel's ``launches`` is the sum of ``launches_by_path``,
+the counts read after each engine path that ran it (each reset just
+before its path). The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -85,6 +119,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 PAGED_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
 SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 # kernel -> (its CUDA source, the Pallas function it replaces)
 KERNELS = {
     "paged_attention_bkgd": (
@@ -95,6 +130,8 @@ KERNELS = {
         PAGED_SOURCE, "src/repro/kernels/paged_attention.py:443"),
     "ssd_scan_bshp": (SSD_SOURCE, "src/repro/kernels/ssd_scan.py:89"),
     "ssd_decode_step_bh": (SSD_SOURCE, "src/repro/kernels/ssd_scan.py:146"),
+    "flash_attention_bhsd": (
+        FLASH_SOURCE, "src/repro/kernels/flash_attention.py:87"),
 }
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12       # dense bf16 tensor-core peak
@@ -107,6 +144,8 @@ PARITY_LAYERS = 2
 # mamba2-1.3b: SSD widths, layers, and the engine's shape
 SSD_H, SSD_P, SSD_N, M_LAYERS, M_MAX_LEN = 64, 64, 128, 48, 512
 SSD_BF16_TOL, SSD_F32_TOL = 5e-2, 1e-3
+# smollm-360m's whole-prompt paths: q heads, the engines' shapes
+FLASH_H, LOCK_BATCH, LOCK_MAX_LEN, WHOLE_MAX_LEN = KVH * G, 8, 512, 1024
 
 
 def log(msg: str) -> None:
@@ -342,7 +381,7 @@ def time_kernels(torch, F, ops, ref):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the SSD kernels against their plain versions
+# phase 10: the SSD kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 
@@ -537,9 +576,48 @@ def _drive(torch, engine, reqs):
     return handles, steps
 
 
-def run_engine(torch, np, cfg, serving, models, pk, card):
+def _random_requests(serving, n, rng, sampled_every, *, lo, hi, max_new,
+                     uid, vocab, seed0):
+    """n requests of random prompts of lo..hi tokens, max_new new tokens
+    each; every ``sampled_every``-th one (from the second) seeded top-p,
+    the rest greedy."""
+    reqs = []
+    for i in range(n):
+        prompt = rng.integers(1, vocab, int(rng.integers(lo, hi + 1)))
+        sp = (serving.SamplingParams(temperature=0.8, top_p=0.9,
+                                     max_new_tokens=max_new, seed=seed0 + i)
+              if sampled_every and i % sampled_every == 1 else
+              serving.SamplingParams(max_new_tokens=max_new, seed=seed0 + i))
+        reqs.append(serving.Request(f"{uid}{i}", prompt.tolist(),
+                                    sampling=sp))
+    return reqs
+
+
+def _check_served(np, cfg, results, max_new):
+    bad = [(r.uid, r.finish_reason.value) for r in results
+           if r.finish_reason.value != "length" or len(r.tokens) != max_new]
+    if bad:
+        raise AssertionError(f"requests not finished by length: {bad}")
+    for r in results:
+        toks = np.asarray(r.tokens)
+        if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+            raise AssertionError(f"{r.uid}: token out of vocab")
+
+
+def _log_run(name, cfg, card, reqs, results, wall, steps, extra):
     from repro_torch.serving.metrics import latency_percentiles
 
+    lat = latency_percentiles(results)
+    n_tok = sum(len(r.tokens) for r in results)
+    log(f"{name} {cfg.name} bf16 on {card}: {len(results)}/{len(reqs)} "
+        f"requests ({sum(len(r.prompt) for r in reqs)} prompt tokens), "
+        f"{n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} tok/s;"
+        f" TTFT p50 {lat['ttft_ms'][0]:.1f} ms p99 {lat['ttft_ms'][2]:.1f} ms;"
+        f" ITL p50 {lat['itl_ms'][0]:.2f} ms p99 {lat['itl_ms'][2]:.2f} ms")
+    log(f"{name} steps {steps}: {extra}")
+
+
+def run_engine(torch, np, cfg, serving, models, pk, card):
     params = models.build_model(cfg, device="cuda").init(seed=0)
     engine_kw = dict(max_len=MAX_LEN, max_slots=SLOTS, page_size=PAGE,
                      prefill_chunk=CHUNK, device="cuda")
@@ -555,31 +633,20 @@ def run_engine(torch, np, cfg, serving, models, pk, card):
     wall = time.perf_counter() - t0
     launches = dict(pk.LAUNCHES)
     results = [h.result() for h in handles]
-    bad = [(r.uid, r.finish_reason.value) for r in results
-           if r.finish_reason.value != "length" or len(r.tokens) != 32]
-    if bad:
-        raise AssertionError(f"requests not finished by length: {bad}")
+    _check_served(np, cfg, results, 32)
     hits = engine.cache.stats["prefix_hits"]
     if hits <= 0:
         raise AssertionError("no prefix hits on the shared-prefix requests")
     if not all(launches[k] > 0 for k in launches):
         raise AssertionError(f"a route never ran its kernel: {launches}")
-    for r in results:
-        toks = np.asarray(r.tokens)
-        if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
-            raise AssertionError(f"{r.uid}: token out of vocab")
-    lat = latency_percentiles(results)
-    n_tok = sum(len(r.tokens) for r in results)
     st = engine.stats
-    log(f"engine {cfg.name} bf16 on {card}: {len(results)}/{len(reqs)} "
-        f"requests, {n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} tok/s;"
-        f" TTFT p50 {lat['ttft_ms'][0]:.1f} ms p99 {lat['ttft_ms'][2]:.1f} ms;"
-        f" ITL p50 {lat['itl_ms'][0]:.2f} ms p99 {lat['itl_ms'][2]:.2f} ms")
-    log(f"engine steps {steps}: decode_steps {st['decode_steps']}, "
-        f"prefill_chunks {st['prefill_chunks']}, preemptions "
-        f"{st['preemptions']}, prefix hits {hits} "
-        f"({engine.cache.stats['prefix_tokens_reused']} tokens reused); "
-        f"kernel launches {launches} over {LAYERS} layers per dispatch")
+    _log_run("engine", cfg, card, reqs, results, wall, steps,
+             f"decode_steps {st['decode_steps']}, prefill_chunks "
+             f"{st['prefill_chunks']}, preemptions {st['preemptions']}, "
+             f"prefix hits {hits} "
+             f"({engine.cache.stats['prefix_tokens_reused']} tokens "
+             f"reused); kernel launches {launches} over {LAYERS} layers per "
+             f"dispatch")
     log("utilization: " + engine.utilization.format())
     del engine
     _trace(torch,
@@ -695,71 +762,333 @@ def run_parity(torch, np, cfg, serving, models):
 
 
 # ---------------------------------------------------------------------------
-# phases 7-8: the mamba2 SSM engine
+# phases 6-9: the flash kernel, the lockstep and whole-prompt engines
 # ---------------------------------------------------------------------------
 
 
-def _mamba_requests(serving, n, rng, sampled_every, max_new=24,
-                    lo=64, hi=400):
-    reqs = []
-    for i in range(n):
-        prompt = rng.integers(1, 50280, int(rng.integers(lo, hi + 1)))
-        sp = (serving.SamplingParams(temperature=0.8, top_p=0.9,
-                                     max_new_tokens=max_new, seed=2000 + i)
-              if sampled_every and i % sampled_every == 1 else
-              serving.SamplingParams(max_new_tokens=max_new, seed=2000 + i))
-        reqs.append(serving.Request(f"m{i}", prompt.tolist(), sampling=sp))
-    return reqs
+def _flash_plain(ref, q, k, v, causal):
+    """The plain version on the kernel's (B, H, S, D) layout: the op's
+    chunked reference, one K/V block when Skv is ragged."""
+    skv = k.shape[2]
+    out = ref.flash_attention_chunked(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=causal, chunk_kv=256 if skv % 256 == 0 else skv)
+    return out.transpose(1, 2)
+
+
+def check_flash(torch, fk, ref, engine_shapes):
+    """The flash kernel against its plain version at smollm widths: fixed
+    ragged and contract cases, every whole-prompt bucket, and each
+    (B, S) in ``engine_shapes`` (the prefills the engine phases ran).
+    Returns the max abs error over the bf16 cases and logs the f32 ones."""
+    cases = [(LOCK_BATCH, s, s, True) for s in (1, 64, 100, 256, 300, 512)]
+    cases += [(LOCK_BATCH, 64, 320, True), (LOCK_BATCH, 37, 300, False)]
+    buckets = [1 << i for i in range(7, WHOLE_MAX_LEN.bit_length())]
+    shapes = sorted({(1, s) for s in buckets} | set(engine_shapes))
+    cases += [(b, s, s, True) for b, s in shapes if (b, s, s, True)
+              not in cases]
+    err_bf16 = 0.0
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        label = str(dtype).removeprefix("torch.")
+        g = torch.Generator(device="cuda").manual_seed(31)
+        worst = 0.0
+        for b, sq, skv, causal in cases:
+            q = torch.randn(b, FLASH_H, sq, D, generator=g,
+                            device="cuda").to(dtype)
+            k, v = (torch.randn(b, KVH, skv, D, generator=g,
+                                device="cuda").to(dtype) for _ in range(2))
+            got = fk.flash_attention_bhsd(q, k, v, causal=causal)
+            want = _flash_plain(ref, q, k, v, causal)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            if not err <= tol:
+                raise AssertionError(
+                    f"flash_attention_bhsd [{label} B={b} Sq={sq} Skv={skv} "
+                    f"causal={causal}]: max abs err {err} > {tol}")
+            worst = max(worst, err)
+        log(f"flash kernel check {label}: {len(cases)} cases (H {FLASH_H}, "
+            f"KVH {KVH}, D {D}; B 8: Sq=Skv 1..512, Sq 64 < Skv 320, "
+            f"non-causal 37 x 300; B 1: buckets {buckets}; engine (B, S) "
+            f"{sorted(set(engine_shapes))}): max abs err {worst:.3e} "
+            f"(bound {tol})")
+        if dtype == torch.bfloat16:
+            err_bf16 = worst
+    return {"flash_attention_bhsd": err_bf16}
+
+
+def _flash_bound(b, sq, skv, causal, elt):
+    """Least time for one flash call: q, k, v read once and out written
+    once, against 4 D H flops per attended (query, key) pair at the
+    inputs' type's peak. Returns (ms, 'bytes' | 'operations')."""
+    nbytes = elt * D * b * (2 * FLASH_H * sq + 2 * KVH * skv)
+    off = skv - sq
+    pairs = (sum(off + i + 1 for i in range(sq)) if causal else sq * skv) * b
+    flops = 4 * D * FLASH_H * pairs
+    rate = BF16_FLOP_PER_S if elt == 2 else F32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def time_flash(torch, F, fk, ref):
+    """kernel / plain / SDPA times (ms) and the bound at the two engine
+    shapes (bf16, causal), each cycling over 32 layers' inputs so every
+    launch reads them from HBM. Returns the lockstep shape's row (the one
+    the kernels line carries) and logs both."""
+    rows = {}
+    for label, b, s in (("lockstep", LOCK_BATCH, 256), ("whole-prompt", 1,
+                                                        512)):
+        g = torch.Generator(device="cuda").manual_seed(32)
+        qs = torch.randn(LAYERS, b, FLASH_H, s, D, generator=g,
+                         device="cuda").to(torch.bfloat16)
+        ks, vs = (torch.randn(LAYERS, b, KVH, s, D, generator=g,
+                              device="cuda").to(torch.bfloat16)
+                  for _ in range(2))
+        # the plain version's own (B, S, H, D) layout, made in advance
+        qt, kt, vt = (x.transpose(2, 3).contiguous() for x in (qs, ks, vs))
+
+        def kernel(i):
+            l = i % LAYERS
+            fk.flash_attention_bhsd(qs[l], ks[l], vs[l], causal=True)
+
+        def plain(i):
+            l = i % LAYERS
+            ref.flash_attention_chunked(qt[l], kt[l], vt[l], causal=True,
+                                        chunk_kv=256)
+
+        def library(i):
+            l = i % LAYERS
+            F.scaled_dot_product_attention(qs[l], ks[l], vs[l],
+                                           is_causal=True, enable_gqa=True)
+
+        p1 = _time_ms(torch, plain, iters=32)
+        k1 = _time_ms(torch, kernel)
+        k2 = _time_ms(torch, kernel)
+        p2 = _time_ms(torch, plain, iters=32)
+        lib = _time_ms(torch, library)
+        bound = _flash_bound(b, s, s, True, 2)
+        rows[label] = dict(ms=min(k1, k2), plain_ms=min(p1, p2),
+                           library_ms=lib, bound_ms=bound[0],
+                           bound_by=bound[1])
+        log(f"timing flash_attention_bhsd {label} (B {b}, S {s}, causal, "
+            f"bf16): kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} "
+            f"ms, sdpa {lib:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]})")
+        del qs, ks, vs, qt, kt, vt
+    return {"flash_attention_bhsd": rows["lockstep"]}
+
+
+def _record_prefills(model):
+    """Record the token shape (B, S) of each of the model's dense prefills
+    (one per lockstep batch or whole-prompt admission) by wrapping its
+    entry point; the flash kernel sees (B, H, S, D) at each."""
+    shapes = []
+    inner = model.prefill
+
+    def prefill(batch, *a, **kw):
+        shapes.append(tuple(batch["tokens"].shape))
+        return inner(batch, *a, **kw)
+
+    model.prefill = prefill
+    return shapes
+
+
+def run_lockstep(torch, np, cfg, serving, models, fk, card):
+    """Full-width smollm-360m through the lockstep engine; returns the
+    flash kernel's launch count over the measured run and the (B, S) of
+    its prefills."""
+    params = models.build_model(cfg, device="cuda").init(seed=0)
+    kw = dict(max_len=LOCK_MAX_LEN, max_batch=LOCK_BATCH, device="cuda")
+    rng = np.random.default_rng(40)
+    # warm-up (cuBLAS handles, allocator, first launches): not measured
+    _drive(torch, serving.GenerationEngine(cfg, params, **kw),
+           _random_requests(serving, 2, rng, 2, lo=64, hi=256, max_new=4,
+                            uid="l", vocab=49152, seed0=3000))
+    engine = serving.GenerationEngine(cfg, params, **kw)
+    prefills = _record_prefills(engine.model)
+    reqs = _random_requests(serving, 16, rng, 2, lo=64, hi=256, max_new=32,
+                            uid="l", vocab=49152, seed0=3000)
+    fk.reset_launches()
+    t0 = time.perf_counter()
+    handles, steps = _drive(torch, engine, reqs)
+    wall = time.perf_counter() - t0
+    launches = fk.LAUNCHES["flash_attention_bhsd"]
+    results = [h.result() for h in handles]
+    _check_served(np, cfg, results, 32)
+    if not (prefills and launches == LAYERS * len(prefills)):
+        raise AssertionError(f"flash launches {launches} != {LAYERS} x "
+                             f"{len(prefills)} prefilled batches")
+    _log_run("lockstep", cfg, card, reqs, results, wall, steps,
+             f"{len(prefills)} prefilled batches (B, S) {prefills}; flash "
+             f"launches {launches} = {LAYERS} layers x {len(prefills)}; peak "
+             f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+             f" GiB")
+    log("utilization: " + engine.utilization.format())
+    del engine
+    _trace(torch, lambda: serving.GenerationEngine(cfg, params, **kw),
+           _random_requests(serving, 8, np.random.default_rng(41), 0, lo=64,
+                            hi=256, max_new=32, uid="l", vocab=49152, seed0=3000),
+           ("flash_attention_kernel",), "flash kernel")
+    return launches, prefills
+
+
+def run_whole_prompt(torch, np, cfg, serving, models, fk, pk, card):
+    """Full-width smollm-360m through the paged engine with whole-prompt
+    prefill; returns the flash and paged kernels' launch counts over the
+    measured run and the (B, S) of its prefills."""
+    params = models.build_model(cfg, device="cuda").init(seed=0)
+    kw = dict(max_len=WHOLE_MAX_LEN, max_slots=SLOTS, page_size=PAGE,
+              prefill_chunk=None, device="cuda")
+    rng = np.random.default_rng(50)
+    _drive(torch, serving.ContinuousBatchingEngine(cfg, params, **kw),
+           _random_requests(serving, 2, rng, 2, lo=100, hi=600, max_new=4,
+                            uid="w", vocab=49152, seed0=3000))
+    engine = serving.ContinuousBatchingEngine(cfg, params, **kw)
+    prefills = _record_prefills(engine.model)
+    reqs = _random_requests(serving, 8, rng, 2, lo=100, hi=600, max_new=32,
+                            uid="w", vocab=49152, seed0=3000)
+    fk.reset_launches()
+    pk.reset_launches()
+    t0 = time.perf_counter()
+    handles, steps = _drive(torch, engine, reqs)
+    wall = time.perf_counter() - t0
+    launches = fk.LAUNCHES["flash_attention_bhsd"]
+    paged = dict(pk.LAUNCHES)
+    results = [h.result() for h in handles]
+    _check_served(np, cfg, results, 32)
+    st = engine.stats
+    if not (st["prefills"] == len(reqs) and st["preemptions"] == 0
+            and len(prefills) == st["prefills"]
+            and launches == LAYERS * st["prefills"]):
+        raise AssertionError(f"flash launches {launches} != {LAYERS} x "
+                             f"{st['prefills']} admissions ({st})")
+    if not paged["paged_attention_bkgd"] > 0:
+        raise AssertionError(f"the decode kernel never ran: {paged}")
+    _log_run("whole-prompt", cfg, card, reqs, results, wall, steps,
+             f"{st['prefills']} whole-prompt prefills ((B, S) {sorted(set(prefills))}), "
+             f"decode_steps {st['decode_steps']}, prefill_chunks "
+             f"{st['prefill_chunks']}; flash launches {launches} = {LAYERS} "
+             f"layers x {st['prefills']}; paged launches {paged}")
+    log("utilization: " + engine.utilization.format())
+    del engine
+    _trace(torch, lambda: serving.ContinuousBatchingEngine(cfg, params, **kw),
+           _random_requests(serving, 8, np.random.default_rng(51), 0, lo=100,
+                            hi=600, max_new=32, uid="w", vocab=49152, seed0=3000),
+           ("flash_attention_kernel", "paged_attention_kernel"),
+           "flash + paged kernels")
+    return launches, paged, prefills
+
+
+def run_whole_prompt_parity(torch, np, cfg, serving, models):
+    """f32 with TF32 off: the flash kernel's one-prefill logit gap to its
+    plain version at 32 and 2 layers; then, at PARITY_LAYERS, greedy
+    lockstep streams through kernels = through plain versions, and the
+    whole-prompt paged engine = the chunked paged engine = lockstep one
+    request at a time, on the same requests."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(6)
+    toks = np.zeros((2, 256), np.int32)  # a left-padded lockstep batch
+    toks[0] = rng.integers(1, cfg.vocab_size, 256)
+    toks[1, 56:] = rng.integers(1, cfg.vocab_size, 200)
+    batch = {"tokens": torch.from_numpy(toks).cuda()}
+    for layers in (LAYERS, PARITY_LAYERS):
+        cfg32 = dataclasses.replace(cfg, dtype="float32", num_layers=layers)
+        model = models.build_model(cfg32, device="cuda")
+        model.init(seed=1)
+        logits = {}
+        for impl in ("auto", "ref"):
+            model.attn_impl = impl
+            logits[impl] = model.prefill(batch, 256)[1][:, :cfg.vocab_size]
+        a, b = logits["auto"], logits["ref"]
+        gap = (a - b).abs().max().item()
+        top2 = b.topk(2, dim=-1).values
+        log(f"whole-prompt parity: {layers} layers, one prefill (B 2, S 256,"
+            f" left-padded): max |logit kernel - plain| = {gap:.3e}, argmax "
+            f"{a.argmax(-1).tolist()} vs {b.argmax(-1).tolist()}, plain "
+            f"top-2 margin {(top2[:, 0] - top2[:, 1]).min().item():.3e}")
+        if layers == PARITY_LAYERS and not gap < 1e-3:
+            raise AssertionError(f"kernel vs plain logits differ by {gap}")
+        del model
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                num_layers=PARITY_LAYERS)
+    params = models.build_model(cfg32, device="cuda").init(seed=1)
+
+    def requests():
+        return _random_requests(serving, 5, np.random.default_rng(3), 0,
+                                lo=70, hi=200, max_new=16, uid="g",
+                                vocab=49152, seed0=3000)
+
+    def streams(engine, one_by_one=False):
+        if one_by_one:
+            return [list(engine.generate([r])[0].tokens) for r in requests()]
+        handles, _ = _drive(torch, engine, requests())
+        return [list(h.tokens) for h in handles]
+
+    runs = {}
+    for impl in ("auto", "ref"):
+        runs[f"lockstep {impl}"] = streams(serving.GenerationEngine(
+            cfg32, params, max_len=LOCK_MAX_LEN, max_batch=LOCK_BATCH,
+            attn_impl=impl, device="cuda"))
+    if runs["lockstep auto"] != runs["lockstep ref"]:
+        raise AssertionError(f"f32 lockstep kernel vs plain streams differ: "
+                             f"{runs}")
+    runs["lockstep one by one"] = streams(serving.GenerationEngine(
+        cfg32, params, max_len=LOCK_MAX_LEN, device="cuda"), one_by_one=True)
+    for label, chunk in (("whole-prompt", None), ("chunked", CHUNK)):
+        runs[label] = streams(serving.ContinuousBatchingEngine(
+            cfg32, params, max_len=LOCK_MAX_LEN, max_slots=4, page_size=PAGE,
+            prefill_chunk=chunk, device="cuda"))
+    want = runs["lockstep one by one"]
+    if not runs["whole-prompt"] == runs["chunked"] == want:
+        raise AssertionError(f"f32 whole-prompt / chunked / lockstep streams "
+                             f"differ: {runs}")
+    log(f"whole-prompt parity: {PARITY_LAYERS} layers, full width: 5 greedy "
+        f"streams of 16 tokens identical through the lockstep engine "
+        f"(kernels and plain versions), and whole-prompt paged = chunked "
+        f"paged = lockstep one request at a time")
+
+
+# ---------------------------------------------------------------------------
+# phases 11-12: the mamba2 SSM engine
+# ---------------------------------------------------------------------------
 
 
 def run_mamba_engine(torch, np, cfg, serving, models, sk, card):
     """Full-width mamba2-1.3b through the SSM engine; returns the SSD
     kernels' launch counts over the measured run."""
-    from repro_torch.serving.metrics import latency_percentiles
-
     params = models.build_model(cfg, device="cuda").init(seed=0)
     engine_kw = dict(max_len=M_MAX_LEN, max_slots=SLOTS,
                      prefill_chunk=CHUNK, device="cuda")
     rng = np.random.default_rng(20)
     # warm-up (cuBLAS handles, allocator, first launches): not measured
     _drive(torch, serving.SSMEngine(cfg, params, **engine_kw),
-           _mamba_requests(serving, 2, rng, sampled_every=2, max_new=4))
+           _random_requests(serving, 2, rng, 2, lo=64, hi=400, max_new=4,
+                            uid="m", vocab=50280, seed0=2000))
     engine = serving.SSMEngine(cfg, params, **engine_kw)
-    reqs = _mamba_requests(serving, 8, rng, sampled_every=2)
+    reqs = _random_requests(serving, 8, rng, 2, lo=64, hi=400, max_new=24,
+                            uid="m", vocab=50280, seed0=2000)
     sk.reset_launches()
     t0 = time.perf_counter()
     handles, steps = _drive(torch, engine, reqs)
     wall = time.perf_counter() - t0
     launches = dict(sk.LAUNCHES)
     results = [h.result() for h in handles]
-    bad = [(r.uid, r.finish_reason.value) for r in results
-           if r.finish_reason.value != "length" or len(r.tokens) != 24]
-    if bad:
-        raise AssertionError(f"requests not finished by length: {bad}")
+    _check_served(np, cfg, results, 24)
     if not all(launches[k] > 0 for k in launches):
         raise AssertionError(f"an SSD kernel never ran: {launches}")
-    for r in results:
-        toks = np.asarray(r.tokens)
-        if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
-            raise AssertionError(f"{r.uid}: token out of vocab")
-    lat = latency_percentiles(results)
-    n_tok = sum(len(r.tokens) for r in results)
     st = engine.stats
-    log(f"engine {cfg.name} bf16 on {card}: {len(results)}/{len(reqs)} "
-        f"requests ({sum(len(r.prompt) for r in reqs)} prompt tokens), "
-        f"{n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} tok/s;"
-        f" TTFT p50 {lat['ttft_ms'][0]:.1f} ms p99 {lat['ttft_ms'][2]:.1f} ms;"
-        f" ITL p50 {lat['itl_ms'][0]:.2f} ms p99 {lat['itl_ms'][2]:.2f} ms")
-    log(f"engine steps {steps}: decode_steps {st['decode_steps']}, "
-        f"prefill_chunks {st['prefill_chunks']}, preemptions "
-        f"{st['preemptions']}; kernel launches {launches} over {M_LAYERS} "
-        f"layers per dispatch; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    _log_run("engine", cfg, card, reqs, results, wall, steps,
+             f"decode_steps {st['decode_steps']}, prefill_chunks "
+             f"{st['prefill_chunks']}, preemptions {st['preemptions']}; "
+             f"kernel launches {launches} over {M_LAYERS} layers per "
+             f"dispatch; peak device memory "
+             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log("utilization: " + engine.utilization.format())
     del engine
     _trace(torch, lambda: serving.SSMEngine(cfg, params, **engine_kw),
-           _mamba_requests(serving, 8, np.random.default_rng(21),
-                           sampled_every=0),
+           _random_requests(serving, 8, np.random.default_rng(21), 0, lo=64,
+                            hi=400, max_new=24, uid="m", vocab=50280,
+                            seed0=2000),
            ("ssd_scan_kernel", "ssd_decode_kernel"), "SSD kernels")
     return launches
 
@@ -812,8 +1141,9 @@ def run_mamba_parity(torch, np, cfg, serving, models):
     del model, bank
 
     def requests():
-        return _mamba_requests(serving, 5, np.random.default_rng(3),
-                               sampled_every=0, max_new=16, lo=70, hi=200)
+        return _random_requests(serving, 5, np.random.default_rng(3), 0,
+                                lo=70, hi=200, max_new=16, uid="m",
+                                vocab=50280, seed0=2000)
 
     streams = {}
     for impl in ("auto", "ref"):
@@ -854,6 +1184,7 @@ def main() -> int:
     from repro_torch import models, serving
     from repro_torch.configs import get_arch
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import paged_attention as pk
     from repro_torch.kernels import ssd_scan as sk
 
@@ -878,17 +1209,34 @@ def main() -> int:
     errs = check_kernels(torch, ops)
     times = time_kernels(torch, F, ops, ref)
     cfg = get_arch("smollm-360m")
-    launches = run_engine(torch, np, cfg, serving, models, pk, card)
+    # kernel -> {path: launches read just after that path's run}
+    by_path = {name: {} for name in KERNELS}
+    for name, n in run_engine(torch, np, cfg, serving, models, pk,
+                              card).items():
+        by_path[name]["paged chunked"] = n
     run_parity(torch, np, cfg, serving, models)
+    times.update(time_flash(torch, F, fk, ref))
+    flash, lock_shapes = run_lockstep(torch, np, cfg, serving, models, fk,
+                                      card)
+    by_path["flash_attention_bhsd"]["lockstep"] = flash
+    flash, paged, whole_shapes = run_whole_prompt(
+        torch, np, cfg, serving, models, fk, pk, card)
+    by_path["flash_attention_bhsd"]["whole-prompt"] = flash
+    for name, n in paged.items():
+        by_path[name]["whole-prompt"] = n
+    errs.update(check_flash(torch, fk, ref, lock_shapes + whole_shapes))
+    run_whole_prompt_parity(torch, np, cfg, serving, models)
     errs.update(check_ssd_kernels(torch, ops))
     times.update(time_ssd_kernels(torch, ops))
     mcfg = get_arch("mamba2-1.3b")
-    launches.update(run_mamba_engine(torch, np, mcfg, serving, models, sk,
-                                     card))
+    for name, n in run_mamba_engine(torch, np, mcfg, serving, models, sk,
+                                    card).items():
+        by_path[name]["mamba2"] = n
     run_mamba_parity(torch, np, mcfg, serving, models)
 
     kernels = [dict(name=name, route="cuda", source=source,
-                    replaces=replaces, launches=launches[name],
+                    replaces=replaces, launches=sum(by_path[name].values()),
+                    launches_by_path=by_path[name],
                     max_abs_err=errs[name], **times[name])
                for name, (source, replaces) in KERNELS.items()]
     log(json.dumps({"kernels": kernels}))

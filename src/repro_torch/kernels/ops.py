@@ -1,14 +1,17 @@
-"""Public paged-attention and Mamba2 SSD ops: the hand-written CUDA kernel
-for CUDA tensors, the plain PyTorch version for CPU tensors.
+"""Public attention and Mamba2 SSD ops: the hand-written CUDA kernel for
+CUDA tensors, the plain PyTorch version for CPU tensors.
 
-Ops: ``paged_attention`` (single-token decode over the serving page pool),
+Ops: ``flash_attention`` (dense whole-sequence attention: whole-prompt
+prefill), ``paged_attention`` (single-token decode over the serving page
+pool),
 ``paged_prefill_attention`` (chunked prefill), ``paged_mixed_attention``
 (decode rows + one prefill chunk, one dispatch per engine step),
 ``ssd_scan`` / ``ssd_decode_step`` (Mamba2).
 
 ``impl``:
   * "auto" — where the tensors lie decides: a CUDA tensor launches the
-    kernel of :mod:`repro_torch.kernels.paged_attention` or
+    kernel of :mod:`repro_torch.kernels.flash_attention`,
+    :mod:`repro_torch.kernels.paged_attention` or
     :mod:`repro_torch.kernels.ssd_scan` (which raises on
     anything it does not take; there is no fallback), a CPU tensor runs
     :mod:`repro_torch.kernels.ref`.
@@ -29,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import flash_attention_bhsd
 from repro_torch.kernels.paged_attention import (
     paged_attention_bkgd,
     paged_mixed_attention_rkgd,
@@ -62,6 +66,42 @@ def _grouped(q: torch.Tensor, kvh: int) -> torch.Tensor:
     assert kvh and h % kvh == 0, (
         f"q heads ({h}) must be a multiple of kv heads ({kvh})")
     return q.reshape(n, kvh, h // kvh, d)
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Skv, KVH, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    scale: float | None = None,
+    impl: str = "auto",
+    block_kv: int = 256,
+) -> torch.Tensor:
+    """Multi-head / grouped-query attention. Returns (B, Sq, H, D).
+
+    Keeps the JAX op's length contract: its reference scans K/V in blocks
+    of ``min(block_kv, Skv)`` and refuses an Skv that is not a multiple of
+    that block (``repro/kernels/ref.py`` ``flash_attention_chunked``, and
+    the Pallas kernel likewise), so this op raises ``ValueError`` for the
+    same inputs on every path and both packages serve the same lengths.
+    The kernel itself masks ragged tiles (call
+    :func:`repro_torch.kernels.flash_attention.flash_attention_bhsd`
+    directly for those)."""
+    skv = k.shape[1]
+    chunk = min(block_kv, skv)
+    if chunk and skv % chunk:
+        raise ValueError(
+            f"flash_attention: Skv={skv} is not a multiple of "
+            f"min(block_kv={block_kv}, Skv): the reference scans K/V in "
+            f"blocks of {chunk} and refuses this length")
+    if _use_plain(q, impl, "flash_attention"):
+        return ref.flash_attention_chunked(q, k, v, causal=causal,
+                                           scale=scale, chunk_kv=block_kv)
+    out = flash_attention_bhsd(
+        q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+        v.transpose(1, 2).contiguous(), causal=causal, scale=scale)
+    return out.transpose(1, 2)
 
 
 def paged_attention(

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the paged-attention and Mamba2 SSD kernels.
+"""Plain PyTorch versions of the attention and Mamba2 SSD kernels.
 
 These are the ground truth the hand-written CUDA kernels are held against
 (``chip_smoke.py`` compares them on the card) and the path every op takes
@@ -16,6 +16,12 @@ masks and exact-zero conventions (``repro/kernels/ref.py``):
 * ``paged_mixed_attention_split_ref`` — the same function evaluated as
   decode rows + one chunk, gathering the chunk's K/V once (what
   ``ops.paged_mixed_attention`` runs on the CPU when given ``num_decode``).
+* ``flash_attention_ref``     — dense GQA attention, full score matrix
+  (causal queries are the last Sq of the Skv positions).
+* ``flash_attention_chunked`` — the same function as an online softmax over
+  ``chunk_kv``-sized K/V blocks, in the JAX package's op order
+  (``ops.flash_attention`` runs it on the CPU, as the JAX op runs
+  ``ref.flash_attention_chunked`` there).
 * ``ssd_sequential``  — the literal Mamba2 recurrence, one token at a time.
 * ``ssd_chunked``     — the block (chunked) decomposition of the same scan,
   in the JAX package's op order (``ops.ssd_scan`` runs it on the CPU, as
@@ -156,6 +162,84 @@ def paged_mixed_attention_split_ref(
         q[s:], k_pages, v_pages, block_tables[s], start, valid, scale=scale,
     )
     return torch.cat([dec, chk], dim=0)
+
+
+# ---------------------------------------------------------------------------
+# dense (flash) attention
+# ---------------------------------------------------------------------------
+
+
+def flash_attention_ref(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Skv, KVH, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Naive oracle: the whole (Sq, Skv) score matrix in f32, K/V repeated
+    over the group. Causal queries are the LAST Sq of the Skv positions
+    (``Sq < Skv`` continues a cached prefix). Returns (B, Sq, H, D)."""
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    k = k.repeat_interleave(h // kvh, dim=2)
+    v = v.repeat_interleave(h // kvh, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+        kpos = torch.arange(skv, device=q.device)[None, :]
+        logits = logits.masked_fill(~(kpos <= qpos), NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+    return out.to(q.dtype)
+
+
+def flash_attention_chunked(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Skv, KVH, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    scale: float | None = None,
+    chunk_kv: int = 512,
+) -> torch.Tensor:
+    """Online-softmax attention over ``chunk_kv``-sized K/V blocks, kv heads
+    not repeated. The op order is the JAX reference's: q cast to f32 and
+    scaled before the dot, masked scores set to ``NEG_INF``, ``l`` floored
+    at 1e-30, the output cast back to q's dtype. Like it, this needs Skv to
+    be a multiple of ``min(chunk_kv, Skv)``. Returns (B, Sq, H, D)."""
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    group = h // kvh
+    chunk_kv = min(chunk_kv, skv)
+    assert skv % chunk_kv == 0, (skv, chunk_kv)
+    qg = q.reshape(b, sq, kvh, group, d).float() * scale
+    qpos = torch.arange(sq, device=q.device) + (skv - sq)
+    acc = torch.zeros((b, sq, kvh, group, d), dtype=torch.float32,
+                      device=q.device)
+    m = torch.full((b, sq, kvh, group), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, sq, kvh, group), dtype=torch.float32, device=q.device)
+    for start in range(0, skv, chunk_kv):
+        kblk = k[:, start:start + chunk_kv].float()
+        vblk = v[:, start:start + chunk_kv].float()
+        logits = torch.einsum("bqhgd,bkhd->bqhgk", qg, kblk)
+        if causal:
+            kpos = start + torch.arange(chunk_kv, device=q.device)
+            mask = kpos[None, :] <= qpos[:, None]  # (sq, ckv)
+            logits = torch.where(mask[None, :, None, None, :], logits,
+                                 torch.full_like(logits, NEG_INF))
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        p = torch.exp(logits - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bqhgk,bkhd->bqhgd", p,
+                                                   vblk)
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(b, sq, h, d).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

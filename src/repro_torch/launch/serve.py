@@ -3,8 +3,10 @@ streaming deltas.
 
 Requests land on the ``requests`` topic (Kafka analogue). Worker threads
 each drive one engine — :class:`repro_torch.serving.ContinuousBatchingEngine`
-for the dense family, :class:`repro_torch.serving.SSMEngine` for the
-pure-SSM (mamba2) family — through the engine protocol: pull up to
+for the dense family (``--prefill-chunk 0``: whole-prompt prefill),
+:class:`repro_torch.serving.GenerationEngine` for ``--engine lockstep``,
+:class:`repro_torch.serving.SSMEngine` for the pure-SSM (mamba2) family —
+through the engine protocol: pull up to
 ``engine.capacity()`` messages,
 parse them with the shared boundary parser, ``submit()``, and publish each
 :class:`StreamEvent` to ``responses`` as it happens — per-token ``delta``
@@ -21,12 +23,14 @@ attention and SSD versions on the CPU, for tests and reduced configs):
       --requests 12 --shared-prefix 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
       --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine lockstep \\
+      --reduced --device cpu
 
-Only the driver role of the paged and SSM engines is ported: the hybrid
-(zamba2) family (ROADMAP A.8b), ``--engine lockstep`` (A.7), ``--fleet``
-and ``--role worker`` (A.9) raise or exit with a message naming their
-ROADMAP item; the JAX package's mesh, KV-tier, int8 and speculation flags
-have no counterpart yet (ROADMAP A.5, A.6, A.10).
+Only the driver role of the paged, lockstep and SSM engines is ported: the
+hybrid (zamba2) family (ROADMAP A.8b), ``--fleet`` and ``--role worker``
+(A.9) raise or exit with a message naming their ROADMAP item; the JAX
+package's mesh, KV-tier, int8 and speculation flags have no counterpart
+yet (ROADMAP A.5, A.6, A.10).
 """
 
 from __future__ import annotations
@@ -37,7 +41,6 @@ import time
 from pathlib import Path
 
 _NOT_PORTED = {
-    "engine": "--engine lockstep: the lockstep engine (ROADMAP A.7)",
     "fleet": "--fleet: the supervised fleet (ROADMAP A.9)",
     "role": "--role worker: fleet workers (ROADMAP A.9)",
 }
@@ -54,14 +57,14 @@ def main() -> int:
     ap.add_argument("--requests", type=int, default=24)
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--max-batch", type=int, default=4,
-                    help="paged slot count")
+                    help="lockstep micro-batch size / paged slot count")
     ap.add_argument("--engine", choices=["paged", "lockstep"], default="paged")
     ap.add_argument("--admission", choices=["fifo", "priority", "deadline"],
                     default="fifo", help="admission policy for every worker")
     ap.add_argument("--prefill-chunk", type=int, default=64,
-                    help="prefill chunk size; 0 (whole-prompt prefill) is "
-                         "not ported for the paged engine (ROADMAP A.7) and "
-                         "is one max_len chunk for the SSM engine")
+                    help="prefill chunk size; 0 prefills each prompt whole "
+                         "(paged: one flash-kernel prefill per admission, "
+                         "no prefix sharing; SSM: one max_len chunk)")
     ap.add_argument("--no-prefix-sharing", action="store_true",
                     help="disable COW prefix-page sharing")
     ap.add_argument("--shared-prefix", type=int, default=0, metavar="N",
@@ -87,8 +90,7 @@ def main() -> int:
     ap.add_argument("--role", choices=["driver", "worker"], default="driver")
     ap.add_argument("--workdir", default="experiments/serve_run_torch")
     args = ap.parse_args()
-    unported = {"engine": args.engine == "lockstep", "fleet": args.fleet > 0,
-                "role": args.role == "worker"}
+    unported = {"fleet": args.fleet > 0, "role": args.role == "worker"}
     for flag, hit in unported.items():
         if hit:
             ap.exit(2, f"{ap.prog}: {_NOT_PORTED[flag]} is not ported yet\n")
@@ -103,6 +105,7 @@ def main() -> int:
         ContinuousBatchingEngine,
         DeadlineAdmission,
         FIFOAdmission,
+        GenerationEngine,
         PriorityAdmission,
         SSMEngine,
         UnsupportedConfigError,
@@ -114,11 +117,14 @@ def main() -> int:
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    use_ssm = cfg.family in ("ssm", "hybrid")  # hybrid: SSMEngine raises
-    if cfg.is_encoder_decoder or not (use_ssm or cfg.family == "dense"):
+    ssm_ok = cfg.family in ("ssm", "hybrid")  # hybrid: SSMEngine raises
+    if cfg.is_encoder_decoder or not (ssm_ok or cfg.family == "dense"):
         raise UnsupportedConfigError(
-            f"{cfg.name} (family={cfg.family!r}): only the dense paged and "
-            f"the pure-SSM engines are ported (ROADMAP A.7, A.11)")
+            f"{cfg.name} (family={cfg.family!r}): only the dense (paged, "
+            f"lockstep) and the pure-SSM engines are ported (ROADMAP A.7, "
+            f"A.11)")
+    use_ssm = args.engine == "paged" and ssm_ok
+    use_paged = args.engine == "paged" and not ssm_ok
     workdir = Path(args.workdir)
     workdir.mkdir(parents=True, exist_ok=True)
     bus = TopicBus(workdir / "bus")
@@ -153,6 +159,12 @@ def main() -> int:
                 "deadline": DeadlineAdmission}
 
     def make_engine():
+        if args.engine == "lockstep":  # GenerationEngine refuses non-dense
+            return GenerationEngine(
+                cfg, params, max_len=max_len, max_batch=args.max_batch,
+                admission=policies[args.admission](),
+                attn_impl=args.attn_impl, device=args.device,
+            )
         if use_ssm:
             return SSMEngine(
                 cfg, params, max_len=max_len,
@@ -165,7 +177,7 @@ def main() -> int:
         return ContinuousBatchingEngine(
             cfg, params, max_len=max_len,
             max_slots=max(args.max_batch, 2),
-            prefill_chunk=args.prefill_chunk,
+            prefill_chunk=args.prefill_chunk or None,
             prefix_sharing=not args.no_prefix_sharing,
             admission=policies[args.admission](),
             attn_impl=args.attn_impl,
@@ -267,9 +279,9 @@ def main() -> int:
         raise errors[0]
 
     wall = time.time() - t0
+    kind = "paged" if use_paged else "ssm" if use_ssm else "lockstep"
     print(f"served {len(done)}/{args.requests} requests in {wall:.1f}s "
-          f"({len(done)*args.max_new/wall:.1f} tok/s), "
-          f"engine={'ssm' if use_ssm else 'paged'}, "
+          f"({len(done)*args.max_new/wall:.1f} tok/s), engine={kind}, "
           f"device={args.device}, admission={args.admission}, "
           f"peak workers={len(threads)}")
     summary = format_latency(latencies)

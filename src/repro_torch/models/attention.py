@@ -1,9 +1,20 @@
-"""Attention blocks over the serving page pool: GQA + RoPE (+ optional qk-norm).
+"""Attention blocks: GQA + RoPE (+ optional qk-norm), over a whole
+sequence, a dense per-sequence KV cache, or the serving page pool.
 
-The three paged entry points mirror ``repro/models/attention.py``: each
-writes the rows' new K/V into this layer's page pool IN PLACE, then attends
-through ``kernels.ops`` (the hand-written kernel for CUDA tensors, the plain
-version for CPU tensors).
+Each mirrors ``repro/models/attention.py`` and attends through
+``kernels.ops`` (the hand-written kernel for CUDA tensors, the plain version
+for CPU tensors):
+
+* whole sequence (prefill): ``self_attention`` and
+  ``self_attention_with_cache_write`` (which also returns the K/V that seed
+  a cache), through the flash kernel;
+* dense cache (lockstep decode): ``decode_self_attention`` writes the new
+  K/V into the layer's ``(B, Smax, KVH, Dh)`` cache IN PLACE and attends
+  with ``decode_attention_raw`` (plain f32 einsums, as in the JAX package:
+  it has no Pallas kernel there either);
+* page pool (continuous batching): the three paged entry points write the
+  rows' new K/V into this layer's page pool IN PLACE, then attend through
+  the paged kernels.
 
 Rows that must not write (idle slots, dead rows, chunk padding, null-page
 table entries) write into the pool's SINK page instead: the pool carries
@@ -20,6 +31,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.common import ParamSpec, apply_rope, rms_norm, rope_table
+
+NEG_INF = -1e30
 
 
 def attn_param_specs(cfg: ModelConfig, stacked: int | None = None) -> dict:
@@ -66,9 +79,91 @@ def _project_qkv(p, x, cfg: ModelConfig, positions: torch.Tensor | None,
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """(N, H, Dh) attention output -> (N, D) through wo (H, Dh, D)."""
-    n = out.shape[0]
-    return out.reshape(n, -1) @ wo.reshape(-1, wo.shape[-1])
+    """(..., H, Dh) attention output -> (..., D) through wo (H, Dh, D)."""
+    return out.reshape(*out.shape[:-2], -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+def self_attention(
+    p: dict,
+    x: torch.Tensor,  # (B, S, D)
+    cfg: ModelConfig,
+    *,
+    causal: bool = True,
+    rope: bool = True,
+    positions: torch.Tensor | None = None,  # (S,) int
+    attn_impl: str = "auto",
+) -> torch.Tensor:
+    """Full-sequence self-attention (train / prefill)."""
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    q, k, v = _project_qkv(p, x, cfg, positions, rope)
+    out = ops.flash_attention(q, k, v, causal=causal, impl=attn_impl)
+    return _out_proj(out, p["wo"])
+
+
+def self_attention_with_cache_write(
+    p: dict,
+    x: torch.Tensor,  # (B, S, D)
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor | None = None,  # (S,) int
+    attn_impl: str = "auto",
+    rope: bool = True,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Prefill: the causal attention output AND the K/V ((B, S, KVH, Dh)
+    each, rope-rotated) that seed the cache. Positions default to
+    ``arange(S)``: a left-padded row attends its pad tokens, as in the JAX
+    package."""
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    q, k, v = _project_qkv(p, x, cfg, positions, rope)
+    out = ops.flash_attention(q, k, v, causal=True, impl=attn_impl)
+    return _out_proj(out, p["wo"]), (k, v)
+
+
+def decode_attention_raw(
+    q: torch.Tensor,        # (B, 1, H, Dh)
+    k_cache: torch.Tensor,  # (B, Smax, KVH, Dh)
+    v_cache: torch.Tensor,
+    cache_len: torch.Tensor,  # int scalar: valid positions (incl. current)
+    scale: float,
+) -> torch.Tensor:
+    """One-token attention over a dense KV cache, in f32: positions
+    ``>= cache_len`` (one length for every row) are masked. Returns
+    (B, 1, H, Dh) f32."""
+    b, _, h, hd = q.shape
+    smax, kvh = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(b, kvh, h // kvh, hd).float() * scale
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float())
+    valid = torch.arange(smax, device=q.device) < cache_len
+    scores = scores.masked_fill(~valid, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", probs, v_cache.float())
+    return out.reshape(b, 1, h, hd)
+
+
+def decode_self_attention(
+    p: dict,
+    x: torch.Tensor,      # (B, 1, D)
+    layer_cache: dict,    # {"k": (B, Smax, KVH, Dh), "v": ...}, updated in place
+    pos: torch.Tensor,    # int scalar: index of the current token
+    cfg: ModelConfig,
+    *,
+    rope: bool = True,
+) -> tuple[torch.Tensor, dict]:
+    """Lockstep decode: write the new token's K/V at ``pos`` into the
+    layer's cache IN PLACE (the JAX version returns an updated copy), then
+    attend over positions ``<= pos``. Like ``dynamic_update_slice``, the
+    write position is clamped into ``[0, Smax - 1]``; the mask still uses
+    ``pos + 1``. Returns (output (B, 1, D), ``layer_cache``)."""
+    positions = pos.reshape(1)
+    q, k, v = _project_qkv(p, x, cfg, positions, rope)
+    kc, vc = layer_cache["k"], layer_cache["v"]
+    at = positions.long().clamp(0, kc.shape[1] - 1)
+    kc.index_copy_(1, at, k.to(kc.dtype))
+    vc.index_copy_(1, at, v.to(vc.dtype))
+    out = decode_attention_raw(q, kc, vc, pos + 1, cfg.head_dim ** -0.5)
+    return _out_proj(out.to(x.dtype), p["wo"]), layer_cache
 
 
 def _paged_scatter(layer_pages: dict, k_rows: torch.Tensor,

@@ -179,6 +179,16 @@ def sample_tokens(
     return torch.where(temps > 0.0, sampled, greedy)
 
 
+def pick_tokens(logits, temps, top_ks, top_ps, seeds, idx, vocab: int,
+                greedy_only: bool) -> torch.Tensor:
+    """The engines' token pick: a batch known to be all greedy pays a plain
+    argmax; any other runs :func:`sample_tokens` (whose greedy rows still
+    reduce to the same argmax). Returns (B,) int32."""
+    if greedy_only:
+        return logits[..., :vocab].argmax(dim=-1).to(torch.int32)
+    return sample_tokens(logits, temps, top_ks, top_ps, seeds, idx, vocab)
+
+
 def resolve_device(device) -> torch.device:
     """``torch.device(device)``; asking for CUDA without a card raises
     instead of quietly running on the CPU."""

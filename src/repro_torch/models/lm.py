@@ -3,9 +3,14 @@
 One ``nn.Module`` holding the same stacked ``(L, ...)`` parameters as
 ``repro/models/lm.py`` (names ``embed``, ``final_norm``, ``layers.ln1``,
 ``layers.attn.wq`` ... for dense, ``layers.ln``, ``layers.mamba.w_z`` ...
-for ssm), on an explicit device. The entry points serve the
-continuous-batching engines, each a Python loop over the layers:
+for ssm), on an explicit device. The entry points serve the engines, each
+a Python loop over the layers:
 
+  * dense, dense per-sequence KV cache (the lockstep engine, and the
+    whole-prompt admission of the paged engine): ``init_cache``,
+    ``prefill`` (a whole padded batch of prompts through the flash kernel,
+    K/V padded to ``max_len``) and ``decode_step`` (one token per row, the
+    cache written in place);
   * dense (paged KV pool, written in place):
     ``decode_step_paged`` (one token per in-flight slot), ``prefill_chunk``
     (one fixed-size prompt chunk of one sequence), ``mixed_step_paged``
@@ -17,9 +22,9 @@ continuous-batching engines, each a Python loop over the layers:
 Each returns f32 logits. Vocab is padded to a multiple of 256, as in the
 JAX package.
 
-Not ported yet: training (``loss_fn``), the dense-cache ``prefill`` /
-``decode_step`` (ROADMAP A.7), ``verify_step_paged`` (A.6), and the moe,
-vlm (A.7) and hybrid (A.8b) families.
+Not ported yet: training (``loss_fn``, A.11), ``verify_step_paged``
+(A.6), the ssm family's dense-cache ``prefill``/``decode_step``, and the
+moe, vlm (A.7) and hybrid (A.8b) families.
 """
 
 from __future__ import annotations
@@ -190,6 +195,88 @@ class DecoderLM(nn.Module):
 
     def _as_scalar(self, v) -> torch.Tensor:
         return torch.as_tensor(v, dtype=torch.int32, device=self.device)
+
+    # ------------------------------------------------------------------
+    # dense KV cache (lockstep engine, whole-prompt prefill)
+    # ------------------------------------------------------------------
+    def _dense_only(self, entry: str) -> None:
+        if self.cfg.family != "dense":
+            raise NotImplementedError(
+                f"{entry}: the dense-cache path is ported for the dense "
+                f"family only (family {self.cfg.family!r}: ROADMAP A.7/A.8)")
+
+    def cache_struct(self, batch: int, max_len: int) -> dict:
+        """Shapes and dtypes of the dense cache: k/v (L, B, max_len, KVH,
+        Dh) in the model's dtype, ``pos`` an int32 scalar (positions
+        written so far, shared by every row)."""
+        self._dense_only("cache_struct")
+        cfg = self.cfg
+        kv = ((cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+               cfg.head_dim), getattr(torch, cfg.dtype))
+        return {"k": kv, "v": kv, "pos": ((), torch.int32)}
+
+    def init_cache(self, batch: int, max_len: int) -> dict[str, torch.Tensor]:
+        return {name: torch.zeros(shape, dtype=dt, device=self.device)
+                for name, (shape, dt) in
+                self.cache_struct(batch, max_len).items()}
+
+    @torch.no_grad()
+    def prefill(self, batch: dict, max_len: int, *, logits_index=None):
+        """Full-sequence forward; returns (cache, one position's logits).
+
+        batch: ``{"tokens": (B, S) int}`` on the model's device, all rows at
+        positions ``0..S-1`` (the lockstep engine left-pads with token 0
+        and masks nothing: real tokens attend the pads, as in the JAX
+        package). The cache is :meth:`init_cache`'s, K/V written at
+        ``[:S]`` and zero past it (S <= max_len), ``pos`` = S. Returns
+        logits (B, Vp) f32 of position ``logits_index`` (an int or an int
+        scalar tensor; negative wraps and out-of-range clamps, like the
+        JAX ``dynamic_slice``), or of the last position when None.
+        """
+        self._dense_only("prefill")
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        if s > max_len:
+            raise ValueError(f"prompt length {s} exceeds max_len {max_len}")
+        cache = self.init_cache(b, max_len)
+        positions = torch.arange(s, device=self.device)
+        x = self.embed[tokens.long()]  # (B,S,D)
+        for l, pl in enumerate(self._layers()):
+            def attend(p, h, l=l):
+                out, (k, v) = attn.self_attention_with_cache_write(
+                    p, h, cfg, positions=positions, attn_impl=self.attn_impl)
+                cache["k"][l, :, :s] = k
+                cache["v"][l, :, :s] = v
+                return out
+            x = self._block(pl, x, attend)
+        cache["pos"].fill_(s)
+        if logits_index is None:
+            x = x[:, -1:]
+        else:
+            row = self._as_scalar(logits_index)
+            row = torch.where(row < 0, row + s, row).clamp(0, s - 1)
+            x = x.index_select(1, row.reshape(1).long())
+        x = rms_norm(x, self.final_norm, cfg.norm_eps)
+        return cache, self._unembed(x)[:, 0]
+
+    @torch.no_grad()
+    def decode_step(self, cache: dict, tokens):
+        """tokens (B, 1) -> (cache, logits (B, Vp) f32). Every row writes
+        its K/V at ``cache["pos"]`` (clamped into the cache) IN PLACE and
+        attends positions ``<= pos``; ``pos`` then advances by one. The
+        JAX step returns a new cache (its engine donates the old one)."""
+        self._dense_only("decode_step")
+        cfg = self.cfg
+        pos = cache["pos"]
+        x = self.embed[tokens.long()]  # (B,1,D)
+        for l, pl in enumerate(self._layers()):
+            cl = {"k": cache["k"][l], "v": cache["v"][l]}
+            x = self._block(pl, x, lambda p, h: attn.decode_self_attention(
+                p, h, cl, pos, cfg)[0])
+        pos.add_(1)
+        x = rms_norm(x, self.final_norm, cfg.norm_eps)
+        return cache, self._unembed(x)[:, 0]
 
     # ------------------------------------------------------------------
     # paged decode (continuous batching)

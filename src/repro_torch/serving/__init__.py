@@ -6,14 +6,16 @@
 :class:`AdmissionPolicy` queues (all carried over from ``repro.serving``
 unchanged). ``ContinuousBatchingEngine`` is the ported hot path — continuous
 admission, chunked prefill fused with decode, copy-on-write prefix sharing
-with parked prefix pages (``repro_torch.serving.kv_tiers``) — running its
-paged attention through the hand-written CUDA kernels on the card.
-``SSMEngine`` serves the pure-SSM (mamba2) family over a
-:class:`SlotStateBank` of per-slot recurrent state, through the SSD
-kernels on the card.
+with parked prefix pages (``repro_torch.serving.kv_tiers``), or
+whole-prompt prefill through the flash kernel — running its paged
+attention through the hand-written CUDA kernels on the card.
+``GenerationEngine`` is the lockstep baseline over a dense KV cache (its
+prefill through the flash kernel). ``SSMEngine`` serves the pure-SSM
+(mamba2) family over a :class:`SlotStateBank` of per-slot recurrent state,
+through the SSD kernels on the card.
 
-Still to port (ROADMAP A): the lockstep ``GenerationEngine``, the fleet,
-speculative decoding and the hybrid (zamba2) engine.
+Still to port (ROADMAP A): the fleet, speculative decoding and the hybrid
+(zamba2) engine.
 """
 
 from repro_torch.serving.api import (
@@ -31,7 +33,10 @@ from repro_torch.serving.api import (
     UnsupportedConfigError,
     request_from_message,
 )
-from repro_torch.serving.engine import ContinuousBatchingEngine
+from repro_torch.serving.engine import (
+    ContinuousBatchingEngine,
+    GenerationEngine,
+)
 from repro_torch.serving.kv_cache import PagedKVCache, PagePool
 from repro_torch.serving.kv_tiers import KVTierManager
 from repro_torch.serving.metrics import (
@@ -49,6 +54,7 @@ __all__ = [
     "FIFOAdmission",
     "FinishReason",
     "FleetMetrics",
+    "GenerationEngine",
     "KVTierManager",
     "PagedKVCache",
     "PagePool",

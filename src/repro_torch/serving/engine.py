@@ -1,10 +1,17 @@
-"""Continuous-batching generation engine over the paged KV cache.
+"""Generation engines: lockstep micro-batching and continuous batching.
 
-``ContinuousBatchingEngine`` implements the
-:class:`repro_torch.serving.api.EngineCore` protocol — ``submit() ->
-RequestHandle``, ``step() -> list[StreamEvent]``, ``cancel(uid)``,
-``abort_all()`` — over the shared lifecycle machinery in
-:class:`repro_torch.serving.api.EngineBase`. It is built from two layers:
+Both implement the :class:`repro_torch.serving.api.EngineCore` protocol —
+``submit() -> RequestHandle``, ``step() -> list[StreamEvent]``,
+``cancel(uid)``, ``abort_all()`` — over the shared lifecycle machinery in
+:class:`repro_torch.serving.api.EngineBase`.
+
+``GenerationEngine`` is the lockstep baseline: one ``step()`` forms a
+left-padded micro-batch and prefills it (``DecoderLM.prefill``, through the
+flash kernel on the card), each further call runs one decode step over the
+whole batch on a dense KV cache, and the batch retires when every row has
+finished (rows that stop early are masked, not evicted).
+
+``ContinuousBatchingEngine`` is the hot path, built from two layers:
 
 * a host-side :class:`repro_torch.serving.scheduler.Scheduler` — admission
   order, chunked-prefill interleaving, prefix-sharing deferral, preemption
@@ -19,26 +26,29 @@ Sampling (per-request temperature / top-k / top-p / seed) is keyed off
 equal the JAX engine's and survive preemption byte-for-byte.
 
 Ported: both step modes (``fused``, ``interleaved``), chunked prefill,
-copy-on-write prefix sharing with the parked-page tier, preemption and the
-admission policies. Not ported yet, and raising: speculative decoding
-(ROADMAP A.6), int8 pages and the host/persist tiers (A.5), whole-prompt
-prefill ``prefill_chunk=None`` (A.7, it needs the flash kernel), and the
-lockstep ``GenerationEngine`` (A.7).
+whole-prompt prefill (``prefill_chunk=None`` or 0: one flash-kernel prefill
+per admission, prefix sharing off), copy-on-write prefix sharing with the
+parked-page tier, preemption and the admission policies. Not ported yet,
+and raising: speculative decoding (ROADMAP A.6), int8 pages and the
+host/persist tiers (A.5).
 """
 
 from __future__ import annotations
 
 import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from repro_torch.models.lm import resolve_device
+from repro_torch.models import build_model
+from repro_torch.models.common import pick_tokens, resolve_device
 from repro_torch.serving.api import (
     AdmissionPolicy,
     EngineBase,
     FinishReason,
     Request,
+    RequestHandle,
     Result,
     StreamEvent,
     validate_request,
@@ -49,7 +59,167 @@ from repro_torch.serving.kv_tiers import KVTierManager
 from repro_torch.serving.metrics import UtilizationMetrics
 from repro_torch.serving.scheduler import Scheduler, Sequence
 
-__all__ = ["ContinuousBatchingEngine", "Request", "Result"]
+__all__ = ["ContinuousBatchingEngine", "GenerationEngine", "Request",
+           "Result"]
+
+
+@dataclass
+class _Row:
+    """One row of a lockstep micro-batch."""
+
+    request: Request
+    handle: RequestHandle
+    done: bool = False
+
+
+class GenerationEngine(EngineBase):
+    """Lockstep micro-batching engine (protocol adapter over padded batches).
+
+    ``step()`` semantics: with no batch in flight, pull up to ``max_batch``
+    requests from the admission queue, left-pad to the longest prompt,
+    prefill and sample each row's first token. Every further ``step()`` runs
+    one decode step over the whole batch. Rows finish independently (length
+    / stop / cancel) and are masked until the slowest row retires the batch
+    — the classic lockstep cost the continuous batcher removes.
+
+    ``params`` is the model's state dict; ``device`` is where the model,
+    the dense cache and every step live (``"cuda"`` unless the caller asks
+    for ``"cpu"``). ``attn_impl="ref"`` runs the plain attention versions
+    on the card too.
+    """
+
+    def __init__(self, cfg, params, *, max_len: int = 256, seed: int = 0,
+                 max_batch: int = 8,
+                 admission: AdmissionPolicy | None = None,
+                 attn_impl: str | None = None, device="cuda"):
+        if cfg.family != "dense" or cfg.is_encoder_decoder:
+            raise NotImplementedError(
+                f"{cfg.name} (family {cfg.family!r}): the lockstep engine is "
+                f"ported for the dense family only (moe/vlm: ROADMAP A.7; "
+                f"ssm/hybrid: A.8; encoder-decoder: A.11)")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model = build_model(cfg, device=self.device,
+                                 attn_impl=attn_impl or "auto")
+        self.model.load_state_dict(params)
+        self.params = self.model.state_dict()
+        self.max_len = max_len
+        self.max_batch = max_batch
+        self._init_api(admission=admission, seed=seed)
+        self.utilization = UtilizationMetrics()
+        self._batch: list[_Row] | None = None
+        self._bstate: dict | None = None
+
+    # -- EngineBase hooks ----------------------------------------------
+    def _validate(self, request: Request) -> None:
+        validate_request(request, max_len=self.max_len)
+
+    def _cancel_active(self, uid: str) -> bool:
+        if self._batch is None:
+            return False
+        for row in self._batch:
+            if row.handle.uid == uid and not row.done:
+                row.done = True
+                self._finish_handle(row.handle, FinishReason.CANCELLED)
+                self._retire_if_done()
+                return True
+        return False
+
+    def _retire_if_done(self) -> None:
+        if self._batch is not None and all(r.done for r in self._batch):
+            self._batch = None
+            self._bstate = None
+
+    # -- protocol -------------------------------------------------------
+    @property
+    def idle(self) -> bool:
+        return not (len(self.admission) or self._batch or self._events)
+
+    def capacity(self) -> int:
+        if self._batch is not None:
+            return 0
+        return max(0, self.max_batch - len(self.admission))
+
+    def step(self) -> list[StreamEvent]:
+        now = time.perf_counter()
+        self._expire_queue(now)
+        if self._batch is None:
+            # batch bound: rows are left-padded to the longest prompt and
+            # decode until the slowest row finishes, so the batch occupies
+            # max(plen) + max(max_new) cache positions — admit only while
+            # that fits max_len (a lone request always does: validated)
+            reqs: list[Request] = []
+            plen = new = 0
+            while len(reqs) < self.max_batch:
+                cand = self.admission.peek(now)
+                if cand is None:
+                    break
+                c_plen = max(plen, len(cand.prompt))
+                c_new = max(new, cand.sampling.max_new_tokens)
+                if reqs and c_plen + c_new > self.max_len:
+                    break
+                plen, new = c_plen, c_new
+                reqs.append(self.admission.pop(now))
+            if reqs:
+                self._start_batch(reqs)
+        else:
+            st = self._bstate
+            self.utilization.record(
+                active=sum(not r.done for r in self._batch),
+                slots=self.max_batch,
+            )
+            st["cache"], logits = self.model.decode_step(
+                st["cache"], st["tok"][:, None])
+            st["step"] += 1
+            st["tok"] = self._sample(logits, st)
+            self._harvest(st["tok"].cpu().numpy())
+        self._retire_if_done()
+        return self._drain_events()
+
+    # -- internals ------------------------------------------------------
+    def _sample(self, logits: torch.Tensor, st: dict) -> torch.Tensor:
+        """The batch's next tokens, at token index ``st["step"]``."""
+        idx = torch.full((logits.shape[0],), st["step"], dtype=torch.int32,
+                         device=self.device)
+        return pick_tokens(logits, st["temps"], st["tks"], st["tps"],
+                           st["seeds"], idx, self.cfg.vocab_size,
+                           st["greedy_only"])
+
+    def _start_batch(self, reqs: list[Request]) -> None:
+        b = len(reqs)
+        plen = max(len(r.prompt) for r in reqs)
+        toks = np.zeros((b, plen), np.int32)
+        for i, r in enumerate(reqs):
+            toks[i, plen - len(r.prompt):] = r.prompt  # left-pad
+        cache, logits = self.model.prefill(
+            {"tokens": torch.from_numpy(toks).to(self.device)}, self.max_len)
+        rows = [_Row(r, self._handles[r.uid]) for r in reqs]
+        sp = [r.sampling for r in reqs]
+
+        def dev(vals, dtype):
+            return torch.tensor(vals, dtype=dtype, device=self.device)
+
+        st = {
+            "cache": cache,
+            "step": 0,
+            "greedy_only": all(s.temperature <= 0.0 for s in sp),
+            "temps": dev([s.temperature for s in sp], torch.float32),
+            "tks": dev([s.top_k for s in sp], torch.int32),
+            "tps": dev([s.top_p for s in sp], torch.float32),
+            "seeds": dev([row.handle.seed for row in rows], torch.int32),
+        }
+        st["tok"] = self._sample(logits, st)
+        self._batch, self._bstate = rows, st
+        self._harvest(st["tok"].cpu().numpy())
+
+    def _harvest(self, toks: np.ndarray) -> None:
+        now = time.perf_counter()
+        idx = self._bstate["step"]
+        for i, row in enumerate(self._batch):
+            if row.done:
+                continue
+            if self._deliver(row.handle, int(toks[i]), idx, now):
+                row.done = True
 
 
 class ContinuousBatchingEngine(EngineBase):
@@ -111,11 +281,9 @@ class ContinuousBatchingEngine(EngineBase):
             raise NotImplementedError(
                 "the host-RAM and persisted KV tiers are not ported yet "
                 "(ROADMAP A.5)")
-        if not prefill_chunk:
-            raise NotImplementedError(
-                "whole-prompt prefill (prefill_chunk=None/0) needs the flash "
-                "kernel and is not ported yet (ROADMAP A.7)")
-        if prefill_chunk < 1:
+        if prefill_chunk == 0:  # CLI convention: 0 disables chunking
+            prefill_chunk = None
+        if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
         if step_mode not in ("fused", "interleaved"):
             raise ValueError(
@@ -128,8 +296,11 @@ class ContinuousBatchingEngine(EngineBase):
         self.max_len = max_len
         self.max_slots = max_slots
         self.max_preemptions = max_preemptions
+        # whole-prompt prefill (prefill_chunk=None) runs one dispatch per
+        # admission and has no chunk cursor to share prefixes at
+        self._chunked = prefill_chunk is not None
         self.prefill_chunk = prefill_chunk
-        self.prefix_sharing = prefix_sharing
+        self.prefix_sharing = prefix_sharing and self._chunked
         self.step_mode = step_mode
         self.token_budget = token_budget
         if kv_tiers is None:
@@ -151,7 +322,7 @@ class ContinuousBatchingEngine(EngineBase):
         self.scheduler = Scheduler(
             self.cache,
             prefill_chunk=prefill_chunk,
-            chunked=True,
+            chunked=self._chunked,
             prefix_sharing=self.prefix_sharing,
             token_budget=token_budget,
         )
@@ -224,8 +395,13 @@ class ContinuousBatchingEngine(EngineBase):
             if req is None or not self.scheduler.can_place(req):
                 break
             self.admission.pop(now)
-            self.scheduler.place(req, self._handles[req.uid])
+            handle = self._handles[req.uid]
+            slot, seq, _ = self.scheduler.place(req, handle)
             admitted += 1
+            if not self._chunked:
+                # whole-prompt path: one executor dispatch per admission
+                tok = self.executor.prefill_whole(req, handle.seed, slot)
+                self._first_token(slot, seq, tok)
         return admitted
 
     def _prefill_step(self) -> bool:

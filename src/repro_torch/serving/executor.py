@@ -10,6 +10,12 @@ dispatches, each ending in its own paged-attention kernel on the card:
 * chunk-only (cold start, refill)   -> ``prefill_chunk``      -> prefill kernel
 * decode + chunk (fused)            -> ``mixed_step_paged``   -> mixed kernel
 
+Without chunking (``prefill_chunk=None``), ``prefill_whole`` prefills each
+admitted prompt in one executor call instead: ``DecoderLM.prefill`` over the
+prompt padded to a power-of-two bucket (through the flash kernel), the
+dense K/V scattered into the sequence's pages, and the first token
+sampled.
+
 The decode batch lives on the device PACKED into one int32 tensor ``di``
 (S, MP+6) and one f32 tensor ``df`` (S, 2), refreshed only when the
 scheduler reports a composition change; each step advances them on the
@@ -26,7 +32,8 @@ import numpy as np
 import torch
 
 from repro_torch.models import build_model
-from repro_torch.models.common import sample_tokens
+from repro_torch.models.common import pick_tokens
+from repro_torch.serving.kv_cache import write_prefill_pages
 from repro_torch.serving.scheduler import DecodeInputs, PrefillChunk, StepPlan
 
 __all__ = ["ModelExecutor"]
@@ -62,15 +69,6 @@ class ModelExecutor:
         """A device copy of a host array (never an alias: ``.to('cpu')`` of a
         ``from_numpy`` tensor would keep sharing the numpy buffer)."""
         return torch.from_numpy(arr.copy()).to(self.device)
-
-    def _pick(self, logits, temps, top_ks, top_ps, seeds, idx, greedy_only):
-        """Greedy-only batches pay a plain argmax; otherwise the per-row
-        sampler (greedy rows inside it still reduce to argmax)."""
-        if greedy_only:
-            return logits[..., :self.cfg.vocab_size].argmax(dim=-1).to(
-                torch.int32)
-        return sample_tokens(logits, temps, top_ks, top_ps, seeds, idx,
-                             self.cfg.vocab_size)
 
     # ------------------------------------------------------------------
     # decode
@@ -125,8 +123,9 @@ class ModelExecutor:
         di, df = self._di, self._df
         logits = self.model.decode_step_paged(
             self.cache.pages, bt, lens, di[:, mp + 2:mp + 3])
-        toks = self._pick(logits, df[:, 0], di[:, mp + 3], df[:, 1],
-                          di[:, mp + 4], di[:, mp + 5], self._greedy_only)
+        toks = pick_tokens(logits, df[:, 0], di[:, mp + 3], df[:, 1],
+                           di[:, mp + 4], di[:, mp + 5], self.cfg.vocab_size,
+                           self._greedy_only)
         self._advance(toks)
         return toks.cpu().numpy()
 
@@ -175,13 +174,14 @@ class ModelExecutor:
             num_decode=s, chunk_valid=cvalid,
         )  # (S+1, Vp): decode rows + the chunk's row
         zero = torch.zeros((1,), dtype=torch.int32, device=self.device)
-        toks = self._pick(
+        toks = pick_tokens(
             logits,
             torch.cat([df[:, 0], cf[0:1]]),
             torch.cat([di[:, mp + 3], ci[mp + c + 2:mp + c + 3]]),
             torch.cat([df[:, 1], cf[1:2]]),
             torch.cat([di[:, mp + 4], ci[mp + c + 3:mp + c + 4]]),
             torch.cat([di[:, mp + 5], zero]),
+            self.cfg.vocab_size,
             greedy_only,
         )
         self._advance(toks[:s])
@@ -222,9 +222,50 @@ class ModelExecutor:
         logits = self.model.prefill_chunk(
             self.cache.pages, ci[:mp], ci[mp:mp + c], ci[mp + c],
             ci[mp + c + 1])
-        tok = self._pick(
+        tok = pick_tokens(
             logits[None], cf[0:1], ci[mp + c + 2:mp + c + 3], cf[1:2],
             ci[mp + c + 3:mp + c + 4],
             torch.zeros((1,), dtype=torch.int32, device=self.device),
+            self.cfg.vocab_size,
             work.seq.request.sampling.temperature <= 0.0)
+        return int(tok[0])
+
+    # ------------------------------------------------------------------
+    # whole-prompt prefill (prefill_chunk=None)
+    # ------------------------------------------------------------------
+    def _bucket(self, plen: int) -> int:
+        """The prompt's padded length: the next power of two from 16,
+        capped at ``max_len`` (so prompts over max_len / 2 all share the
+        max_len bucket)."""
+        b = 16
+        while b < plen:
+            b *= 2
+        return min(b, max(self.max_len, 1))
+
+    def prefill_whole(self, request, seed: int, slot: int) -> int:
+        """Prefill a whole prompt into its pages and return the first
+        token: prefill, page scatter and first-token sample in one call,
+        with the logits taken at the last real position."""
+        plen = len(request.prompt)
+        bucket = self._bucket(plen)
+        sp = request.sampling
+        row = self.cache.block_tables[slot]
+        mp = row.shape[0]
+        # one transfer: [block-table row | padded tokens | top_k, seed]
+        ci = np.zeros(mp + bucket + 2, np.int32)
+        ci[:mp] = row
+        ci[mp:mp + plen] = request.prompt
+        ci[mp + bucket:] = (sp.top_k, seed)
+        ci = self._to_device(ci)
+        cf = self._to_device(np.array([sp.temperature, sp.top_p], np.float32))
+        cache, logits = self.model.prefill(
+            {"tokens": ci[None, mp:mp + bucket]}, bucket,
+            logits_index=plen - 1)
+        write_prefill_pages(self.cache.pages, cache["k"][:, 0],
+                            cache["v"][:, 0], ci[:mp], plen)
+        tok = pick_tokens(
+            logits, cf[0:1], ci[mp + bucket:mp + bucket + 1], cf[1:2],
+            ci[mp + bucket + 1:],
+            torch.zeros((1,), dtype=torch.int32, device=self.device),
+            self.cfg.vocab_size, sp.temperature <= 0.0)
         return int(tok[0])

@@ -62,6 +62,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.models.common import resolve_device
 from repro_torch.serving.kv_tiers import KVTierManager, chain_key
 
 NULL_PAGE = 0
@@ -188,7 +189,7 @@ class PagedKVCache:
         self.num_pages = num_pages
         self.quant = quant
         self.tiers = tiers
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         # + 1: the sink page (see module docstring)
         shape = (num_layers, num_pages + 1, page_size, num_kv_heads, head_dim)
         self.pages: dict[str, torch.Tensor] = {
@@ -590,3 +591,29 @@ class PagedKVCache:
     def device_row(self, slot: int) -> torch.Tensor:
         """Device copy of one slot's block-table row (same aliasing rule)."""
         return torch.from_numpy(self.block_tables[slot].copy()).to(self.device)
+
+
+def write_prefill_pages(
+    pages: dict[str, torch.Tensor],  # the pool, written in place
+    k_new: torch.Tensor,     # (L, S, KVH, Dh) dense prefill K (S may be padded)
+    v_new: torch.Tensor,
+    table_row: torch.Tensor,  # (MP,) int32 physical page per logical page
+    valid_len,                # int or int scalar: positions < valid_len are real
+) -> None:
+    """Scatter one sequence's dense prefill K/V into its pages, in place.
+
+    Padded positions (>= valid_len) go to the sink page, where the JAX
+    version routes them out of bounds and drops them (``mode="drop"``);
+    every real position's (page, offset) is unique. int8 pools are not
+    ported (ROADMAP A.5)."""
+    if "k_scale" in pages:
+        raise NotImplementedError(
+            "write_prefill_pages: int8 pages are not ported yet (ROADMAP A.5)")
+    sink = pages["k"].shape[1] - 1
+    page = pages["k"].shape[2]
+    pos = torch.arange(k_new.shape[1], device=k_new.device)
+    logical = (pos // page).clamp_max(table_row.shape[0] - 1)
+    phys = torch.where(pos < valid_len, table_row[logical].long(), sink)
+    off = pos % page
+    pages["k"][:, phys, off] = k_new.to(pages["k"].dtype)
+    pages["v"][:, phys, off] = v_new.to(pages["v"].dtype)

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import build_model
-from repro_torch.models.common import sample_tokens
+from repro_torch.models.common import pick_tokens
 from repro_torch.models.lm import resolve_device
 from repro_torch.models.ssm import init_mamba_cache
 from repro_torch.serving.api import (
@@ -128,13 +128,6 @@ class SSMExecutor:
         """A device copy of a host array (never an alias)."""
         return torch.from_numpy(arr.copy()).to(self.device)
 
-    def _pick(self, logits, temps, top_ks, top_ps, seeds, idx, greedy_only):
-        if greedy_only:
-            return logits[..., :self.cfg.vocab_size].argmax(dim=-1).to(
-                torch.int32)
-        return sample_tokens(logits, temps, top_ks, top_ps, seeds, idx,
-                             self.cfg.vocab_size)
-
     # ------------------------------------------------------------------
     # decode
     # ------------------------------------------------------------------
@@ -163,8 +156,8 @@ class SSMExecutor:
         active = di[:, 0].contiguous()
         logits = self.model.decode_step_ssm(self.bank.state, di[:, 1:2],
                                             active)
-        toks = self._pick(logits, df[:, 0], di[:, 2], df[:, 1], di[:, 3],
-                          di[:, 4], self._greedy_only)
+        toks = pick_tokens(logits, df[:, 0], di[:, 2], df[:, 1], di[:, 3],
+                           di[:, 4], self.cfg.vocab_size, self._greedy_only)
         di[:, 1] = toks
         di[:, 4] += active
         return toks.cpu().numpy()
@@ -193,10 +186,10 @@ class SSMExecutor:
         self.bank.put(slot, new)
         # the JAX chunk sampler's arguments: temps, top_ks, top_ps, seeds,
         # and token index 0
-        tok = self._pick(
+        tok = pick_tokens(
             logits[None], cf[0:1], ci[c:c + 1], cf[1:2], ci[c + 1:c + 2],
             torch.zeros((1,), dtype=torch.int32, device=self.device),
-            sp.temperature <= 0)
+            self.cfg.vocab_size, sp.temperature <= 0)
         return int(tok[0])
 
 

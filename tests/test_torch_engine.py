@@ -6,7 +6,8 @@ weights (reduced smollm-360m, f32, the JAX parameters carried across by
 streams must be byte-identical, and every executor dispatch must have the
 same composition (decode rows, chunk tokens) — in both step modes, with a
 shared prompt prefix (prefix hits through the parked-page tier) and under a
-pool small enough to preempt. Also runs the port's serve driver end to end.
+pool small enough to preempt. Also runs the port's serve driver end to end
+(paged chunked, paged whole-prompt and lockstep).
 """
 
 import os
@@ -144,13 +145,25 @@ def test_unported_options_raise(weights):
     _, _, cfg, state = weights
     for kw, item in [(dict(speculative="ngram"), "A.6"),
                      (dict(kv_quant="int8"), "A.5"),
-                     (dict(host_pages=4), "A.5"),
-                     (dict(prefill_chunk=None), "A.7")]:
+                     (dict(host_pages=4), "A.5")]:
         with pytest.raises(NotImplementedError, match=item):
             ContinuousBatchingEngine(cfg, state, device="cpu", **kw)
+    # whole-prompt prefill is ported: None and the CLI's 0 both build an
+    # unchunked engine (prefix sharing off, as in JAX) that serves
+    for chunk in (None, 0):
+        eng = ContinuousBatchingEngine(cfg, state, device="cpu", max_len=32,
+                                       page_size=8, prefill_chunk=chunk)
+        assert eng.prefill_chunk is None and not eng.prefix_sharing
+        out = eng.generate([Request("w", [5, 6, 7], max_new_tokens=3)])[0]
+        assert len(out.tokens) == 3 and eng.stats["prefills"] == 1
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ContinuousBatchingEngine(cfg, state)  # device defaults to cuda
+        # the page pool alone resolves its device the same way
+        from repro_torch.serving import PagedKVCache
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            PagedKVCache(num_layers=1, num_kv_heads=1, head_dim=8,
+                         dtype=torch.float32, max_slots=1, max_context=8)
 
 
 def test_serve_driver_reduced_cpu(tmp_path):
@@ -162,6 +175,16 @@ def test_serve_driver_reduced_cpu(tmp_path):
         capture_output=True, text=True, env=env, timeout=120, cwd=REPO)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "served 8/8" in out.stdout
+    for extra, engine in ((["--engine", "lockstep"], "lockstep"),
+                          (["--prefill-chunk", "0"], "paged")):
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--reduced",
+             "--device", "cpu", "--requests", "6", "--max-new", "3", *extra,
+             "--workdir", str(tmp_path / engine)],
+            capture_output=True, text=True, env=env, timeout=120, cwd=REPO)
+        assert run.returncode == 0, run.stderr[-2000:]
+        assert "served 6/6" in run.stdout
+        assert f"engine={engine}," in run.stdout
     refused = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--fleet", "2",
          "--device", "cpu", "--workdir", str(tmp_path / "run2")],

@@ -1,15 +1,16 @@
-"""Protocol conformance of the port's engines: the paged and the SSM
-engine behind one contract.
+"""Protocol conformance of the port's engines: the paged, the lockstep and
+the SSM engine behind one contract.
 
 The port of ``tests/test_engine_protocol.py`` for ``repro_torch``: every
 test is parameterized over ``ContinuousBatchingEngine`` (paged, reduced
-smollm-360m) and ``SSMEngine`` (per-slot recurrent state, reduced
-mamba2-1.3b) on the CPU, with the port's own seeded weights — streaming
-delta ordering, cancellation mid-decode and while queued, stop tokens,
-typed rejections, duplicate uids, seeded reproducibility across batch
-composition, abort, the ``generate`` wrapper, and the paged engine's
-preemption finish and seamless re-streaming. The lockstep arm waits for
-the lockstep engine (ROADMAP A.7).
+smollm-360m), ``GenerationEngine`` (lockstep micro-batches chunked into
+steps, reduced smollm-360m) and ``SSMEngine`` (per-slot recurrent state,
+reduced mamba2-1.3b) on the CPU, with the port's own seeded weights —
+streaming delta ordering, cancellation mid-decode and while queued, stop
+tokens, typed rejections, duplicate uids, seeded reproducibility across
+batch composition, abort, the ``generate`` wrapper, and the paged engine's
+preemption finish and seamless re-streaming. The lockstep engine's own
+batch bound is checked in ``tests/test_torch_lockstep.py``.
 """
 
 import pytest
@@ -22,6 +23,7 @@ from repro_torch.serving import (  # noqa: E402
     ContinuousBatchingEngine,
     EngineCore,
     FinishReason,
+    GenerationEngine,
     Request,
     SamplingParams,
     SSMEngine,
@@ -40,7 +42,7 @@ def mamba2():
     return cfg, build_model(cfg, device="cpu").init(seed=0)
 
 
-@pytest.fixture(params=["paged", "ssm"])
+@pytest.fixture(params=["paged", "lockstep", "ssm"])
 def make_engine(request, smollm, mamba2):
     kind = request.param
     cfg, params = mamba2 if kind == "ssm" else smollm
@@ -51,8 +53,12 @@ def make_engine(request, smollm, mamba2):
                 cfg, params, max_len=kw.pop("max_len", 64),
                 max_slots=kw.pop("slots", 3), page_size=8, device="cpu",
                 **kw)
-        return SSMEngine(cfg, params, max_len=kw.pop("max_len", 64),
-                         max_slots=kw.pop("slots", 3), device="cpu", **kw)
+        if kind == "ssm":
+            return SSMEngine(cfg, params, max_len=kw.pop("max_len", 64),
+                             max_slots=kw.pop("slots", 3), device="cpu", **kw)
+        return GenerationEngine(cfg, params, max_len=kw.pop("max_len", 64),
+                                max_batch=kw.pop("slots", 3), device="cpu",
+                                **kw)
 
     factory.kind = kind
     return factory

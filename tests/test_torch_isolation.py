@@ -3,7 +3,7 @@
 An AST walk of every file under ``src/repro_torch/`` and of
 ``chip_smoke.py`` asserts that none imports ``jax``/``jaxlib`` or any
 ``repro`` module (``repro_torch`` is the port itself), and that no ``try``
-around a paged-attention or SSD op or kernel launch has a handler that
+around an attention or SSD op or kernel launch has a handler that
 carries on instead of raising, and that no handler anywhere calls a plain
 version or an op: a CUDA tensor reaches its kernel or an error, never the
 plain version behind the caller's back.
@@ -19,6 +19,7 @@ PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 KERNEL_CALLS = {
+    "flash_attention", "flash_attention_bhsd", "flash_attention_forward",
     "paged_attention", "paged_prefill_attention", "paged_mixed_attention",
     "paged_attention_bkgd", "paged_prefill_attention_ckgd",
     "paged_mixed_attention_rkgd", "paged_attention_decode",
@@ -27,7 +28,8 @@ KERNEL_CALLS = {
     "ssd_scan_chunked", "ssd_decode",
     # the model steps that reach them
     "decode_step_paged", "prefill_chunk", "mixed_step_paged",
-    "decode_step_ssm", "prefill_chunk_ssm",
+    "decode_step_ssm", "prefill_chunk_ssm", "prefill", "decode_step",
+    "prefill_whole",
 }
 
 
@@ -58,6 +60,7 @@ def test_port_files_found():
     assert len(PORT_FILES) > 20
     assert (REPO / "src/repro_torch/kernels/csrc/paged_attention.cu").exists()
     assert (REPO / "src/repro_torch/kernels/csrc/ssd_scan.cu").exists()
+    assert (REPO / "src/repro_torch/kernels/csrc/flash_attention.cu").exists()
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=_ids(PORT_FILES))
@@ -77,7 +80,7 @@ def test_no_fallback_around_kernel_launches(path):
         for handler in node.handlers:
             called = set(_called_names(handler))
             assert not {n for n in called
-                        if n.startswith(("paged_", "ssd_"))} | (
+                        if n.startswith(("paged_", "ssd_", "flash_"))} | (
                 called & KERNEL_CALLS), (
                 f"{path.name}:{handler.lineno}: an except handler runs "
                 f"attention or the SSD itself (a fallback)")

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (paged attention, Mamba2 SSD) against their
-plain versions, on the card.
+"""The port's CUDA kernels (paged attention, flash attention, Mamba2 SSD)
+against their plain versions, on the card.
 
 Marked ``cuda``: these skip without a GPU (the kernels have no CPU mode;
 the CPU suite holds the plain versions against JAX in
@@ -13,7 +13,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention_bhsd  # noqa: E402
 
 
 @pytest.mark.cuda
@@ -52,6 +53,41 @@ def test_kernels_on_card(dtype):
                                        impl="ref")
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=0)
     assert (out[50:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_on_card(dtype):
+    """The flash kernel against its plain version at smollm widths (15 q
+    over 5 kv heads, D 64) and at D 128: f32 within 1e-3, bf16 within 2e-2
+    after f32 accumulation. Causal with Sq = Skv at ragged lengths (1, 100,
+    300: partial q and K/V tiles), causal with Sq < Skv, and non-causal
+    ragged; the wrapper is called directly since the op refuses lengths
+    the reference does not take."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dt = getattr(torch, dtype)
+    tol = 1e-3 if dtype == "float32" else 2e-2
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for b, h, kvh, d, sq, skv, causal in (
+            (2, 15, 5, 64, 1, 1, True), (2, 15, 5, 64, 100, 100, True),
+            (1, 15, 5, 64, 300, 300, True), (2, 15, 5, 64, 64, 320, True),
+            (2, 15, 5, 64, 37, 300, False), (1, 8, 2, 128, 130, 130, True)):
+        q = torch.randn(b, h, sq, d, generator=g, device="cuda").to(dt)
+        k = torch.randn(b, kvh, skv, d, generator=g, device="cuda").to(dt)
+        v = torch.randn(b, kvh, skv, d, generator=g, device="cuda").to(dt)
+        out = flash_attention_bhsd(q, k, v, causal=causal)
+        want = ref.flash_attention_chunked(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal, chunk_kv=skv).transpose(1, 2)
+        torch.testing.assert_close(out.float(), want.float(), atol=tol,
+                                   rtol=0)
+    # through the op, at a length the reference takes
+    q = torch.randn(2, 256, 15, 64, generator=g, device="cuda").to(dt)
+    k = torch.randn(2, 256, 5, 64, generator=g, device="cuda").to(dt)
+    torch.testing.assert_close(
+        ops.flash_attention(q, k, k).float(),
+        ops.flash_attention(q, k, k, impl="ref").float(), atol=tol, rtol=0)
 
 
 def _ssd_inputs(g, b, s, h, p, n, dt_):

@@ -3,8 +3,10 @@
 Reduced smollm-360m in float32 on the CPU: the JAX parameters
 (``model.init(jax.random.key(0))``) carried across by ``params_from_jax``;
 inputs from numpy with fixed seeds. Logits and page contents after each
-paged entry point are held to 1e-4 against the JAX model on its default
-(XLA reference) attention path; the numerics helpers to 1e-5; the
+paged entry point, and logits and the padded dense cache after
+``prefill`` (left-padded batch, with and without ``logits_index``) and
+several ``decode_step``s, are held to 1e-4 against the JAX model on its
+default (XLA reference) attention path; the numerics helpers to 1e-5; the
 sampler's noise to 1e-6 with equal sampled tokens.
 """
 
@@ -16,9 +18,11 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import ARCHS as JARCHS, reduced as jreduced  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
 from repro.models import build_model as jbuild  # noqa: E402
 from repro.models import common as jcommon  # noqa: E402
 from repro_torch.configs import ARCHS, reduced  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import build_model, params_from_jax  # noqa: E402
 from repro_torch.models import common  # noqa: E402
 from repro_torch.models.lm import padded_vocab  # noqa: E402
@@ -182,6 +186,80 @@ def test_mixed_step_paged_matches_jax(models, chunk_valid):
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
                                atol=TOL, rtol=TOL)
     _check_pages(jnew, tpages)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_self_attention_matches_jax(models, causal):
+    """The whole-sequence attention block (the flash op's caller) on one
+    layer's weights, causal and not."""
+    jcfg, jmodel, jparams, cfg, model = models
+    x = np.random.default_rng(22).standard_normal(
+        (2, 12, cfg.d_model)).astype(np.float32)
+    jp = jax.tree.map(lambda a: a[0], jparams["layers"]["attn"])
+    want = jattn.self_attention(jp, jnp.asarray(x), jcfg, causal=causal)
+    got = tattn.self_attention(model._layers()[0]["attn"], _t(x), cfg,
+                               causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                               rtol=TOL)
+
+
+def _left_padded(cfg, rng, lens):
+    """A lockstep batch: prompts left-padded with token 0 to the longest."""
+    s = max(lens)
+    toks = np.zeros((len(lens), s), np.int32)
+    for i, n in enumerate(lens):
+        toks[i, s - n:] = rng.integers(1, cfg.vocab_size, n)
+    return toks
+
+
+def _check_cache(jcache, cache):
+    for key in ("k", "v"):
+        np.testing.assert_allclose(cache[key].numpy(), np.asarray(jcache[key]),
+                                   atol=TOL, rtol=TOL)
+    assert int(cache["pos"]) == int(jcache["pos"])
+
+
+@pytest.mark.parametrize("logits_index", [None, 3, -2])
+def test_prefill_matches_jax(models, logits_index):
+    jcfg, jmodel, jparams, cfg, model = models
+    rng = np.random.default_rng(20)
+    toks = _left_padded(cfg, rng, [5, 11, 2])
+    max_len = 24
+    jcache, jlogits = jax.jit(
+        lambda p, t: jmodel.prefill(p, {"tokens": t}, max_len,
+                                    logits_index=logits_index))(
+        jparams, jnp.asarray(toks))
+    cache, logits = model.prefill({"tokens": _t(toks)}, max_len,
+                                  logits_index=logits_index)
+    assert logits.shape == (3, padded_vocab(cfg))
+    assert logits.dtype == torch.float32
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
+                               atol=TOL, rtol=TOL)
+    _check_cache(jcache, cache)
+    assert (cache["k"][:, :, toks.shape[1]:] == 0).all()  # padded to max_len
+
+
+def test_decode_step_matches_jax(models):
+    """Several lockstep decode steps after a left-padded prefill: logits
+    and the whole cache (written in place in the port) each step, up to
+    and past the cache's end."""
+    jcfg, jmodel, jparams, cfg, model = models
+    rng = np.random.default_rng(21)
+    toks = _left_padded(cfg, rng, [7, 3])
+    max_len = 12
+    jcache, _ = jax.jit(lambda p, t: jmodel.prefill(
+        p, {"tokens": t}, max_len))(jparams, jnp.asarray(toks))
+    cache, _ = model.prefill({"tokens": _t(toks)}, max_len)
+    jstep = jax.jit(jmodel.decode_step)
+    # steps 5 and 6 write the cache's last position: the second one at
+    # pos = max_len, which dynamic_update_slice (and the port) clamp
+    for _ in range(6):
+        nxt = rng.integers(0, cfg.vocab_size, (2, 1)).astype(np.int32)
+        jcache, jlogits = jstep(jparams, jcache, jnp.asarray(nxt))
+        cache, logits = model.decode_step(cache, _t(nxt))
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
+                                   atol=TOL, rtol=TOL)
+        _check_cache(jcache, cache)
 
 
 def test_entry_points_refuse_cuda_without_a_card():

@@ -10,12 +10,18 @@ Phases (any failure exits non-zero):
 2. build   — compiles the hand-written CUDA kernels from the sources in this
    checkout (``nvcc``, sm_90a) and prints the build seconds.
 3. kernels — each paged-attention kernel against its plain PyTorch version
-   on the card: bf16 at the main path's widths (KVH 5, G 3, D 64, page 16)
-   within 2e-2 absolute (f32 accumulation, bf16 output: a few bf16 ulps of
-   outputs of magnitude ~1), one f32 case within 1e-3, and dead rows (idle
-   slots, padded chunk rows, length 0) bit-exact zeros; the cases cover
-   lengths 0, 1 and page+-1, partial last pages, a chunk straddling a page
-   with valid < C, dead rows among live ones and shuffled physical pages.
+   on the card, at the main path's widths (KVH 5, G 3, D 64, page 16), at
+   llama3-8b's (KVH 8, G 4, D 128, page 8) and at zamba2-2.7b's (KVH 32,
+   G 1, D 80, page 16), each over a pool of q's dtype and over an int8
+   pool with f32 scales (the int8 variant, dequantizing as it stages each
+   page, against ``dequantize_pages`` + the plain versions): bf16 within
+   2e-2 absolute (f32 accumulation, bf16 output: a few bf16 ulps of
+   outputs of magnitude ~1), f32 within 1e-3, and dead rows (idle slots,
+   padded chunk rows, length 0) bit-exact zeros. Every width runs the
+   main path's shapes: MAX_LEN / page table entries over 400 shuffled
+   physical pages, lengths 0, 1, page+-1, partial last pages up to 631, a
+   chunk straddling a page with valid < C, a full chunk from position 0,
+   an all-padding chunk, and a mixed batch with dead rows among live ones.
    Then times each kernel, its plain version and a library yardstick
    (``F.scaled_dot_product_attention`` on the gathered dense K/V, which the
    port never calls) at the shapes of one engine step, cycling over 32
@@ -43,7 +49,7 @@ Phases (any failure exits non-zero):
    non-causal with Sq 37, Skv 300; at B 1 every whole-prompt bucket from
    128 to 1024. Then every (B, S) that phases 7 and 8 gave the kernel, as
    recorded from their prefills (the check runs after them for that
-   reason). The ragged lengths go to the kernel's wrapper directly (the op
+   reason), and zamba2's D 80 (32 heads, G 1), causal and not. The ragged lengths go to the kernel's wrapper directly (the op
    keeps the reference's Skv-multiple-of-256 rule). Before the engines it
    times the kernel, its plain version and ``F.scaled_dot_product_attention
    (..., is_causal=True, enable_gqa=True)`` (which the port never calls) at
@@ -94,24 +100,59 @@ Phases (any failure exits non-zero):
    (``ssd_impl="ref"``), and a run with one snapshot preemption and one
    discard preemption gives the same streams as the undisturbed run.
 
+13. int8 timing — the int8 variant of the three paged kernels (checked in
+   phase 3), their plain versions and SDPA on K/V dequantized and gathered
+   in advance, at phase 3's engine-step shapes; the bound counts int8 K/V
+   plus a 4-byte scale per (position, kv head).
+14. int8 engine — phase 4's trace through ``ContinuousBatchingEngine(...,
+   kv_quant="int8")`` on full-width smollm-360m, in turns with bf16 pages
+   (bf16, int8, int8, bf16): every request finishes by length, the prefix
+   index hits and each paged kernel runs (path ``chunked_int8`` in
+   ``launches_by_path``, the first int8 turn). Prints tok/s, TTFT, ITL
+   per turn and a profiler window of each page type.
+15. tier restart — full-width smollm-360m, once with bf16 pages (path
+   ``tiered``) and once with int8 pages (path ``tiered_int8``), a pool of
+   128 pages with ``host_pages`` and ``persist_dir`` in a temporary
+   directory: phase 4's trace must reclaim and spill parked pages; after
+   ``flush_tiers()`` a NEW engine on the same directory reruns the same
+   prompts with persisted hits and fewer prefill chunks (the TTFT change
+   is printed), and every page it reloaded holds, byte for byte, what the
+   store kept under the page's content key, for every pool tensor (int8
+   K/V and their f32 scales for int8 pages).
+16. tier + int8 parity — f32, TF32 off, PARITY_LAYERS layers: greedy int8
+   streams through the kernels equal those through the plain versions;
+   the tiered run, its restart from the store and an untiered run give
+   the same streams with one slot (f32 pages) and with four slots (f32
+   and int8 pages, interleaved steps, a pool on which the tiered run
+   reclaims and spills while other slots are live; its dispatches must
+   equal the untiered run's one for one, and no run may preempt).
+17. serve driver — ``python -m repro_torch.launch.serve --kv-quant int8
+   --host-pages 8 --persist-dir DIR`` at full width, twice on one
+   directory: 12/12 served each time, persisted hits only on the second.
+
 Kernel and plain times are device time per call: the calls are enqueued
 behind a sleep kernel and timed with CUDA events, so the host's per-call
-overhead stays out (``_time_ms``). The whole script takes about 9
-minutes on an H100 (about 11 s of it the parallel ``nvcc`` builds).
+overhead stays out (``_time_ms``). A ``[t s] phase: s`` line after each
+phase gives the wall time so far and the phase's own (PERF.md has a
+run's).
 
 The line before the last is ``{"kernels": [...]}`` (all six ported
 kernels); each kernel's ``launches`` is the sum of ``launches_by_path``,
 the counts read after each engine path that ran it (each reset just
-before its path). The last line is ``{"ok": true, "device": {...}}``.
+before its path). The three paged kernels also carry ``int8``: the int8
+variant's max abs error, times and bound. The last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -144,6 +185,14 @@ PARITY_LAYERS = 2
 # mamba2-1.3b: SSD widths, layers, and the engine's shape
 SSD_H, SSD_P, SSD_N, M_LAYERS, M_MAX_LEN = 64, 64, 128, 48, 512
 SSD_BF16_TOL, SSD_F32_TOL = 5e-2, 1e-3
+# (kv heads, group, head_dim, page) of the paged int8 / head-dim checks:
+# smollm-360m, llama3-8b (32 / 8 heads, D 128) and zamba2-2.7b (D 80)
+PAGED_WIDTHS = {"smollm D64": (KVH, G, D, PAGE),
+                "llama3 D128": (8, 4, 128, 8), "zamba2 D80": (32, 1, 80, 16)}
+MAIN_WIDTH = "smollm D64"  # the widths the engine phases run
+TIER_PAGES, TIER_HOST_PAGES = 128, 64
+# the 4-slot tier parity pool: reclaims and spills, preempts nothing
+TIER_PARITY_PAGES = 80
 # smollm-360m's whole-prompt paths: q heads, the engines' shapes
 FLASH_H, LOCK_BATCH, LOCK_MAX_LEN, WHOLE_MAX_LEN = KVH * G, 8, 512, 1024
 
@@ -164,9 +213,10 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 
 
-def _pools(torch, n_pages, dtype, layers=1, seed=0):
+def _pools(torch, n_pages, dtype, layers=1, seed=0, width=None):
+    kvh, _, d, page = width or PAGED_WIDTHS[MAIN_WIDTH]
     g = torch.Generator(device="cuda").manual_seed(seed)
-    shape = (layers, n_pages, PAGE, KVH, D)
+    shape = (layers, n_pages, page, kvh, d)
     k = torch.randn(shape, generator=g, device="cuda").to(dtype)
     v = torch.randn(shape, generator=g, device="cuda").to(dtype)
     return k, v
@@ -181,10 +231,16 @@ def _tables(torch, rows, mp, n_pages, seed):
                         for _ in range(rows)]).int().contiguous()
 
 
-def check_kernels(torch, ops):
-    """Run every kernel against its plain version; returns max abs error
+def check_kernels(torch, ops, ref, wname, quant):
+    """Run every paged kernel against its plain version at one of
+    PAGED_WIDTHS, over a pool of q's dtype or (``quant``) an int8 pool with
+    f32 scales, at the main path's shapes: tables of MAX_LEN / page
+    entries over 400 pages, decode lengths up to 631, and chunks from
+    position 0, straddling a page and all padding. Returns max abs error
     per kernel over the bf16 cases and logs the f32 ones."""
-    mp, n_pages = 44, 400
+    kvh, group, d, page = PAGED_WIDTHS[wname]
+    mp, n_pages = -(-MAX_LEN // page), 400
+    pool_kind = "int8" if quant else "pool"
     errs = {}
 
     def compare(name, got, want, dead, tol, label):
@@ -196,24 +252,33 @@ def check_kernels(torch, ops):
             raise AssertionError(f"{name} [{label}]: dead rows not exact 0")
         return err
 
+    kf, vf = _pools(torch, n_pages, torch.float32, seed=1,
+                    width=PAGED_WIDTHS[wname])
+    kf, vf = kf[0], vf[0]
+    if quant:
+        (kq, ks), (vq, vs) = ref.quantize_kv(kf), ref.quantize_kv(vf)
+        sc = dict(k_scale=ks, v_scale=vs)
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
-        label = str(dtype).removeprefix("torch.")
-        kp, vp = _pools(torch, n_pages, dtype, seed=1)
-        kp, vp = kp[0], vp[0]
+        label = (f"{str(dtype).removeprefix('torch.')} {pool_kind} {wname}")
+        if quant:
+            kp, vp = kq, vq
+        else:
+            kp, vp, sc = kf.to(dtype), vf.to(dtype), {}
         g = torch.Generator(device="cuda").manual_seed(2)
         # decode: idle slot, 1, page-1, page, page+1, partial pages
-        lengths = torch.tensor([0, 1, 15, 16, 17, 33, 250, 631],
-                               dtype=torch.int32, device="cuda")
+        lengths = torch.tensor([0, 1, page - 1, page, page + 1, 2 * page + 1,
+                                250, 631], dtype=torch.int32, device="cuda")
         tables = _tables(torch, SLOTS, mp, n_pages, seed=3)
-        q = torch.randn(SLOTS, KVH * G, D, generator=g, device="cuda").to(dtype)
+        q = torch.randn(SLOTS, kvh * group, d, generator=g,
+                        device="cuda").to(dtype)
         e_dec = compare(
             "paged_attention_bkgd",
-            ops.paged_attention(q, kp, vp, tables, lengths),
-            ops.paged_attention(q, kp, vp, tables, lengths, impl="ref"),
+            ops.paged_attention(q, kp, vp, tables, lengths, **sc),
+            ops.paged_attention(q, kp, vp, tables, lengths, impl="ref", **sc),
             lengths == 0, tol, label)
         # prefill: a chunk straddling a page with valid < C, a full chunk
         # from position 0, and an all-padding chunk
-        qc = torch.randn(CHUNK, KVH * G, D, generator=g,
+        qc = torch.randn(CHUNK, kvh * group, d, generator=g,
                          device="cuda").to(dtype)
         e_pre = 0.0
         for start, valid in ((23, 41), (0, CHUNK), (300, 0)):
@@ -222,9 +287,10 @@ def check_kernels(torch, ops):
             dead = torch.arange(CHUNK, device="cuda") >= valid
             e_pre = max(e_pre, compare(
                 "paged_prefill_attention_ckgd",
-                ops.paged_prefill_attention(qc, kp, vp, tables[5], st, va),
                 ops.paged_prefill_attention(qc, kp, vp, tables[5], st, va,
-                                            impl="ref"),
+                                            **sc),
+                ops.paged_prefill_attention(qc, kp, vp, tables[5], st, va,
+                                            impl="ref", **sc),
                 dead, tol, f"{label} start={start} valid={valid}"))
         # mixed: decode rows (one idle) + a chunk straddling a page with a
         # dead suffix, every row its own table row
@@ -236,11 +302,12 @@ def check_kernels(torch, ops):
         qm = torch.cat([q, qc])
         e_mix = compare(
             "paged_mixed_attention_rkgd",
-            ops.paged_mixed_attention(qm, kp, vp, mtables, last_pos),
+            ops.paged_mixed_attention(qm, kp, vp, mtables, last_pos, **sc),
             ops.paged_mixed_attention(qm, kp, vp, mtables, last_pos,
-                                      impl="ref"),
+                                      impl="ref", **sc),
             last_pos < 0, tol, label)
-        log(f"kernel check {label}: decode {e_dec:.3e}, prefill {e_pre:.3e}, "
+        log(f"kernel check {label} (KVH {kvh}, G {group}, D {d}, page {page},"
+            f" {mp}-entry tables): decode {e_dec:.3e}, prefill {e_pre:.3e}, "
             f"mixed {e_mix:.3e} (bound {tol})")
         if dtype == torch.bfloat16:
             errs = {"paged_attention_bkgd": e_dec,
@@ -268,12 +335,14 @@ def _time_ms(torch, fn, iters=64, warmup=8):
     return t0.elapsed_time(t1) / iters
 
 
-def _bound(n_positions, rows_attended, q_rows, tables_elems, scalars, elt):
+def _bound(n_positions, rows_attended, q_rows, tables_elems, scalars, elt,
+           quant=False):
     """Least time for the function: every K/V position it must read (each
-    (page, offset) once, all kv heads), q in, out back, its int32 tables and
-    positions; against the operations of QK^T and PV over the attended
-    positions. Returns (ms, 'bytes' | 'operations')."""
-    kv_bytes = 2 * n_positions * KVH * D * elt
+    (page, offset) once, all kv heads; int8 pages: one byte per element
+    plus a 4-byte f32 scale per (position, kv head)), q in, out back, its
+    int32 tables and positions; against the operations of QK^T and PV over
+    the attended positions. Returns (ms, 'bytes' | 'operations')."""
+    kv_bytes = 2 * n_positions * KVH * (D + 4 if quant else D * elt)
     qo_bytes = 2 * q_rows * KVH * G * D * elt
     nbytes = kv_bytes + qo_bytes + 4 * (tables_elems + scalars)
     flops = 4 * D * KVH * G * rows_attended
@@ -283,14 +352,22 @@ def _bound(n_positions, rows_attended, q_rows, tables_elems, scalars, elt):
                                        else "operations")
 
 
-def time_kernels(torch, F, ops, ref):
+def time_kernels(torch, F, ops, ref, quant=False):
     """kernel / plain / library times (ms) and the bound, at the shapes of
     one full-width engine step, cycling through 32 layers' pools so each
-    launch finds its pages outside L2 as in a real step."""
+    launch finds its pages outside L2 as in a real step. ``quant``: int8
+    pools with f32 scales (the plain version dequantizes them, SDPA reads
+    K/V dequantized to bf16 and gathered in advance)."""
     mp = -(-MAX_LEN // PAGE)
     n_pages = SLOTS * mp + 1
     dt = torch.bfloat16
     kp, vp = _pools(torch, n_pages, dt, layers=LAYERS, seed=5)
+    sc = [{}] * LAYERS
+    if quant:
+        (kq, ks), (vq, vs) = ref.quantize_kv(kp), ref.quantize_kv(vp)
+        sc = [dict(k_scale=ks[i], v_scale=vs[i]) for i in range(LAYERS)]
+        kp = ref.dequantize_pages(kq, ks).to(dt)  # what SDPA reads
+        vp = ref.dequantize_pages(vq, vs).to(dt)
     g = torch.Generator(device="cuda").manual_seed(6)
     lengths = torch.randint(100, 632, (SLOTS,), generator=g, device="cuda",
                             dtype=torch.int32)
@@ -306,6 +383,8 @@ def time_kernels(torch, F, ops, ref):
     scale = D ** -0.5
 
     def layer(i):
+        if quant:
+            return kq[i % LAYERS], vq[i % LAYERS]
         return kp[i % LAYERS], vp[i % LAYERS]
 
     def dense(tbl, n):
@@ -331,28 +410,35 @@ def time_kernels(torch, F, ops, ref):
     rows = {
         "paged_attention_bkgd": dict(
             kernel=lambda i: ops.paged_attention(
-                q, *layer(i), tables, lengths, scale=scale),
-            plain=lambda i: ref.paged_attention_ref(
-                q, *layer(i), tables, lengths, scale=scale),
+                q, *layer(i), tables, lengths, scale=scale,
+                **sc[i % LAYERS]),
+            plain=lambda i: ops.paged_attention(
+                q, *layer(i), tables, lengths, scale=scale, impl="ref",
+                **sc[i % LAYERS]),
             library=lambda i: F.scaled_dot_product_attention(
                 q[:, :, None], *dec_dense[i % LAYERS],
                 attn_mask=dec_mask),
-            bound=_bound(sum(lens), sum(lens), SLOTS, SLOTS * mp, SLOTS, 2)),
+            bound=_bound(sum(lens), sum(lens), SLOTS, SLOTS * mp, SLOTS, 2,
+                         quant)),
         "paged_prefill_attention_ckgd": dict(
             kernel=lambda i: ops.paged_prefill_attention(
-                qc, *layer(i), tables[0], start, valid, scale=scale),
-            plain=lambda i: ref.paged_prefill_attention_ref(
-                qc, *layer(i), tables[0], start, valid, scale=scale),
+                qc, *layer(i), tables[0], start, valid, scale=scale,
+                **sc[i % LAYERS]),
+            plain=lambda i: ops.paged_prefill_attention(
+                qc, *layer(i), tables[0], start, valid, scale=scale,
+                impl="ref", **sc[i % LAYERS]),
             library=lambda i: F.scaled_dot_product_attention(
                 qc.transpose(0, 1)[None], *pre_dense[i % LAYERS],
                 attn_mask=pre_mask),
             bound=_bound(256 + CHUNK, sum(257 + c for c in range(CHUNK)),
-                         CHUNK, mp, 2, 2)),
+                         CHUNK, mp, 2, 2, quant)),
         "paged_mixed_attention_rkgd": dict(
             kernel=lambda i: ops.paged_mixed_attention(
-                qm, *layer(i), mtables, last_pos, scale=scale),
-            plain=lambda i: ref.paged_mixed_attention_ref(
-                qm, *layer(i), mtables, last_pos, scale=scale),
+                qm, *layer(i), mtables, last_pos, scale=scale,
+                **sc[i % LAYERS]),
+            plain=lambda i: ops.paged_mixed_attention(
+                qm, *layer(i), mtables, last_pos, scale=scale, impl="ref",
+                **sc[i % LAYERS]),
             library=lambda i: F.scaled_dot_product_attention(
                 qm[:, :, None], *mix_dense[i % LAYERS],
                 attn_mask=mix_mask),
@@ -360,7 +446,7 @@ def time_kernels(torch, F, ops, ref):
             bound=_bound(sum(lens) + max(0, 256 + CHUNK - lens[0]),
                          sum(lens) + sum(257 + c for c in range(CHUNK)),
                          SLOTS + CHUNK, (SLOTS + CHUNK) * mp, SLOTS + CHUNK,
-                         2)),
+                         2, quant)),
     }
     out = {}
     for name, r in rows.items():
@@ -373,9 +459,9 @@ def time_kernels(torch, F, ops, ref):
         out[name] = dict(ms=min(k1, k2), plain_ms=min(p1, p2),
                          library_ms=lib, bound_ms=r["bound"][0],
                          bound_by=r["bound"][1])
-        log(f"timing {name}: kernel {k1:.4f}/{k2:.4f} ms, plain "
-            f"{p1:.4f}/{p2:.4f} ms, sdpa {lib:.4f} ms, bound "
-            f"{r['bound'][0]:.5f} ms ({r['bound'][1]})")
+        log(f"timing {name}{' int8' if quant else ''}: kernel "
+            f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, sdpa "
+            f"{lib:.4f} ms, bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
     del dec_dense, pre_dense, mix_dense
     return out
 
@@ -658,10 +744,13 @@ def run_engine(torch, np, cfg, serving, models, pk, card):
 
 def _trace(torch, make_engine, reqs, kernel_keys, label):
     """Where a step's time goes: a torch.profiler window over a fresh
-    engine serving ``reqs``. Device busy = the sum of the device times the
-    profiler recorded (one stream, so no overlap) over the window's wall
-    time; the kernels' share sums the device ops whose name holds one of
-    ``kernel_keys``."""
+    engine serving ``reqs``. Device busy = the sum of the device activities
+    (kernels, copies, fills) the profiler recorded (one stream, so no
+    overlap) over the window's wall time; the kernels' share sums the
+    activities whose name holds one of ``kernel_keys``. The raw events are
+    read, not ``key_averages()``, which takes minutes over a window's
+    several hundred thousand events."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     engine = make_engine()
@@ -671,26 +760,27 @@ def _trace(torch, make_engine, reqs, kernel_keys, label):
         _, steps = _drive(torch, engine, reqs)
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    def device_us(evt):
-        return getattr(evt, "self_device_time_total",
-                       getattr(evt, "self_cuda_time_total", 0.0))
-
-    events = [e for e in prof.key_averages() if device_us(e) > 0]
-    busy_ms = sum(device_us(e) for e in events) / 1e3
+    by_name = {}  # device activity name -> [ms, count]
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            acc = by_name.setdefault(e.name(), [0.0, 0])
+            acc[0] += e.duration_ns() / 1e6
+            acc[1] += 1
+    busy_ms = sum(ms for ms, _ in by_name.values())
     if busy_ms <= 0:
         log("trace: the profiler recorded no device time (not measured)")
         return
-    kern_ms = sum(device_us(e) for e in events
-                  if any(k in e.key for k in kernel_keys)) / 1e3
-    top = sorted(events, key=device_us, reverse=True)[:6]
+    kern_ms = sum(ms for name, (ms, _) in by_name.items()
+                  if any(k in name for k in kernel_keys))
+    top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:6]
     log(f"trace: {steps} steps in {wall_ms:.1f} ms wall "
         f"({wall_ms / steps:.2f} ms/step); device busy {busy_ms:.1f} ms = "
         f"{100 * busy_ms / wall_ms:.1f}% (idle {100 - 100 * busy_ms / wall_ms:.1f}%);"
         f" {label} {kern_ms:.1f} ms = "
         f"{100 * kern_ms / busy_ms:.1f}% of busy; "
-        f"{sum(e.count for e in events)} device ops")
-    for e in top:
-        log(f"trace top: {device_us(e) / 1e3:9.2f} ms x{e.count:6d}  {e.key[:90]}")
+        f"{sum(n for _, n in by_name.values())} device ops")
+    for name, (ms, n) in top:
+        log(f"trace top: {ms:9.2f} ms x{n:6d}  {name[:90]}")
 
 
 def _chunk_logits(torch, np, model, impl):
@@ -762,6 +852,317 @@ def run_parity(torch, np, cfg, serving, models):
 
 
 # ---------------------------------------------------------------------------
+# phases 14-16: int8 pages and the KV tiers in the engine
+# ---------------------------------------------------------------------------
+
+
+def run_int8_engine(torch, np, cfg, serving, models, pk, card):
+    """Phase 4's trace through the chunked engine with int8 pages, in turns
+    with bf16 pages (bf16, int8, int8, bf16: one call's host drifts, so the
+    two are compared side by side), then a profiler window of each.
+    Returns the paged kernels' launch counts over the first int8 run."""
+    params = models.build_model(cfg, device="cuda").init(seed=0)
+
+    def make(quant):
+        return serving.ContinuousBatchingEngine(
+            cfg, params, max_len=MAX_LEN, max_slots=SLOTS, page_size=PAGE,
+            prefill_chunk=CHUNK, kv_quant=quant, device="cuda")
+
+    def requests():  # phase 4's: 2 warm-up requests, then 16 measured
+        rng = np.random.default_rng(0)
+        return (_requests(serving, 2, rng, sampled_every=2),
+                _requests(serving, 16, rng, sampled_every=2))
+
+    for quant in ("none", "int8"):
+        _drive(torch, make(quant), requests()[0])  # warm-up
+    launches = None
+    for turn, quant in enumerate(("none", "int8", "int8", "none")):
+        engine = make(quant)
+        reqs = requests()[1]
+        first_int8 = quant == "int8" and launches is None
+        if first_int8:
+            if engine.cache.pages["k"].dtype != torch.int8:
+                raise AssertionError("kv_quant='int8' built a pool of "
+                                     f"{engine.cache.pages['k'].dtype}")
+            pk.reset_launches()
+        t0 = time.perf_counter()
+        handles, steps = _drive(torch, engine, reqs)
+        wall = time.perf_counter() - t0
+        if first_int8:
+            launches = dict(pk.LAUNCHES)
+            if not all(launches[k] > 0 for k in launches):
+                raise AssertionError(f"a route never ran its kernel: "
+                                     f"{launches}")
+        results = [h.result() for h in handles]
+        _check_served(np, cfg, results, 32)
+        hits = engine.cache.stats["prefix_hits"]
+        if hits <= 0:
+            raise AssertionError("no prefix hits on the shared-prefix requests")
+        _log_run(f"int8 phase, {quant} pages, turn {turn + 1}", cfg, card,
+                 reqs, results, wall, steps,
+                 f"{1e3 * wall / steps:.2f} ms/step, prefill_chunks "
+                 f"{engine.stats['prefill_chunks']}, prefix hits {hits}; "
+                 f"pool {engine.cache.page_nbytes} B per page"
+                 + (f"; kernel launches {launches}" if first_int8 else ""))
+        del engine
+    for quant in ("none", "int8"):
+        _trace(torch, lambda quant=quant: make(quant),
+               _requests(serving, 8, np.random.default_rng(5),
+                         sampled_every=0),
+               ("paged_attention_kernel",), f"paged-attention kernels "
+               f"({quant} pages)")
+    return launches
+
+
+class _UploadLog:
+    """Records (page, content key) for every page a cache uploads from the
+    host or persisted tier, to hold the pages against the store later."""
+
+    def __init__(self, cache):
+        self.uploads, inner = [], cache._upload_page
+
+        def upload(page, arrays):
+            inner(page, arrays)
+            self.uploads.append(page)
+
+        cache._upload_page = upload
+
+
+def _check_reloaded(torch, np, engine, store_root, keys):
+    """Every reloaded page still registered under its content key holds,
+    byte for byte, what the store kept under that key for each pool tensor
+    in ``keys``. Returns how many pages were compared."""
+    from repro_torch.core.storage import ArtifactStore
+
+    cache, store = engine.cache, ArtifactStore(store_root)
+    index = cache.tiers.persist_index
+    torch.cuda.synchronize()
+    n = 0
+    for page in set(engine._uploads.uploads):
+        ck = cache._page_ck.get(page)
+        if ck is None or ck.hex() not in index:
+            continue  # the page was reclaimed and reused since
+        got, refs = cache._read_page(page), index[ck.hex()]
+        if set(refs) != keys:
+            raise AssertionError(f"page {page} persisted {sorted(refs)}")
+        for key, ref_ in refs.items():
+            want = store.get(ref_)
+            if got[key].dtype != want.dtype or not np.array_equal(got[key],
+                                                                  want):
+                raise AssertionError(f"reloaded page {page} [{key}] differs "
+                                     f"from the persisted bytes")
+        n += 1
+    if n == 0:
+        raise AssertionError("no reloaded page left to compare")
+    return n
+
+
+def run_tier_restart(torch, np, cfg, serving, models, pk, card, quant):
+    """Full-width smollm-360m, bf16 or int8 pages (``quant``), a pool small
+    enough to reclaim: the run spills parked pages to host RAM and a
+    persisted store; a NEW engine on the same store reruns the prompts
+    from persisted pages. Returns the paged kernels' launch counts over
+    both runs."""
+    from repro_torch.serving.metrics import latency_percentiles
+
+    params = models.build_model(cfg, device="cuda").init(seed=0)
+    with tempfile.TemporaryDirectory(prefix="kv_tiers_") as tmp:
+        kw = dict(max_len=MAX_LEN, max_slots=SLOTS, page_size=PAGE,
+                  prefill_chunk=CHUNK, num_pages=TIER_PAGES,
+                  host_pages=TIER_HOST_PAGES, persist_dir=tmp,
+                  kv_quant=quant, device="cuda")
+        pk.reset_launches()
+        runs = []
+        for label in ("first run", "restart"):
+            engine = serving.ContinuousBatchingEngine(cfg, params, **kw)
+            want = {"k", "v"} | ({"k_scale", "v_scale"} if quant == "int8"
+                                 else set())
+            if set(engine.cache.pages) != want:
+                raise AssertionError(f"kv_quant={quant!r} built pool tensors "
+                                     f"{sorted(engine.cache.pages)}")
+            engine._uploads = _UploadLog(engine.cache)
+            reqs = _requests(serving, 16, np.random.default_rng(7),
+                             sampled_every=2)
+            t0 = time.perf_counter()
+            handles, steps = _drive(torch, engine, reqs)
+            wall = time.perf_counter() - t0
+            results = [h.result() for h in handles]
+            _check_served(np, cfg, results, 32)
+            t = engine.cache.tiers.counters
+            lat = latency_percentiles(results)
+            _log_run(f"tiers ({quant} pages) {label}", cfg, card, reqs,
+                     results, wall, steps,
+                     f"prefill_chunks {engine.stats['prefill_chunks']}, "
+                     f"preemptions {engine.stats['preemptions']}; tiers "
+                     + ", ".join(f"{k} {v:.4g}" if isinstance(v, float)
+                                 else f"{k} {v}" for k, v in t.items()))
+            if label == "first run":
+                if not (t["reclaimed_pages"] > 0 and t["spilled_pages"] > 0):
+                    raise AssertionError(f"the pool never reclaimed and "
+                                         f"spilled parked pages: {t}")
+                flushed = engine.cache.flush_tiers()
+                log(f"tiers ({quant} pages): flush_tiers() spilled {flushed} "
+                    f"parked pages; {engine.cache.tiers.persisted_count} "
+                    f"pages persisted ({engine.cache.page_nbytes} B each)")
+            else:
+                if not t["persist_hits"] > 0:
+                    raise AssertionError(f"the restart found no persisted "
+                                         f"page: {t}")
+                n = _check_reloaded(torch, np, engine, tmp, want)
+                log(f"tiers ({quant} pages): {n} reloaded pages equal the "
+                    f"persisted bytes of {sorted(want)} under their content "
+                    f"keys")
+            runs.append((engine.stats["prefill_chunks"], lat, results))
+            del engine
+        launches = dict(pk.LAUNCHES)
+    if not all(launches[k] > 0 for k in launches):
+        raise AssertionError(f"a route never ran its kernel: {launches}")
+    (c1, lat1, _), (c2, lat2, _) = runs
+    if not c2 < c1:
+        raise AssertionError(f"the restart prefilled {c2} chunks, the first "
+                             f"run {c1}")
+    log(f"tiers ({quant} pages): restart prefill chunks {c2} vs {c1}; TTFT "
+        f"p50 {lat1['ttft_ms'][0]:.1f} -> {lat2['ttft_ms'][0]:.1f} ms, p99 "
+        f"{lat1['ttft_ms'][2]:.1f} -> {lat2['ttft_ms'][2]:.1f} ms")
+    return launches
+
+
+def _record_dispatches(engine):
+    """Record the interleaved engine's dispatches: ("d", uids decoded) for
+    each decode over ``max_slots`` rows, ("c", uid, start, valid) for each
+    CHUNK-row prefill chunk."""
+    ex, sched, log_ = engine.executor, engine.scheduler, []
+    decode, chunk = ex.decode, ex.prefill_chunk
+
+    def rec_decode(inputs=None):
+        log_.append(("d", tuple(sorted(seq.handle.uid
+                                       for _, seq in sched.decoding()))))
+        return decode(inputs)
+
+    def rec_chunk(work):
+        log_.append(("c", work.seq.handle.uid, work.start, work.valid))
+        return chunk(work)
+
+    ex.decode, ex.prefill_chunk = rec_decode, rec_chunk
+    return log_
+
+
+def run_tier_int8_parity(torch, np, cfg, serving, models):
+    """f32, TF32 off, PARITY_LAYERS layers: int8 streams through the kernels
+    = through the plain versions; the tiered run, its restart from the
+    store and an untiered run give the same streams.
+
+    With one slot all three runs step through the same shapes (a reused
+    prefix ends on a chunk boundary: 128 = 2 x 64). With four slots, in
+    the interleaved step mode, every decode dispatch has ``max_slots`` rows
+    and every chunk CHUNK rows, whatever the schedule, so no row's matmul
+    shape depends on the schedule (a fused step's are slots + CHUNK rows,
+    a decode-only step's slots rows; a fused 4-slot tiered run and an
+    untiered run on a pool of another size once differed in one greedy
+    token on an H100 80GB HBM3, 700 W). The 4-slot runs share TIER_PARITY_PAGES, a
+    pool on which the tiered run reclaims and spills while other slots are
+    live and preempts nothing, so its dispatches must equal the untiered
+    run's one for one; the restart skips the persisted chunks."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                num_layers=PARITY_LAYERS)
+    params = models.build_model(cfg32, device="cuda").init(seed=1)
+
+    def streams(slots=4, **kw):
+        engine = serving.ContinuousBatchingEngine(
+            cfg32, params, max_len=MAX_LEN, max_slots=slots, page_size=PAGE,
+            prefill_chunk=CHUNK, device="cuda", **kw)
+        dispatches = (_record_dispatches(engine)
+                      if kw.get("step_mode") == "interleaved" else None)
+        reqs = _requests(serving, 8, np.random.default_rng(9),
+                         sampled_every=0)
+        handles, _ = _drive(torch, engine, reqs)
+        return [list(h.tokens) for h in handles], engine, dispatches
+
+    runs = {impl: streams(kv_quant="int8", attn_impl=impl)[0]
+            for impl in ("auto", "ref")}
+    if runs["auto"] != runs["ref"]:
+        raise AssertionError(f"f32 int8 kernel vs plain streams differ: {runs}")
+    log(f"tier + int8 parity: f32, {PARITY_LAYERS} layers, full width: 8 "
+        f"greedy int8 streams of 32 tokens identical through kernels and "
+        f"plain versions")
+    for slots, quant, pages, mode in (
+            (1, "none", TIER_PAGES // 2, "fused"),
+            (4, "none", TIER_PARITY_PAGES, "interleaved"),
+            (4, "int8", TIER_PARITY_PAGES, "interleaved")):
+        kw = dict(slots=slots, num_pages=pages, kv_quant=quant,
+                  step_mode=mode)
+        with tempfile.TemporaryDirectory(prefix="kv_tiers_") as tmp:
+            tier_kw = dict(kw, host_pages=16, persist_dir=tmp)
+            tiered, engine, d_tiered = streams(**tier_kw)
+            t = dict(engine.cache.tiers.counters)
+            pre = [engine.stats["preemptions"]]
+            if not (t["spilled_pages"] > 0 and t["reclaimed_pages"] > 0):
+                raise AssertionError(f"the parity run never spilled: {t}")
+            engine.cache.flush_tiers()
+            restart, engine, _ = streams(**tier_kw)
+            hits = engine.cache.tiers.counters["persist_hits"]
+            pre.append(engine.stats["preemptions"])
+            if not hits > 0:
+                raise AssertionError("the parity restart found no persisted "
+                                     "page")
+        untiered, engine, d_untiered = streams(kv_tiers=False, **kw)
+        pre.append(engine.stats["preemptions"])
+        if slots > 1:
+            if any(pre):
+                raise AssertionError(f"preemptions {pre} (tiered, restart, "
+                                     f"untiered): recomputed rows break the "
+                                     f"comparison")
+            if d_tiered != d_untiered:
+                raise AssertionError("the tiered run dispatched other steps "
+                                     "than the untiered run")
+        if not tiered == restart == untiered:
+            raise AssertionError(
+                f"{slots} slot(s), {quant} pages: tiered / restart / untiered"
+                f" streams differ: {tiered} / {restart} / {untiered}")
+        log(f"tier parity: {slots} slot(s), {quant} pages, {pages} pages, "
+            f"{mode} steps: tiered ({t['reclaimed_pages']} reclaimed, "
+            f"{t['spilled_pages']} spilled, {t['host_hits']} host hits) = "
+            f"restart from the store ({hits} persisted hits) = untiered"
+            + (f"; tiered and untiered dispatched the same {len(d_tiered)} "
+               f"steps" if slots > 1 else ""))
+
+
+def run_serve_tiers(card):
+    """The serving driver, as a user runs it, on the card at full width:
+    ``python -m repro_torch.launch.serve --kv-quant int8 --host-pages 8
+    --persist-dir DIR`` twice on one directory. Both serve every request;
+    only the second reports persisted hits (``tier_hits=.../pvN``)."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    with tempfile.TemporaryDirectory(prefix="serve_tiers_") as tmp:
+        for n in (1, 2):
+            t0 = time.perf_counter()
+            run = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.serve",
+                 "--requests", "12", "--max-new", "8", "--shared-prefix",
+                 "32", "--kv-quant", "int8", "--host-pages", "8",
+                 "--persist-dir", f"{tmp}/kv", "--workdir", f"{tmp}/run{n}"],
+                capture_output=True, text=True, env=env, timeout=300,
+                cwd=ROOT)
+            if run.returncode != 0:
+                raise AssertionError(f"serve run {n} exited {run.returncode}:"
+                                     f" {run.stderr[-2000:]}")
+            hits = re.search(r"tier_hits=dev\d+/host\d+/pv(\d+);",
+                             run.stdout)
+            if "served 12/12" not in run.stdout or not hits:
+                raise AssertionError(f"serve run {n}: {run.stdout[-2000:]}")
+            if (int(hits.group(1)) > 0) != (n == 2):
+                raise AssertionError(f"serve run {n}: persisted hits "
+                                     f"{hits.group(1)}")
+            served = next(line for line in run.stdout.splitlines()
+                          if line.startswith("served"))
+            log(f"serve driver run {n} on {card} (--kv-quant int8 "
+                f"--host-pages 8 --persist-dir, {time.perf_counter() - t0:.1f}"
+                f" s with start-up): {served}; tier_hits=...pv{hits.group(1)}")
+
+
+# ---------------------------------------------------------------------------
 # phases 6-9: the flash kernel, the lockstep and whole-prompt engines
 # ---------------------------------------------------------------------------
 
@@ -779,40 +1180,52 @@ def _flash_plain(ref, q, k, v, causal):
 def check_flash(torch, fk, ref, engine_shapes):
     """The flash kernel against its plain version at smollm widths: fixed
     ragged and contract cases, every whole-prompt bucket, and each
-    (B, S) in ``engine_shapes`` (the prefills the engine phases ran).
-    Returns the max abs error over the bf16 cases and logs the f32 ones."""
+    (B, S) in ``engine_shapes`` (the prefills the engine phases ran); then
+    at zamba2's D 80 (32 heads, G 1), causal and not. Returns the max abs
+    error over the smollm bf16 cases and logs the rest."""
     cases = [(LOCK_BATCH, s, s, True) for s in (1, 64, 100, 256, 300, 512)]
     cases += [(LOCK_BATCH, 64, 320, True), (LOCK_BATCH, 37, 300, False)]
     buckets = [1 << i for i in range(7, WHOLE_MAX_LEN.bit_length())]
     shapes = sorted({(1, s) for s in buckets} | set(engine_shapes))
     cases += [(b, s, s, True) for b, s in shapes if (b, s, s, True)
               not in cases]
+    d80_cases = [(2, 100, 100, True), (1, 256, 256, True),
+                 (2, 37, 300, False), (1, 64, 320, True)]
+    widths = {"smollm": ((FLASH_H, KVH, D), cases),
+              "D 80": ((32, 32, 80), d80_cases)}
     err_bf16 = 0.0
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
         label = str(dtype).removeprefix("torch.")
         g = torch.Generator(device="cuda").manual_seed(31)
-        worst = 0.0
-        for b, sq, skv, causal in cases:
-            q = torch.randn(b, FLASH_H, sq, D, generator=g,
-                            device="cuda").to(dtype)
-            k, v = (torch.randn(b, KVH, skv, D, generator=g,
-                                device="cuda").to(dtype) for _ in range(2))
-            got = fk.flash_attention_bhsd(q, k, v, causal=causal)
-            want = _flash_plain(ref, q, k, v, causal)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            if not err <= tol:
-                raise AssertionError(
-                    f"flash_attention_bhsd [{label} B={b} Sq={sq} Skv={skv} "
-                    f"causal={causal}]: max abs err {err} > {tol}")
-            worst = max(worst, err)
+        worst = {}
+        for wname, ((h, kvh, d), wcases) in widths.items():
+            worst[wname] = 0.0
+            for b, sq, skv, causal in wcases:
+                q = torch.randn(b, h, sq, d, generator=g,
+                                device="cuda").to(dtype)
+                k, v = (torch.randn(b, kvh, skv, d, generator=g,
+                                    device="cuda").to(dtype)
+                        for _ in range(2))
+                got = fk.flash_attention_bhsd(q, k, v, causal=causal)
+                want = _flash_plain(ref, q, k, v, causal)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                if not err <= tol:
+                    raise AssertionError(
+                        f"flash_attention_bhsd [{label} {wname} B={b} Sq={sq}"
+                        f" Skv={skv} causal={causal}]: max abs err {err} > "
+                        f"{tol}")
+                worst[wname] = max(worst[wname], err)
         log(f"flash kernel check {label}: {len(cases)} cases (H {FLASH_H}, "
             f"KVH {KVH}, D {D}; B 8: Sq=Skv 1..512, Sq 64 < Skv 320, "
             f"non-causal 37 x 300; B 1: buckets {buckets}; engine (B, S) "
-            f"{sorted(set(engine_shapes))}): max abs err {worst:.3e} "
-            f"(bound {tol})")
+            f"{sorted(set(engine_shapes))}): max abs err "
+            f"{worst['smollm']:.3e} (bound {tol})")
+        log(f"flash kernel check {label} D 80 (32 heads, G 1; causal 100, "
+            f"256 and 64 < 320, non-causal 37 x 300): max abs err "
+            f"{worst['D 80']:.3e} (bound {tol})")
         if dtype == torch.bfloat16:
-            err_bf16 = worst
+            err_bf16 = worst["smollm"]
     return {"flash_attention_bhsd": err_bf16}
 
 
@@ -1193,7 +1606,14 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    t0 = time.perf_counter()
+    t0 = last = time.perf_counter()
+
+    def lap(phase):  # wall time per phase, to keep the script in its limit
+        nonlocal last
+        now = time.perf_counter()
+        log(f"[{now - t0:.1f} s] {phase}: {now - last:.1f} s")
+        last = now
+
     build.build()
     log(f"build: {time.perf_counter() - t0:.1f} s "
         f"({', '.join(f'{n} {s:.1f} s' for n, s in build.build_seconds.items())})")
@@ -1206,15 +1626,26 @@ def main() -> int:
             f"{spills} over {ptxas.count('Compiling entry function')} "
             f"kernel instances")
 
-    errs = check_kernels(torch, ops)
+    lap("build")
+    # kernel -> max abs err over the main width's bf16 cases, per pool kind
+    errs, int8_errs = {}, {}
+    for wname in PAGED_WIDTHS:
+        for quant in (False, True):
+            e = check_kernels(torch, ops, ref, wname, quant)
+            if wname == MAIN_WIDTH:
+                (int8_errs if quant else errs).update(e)
+    lap("paged kernel checks")
     times = time_kernels(torch, F, ops, ref)
+    lap("paged timing")
     cfg = get_arch("smollm-360m")
     # kernel -> {path: launches read just after that path's run}
     by_path = {name: {} for name in KERNELS}
     for name, n in run_engine(torch, np, cfg, serving, models, pk,
                               card).items():
         by_path[name]["paged chunked"] = n
+    lap("engine")
     run_parity(torch, np, cfg, serving, models)
+    lap("parity")
     times.update(time_flash(torch, F, fk, ref))
     flash, lock_shapes = run_lockstep(torch, np, cfg, serving, models, fk,
                                       card)
@@ -1224,21 +1655,47 @@ def main() -> int:
     by_path["flash_attention_bhsd"]["whole-prompt"] = flash
     for name, n in paged.items():
         by_path[name]["whole-prompt"] = n
+    lap("flash timing, lockstep, whole-prompt")
     errs.update(check_flash(torch, fk, ref, lock_shapes + whole_shapes))
+    lap("flash check")
     run_whole_prompt_parity(torch, np, cfg, serving, models)
+    lap("whole-prompt parity")
     errs.update(check_ssd_kernels(torch, ops))
     times.update(time_ssd_kernels(torch, ops))
+    lap("ssd check and timing")
     mcfg = get_arch("mamba2-1.3b")
     for name, n in run_mamba_engine(torch, np, mcfg, serving, models, sk,
                                     card).items():
         by_path[name]["mamba2"] = n
+    lap("mamba2 engine")
     run_mamba_parity(torch, np, mcfg, serving, models)
 
+    lap("mamba2 parity")
+    int8_times = time_kernels(torch, F, ops, ref, quant=True)
+    lap("int8 timing")
+    for name, n in run_int8_engine(torch, np, cfg, serving, models, pk,
+                                   card).items():
+        by_path[name]["chunked_int8"] = n
+    lap("int8 engine")
+    for quant, path in (("none", "tiered"), ("int8", "tiered_int8")):
+        for name, n in run_tier_restart(torch, np, cfg, serving, models, pk,
+                                        card, quant).items():
+            by_path[name][path] = n
+    lap("tier restarts")
+    run_tier_int8_parity(torch, np, cfg, serving, models)
+    lap("tier + int8 parity")
+    run_serve_tiers(card)
+
+    lap("serve driver")
     kernels = [dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=sum(by_path[name].values()),
                     launches_by_path=by_path[name],
                     max_abs_err=errs[name], **times[name])
                for name, (source, replaces) in KERNELS.items()]
+    for k in kernels:
+        if k["name"] in int8_times:
+            k["int8"] = dict(max_abs_err=int8_errs[k["name"]],
+                             **int8_times[k["name"]])
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

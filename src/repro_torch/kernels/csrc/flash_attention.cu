@@ -13,7 +13,11 @@
 // 1e-30, the output cast to q's dtype, as in the Pallas kernel.
 //
 // Layouts (all contiguous): q/out (B, H, Sq, D); k/v (B, KVH, Skv, D).
-// Inputs f32 or bf16 (one type for all three), D 64 or 128.
+// Inputs f32 or bf16 (one type for all three), D 64, 80 or 128. The staged
+// q, K and V tiles are DP = D rounded up to a multiple of 32 columns wide
+// (96 for D 80; zeros past D), so every lane owns DP / 32 whole output
+// columns; the zero columns add nothing to a dot product and are never
+// written back.
 //
 // Design. The Pallas kernel walks a sequential grid of (b, h, q block, kv
 // block) with the online-softmax state in VMEM scratch. Here blocks run in
@@ -59,16 +63,18 @@ constexpr int kBK = 64;  // keys per K/V tile: two per lane
 
 template <int D>
 struct Tile {
-  static constexpr int kRowsPerWarp = D == 64 ? 24 : 12;
+  static constexpr int kDP = (D + 31) / 32 * 32;  // staged columns
+  static constexpr int kRowsPerWarp = D == 64 ? 24 : D == 80 ? 16 : 12;
   static constexpr int kRows = kWarps * kRowsPerWarp;
-  static constexpr int kCols = D / 32;    // output columns per lane
-  static constexpr int kKStride = D + 4;  // padded K rows: float4 reads
-                                          // across lanes hit distinct banks
-  // shared memory, in floats: q [rows][D], K [kBK][D+4], V [kBK][D],
+  static constexpr int kCols = kDP / 32;    // output columns per lane
+  static constexpr int kKStride = kDP + 4;  // padded K rows: float4 reads
+                                            // across lanes hit distinct banks
+  // shared memory, in floats: q [rows][DP], K [kBK][DP+4], V [kBK][DP],
   // P [warps][rows per warp][kBK]
-  static constexpr size_t kSmemFloats = (size_t)kRows * D +
+  static constexpr size_t kSmemFloats = (size_t)kRows * kDP +
                                         (size_t)kBK * kKStride +
-                                        (size_t)kBK * D + (size_t)kRows * kBK;
+                                        (size_t)kBK * kDP +
+                                        (size_t)kRows * kBK;
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -110,11 +116,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel(
   constexpr int ROWS = Cfg::kRows;
   constexpr int COLS = Cfg::kCols;
   constexpr int KS = Cfg::kKStride;
+  constexpr int DP = Cfg::kDP;
+  constexpr bool kPadded = DP != D;  // D 80: guard the columns past D
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;
-  float* ks = qs + ROWS * D;
+  float* ks = qs + ROWS * DP;
   float* vs = ks + kBK * KS;
-  float* ps = vs + kBK * D;
+  float* ps = vs + kBK * DP;
 
   const int group = h / kvh;
   const int n_rows = sq * group;  // flattened (position, g) rows
@@ -125,11 +133,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel(
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
   // the block's queries, f32 and scaled before the dot (the reference's
-  // order); rows past the last query are zeros and never written back
-  for (int idx = tid; idx < ROWS * D; idx += kThreads) {
-    const int i = idx / D, d = idx % D, r = base + i;
+  // order); rows past the last query and columns past D are zeros, and
+  // neither is written back
+  for (int idx = tid; idx < ROWS * DP; idx += kThreads) {
+    const int i = idx / DP, d = idx % DP, r = base + i;
     float x = 0.f;
-    if (r < n_rows) {
+    if (r < n_rows && (!kPadded || d < D)) {
       const int pos = r / group, g = r % group;
       x = to_f32(q[(((size_t)b * h + hk * group + g) * sq + pos) * D + d]) *
           scale;
@@ -159,12 +168,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel(
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kBK;
     const size_t kv_base = (((size_t)b * kvh + hk) * skv + k0) * D;
-    for (int idx = tid; idx < kBK * D; idx += kThreads) {
-      const int j = idx / D, d = idx % D;
+    for (int idx = tid; idx < kBK * DP; idx += kThreads) {
+      const int j = idx / DP, d = idx % DP;
       float kx = 0.f, vx = 0.f;
-      if (k0 + j < skv) {
-        kx = to_f32(k[kv_base + idx]);
-        vx = to_f32(v[kv_base + idx]);
+      if (k0 + j < skv && (!kPadded || d < D)) {
+        const size_t off = kPadded ? (size_t)j * D + d : idx;
+        kx = to_f32(k[kv_base + off]);
+        vx = to_f32(v[kv_base + off]);
       }
       ks[j * KS + d] = kx;
       vs[idx] = vx;
@@ -179,14 +189,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel(
       for (int i = 0; i < RPW; ++i) s[i][0] = s[i][1] = 0.f;
       const float* ka_p = ks + lane * KS;
       const float* kb_p = ks + (lane + 32) * KS;
-      const float* qw = qs + warp * RPW * D;
+      const float* qw = qs + warp * RPW * DP;
 #pragma unroll 2
-      for (int d = 0; d < D; d += 4) {
+      for (int d = 0; d < DP; d += 4) {
         const float4 ka = *reinterpret_cast<const float4*>(ka_p + d);
         const float4 kb = *reinterpret_cast<const float4*>(kb_p + d);
 #pragma unroll
         for (int i = 0; i < RPW; ++i) {
-          const float4 qv = *reinterpret_cast<const float4*>(qw + i * D + d);
+          const float4 qv = *reinterpret_cast<const float4*>(qw + i * DP + d);
           s[i][0] += qv.x * ka.x + qv.y * ka.y + qv.z * ka.z + qv.w * ka.w;
           s[i][1] += qv.x * kb.x + qv.y * kb.y + qv.z * kb.z + qv.w * kb.w;
         }
@@ -226,7 +236,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel(
         for (int u = 0; u < 4; ++u)
 #pragma unroll
           for (int c = 0; c < COLS; ++c)
-            vv[u][c] = vs[(j + u) * D + lane + 32 * c];
+            vv[u][c] = vs[(j + u) * DP + lane + 32 * c];
 #pragma unroll
         for (int i = 0; i < RPW; ++i) {
           const float4 p4 = *reinterpret_cast<const float4*>(pw + i * kBK + j);
@@ -248,7 +258,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel(
       T* o = out + (((size_t)b * h + hk * group + g) * sq + pos) * D;
 #pragma unroll
       for (int c = 0; c < COLS; ++c)
-        o[lane + 32 * c] = from_f32<T>(acc[i][c] * inv);
+        if (!kPadded || lane + 32 * c < D)
+          o[lane + 32 * c] = from_f32<T>(acc[i][c] * inv);
     }
   }
 }
@@ -289,8 +300,10 @@ int flash_attention_forward(const void* q, const void* k, const void* v,
 #define FLASH_CASE(T, DIM) \
   return launch_typed<T, DIM>(q, k, v, out, b, h, kvh, sq, skv, causal, scale, s)
   if (dtype == 0 && head_dim == 64) FLASH_CASE(float, 64);
+  if (dtype == 0 && head_dim == 80) FLASH_CASE(float, 80);
   if (dtype == 0 && head_dim == 128) FLASH_CASE(float, 128);
   if (dtype == 1 && head_dim == 64) FLASH_CASE(__nv_bfloat16, 64);
+  if (dtype == 1 && head_dim == 80) FLASH_CASE(__nv_bfloat16, 80);
   if (dtype == 1 && head_dim == 128) FLASH_CASE(__nv_bfloat16, 128);
 #undef FLASH_CASE
   return -1;

@@ -17,9 +17,17 @@
 // carry lp themselves; chunk row i of a prefill uses lp = start + i while
 // i < valid and -1 past it.
 //
-// Layouts (all contiguous): q/out (N, KVH, G, D) in the pool's dtype;
-// k/v pages (P, page, KVH, D); block tables int32 (N, MP) or (MP,).
-// Inputs are f32 or bf16, accumulation is f32, output is in q's dtype.
+// Layouts (all contiguous): q/out (N, KVH, G, D), f32 or bf16; k/v pages
+// (P, page, KVH, D) in q's dtype, or int8 with f32 scales k_scale/v_scale
+// (P, page, KVH); block tables int32 (N, MP) or (MP,). Accumulation is
+// f32, the output is in q's dtype. D is 64, 80 or 128.
+//
+// int8 pages (the tiered cache's quantized pool; the int8 branch of the
+// three Pallas kernels, paged_attention.py:83-107, :226-254, :382-407):
+// each element is dequantized as float(k) * k_scale[(phys*page + j)*KVH + h]
+// while the page is staged into the f32 shared tile, so the pool is read
+// once in int8 and nothing dequantized is ever written to device memory.
+// The rest of each mode is the same code as for bf16/f32 pages.
 //
 // Design. One thread block owns a TILE of query rows for ONE kv head, all
 // reading the same block-table row: the G grouped heads of one token for
@@ -32,7 +40,9 @@
 // the prefill kernel's shape: each page is loaded once for all rows of the
 // tile instead of once per row.
 //
-// What bounds them on the H100: the bytes of K/V read. Decode reads each
+// What bounds them on the H100: the bytes of K/V read (int8 pages with
+// their scales: 2 D + 8 bytes per position and kv head against 4 D in
+// bf16, 0.53x at D 64). Decode reads each
 // live (page, kv head) once per sequence; one engine step at the main
 // path's shapes (8 slots, KVH 5, D 64, bf16) reads a few MB per layer
 // against 3.35 TB/s, i.e. microseconds, so at these grid sizes (40 blocks
@@ -47,6 +57,9 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -60,6 +73,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -79,10 +93,12 @@ __host__ __device__ inline size_t smem_words(int tile, int page, int d) {
   return (size_t)tile * (2 * d + page + 4) + (size_t)page * (2 * d + 1);
 }
 
-template <typename T, int D, int MODE>
+// T: q/out type; KV: page storage type (T, or int8_t with f32 scales)
+template <typename T, typename KV, int D, int MODE>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_pages,
-    const T* __restrict__ v_pages, const int* __restrict__ tables,
+    const T* __restrict__ q, const KV* __restrict__ k_pages,
+    const KV* __restrict__ v_pages, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int* __restrict__ tables,
     const int* __restrict__ pos,    // decode: lengths (N,); mixed: last_pos
                                     // (N,); prefill: &start
     const int* __restrict__ valid,  // prefill only: &valid
@@ -137,9 +153,15 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     const size_t phys = (size_t)table[p];
     for (int idx = tid; idx < page * D; idx += kThreads) {
       const int j = idx / D, d = idx % D;
-      const size_t off = ((phys * page + j) * kvh + h) * D + d;
-      ks[j * (D + 1) + d] = to_f32(k_pages[off]);
-      vs[j * D + d] = to_f32(v_pages[off]);
+      const size_t row = (phys * page + j) * kvh + h;  // (page, pos, head)
+      const size_t off = row * D + d;
+      float kx = to_f32(k_pages[off]), vx = to_f32(v_pages[off]);
+      if constexpr (std::is_same<KV, int8_t>::value) {
+        kx *= k_scale[row];  // dequantized on the way into shared memory
+        vx *= v_scale[row];
+      }
+      ks[j * (D + 1) + d] = kx;
+      vs[j * D + d] = vx;
     }
     __syncthreads();
 
@@ -196,15 +218,16 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   }
 }
 
-template <typename T, int D, int MODE>
+template <typename T, typename KV, int D, int MODE>
 int launch_typed(const void* q, const void* k, const void* v,
+                 const float* k_scale, const float* v_scale,
                  const int* tables, const int* pos, const int* valid,
                  void* out, int n_tokens, int kvh, int group, int page, int mp,
                  float scale, cudaStream_t stream) {
   const int n_rows = n_tokens * group;
   const int tile = MODE == kPrefill ? kPrefillTile : group;
   const size_t smem = smem_words(tile, page, D) * 4;
-  auto kernel = paged_attention_kernel<T, D, MODE>;
+  auto kernel = paged_attention_kernel<T, KV, D, MODE>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -213,27 +236,38 @@ int launch_typed(const void* q, const void* k, const void* v,
   if (n_rows > 0) {
     dim3 grid((n_rows + tile - 1) / tile, kvh);
     kernel<<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), tables, pos, valid, static_cast<T*>(out),
-        n_rows, tile, kvh, group, page, mp, scale);
+        static_cast<const T*>(q), static_cast<const KV*>(k),
+        static_cast<const KV*>(v), k_scale, v_scale, tables, pos, valid,
+        static_cast<T*>(out), n_rows, tile, kvh, group, page, mp, scale);
   }
   return (int)cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16
+// dtype: q's type, 0 = float32, 1 = bfloat16. The pages are int8 when
+// k_scale is not null (v_scale with it), else of q's type.
 template <int MODE>
-int launch(const void* q, const void* k, const void* v, const int* tables,
-           const int* pos, const int* valid, void* out, int n_tokens, int kvh,
-           int group, int head_dim, int page, int mp, float scale, int dtype,
+int launch(const void* q, const void* k, const void* v, const float* k_scale,
+           const float* v_scale, const int* tables, const int* pos,
+           const int* valid, void* out, int n_tokens, int kvh, int group,
+           int head_dim, int page, int mp, float scale, int dtype,
            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PAGED_CASE(T, DIM)                                                   \
-  return launch_typed<T, DIM, MODE>(q, k, v, tables, pos, valid, out,        \
-                                    n_tokens, kvh, group, page, mp, scale, s)
-  if (dtype == 0 && head_dim == 64) PAGED_CASE(float, 64);
-  if (dtype == 0 && head_dim == 128) PAGED_CASE(float, 128);
-  if (dtype == 1 && head_dim == 64) PAGED_CASE(__nv_bfloat16, 64);
-  if (dtype == 1 && head_dim == 128) PAGED_CASE(__nv_bfloat16, 128);
+  const bool quant = k_scale != nullptr;
+  if (quant != (v_scale != nullptr)) return -1;
+#define PAGED_CASE(T, KV, DIM)                                               \
+  return launch_typed<T, KV, DIM, MODE>(q, k, v, k_scale, v_scale, tables,   \
+                                        pos, valid, out, n_tokens, kvh,      \
+                                        group, page, mp, scale, s)
+#define PAGED_DIMS(T, KV)                                                    \
+  if (head_dim == 64) PAGED_CASE(T, KV, 64);                                 \
+  if (head_dim == 80) PAGED_CASE(T, KV, 80);                                 \
+  if (head_dim == 128) PAGED_CASE(T, KV, 128);                               \
+  return -1
+  if (dtype == 0 && !quant) { PAGED_DIMS(float, float); }
+  if (dtype == 1 && !quant) { PAGED_DIMS(__nv_bfloat16, __nv_bfloat16); }
+  if (dtype == 0 && quant) { PAGED_DIMS(float, int8_t); }
+  if (dtype == 1 && quant) { PAGED_DIMS(__nv_bfloat16, int8_t); }
+#undef PAGED_DIMS
 #undef PAGED_CASE
   return -1;
 }
@@ -242,37 +276,43 @@ int launch(const void* q, const void* k, const void* v, const int* tables,
 
 extern "C" {
 
+// Every entry point takes k_scale/v_scale (P, page, KVH) f32 for int8
+// pages, or two null pointers for pages of q's type.
+
 // q (B, KVH, G, D); block_tables (B, MP); lengths (B,) -> out (B, KVH, G, D)
 int paged_attention_decode(const void* q, const void* k_pages,
-                           const void* v_pages, const int* block_tables,
+                           const void* v_pages, const float* k_scale,
+                           const float* v_scale, const int* block_tables,
                            const int* lengths, void* out, int b, int kvh,
                            int group, int head_dim, int page, int mp,
                            float scale, int dtype, void* stream) {
-  return launch<kDecode>(q, k_pages, v_pages, block_tables, lengths, nullptr,
-                         out, b, kvh, group, head_dim, page, mp, scale, dtype,
-                         stream);
+  return launch<kDecode>(q, k_pages, v_pages, k_scale, v_scale, block_tables,
+                         lengths, nullptr, out, b, kvh, group, head_dim, page,
+                         mp, scale, dtype, stream);
 }
 
 // q (C, KVH, G, D); block_table (MP,); start, valid: device int32 scalars
 int paged_attention_prefill(const void* q, const void* k_pages,
-                            const void* v_pages, const int* block_table,
+                            const void* v_pages, const float* k_scale,
+                            const float* v_scale, const int* block_table,
                             const int* start, const int* valid, void* out,
                             int c, int kvh, int group, int head_dim, int page,
                             int mp, float scale, int dtype, void* stream) {
-  return launch<kPrefill>(q, k_pages, v_pages, block_table, start, valid, out,
-                          c, kvh, group, head_dim, page, mp, scale, dtype,
-                          stream);
+  return launch<kPrefill>(q, k_pages, v_pages, k_scale, v_scale, block_table,
+                          start, valid, out, c, kvh, group, head_dim, page,
+                          mp, scale, dtype, stream);
 }
 
 // q (R, KVH, G, D); block_tables (R, MP); last_pos (R,) -> out (R, KVH, G, D)
 int paged_attention_mixed(const void* q, const void* k_pages,
-                          const void* v_pages, const int* block_tables,
+                          const void* v_pages, const float* k_scale,
+                          const float* v_scale, const int* block_tables,
                           const int* last_pos, void* out, int r, int kvh,
                           int group, int head_dim, int page, int mp,
                           float scale, int dtype, void* stream) {
-  return launch<kMixed>(q, k_pages, v_pages, block_tables, last_pos, nullptr,
-                        out, r, kvh, group, head_dim, page, mp, scale, dtype,
-                        stream);
+  return launch<kMixed>(q, k_pages, v_pages, k_scale, v_scale, block_tables,
+                        last_pos, nullptr, out, r, kvh, group, head_dim, page,
+                        mp, scale, dtype, stream);
 }
 
 }  // extern "C"

@@ -22,7 +22,7 @@ from repro_torch.kernels import build
 # launches since the last reset_launches()
 LAUNCHES = {"flash_attention_bhsd": 0}
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 80, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _lib = None

@@ -22,8 +22,11 @@ Contract: :mod:`repro_torch.kernels.ref` is the ground truth; on the card
 each kernel matches it within the bounds ``chip_smoke.py`` states (1e-3 in
 f32, as ``repro/kernels/ops.py`` states for the Pallas kernels).
 
-The int8-page variant (``k_scale``/``v_scale``) is not ported yet
-(ROADMAP A.5) and raises.
+int8 pages: the three paged ops take ``k_scale``/``v_scale`` (f32, one
+scale per (page, position, kv head)) with int8 pools. The kernel fuses the
+dequantization into its page loads; the plain path runs
+``ref.dequantize_pages`` and then the unchanged f32 versions, as the JAX
+ops do.
 """
 
 from __future__ import annotations
@@ -53,12 +56,25 @@ def _use_plain(t: torch.Tensor, impl: str, op: str) -> bool:
     return False
 
 
-def _use_ref(q: torch.Tensor, impl: str, k_scale, v_scale, op: str) -> bool:
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            f"{op}: int8 pages (k_scale/v_scale) are not ported yet "
-            f"(ROADMAP A.5)")
+def _use_ref(q: torch.Tensor, impl: str, k_pages: torch.Tensor, k_scale,
+             v_scale, op: str) -> bool:
+    """``_use_plain`` after checking the scales: both or neither, and
+    exactly when the pages are int8."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{op}: k_scale and v_scale come in pairs")
+    if (k_scale is not None) != (k_pages.dtype == torch.int8):
+        raise ValueError(
+            f"{op}: scales go with int8 pages and only with them (pages "
+            f"{k_pages.dtype}, scales {'given' if k_scale is not None else 'none'})")
     return _use_plain(q, impl, op)
+
+
+def _dequantized(k_pages, v_pages, k_scale, v_scale):
+    """The pool the plain versions read: f32 pages for an int8 pool."""
+    if k_scale is None:
+        return k_pages, v_pages
+    return (ref.dequantize_pages(k_pages, k_scale),
+            ref.dequantize_pages(v_pages, v_scale))
 
 
 def _grouped(q: torch.Tensor, kvh: int) -> torch.Tensor:
@@ -118,12 +134,13 @@ def paged_attention(
 ) -> torch.Tensor:
     """Single-token decode attention over a paged KV cache. Returns
     (B, H, D); idle slots (length 0) return zeros, never NaN."""
-    if _use_ref(q, impl, k_scale, v_scale, "paged_attention"):
+    if _use_ref(q, impl, k_pages, k_scale, v_scale, "paged_attention"):
         return ref.paged_attention_ref(
-            q, k_pages, v_pages, block_tables, lengths, scale=scale)
+            q, *_dequantized(k_pages, v_pages, k_scale, v_scale),
+            block_tables, lengths, scale=scale)
     out = paged_attention_bkgd(
         _grouped(q, k_pages.shape[2]), k_pages, v_pages, block_tables,
-        lengths, scale=scale)
+        lengths, k_scale=k_scale, v_scale=v_scale, scale=scale)
     return out.reshape(q.shape)
 
 
@@ -143,12 +160,14 @@ def paged_prefill_attention(
     """Chunked-prefill attention over a paged KV cache. Returns (C, H, D).
     The chunk's own K/V must already be in the pages; query i attends
     positions ``<= start + i``, padded queries (``i >= valid``) give zeros."""
-    if _use_ref(q, impl, k_scale, v_scale, "paged_prefill_attention"):
+    if _use_ref(q, impl, k_pages, k_scale, v_scale,
+                "paged_prefill_attention"):
         return ref.paged_prefill_attention_ref(
-            q, k_pages, v_pages, block_table, start, valid, scale=scale)
+            q, *_dequantized(k_pages, v_pages, k_scale, v_scale),
+            block_table, start, valid, scale=scale)
     out = paged_prefill_attention_ckgd(
         _grouped(q, k_pages.shape[2]), k_pages, v_pages, block_table,
-        start, valid, scale=scale)
+        start, valid, k_scale=k_scale, v_scale=v_scale, scale=scale)
     return out.reshape(q.shape)
 
 
@@ -173,7 +192,8 @@ def paged_mixed_attention(
     positions, dead suffix). The plain version then gathers the chunk's
     K/V once (:func:`ref.paged_mixed_attention_split_ref`); the kernel is
     row-generic and ignores it."""
-    if _use_ref(q, impl, k_scale, v_scale, "paged_mixed_attention"):
+    if _use_ref(q, impl, k_pages, k_scale, v_scale, "paged_mixed_attention"):
+        k_pages, v_pages = _dequantized(k_pages, v_pages, k_scale, v_scale)
         r = q.shape[0]
         if num_decode is None or not 0 < num_decode < r:
             return ref.paged_mixed_attention_ref(
@@ -183,7 +203,7 @@ def paged_mixed_attention(
             scale=scale)
     out = paged_mixed_attention_rkgd(
         _grouped(q, k_pages.shape[2]), k_pages, v_pages, block_tables,
-        last_pos, scale=scale)
+        last_pos, k_scale=k_scale, v_scale=v_scale, scale=scale)
     return out.reshape(q.shape)
 
 

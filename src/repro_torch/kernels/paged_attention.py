@@ -11,7 +11,10 @@ kernel of the JAX package:
   (``paged_mixed_attention_rkgd``).
 
 Shapes follow the JAX kernels: q arrives grouped ``(N, KVH, G, D)`` and the
-output has the same shape and dtype. Each wrapper checks device, dtype,
+output has the same shape and dtype. The pages are of q's dtype, or int8
+with f32 ``k_scale``/``v_scale`` of shape ``(P, page, KVH)`` (the int8
+branch of the Pallas kernels; the kernel dequantizes each page as it loads
+it). Head dims 64, 80 and 128. Each wrapper checks device, dtype,
 shape and contiguity, launches on ``torch.cuda.current_stream()``, raises
 when the launch reports an error, and adds one to its entry of
 :data:`LAUNCHES` per launch. They accept CUDA tensors only: the plain
@@ -31,7 +34,7 @@ from repro_torch.kernels import build
 LAUNCHES = {"paged_attention_bkgd": 0, "paged_prefill_attention_ckgd": 0,
             "paged_mixed_attention_rkgd": 0}
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 80, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _lib = None
@@ -46,21 +49,23 @@ def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = build.load("paged_attention")
-        decode_like = [_P, _P, _P, _P, _P, _P] + [_I] * 6 + [ctypes.c_float,
-                                                             _I, _P]
+        # q, k, v, k_scale, v_scale, tables, lengths | last_pos, out
+        decode_like = [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _P]
         for fn in (lib.paged_attention_decode, lib.paged_attention_mixed):
             fn.argtypes = decode_like
             fn.restype = _I
+        # q, k, v, k_scale, v_scale, table, start, valid, out
         lib.paged_attention_prefill.argtypes = (
-            [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I, _P])
+            [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I, _P])
         lib.paged_attention_prefill.restype = _I
         _lib = lib
     return _lib
 
 
-def _check(q, k_pages, v_pages, ints: dict):
+def _check(q, k_pages, v_pages, ints: dict, k_scale=None, v_scale=None):
     """Validate the operands shared by all three kernels; returns
-    (kvh, group, d, page, dtype code)."""
+    (kvh, group, d, page, dtype code, k_scale pointer, v_scale pointer),
+    the pointers None (null) for pages of q's dtype."""
     if q.dim() != 4 or k_pages.dim() != 4:
         raise ValueError(f"q must be (N, KVH, G, D) and pages (P, page, KVH, "
                          f"D); got {tuple(q.shape)}, {tuple(k_pages.shape)}")
@@ -72,11 +77,25 @@ def _check(q, k_pages, v_pages, ints: dict):
                          f"{tuple(q.shape)}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} not supported (kernels: {HEAD_DIMS})")
-    if q.dtype not in _DTYPES or k_pages.dtype != q.dtype \
-            or v_pages.dtype != q.dtype:
-        raise TypeError(f"q/k/v must share a dtype in {list(_DTYPES)}; got "
-                        f"{q.dtype}, {k_pages.dtype}, {v_pages.dtype}")
-    tensors = {"q": q, "k_pages": k_pages, "v_pages": v_pages, **ints}
+    quant = k_pages.dtype == torch.int8
+    page_dtype = torch.int8 if quant else q.dtype
+    if q.dtype not in _DTYPES or k_pages.dtype != page_dtype \
+            or v_pages.dtype != page_dtype:
+        raise TypeError(f"q must be one of {list(_DTYPES)} and k/v pages of "
+                        f"q's dtype or int8; got {q.dtype}, {k_pages.dtype}, "
+                        f"{v_pages.dtype}")
+    scales = {}
+    if quant or k_scale is not None or v_scale is not None:
+        if not quant or k_scale is None or v_scale is None:
+            raise ValueError("k_scale and v_scale go with int8 pages, both "
+                             "or neither")
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if t.dtype != torch.float32 or t.shape != k_pages.shape[:3]:
+                raise ValueError(f"{name} must be f32 {tuple(k_pages.shape[:3])}"
+                                 f"; got {t.dtype} {tuple(t.shape)}")
+            scales[name] = t
+    tensors = {"q": q, "k_pages": k_pages, "v_pages": v_pages, **scales,
+               **ints}
     for name, t in tensors.items():
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"{name} must be a CUDA tensor on {q.device} "
@@ -86,7 +105,9 @@ def _check(q, k_pages, v_pages, ints: dict):
     for name, t in ints.items():
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
-    return kvh, group, d, page, _DTYPES[q.dtype]
+    return (kvh, group, d, page, _DTYPES[q.dtype],
+            k_scale.data_ptr() if quant else None,
+            v_scale.data_ptr() if quant else None)
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -105,11 +126,13 @@ def paged_attention_bkgd(
     block_tables: torch.Tensor,  # (B, MP) int32
     lengths: torch.Tensor,       # (B,) int32
     *,
+    k_scale: torch.Tensor | None = None,  # (P, page, KVH) f32, int8 pages
+    v_scale: torch.Tensor | None = None,
     scale: float | None = None,
 ) -> torch.Tensor:
-    kvh, group, d, page, dt = _check(
+    kvh, group, d, page, dt, ks, vs = _check(
         q, k_pages, v_pages,
-        {"block_tables": block_tables, "lengths": lengths})
+        {"block_tables": block_tables, "lengths": lengths}, k_scale, v_scale)
     b = q.shape[0]
     if block_tables.dim() != 2 or block_tables.shape[0] != b \
             or lengths.shape != (b,):
@@ -118,7 +141,7 @@ def paged_attention_bkgd(
     mp = block_tables.shape[1]
     out = torch.empty_like(q)
     err = _library().paged_attention_decode(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ks, vs,
         block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         b, kvh, group, d, page, mp,
         scale if scale is not None else d ** -0.5, dt, _stream(q))
@@ -135,17 +158,20 @@ def paged_prefill_attention_ckgd(
     start: torch.Tensor,        # int32 device scalar: positions already cached
     valid: torch.Tensor,        # int32 device scalar: real chunk tokens
     *,
+    k_scale: torch.Tensor | None = None,  # (P, page, KVH) f32, int8 pages
+    v_scale: torch.Tensor | None = None,
     scale: float | None = None,
 ) -> torch.Tensor:
-    kvh, group, d, page, dt = _check(
+    kvh, group, d, page, dt, ks, vs = _check(
         q, k_pages, v_pages,
-        {"block_table": block_table, "start": start, "valid": valid})
+        {"block_table": block_table, "start": start, "valid": valid},
+        k_scale, v_scale)
     if block_table.dim() != 1 or start.numel() != 1 or valid.numel() != 1:
         raise ValueError("block_table must be (MP,), start/valid scalars")
     c = q.shape[0]
     out = torch.empty_like(q)
     err = _library().paged_attention_prefill(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ks, vs,
         block_table.data_ptr(), start.data_ptr(), valid.data_ptr(),
         out.data_ptr(), c, kvh, group, d, page, block_table.shape[0],
         scale if scale is not None else d ** -0.5, dt, _stream(q))
@@ -161,11 +187,14 @@ def paged_mixed_attention_rkgd(
     block_tables: torch.Tensor,  # (R, MP) int32, one block-table row per row
     last_pos: torch.Tensor,      # (R,) int32 last attendable position, -1 = dead
     *,
+    k_scale: torch.Tensor | None = None,  # (P, page, KVH) f32, int8 pages
+    v_scale: torch.Tensor | None = None,
     scale: float | None = None,
 ) -> torch.Tensor:
-    kvh, group, d, page, dt = _check(
+    kvh, group, d, page, dt, ks, vs = _check(
         q, k_pages, v_pages,
-        {"block_tables": block_tables, "last_pos": last_pos})
+        {"block_tables": block_tables, "last_pos": last_pos}, k_scale,
+        v_scale)
     r = q.shape[0]
     if block_tables.dim() != 2 or block_tables.shape[0] != r \
             or last_pos.shape != (r,):
@@ -174,7 +203,7 @@ def paged_mixed_attention_rkgd(
                          f"rows")
     out = torch.empty_like(q)
     err = _library().paged_attention_mixed(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ks, vs,
         block_tables.data_ptr(), last_pos.data_ptr(), out.data_ptr(),
         r, kvh, group, d, page, block_tables.shape[1],
         scale if scale is not None else d ** -0.5, dt, _stream(q))

@@ -27,10 +27,15 @@ masks and exact-zero conventions (``repro/kernels/ref.py``):
   in the JAX package's op order (``ops.ssd_scan`` runs it on the CPU, as
   the JAX engine runs ``ref.ssd_chunked`` there).
 * ``ssd_decode_step`` — the one-token recurrence of serving decode.
+* ``quantize_kv`` / ``dequantize_pages`` — the int8 KV pages of the tiered
+  cache: one f32 absmax scale per (position, kv head) over head_dim. The
+  paged ops run the int8 pool on the CPU as ``dequantize_pages`` followed
+  by the unchanged f32 paged versions, as the JAX ops do.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30
@@ -162,6 +167,38 @@ def paged_mixed_attention_split_ref(
         q[s:], k_pages, v_pages, block_tables[s], start, valid, scale=scale,
     )
     return torch.cat([dec, chk], dim=0)
+
+
+# ---------------------------------------------------------------------------
+# int8 KV page quantization (tiered cache)
+# ---------------------------------------------------------------------------
+
+# 1/127 in f32: the JAX reference writes ``absmax / 127.0``, and XLA
+# compiles a division by a constant into a multiplication by its f32
+# reciprocal under ``jit`` (where the JAX engine runs it); the two differ in
+# the last bit of some scales, so the port multiplies as the jitted code does
+_INV_127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization over the head_dim (last) axis.
+
+    x (..., D) -> (q int8 (..., D), scale f32 (...,)): scale = absmax / 127
+    floored at 1e-8 (all-zero rows quantize to zeros), q = x / scale
+    rounded half to even and clipped to +-127, in f32 whatever x's dtype.
+    Gives the same bytes and scales as ``jax.jit(repro.kernels.ref.
+    quantize_kv)``; the worst per-element round-trip error is scale / 2."""
+    xf = x.float()
+    scale = (xf.abs().amax(dim=-1) * _INV_127).clamp_min(1e-8)
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_pages(pages: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """int8 pages (..., D) * per-row scales (...,) -> f32 pages: the plain
+    form of the dequantization the paged kernels fuse into their page
+    loads."""
+    return pages.float() * scales[..., None]
 
 
 # ---------------------------------------------------------------------------

@@ -25,12 +25,23 @@ attention and SSD versions on the CPU, for tests and reduced configs):
       --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --engine lockstep \\
       --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
+      --shared-prefix 32 --kv-quant int8 --host-pages 8 \\
+      --persist-dir "$TMPDIR/kv"
+
+The paged engine's KV cache is tiered: finished prompts' prefix pages park
+on the device, spill under pressure to host RAM (``--host-pages N``) and
+write through to an artifact store (``--persist-dir PATH``); each worker
+flushes its parked pages there when it exits, so a rerun on the same
+directory prefetches the prefixes back instead of prefilling them.
+``--kv-quant int8`` stores the pages as int8 with f32 scales, dequantized
+inside the paged kernels.
 
 Only the driver role of the paged, lockstep and SSM engines is ported: the
 hybrid (zamba2) family (ROADMAP A.8b), ``--fleet`` and ``--role worker``
 (A.9) raise or exit with a message naming their ROADMAP item; the JAX
-package's mesh, KV-tier, int8 and speculation flags have no counterpart
-yet (ROADMAP A.5, A.6, A.10).
+package's mesh and speculation flags have no counterpart yet (ROADMAP
+A.6, A.10).
 """
 
 from __future__ import annotations
@@ -79,6 +90,17 @@ def main() -> int:
     ap.add_argument("--token-budget", type=int, default=0,
                     help="fused mode: cap decode rows + chunk tokens per "
                          "step; 0 disables the cap")
+    ap.add_argument("--kv-quant", default="none", choices=["none", "int8"],
+                    help="paged engine: KV page precision; 'int8' stores "
+                         "pages as int8 with one f32 scale per (position, kv "
+                         "head), dequantized inside the paged kernels")
+    ap.add_argument("--host-pages", type=int, default=0, metavar="N",
+                    help="paged engine: host-RAM tier capacity in pages for "
+                         "reclaimed prefix pages; 0 disables it")
+    ap.add_argument("--persist-dir", default=None, metavar="PATH",
+                    help="paged engine: ArtifactStore root for write-through "
+                         "prefix-page persistence; a rerun on the same PATH "
+                         "reloads the prefixes instead of prefilling them")
     ap.add_argument("--attn-impl", default="auto", choices=["auto", "ref"],
                     help="'auto': the CUDA kernels for tensors on the card, "
                          "the plain versions on the CPU; 'ref': the plain "
@@ -183,6 +205,9 @@ def main() -> int:
             attn_impl=args.attn_impl,
             step_mode=args.step_mode,
             token_budget=args.token_budget or None,
+            kv_quant=args.kv_quant,
+            host_pages=args.host_pages,
+            persist_dir=args.persist_dir,
             device=args.device,
         )
 
@@ -215,6 +240,12 @@ def main() -> int:
             try:
                 _worker_loop(engine, stop, {})
             finally:
+                cache = getattr(engine, "cache", None)
+                if cache is not None and cache.tiers is not None:
+                    # drain parked prefixes to host/persist so a rerun on
+                    # the same --persist-dir revives them across restarts
+                    cache.flush_tiers()
+                    engine._record_tiers()  # fold the flush into the gauges
                 with lock:
                     utilization.merge(engine.utilization)
         except BaseException as e:  # re-raised by main() below

@@ -16,6 +16,10 @@ for CPU tensors):
   rows' new K/V into this layer's page pool IN PLACE, then attend through
   the paged kernels.
 
+An int8 pool (``k_scale``/``v_scale`` beside ``k``/``v``) quantizes the
+new rows on the way in, one f32 scale per (row, kv head), and the paged
+kernels dequantize as they load, as in the JAX package.
+
 Rows that must not write (idle slots, dead rows, chunk padding, null-page
 table entries) write into the pool's SINK page instead: the pool carries
 one extra page past the ``num_pages`` the block tables can name (see
@@ -29,7 +33,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models.common import ParamSpec, apply_rope, rms_norm, rope_table
 
 NEG_INF = -1e30
@@ -172,10 +176,23 @@ def _paged_scatter(layer_pages: dict, k_rows: torch.Tensor,
     """Write per-row K/V (rows, KVH, Dh) into this layer's page pool in
     place at (phys, off). Rows routed to the sink page land where nobody
     reads; every other (page, offset) pair is unique, so the write order
-    does not matter."""
+    does not matter. An int8 pool quantizes the rows and writes their
+    scales alongside."""
     idx = (phys.long(), off.long())
+    if "k_scale" in layer_pages:
+        k_rows, k_sc = ref.quantize_kv(k_rows)
+        v_rows, v_sc = ref.quantize_kv(v_rows)
+        layer_pages["k_scale"].index_put_(idx, k_sc)
+        layer_pages["v_scale"].index_put_(idx, v_sc)
     layer_pages["k"].index_put_(idx, k_rows.to(layer_pages["k"].dtype))
     layer_pages["v"].index_put_(idx, v_rows.to(layer_pages["v"].dtype))
+
+
+def _scales(layer_pages: dict) -> dict:
+    """The int8 pool's scales as the paged ops' keywords (none for a pool
+    of the model's dtype)."""
+    return {"k_scale": layer_pages.get("k_scale"),
+            "v_scale": layer_pages.get("v_scale")}
 
 
 def _sink(layer_pages: dict) -> int:
@@ -192,7 +209,7 @@ def _table_at(tables: torch.Tensor, logical: torch.Tensor) -> torch.Tensor:
 def decode_self_attention_paged(
     p: dict,
     x: torch.Tensor,             # (S, 1, D) one token per in-flight slot
-    layer_pages: dict,           # {"k": (P+1,page,KVH,Dh), "v": ...}, updated in place
+    layer_pages: dict,           # {"k": (P+1,page,KVH,Dh), "v": ...[, scales]}, in place
     block_tables: torch.Tensor,  # (S, MP) int32
     lengths: torch.Tensor,       # (S,) int32 tokens already cached per slot
     cfg: ModelConfig,
@@ -212,7 +229,8 @@ def decode_self_attention_paged(
     _paged_scatter(layer_pages, k[:, 0], v[:, 0], phys, lengths % page)
     out = ops.paged_attention(
         q[:, 0], layer_pages["k"], layer_pages["v"], block_tables,
-        lengths + 1, scale=cfg.head_dim ** -0.5, impl=attn_impl,
+        lengths + 1, **_scales(layer_pages), scale=cfg.head_dim ** -0.5,
+        impl=attn_impl,
     ).to(x.dtype)  # (S, H, Dh)
     return _out_proj(out, p["wo"])[:, None, :]
 
@@ -220,7 +238,7 @@ def decode_self_attention_paged(
 def prefill_chunk_attention_paged(
     p: dict,
     x: torch.Tensor,            # (1, C, D) one chunk of ONE sequence's prompt
-    layer_pages: dict,          # {"k": (P+1,page,KVH,Dh), "v": ...}, updated in place
+    layer_pages: dict,          # {"k": (P+1,page,KVH,Dh), "v": ...[, scales]}, in place
     block_table: torch.Tensor,  # (MP,) int32 the sequence's block-table row
     start: torch.Tensor,        # int32 scalar: positions already in the pages
     valid: torch.Tensor,        # int32 scalar: real (non-padded) chunk tokens
@@ -243,7 +261,7 @@ def prefill_chunk_attention_paged(
     _paged_scatter(layer_pages, k[0], v[0], phys, positions % page)
     out = ops.paged_prefill_attention(
         q[0], layer_pages["k"], layer_pages["v"], block_table, start, valid,
-        scale=cfg.head_dim ** -0.5, impl=attn_impl,
+        **_scales(layer_pages), scale=cfg.head_dim ** -0.5, impl=attn_impl,
     ).to(x.dtype)  # (C, H, Dh)
     return _out_proj(out, p["wo"])[None]
 
@@ -251,7 +269,7 @@ def prefill_chunk_attention_paged(
 def mixed_step_attention_paged(
     p: dict,
     x: torch.Tensor,             # (R, 1, D) one token per row (decode + chunk)
-    layer_pages: dict,           # {"k": (P+1,page,KVH,Dh), "v": ...}, updated in place
+    layer_pages: dict,           # {"k": (P+1,page,KVH,Dh), "v": ...[, scales]}, in place
     block_tables: torch.Tensor,  # (R, MP) int32, one block-table row per row
     positions: torch.Tensor,     # (R,) int32 absolute position per row, -1 = dead
     cfg: ModelConfig,
@@ -278,6 +296,7 @@ def mixed_step_attention_paged(
     _paged_scatter(layer_pages, k[:, 0], v[:, 0], phys, pos % page)
     out = ops.paged_mixed_attention(
         q[:, 0], layer_pages["k"], layer_pages["v"], block_tables, positions,
-        scale=cfg.head_dim ** -0.5, impl=attn_impl, num_decode=num_decode,
+        **_scales(layer_pages), scale=cfg.head_dim ** -0.5, impl=attn_impl,
+        num_decode=num_decode,
     ).to(x.dtype)  # (R, H, Dh)
     return _out_proj(out, p["wo"])[:, None, :]

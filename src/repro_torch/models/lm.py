@@ -286,14 +286,15 @@ class DecoderLM(nn.Module):
         """One token per in-flight slot against the paged KV pool.
 
         pages: {"k": (L,P+1,page,KVH,Dh), "v": ...} — the shared page pool
-        (with its sink page), written in place. block_tables (S, MP) int32,
+        (with its sink page), written in place; an int8 pool also carries
+        ``k_scale``/``v_scale`` (L,P+1,page,KVH) f32. block_tables (S, MP) int32,
         lengths (S,) int32 (tokens already cached per slot; idle slots are
         0), tokens (S, 1) int. Returns logits (S, Vp) f32.
         """
         cfg = self.cfg
         x = self.embed[tokens.long()]  # (S,1,D)
         for l, pl in enumerate(self._layers()):
-            cl = {"k": pages["k"][l], "v": pages["v"][l]}
+            cl = {key: arr[l] for key, arr in pages.items()}
             x = self._block(pl, x, lambda p, h: attn.decode_self_attention_paged(
                 p, h, cl, block_tables, lengths, cfg, attn_impl=self.attn_impl))
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
@@ -315,7 +316,7 @@ class DecoderLM(nn.Module):
         cfg = self.cfg
         x = self.embed[tokens.long()]  # (R,1,D)
         for l, pl in enumerate(self._layers()):
-            cl = {"k": pages["k"][l], "v": pages["v"][l]}
+            cl = {key: arr[l] for key, arr in pages.items()}
             x = self._block(pl, x, lambda p, h: attn.mixed_step_attention_paged(
                 p, h, cl, block_tables, positions, cfg,
                 attn_impl=self.attn_impl, num_decode=num_decode))
@@ -342,7 +343,7 @@ class DecoderLM(nn.Module):
         start, valid = self._as_scalar(start), self._as_scalar(valid)
         x = self.embed[tokens.long()][None]  # (1,C,D)
         for l, pl in enumerate(self._layers()):
-            cl = {"k": pages["k"][l], "v": pages["v"][l]}
+            cl = {key: arr[l] for key, arr in pages.items()}
             x = self._block(pl, x, lambda p, h: attn.prefill_chunk_attention_paged(
                 p, h, cl, block_table, start, valid, cfg,
                 attn_impl=self.attn_impl))

@@ -28,9 +28,11 @@ equal the JAX engine's and survive preemption byte-for-byte.
 Ported: both step modes (``fused``, ``interleaved``), chunked prefill,
 whole-prompt prefill (``prefill_chunk=None`` or 0: one flash-kernel prefill
 per admission, prefix sharing off), copy-on-write prefix sharing with the
-parked-page tier, preemption and the admission policies. Not ported yet,
-and raising: speculative decoding (ROADMAP A.6), int8 pages and the
-host/persist tiers (A.5).
+tiered KV cache (parked pages, a host-RAM tier ``host_pages`` and a
+persisted ``ArtifactStore`` tier ``persist_dir`` that outlives the
+process), int8 pages (``kv_quant="int8"``, dequantized inside the paged
+kernels), preemption and the admission policies. Speculative decoding
+(ROADMAP A.6) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.core.storage import ArtifactStore
 from repro_torch.models import build_model
 from repro_torch.models.common import pick_tokens, resolve_device
 from repro_torch.serving.api import (
@@ -235,7 +238,11 @@ class ContinuousBatchingEngine(EngineBase):
     With prefix sharing on, a :class:`~repro_torch.serving.kv_tiers.KVTierManager`
     (``kv_tiers``; default follows ``prefix_sharing``) parks released
     prefix pages instead of freeing them, reclaiming them lazily under pool
-    pressure. ``params`` is the model's state dict (``DecoderLM.init`` or
+    pressure; ``host_pages`` and ``persist_dir`` give reclaimed pages a
+    host-RAM tier and an ``ArtifactStore`` tier to spill to, from which a
+    later prefix hit prefetches them back (across restarts, for the
+    store). ``kv_quant="int8"`` stores the pages as int8 with f32 scales.
+    ``params`` is the model's state dict (``DecoderLM.init`` or
     :func:`repro_torch.models.params_from_jax`); ``device`` is where the
     model, the page pool and every step live (``"cuda"`` unless the caller
     asks for ``"cpu"``).
@@ -273,14 +280,9 @@ class ContinuousBatchingEngine(EngineBase):
         if speculative != "off":
             raise NotImplementedError(
                 "speculative decoding is not ported yet (ROADMAP A.6)")
-        if kv_quant != "none":
-            raise NotImplementedError(
-                f"kv_quant={kv_quant!r}: int8 pages are not ported yet "
-                f"(ROADMAP A.5)")
-        if host_pages or persist_dir is not None:
-            raise NotImplementedError(
-                "the host-RAM and persisted KV tiers are not ported yet "
-                "(ROADMAP A.5)")
+        if kv_quant not in ("none", "int8"):
+            raise ValueError(
+                f"kv_quant must be 'none' or 'int8', got {kv_quant!r}")
         if prefill_chunk == 0:  # CLI convention: 0 disables chunking
             prefill_chunk = None
         if prefill_chunk is not None and prefill_chunk < 1:
@@ -305,8 +307,15 @@ class ContinuousBatchingEngine(EngineBase):
         self.token_budget = token_budget
         if kv_tiers is None:
             kv_tiers = self.prefix_sharing
-        self.tiers = (KVTierManager() if kv_tiers and self.prefix_sharing
-                      else None)
+        # host/persist tiers engage only when host_pages / persist_dir are set
+        self.tiers = (
+            KVTierManager(
+                host_pages=host_pages,
+                store=(ArtifactStore(persist_dir)
+                       if persist_dir is not None else None),
+            )
+            if kv_tiers and self.prefix_sharing else None
+        )
         self.cache = PagedKVCache(
             num_layers=cfg.num_layers,
             num_kv_heads=cfg.eff_kv_heads,
@@ -316,6 +325,7 @@ class ContinuousBatchingEngine(EngineBase):
             max_context=max_len,
             page_size=page_size,
             num_pages=num_pages,
+            quant=kv_quant,
             tiers=self.tiers,
             device=self.device,
         )

@@ -13,8 +13,9 @@ dispatches, each ending in its own paged-attention kernel on the card:
 Without chunking (``prefill_chunk=None``), ``prefill_whole`` prefills each
 admitted prompt in one executor call instead: ``DecoderLM.prefill`` over the
 prompt padded to a power-of-two bucket (through the flash kernel), the
-dense K/V scattered into the sequence's pages, and the first token
-sampled.
+dense K/V scattered into the sequence's pages (quantized, scales alongside,
+for an int8 pool: ``write_prefill_pages`` takes the whole pool dict), and
+the first token sampled.
 
 The decode batch lives on the device PACKED into one int32 tensor ``di``
 (S, MP+6) and one f32 tensor ``df`` (S, 2), refreshed only when the

@@ -2,7 +2,9 @@
 
 The device side is a dict of page-pool tensors per model — ``pages["k"]`` /
 ``pages["v"]`` of shape (L, P + 1, page_size, KVH, Dh) on the engine's
-device — plus per-step int32 inputs (block tables and lengths), so every
+device, and with ``quant="int8"`` int8 K/V plus f32 ``pages["k_scale"]`` /
+``pages["v_scale"]`` of shape (L, P + 1, page_size, KVH) — plus per-step
+int32 inputs (block tables and lengths), so every
 step sees ONE shape no matter how many sequences are in flight or how long
 each one is. The model writes K/V into these tensors in place. The host
 side is a refcounted free-list allocator (:class:`PagePool`) and per-slot
@@ -62,6 +64,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.kernels.ref import dequantize_pages, quantize_kv
 from repro_torch.models.common import resolve_device
 from repro_torch.serving.kv_tiers import KVTierManager, chain_key
 
@@ -149,9 +152,22 @@ def _copy_page(pages: dict[str, torch.Tensor], src: int, dst: int) -> None:
         arr[:, dst].copy_(arr[:, src])
 
 
+def _read_block(arr: torch.Tensor, page: int) -> np.ndarray:
+    """One physical page (all layers) as a host array of the pool's own
+    width: int8 stays int8, f32 stays f32, and bf16, which numpy lacks,
+    keeps its bits as int16. Always a copy (on the CPU the slice would
+    alias the pool)."""
+    block = arr[:, page]
+    if arr.dtype == torch.bfloat16:
+        block = block.view(torch.int16)
+    return block.cpu().numpy().copy()
+
+
 def _write_page(arr: torch.Tensor, page: int, data: np.ndarray) -> None:
-    """Write one physical page (all layers) from a host block, in place."""
-    arr[:, page].copy_(torch.from_numpy(data.copy()).to(arr.dtype))
+    """Write one physical page (all layers) from a host block that
+    :func:`_read_block` made, in place and bit for bit."""
+    block = torch.from_numpy(np.ascontiguousarray(data))
+    arr[:, page].copy_(block.view(arr.dtype))
 
 
 class PagedKVCache:
@@ -159,7 +175,10 @@ class PagedKVCache:
 
     The executor owns the model steps; this class owns allocation state
     (slots, refcounts, the prefix index) and the device page tensors, which
-    the steps update in place. ``tiers`` attaches a :class:`~repro_torch.serving.kv_tiers.KVTierManager`
+    the steps update in place. ``quant="int8"`` stores K/V as int8 with one
+    f32 scale per (page, position, kv head) — about half the bytes of a
+    bf16 page at head_dim 64; the paged kernels fuse the dequantization.
+    ``tiers`` attaches a :class:`~repro_torch.serving.kv_tiers.KVTierManager`
     (see module docstring).
     """
 
@@ -178,9 +197,8 @@ class PagedKVCache:
         tiers: KVTierManager | None = None,
         device="cuda",
     ):
-        if quant != "none":
-            raise NotImplementedError(
-                f"quant={quant!r}: int8 pages are not ported yet (ROADMAP A.5)")
+        if quant not in ("none", "int8"):
+            raise ValueError(f"quant must be 'none' or 'int8', got {quant!r}")
         self.page_size = page_size
         self.max_slots = max_slots
         self.max_pages_per_seq = cdiv(max_context, page_size)
@@ -192,10 +210,15 @@ class PagedKVCache:
         self.device = resolve_device(device)
         # + 1: the sink page (see module docstring)
         shape = (num_layers, num_pages + 1, page_size, num_kv_heads, head_dim)
+        store = torch.int8 if quant == "int8" else dtype
         self.pages: dict[str, torch.Tensor] = {
-            "k": torch.zeros(shape, dtype=dtype, device=self.device),
-            "v": torch.zeros(shape, dtype=dtype, device=self.device),
+            "k": torch.zeros(shape, dtype=store, device=self.device),
+            "v": torch.zeros(shape, dtype=store, device=self.device),
         }
+        if quant == "int8":
+            for key in ("k_scale", "v_scale"):
+                self.pages[key] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                              device=self.device)
 
         self.pool = PagePool(num_pages)
         self.block_tables = np.full(
@@ -435,10 +458,10 @@ class PagedKVCache:
         return 0 if self.tiers is None else len(self.tiers.parked)
 
     def _read_page(self, page: int) -> dict[str, np.ndarray]:
-        """One physical page's contents (all layers) as host f32 arrays
-        (numpy has no bf16; the round trip through f32 is exact)."""
-        return {key: arr[:, page].float().cpu().numpy()
-                for key, arr in self.pages.items()}
+        """One physical page's contents (all layers) as host arrays of the
+        pool's own widths (:func:`_read_block`), so the spilled and
+        persisted bytes are the JAX package's."""
+        return {key: _read_block(arr, page) for key, arr in self.pages.items()}
 
     def _upload_page(self, page: int, arrays: dict[str, np.ndarray]) -> None:
         """Write one spilled page back into the pool."""
@@ -592,6 +615,29 @@ class PagedKVCache:
         """Device copy of one slot's block-table row (same aliasing rule)."""
         return torch.from_numpy(self.block_tables[slot].copy()).to(self.device)
 
+    @property
+    def page_nbytes(self) -> int:
+        """Device bytes per physical page across every pool tensor (K, V
+        and the int8 pool's scales): the denominator of pages per byte."""
+        return sum(arr[:, 0].numel() * arr.element_size()
+                   for arr in self.pages.values())
+
+    def gather_dense(self, slot: int) -> tuple[np.ndarray, np.ndarray]:
+        """A slot's K/V as dense host (L, len, KVH, Dh) arrays (tests
+        only); an int8 pool is dequantized, so callers compare f32."""
+        if self.quant == "int8":
+            k = dequantize_pages(self.pages["k"], self.pages["k_scale"])
+            v = dequantize_pages(self.pages["v"], self.pages["v_scale"])
+        else:
+            k, v = self.pages["k"], self.pages["v"]
+        n = int(self.lengths[slot])
+        idx = torch.tensor(self._slot_pages[slot], device=k.device)
+        out = []
+        for arr in (k, v):
+            dense = arr[:, idx].reshape(arr.shape[0], -1, *arr.shape[3:])
+            out.append(dense[:, :n].float().cpu().numpy())
+        return out[0], out[1]
+
 
 def write_prefill_pages(
     pages: dict[str, torch.Tensor],  # the pool, written in place
@@ -604,16 +650,19 @@ def write_prefill_pages(
 
     Padded positions (>= valid_len) go to the sink page, where the JAX
     version routes them out of bounds and drops them (``mode="drop"``);
-    every real position's (page, offset) is unique. int8 pools are not
-    ported (ROADMAP A.5)."""
-    if "k_scale" in pages:
-        raise NotImplementedError(
-            "write_prefill_pages: int8 pages are not ported yet (ROADMAP A.5)")
+    every real position's (page, offset) is unique. An int8 pool
+    quantizes the dense K/V on the way in and writes the scales alongside
+    (the padded rows' scales go to the sink too)."""
     sink = pages["k"].shape[1] - 1
     page = pages["k"].shape[2]
     pos = torch.arange(k_new.shape[1], device=k_new.device)
     logical = (pos // page).clamp_max(table_row.shape[0] - 1)
     phys = torch.where(pos < valid_len, table_row[logical].long(), sink)
     off = pos % page
+    if "k_scale" in pages:
+        k_new, k_sc = quantize_kv(k_new)
+        v_new, v_sc = quantize_kv(v_new)
+        pages["k_scale"][:, phys, off] = k_sc
+        pages["v_scale"][:, phys, off] = v_sc
     pages["k"][:, phys, off] = k_new.to(pages["k"].dtype)
     pages["v"][:, phys, off] = v_new.to(pages["v"].dtype)

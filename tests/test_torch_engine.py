@@ -6,11 +6,18 @@ weights (reduced smollm-360m, f32, the JAX parameters carried across by
 streams must be byte-identical, and every executor dispatch must have the
 same composition (decode rows, chunk tokens) — in both step modes, with a
 shared prompt prefix (prefix hits through the parked-page tier) and under a
-pool small enough to preempt. Also runs the port's serve driver end to end
-(paged chunked, paged whole-prompt and lockstep).
+pool small enough to preempt; with int8 pages (``kv_quant="int8"``) too.
+The tiered engine (a pool small enough that parked pages are reclaimed and
+spilled to host RAM and an ``ArtifactStore``) gives the JAX tiered engine's
+streams and tier counters and the port's untiered streams, and a fresh
+engine on the same store serves the rerun from persisted pages. Also runs
+the port's serve driver end to end (paged chunked, paged whole-prompt,
+lockstep, and int8 with the host and persisted tiers, twice on one
+directory).
 """
 
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -141,13 +148,82 @@ def test_streams_match_jax_engine(weights, kind, step_mode):
         assert {(False, True), (True, True), (True, False)} <= shapes
 
 
+@pytest.mark.parametrize("step_mode", ["fused", "interleaved"])
+@pytest.mark.parametrize("kind", ["prefix", "preempt"])
+def test_int8_streams_match_jax_engine(weights, kind, step_mode):
+    """int8 pages: the new rows are quantized as JAX quantizes them, the
+    pool is read through ``dequantize_pages``, and the streams, dispatches
+    and stats equal the JAX int8 engine's."""
+    jcfg, jparams, cfg, state = weights
+    reqs = _requests(kind)
+    kw = dict(ENGINE_KW[kind], step_mode=step_mode, kv_quant="int8")
+    jeng = JEngine(jcfg, jparams, **kw)
+    want, jlog, jstats, jcache = _serve(jeng, JRequest, JSamplingParams, reqs)
+    eng = ContinuousBatchingEngine(cfg, state, device="cpu", **kw)
+    got, tlog, tstats, tcache = _serve(eng, Request, SamplingParams, reqs)
+    assert eng.cache.pages["k"].dtype == torch.int8
+    assert got == want
+    assert tlog == jlog
+    jstats = dict(jstats)
+    jstats.pop("spec_bundles")
+    assert tstats == jstats and tcache == jcache
+    if kind == "prefix":
+        assert tcache["prefix_hits"] > 0
+
+
+TIER_KW = dict(max_len=64, max_slots=2, page_size=8, num_pages=10,
+               prefill_chunk=8)
+
+
+def _int_counters(tiers):
+    """The tier counters that count (the *_s ones are host seconds)."""
+    return {k: v for k, v in tiers.counters.items() if not k.endswith("_s")}
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_tiered_engine_matches_jax_and_untiered(weights, tmp_path, kv_quant):
+    jcfg, jparams, cfg, state = weights
+    reqs = _requests("prefix")
+    kw = dict(TIER_KW, kv_quant=kv_quant, host_pages=4)
+    jeng = JEngine(jcfg, jparams, persist_dir=str(tmp_path / "jax"), **kw)
+    want = _serve(jeng, JRequest, JSamplingParams, reqs)[0]
+    eng = ContinuousBatchingEngine(cfg, state, device="cpu",
+                                   persist_dir=str(tmp_path / "kv"), **kw)
+    got = _serve(eng, Request, SamplingParams, reqs)[0]
+    t = eng.cache.tiers
+    assert t.counters["reclaimed_pages"] > 0 and t.counters["spilled_pages"] > 0
+    assert got == want
+    assert _int_counters(t) == _int_counters(jeng.cache.tiers)
+    untiered = ContinuousBatchingEngine(
+        cfg, state, device="cpu", kv_tiers=False,
+        **dict(TIER_KW, kv_quant=kv_quant))
+    assert _serve(untiered, Request, SamplingParams, reqs)[0] == got
+    # restart: flush what is parked, then a fresh engine on the same store
+    # reloads the shared prefix instead of prefilling it
+    eng.cache.flush_tiers()
+    again = ContinuousBatchingEngine(cfg, state, device="cpu",
+                                     persist_dir=str(tmp_path / "kv"), **kw)
+    assert _serve(again, Request, SamplingParams, reqs)[0] == got
+    assert again.cache.tiers.counters["persist_hits"] > 0
+    assert again.stats["prefill_chunks"] < eng.stats["prefill_chunks"]
+
+
 def test_unported_options_raise(weights):
     _, _, cfg, state = weights
-    for kw, item in [(dict(speculative="ngram"), "A.6"),
-                     (dict(kv_quant="int8"), "A.5"),
-                     (dict(host_pages=4), "A.5")]:
-        with pytest.raises(NotImplementedError, match=item):
-            ContinuousBatchingEngine(cfg, state, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="A.6"):
+        ContinuousBatchingEngine(cfg, state, device="cpu",
+                                 speculative="ngram")
+    with pytest.raises(ValueError, match="kv_quant"):
+        ContinuousBatchingEngine(cfg, state, device="cpu", kv_quant="fp8")
+    # int8 pages and the host tier are ported (ROADMAP A.5): each builds
+    # an engine that serves
+    for kw in (dict(kv_quant="int8"), dict(host_pages=4)):
+        eng = ContinuousBatchingEngine(cfg, state, device="cpu", max_len=32,
+                                       page_size=8, **kw)
+        out = eng.generate([Request("q", [5, 6, 7], max_new_tokens=3)])[0]
+        assert len(out.tokens) == 3
+    assert eng.cache.tiers.host_pages == 4
+    assert eng.cache.pages["k"].dtype == torch.float32
     # whole-prompt prefill is ported: None and the CLI's 0 both build an
     # unchunked engine (prefix sharing off, as in JAX) that serves
     for chunk in (None, 0):
@@ -185,6 +261,21 @@ def test_serve_driver_reduced_cpu(tmp_path):
         assert run.returncode == 0, run.stderr[-2000:]
         assert "served 6/6" in run.stdout
         assert f"engine={engine}," in run.stdout
+    # int8 pages with the host and persisted tiers: the second run on the
+    # same directory serves the shared prefix from persisted pages
+    for n in (1, 2):
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--reduced",
+             "--device", "cpu", "--requests", "6", "--max-new", "3",
+             "--shared-prefix", "32", "--kv-quant", "int8", "--host-pages",
+             "8", "--persist-dir", str(tmp_path / "kv"), "--workdir",
+             str(tmp_path / f"tiers{n}")],
+            capture_output=True, text=True, env=env, timeout=120, cwd=REPO)
+        assert run.returncode == 0, run.stderr[-2000:]
+        assert "served 6/6" in run.stdout
+        hits = re.search(r"tier_hits=dev\d+/host\d+/pv(\d+);", run.stdout)
+        assert hits, run.stdout
+        assert (int(hits.group(1)) > 0) == (n == 2), run.stdout
     refused = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--fleet", "2",
          "--device", "cpu", "--workdir", str(tmp_path / "run2")],

@@ -1,0 +1,188 @@
+"""The port's int8 KV pages against the JAX package: the quantization
+oracles and the three paged ops with ``k_scale``/``v_scale``.
+
+``quantize_kv`` must give the same int8 bytes and f32 scales as the JAX
+reference as the JAX engine runs it (under ``jit``, where XLA turns
+``absmax / 127.0`` into a multiplication by the f32 reciprocal), on f32 and
+bf16 rows, all-zero rows and values that fall exactly on .5. The
+round trip keeps every element within scale / 2 (the port of
+``tests/test_kernel_fuzz.py``'s property). The paged ops with scales, run
+on the CPU (``dequantize_pages`` then the f32 plain versions), stay within
+1e-5 of the JAX ops run with ``impl="pallas_interpret"`` (the Pallas int8
+branch in interpret mode) on the same seeded numpy inputs, with length-0
+slots, padded chunk rows and dead rows exact zeros.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+torch = pytest.importorskip("torch")
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+TOL = 1e-5
+KVH, D, MP, P = 2, 16, 4, 20
+
+
+def _jax_quantize(x):
+    q, s = jax.jit(jref.quantize_kv)(jnp.asarray(x))
+    return np.array(q), np.array(s)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_kv_bytes_equal_jax(dtype):
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal((512, 4, 64))
+         * 2.0 ** rng.integers(-8, 9, (512, 1, 1))).astype(np.float32)
+    x[0] = 0.0                                    # all-zero row
+    x[1, 0] = np.arange(64, dtype=np.float32) - 31.5   # .5 values
+    x[1, 0, 0] = 127.0                            # absmax 127: scale ~1
+    x[2, 1] = np.linspace(-2.5, 2.5, 64)          # halves at scale ~1/50
+    xt = torch.from_numpy(x)
+    xj = jnp.asarray(x)
+    if dtype == "bfloat16":
+        xt, xj = xt.bfloat16(), xj.astype(jnp.bfloat16)
+    want_q, want_s = _jax_quantize(xj)
+    got_q, got_s = ref.quantize_kv(xt)
+    assert got_q.dtype == torch.int8 and got_s.dtype == torch.float32
+    np.testing.assert_array_equal(got_q.numpy(), want_q)
+    np.testing.assert_array_equal(got_s.numpy(), want_s)
+    assert (got_q[0] == 0).all() and (got_s[0] == 1e-8).all()
+    # the dequantized pool equals the JAX package's, bit for bit
+    np.testing.assert_array_equal(
+        ref.dequantize_pages(got_q, got_s).numpy(),
+        np.asarray(jref.dequantize_pages(jnp.asarray(want_q),
+                                         jnp.asarray(want_s))))
+
+
+def _roundtrip_check(rows, kvh, d, scale_exp, seed):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((rows, kvh, d)) * 2.0 ** scale_exp).astype(
+        np.float32)
+    x[0] = 0.0
+    q, scale = ref.quantize_kv(torch.from_numpy(x))
+    assert q.dtype == torch.int8 and tuple(scale.shape) == x.shape[:-1]
+    back = ref.dequantize_pages(q, scale).numpy()
+    bound = scale.numpy()[..., None] / 2 + 1e-9
+    assert (np.abs(back - x) <= bound).all(), (
+        f"round-trip exceeded scale/2 at rows={rows} d={d} 2^{scale_exp}")
+    assert (back[0] == 0).all()
+
+
+@pytest.mark.parametrize("rows,kvh,d,scale_exp,seed", [
+    (1, 1, 4, 0, 0), (16, 2, 8, -8, 1), (40, 4, 32, 8, 2), (7, 1, 16, -3, 3),
+    (24, 2, 4, 5, 4)])
+def test_quantize_dequant_roundtrip_grid(rows, kvh, d, scale_exp, seed):
+    _roundtrip_check(rows, kvh, d, scale_exp, seed)
+
+
+@settings(max_examples=20, deadline=None)
+@given(rows=st.integers(1, 40), kvh=st.sampled_from([1, 2, 4]),
+       d=st.sampled_from([4, 8, 16, 32]), scale_exp=st.integers(-8, 8),
+       seed=st.integers(0, 2**16))
+def test_quantize_dequant_roundtrip_bound(rows, kvh, d, scale_exp, seed):
+    """quantize_kv -> dequantize_pages recovers every element within
+    scale/2 across magnitudes 2^-8..2^8; all-zero rows come back zero."""
+    _roundtrip_check(rows, kvh, d, scale_exp, seed)
+
+
+# ---------------------------------------------------------------------------
+# the paged ops over an int8 pool
+# ---------------------------------------------------------------------------
+
+
+def _qpool(rng, page):
+    """An int8 pool and its scales, quantized by the JAX reference."""
+    k = rng.standard_normal((P, page, KVH, D)).astype(np.float32)
+    v = rng.standard_normal((P, page, KVH, D)).astype(np.float32)
+    return (*_jax_quantize(k), *_jax_quantize(v))
+
+
+def _tables(rng, n):
+    return np.stack([rng.permutation(np.arange(1, P))[:MP]
+                     for _ in range(n)]).astype(np.int32)
+
+
+def _both(jfn, tfn, arrays, kq, ks, vq, vs):
+    """The JAX op through the Pallas int8 branch (interpret mode) and the
+    port's op on CPU tensors, on the same inputs."""
+    q, *rest = arrays
+    jargs = [jnp.asarray(a) for a in (q, kq, vq, *rest)]
+    want = np.asarray(jfn(*jargs, k_scale=jnp.asarray(ks),
+                          v_scale=jnp.asarray(vs), impl="pallas_interpret"))
+    t = [torch.from_numpy(np.array(a)) for a in (q, kq, vq, *rest)]
+    got = tfn(*t, k_scale=torch.from_numpy(ks), v_scale=torch.from_numpy(vs))
+    return got.numpy(), want
+
+
+@pytest.mark.parametrize("group", [1, 3])
+def test_int8_paged_decode_matches_jax(group):
+    rng = np.random.default_rng(10 + group)
+    page = 8
+    pool = _qpool(rng, page)
+    lengths = np.array([0, 1, page - 1, page, page + 1, 3 * page], np.int32)
+    q = rng.standard_normal((len(lengths), KVH * group, D)).astype(np.float32)
+    got, want = _both(jops.paged_attention, ops.paged_attention,
+                      (q, _tables(rng, len(lengths)), lengths), *pool)
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
+    assert (got[0] == 0).all()  # length 0: exact zeros
+
+
+@pytest.mark.parametrize("valid", [0, 5, 8])
+def test_int8_paged_prefill_matches_jax(valid):
+    rng = np.random.default_rng(20 + valid)
+    page, c, group = 8, 8, 3
+    pool = _qpool(rng, page)
+    bt = _tables(rng, 1)[0]
+    q = rng.standard_normal((c, KVH * group, D)).astype(np.float32)
+    for start in (0, page - 3, MP * page - c):
+        got, want = _both(jops.paged_prefill_attention,
+                          ops.paged_prefill_attention,
+                          (q, bt, np.int32(start), np.int32(valid)), *pool)
+        np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
+        assert (got[valid:] == 0).all()  # padded queries: exact zeros
+
+
+@pytest.mark.parametrize("num_decode", [None, 3])
+def test_int8_paged_mixed_matches_jax(num_decode):
+    """Generic rows, and the split form (decode rows + one chunk) the
+    engine's fused step asks for with ``num_decode``."""
+    rng = np.random.default_rng(30)
+    page, s, c, start, group = 8, 3, 8, 9, 3
+    pool = _qpool(rng, page)
+    bt = _tables(rng, s + 1)
+    tables = np.concatenate([bt[:s], np.repeat(bt[s:], c, axis=0)])
+    last_pos = np.concatenate([[4, -1, 3 * page - 1],
+                               [start + i if i < 5 else -1 for i in range(c)]])
+    last_pos = last_pos.astype(np.int32)
+    q = rng.standard_normal((s + c, KVH * group, D)).astype(np.float32)
+    got, want = _both(
+        jops.paged_mixed_attention,
+        functools.partial(ops.paged_mixed_attention, num_decode=num_decode),
+        (q, tables, last_pos), *pool)
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
+    assert (got[last_pos < 0] == 0).all()  # dead rows: exact zeros
+
+
+def test_scales_come_in_pairs_with_int8_pages():
+    rng = np.random.default_rng(40)
+    kq, ks, vq, vs = (torch.from_numpy(a) for a in _qpool(rng, 8))
+    q = torch.zeros(2, KVH, D)
+    bt = torch.from_numpy(_tables(rng, 2))
+    lengths = torch.tensor([3, 4], dtype=torch.int32)
+    for kw in (dict(k_scale=ks), dict(v_scale=vs)):  # one without the other
+        with pytest.raises(ValueError, match="pairs"):
+            ops.paged_attention(q, kq, vq, bt, lengths, **kw)
+    with pytest.raises(ValueError, match="int8"):  # int8 pages, no scales
+        ops.paged_mixed_attention(q, kq, vq, bt, lengths)
+    with pytest.raises(ValueError, match="int8"):  # scales, f32 pages
+        ops.paged_attention(q, kq.float(), vq.float(), bt, lengths,
+                            k_scale=ks, v_scale=vs)

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (paged attention, flash attention, Mamba2 SSD)
-against their plain versions, on the card.
+"""The port's CUDA kernels (paged attention over pools of q's dtype and
+over int8 pools, flash attention, Mamba2 SSD) against their plain versions,
+on the card, at head dims 64, 80 and 128.
 
 Marked ``cuda``: these skip without a GPU (the kernels have no CPU mode;
 the CPU suite holds the plain versions against JAX in
@@ -18,39 +19,52 @@ from repro_torch.kernels.flash_attention import flash_attention_bhsd  # noqa: E4
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["pool", "int8"])
+@pytest.mark.parametrize("widths", [(5, 3, 64, 16), (8, 4, 128, 8),
+                                    (32, 1, 80, 16)],
+                         ids=["smollm", "llama3", "zamba2"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_kernels_on_card(dtype):
-    """Each CUDA kernel against its plain version on the card (main-path
-    widths: KVH 5, G 3, D 64, page 16): f32 within 1e-3, bf16 within 2e-2
-    after f32 accumulation, dead rows bit-exact zeros."""
+def test_kernels_on_card(dtype, widths, quant):
+    """Each paged CUDA kernel against its plain version on the card at D
+    64 / G 3 / page 16 (smollm, the main path), D 128 / G 4 / page 8
+    (llama3-8b) and D 80 / G 1 (zamba2-2.7b), over a pool of q's dtype or
+    an int8 pool with f32 scales (whose plain version is
+    ``dequantize_pages`` + the f32 versions): f32 within 1e-3, bf16 within
+    2e-2 after f32 accumulation, dead rows bit-exact zeros."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dt = getattr(torch, dtype)
     tol = 1e-3 if dtype == "float32" else 2e-2
+    kvh, group, d, page = widths
     g = torch.Generator(device="cuda").manual_seed(0)
-    kvh, group, d, page, mp, npages = 5, 3, 64, 16, 8, 40
-    kp = torch.randn(npages, page, kvh, d, generator=g, device="cuda").to(dt)
-    vp = torch.randn(npages, page, kvh, d, generator=g, device="cuda").to(dt)
+    mp, npages = 8, 40
+    kp = torch.randn(npages, page, kvh, d, generator=g, device="cuda")
+    vp = torch.randn(npages, page, kvh, d, generator=g, device="cuda")
+    if quant:
+        (kp, ks), (vp, vs) = ref.quantize_kv(kp), ref.quantize_kv(vp)
+        sc = dict(k_scale=ks, v_scale=vs)
+    else:
+        kp, vp, sc = kp.to(dt), vp.to(dt), {}
     tables = torch.stack([torch.randperm(npages - 1, device="cuda")[:mp] + 1
                           for _ in range(6)]).int()
-    lengths = torch.tensor([0, 1, 15, 16, 17, 128], dtype=torch.int32,
-                           device="cuda")
+    lengths = torch.tensor([0, 1, page - 1, page, page + 1, mp * page],
+                           dtype=torch.int32, device="cuda")
     q = torch.randn(6, kvh * group, d, generator=g, device="cuda").to(dt)
-    out = ops.paged_attention(q, kp, vp, tables, lengths)
-    want = ops.paged_attention(q, kp, vp, tables, lengths, impl="ref")
-    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=0)
-    assert (out[0] == 0).all()
-    last_pos = lengths - 1
-    out = ops.paged_mixed_attention(q, kp, vp, tables, last_pos)
-    want = ops.paged_mixed_attention(q, kp, vp, tables, last_pos, impl="ref")
-    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=0)
+    for op, args in ((ops.paged_attention, (tables, lengths)),
+                     (ops.paged_mixed_attention, (tables, lengths - 1))):
+        out = op(q, kp, vp, *args, **sc)
+        want = op(q, kp, vp, *args, **sc, impl="ref")
+        torch.testing.assert_close(out.float(), want.float(), atol=tol,
+                                   rtol=0)
+        assert (out[0] == 0).all()
     c = 64
     qc = torch.randn(c, kvh * group, d, generator=g, device="cuda").to(dt)
     start = torch.tensor(9, dtype=torch.int32, device="cuda")
     valid = torch.tensor(50, dtype=torch.int32, device="cuda")
-    out = ops.paged_prefill_attention(qc, kp, vp, tables[5], start, valid)
+    out = ops.paged_prefill_attention(qc, kp, vp, tables[5], start, valid,
+                                      **sc)
     want = ops.paged_prefill_attention(qc, kp, vp, tables[5], start, valid,
-                                       impl="ref")
+                                       impl="ref", **sc)
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=0)
     assert (out[50:] == 0).all()
 
@@ -59,7 +73,8 @@ def test_kernels_on_card(dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernel_on_card(dtype):
     """The flash kernel against its plain version at smollm widths (15 q
-    over 5 kv heads, D 64) and at D 128: f32 within 1e-3, bf16 within 2e-2
+    over 5 kv heads, D 64), at D 128 and at zamba2's D 80 (32 heads),
+    causal and not: f32 within 1e-3, bf16 within 2e-2
     after f32 accumulation. Causal with Sq = Skv at ragged lengths (1, 100,
     300: partial q and K/V tiles), causal with Sq < Skv, and non-causal
     ragged; the wrapper is called directly since the op refuses lengths
@@ -72,7 +87,8 @@ def test_flash_kernel_on_card(dtype):
     for b, h, kvh, d, sq, skv, causal in (
             (2, 15, 5, 64, 1, 1, True), (2, 15, 5, 64, 100, 100, True),
             (1, 15, 5, 64, 300, 300, True), (2, 15, 5, 64, 64, 320, True),
-            (2, 15, 5, 64, 37, 300, False), (1, 8, 2, 128, 130, 130, True)):
+            (2, 15, 5, 64, 37, 300, False), (1, 8, 2, 128, 130, 130, True),
+            (2, 32, 32, 80, 100, 100, True), (1, 32, 32, 80, 37, 300, False)):
         q = torch.randn(b, h, sq, d, generator=g, device="cuda").to(dt)
         k = torch.randn(b, kvh, skv, d, generator=g, device="cuda").to(dt)
         v = torch.randn(b, kvh, skv, d, generator=g, device="cuda").to(dt)

@@ -7,7 +7,9 @@ sweep covers GQA group 1 and 3, page sizes 8 and 16, lengths 0..3 pages
 (page boundaries +-1), dead rows, shuffled physical pages, and chunks with
 ``valid`` 0, partial and full. Also checks ``ops`` dispatch: CPU tensors go
 to the plain versions, the kernel wrappers refuse CPU tensors (no silent
-plain path), and the unported int8 variant raises. The kernels themselves
+plain path), and int8 pools with scales take ``dequantize_pages`` and the
+f32 plain versions (``test_torch_int8_ref.py`` holds them against the
+Pallas int8 branch). The kernels themselves
 run only on the card (``tests/test_torch_kernels_cuda.py``).
 """
 
@@ -158,12 +160,26 @@ def test_ops_refuse_what_is_not_ported():
     kt, vt = torch.from_numpy(k), torch.from_numpy(v)
     bt = torch.from_numpy(_tables(rng, 2))
     lengths = torch.tensor([3, 4], dtype=torch.int32)
-    sc = torch.ones(P, 8, KVH)
-    with pytest.raises(NotImplementedError, match="A.5"):
-        ops.paged_attention(q, kt, vt, bt, lengths, k_scale=sc, v_scale=sc)
-    with pytest.raises(NotImplementedError):
-        ops.paged_mixed_attention(q, kt, vt, bt, lengths, k_scale=sc,
-                                  v_scale=sc)
+    # int8 pages with scales (ROADMAP A.5, ported): the plain versions
+    # over the dequantized pool, and no kernel launch for CPU tensors
+    kq, ks = tref.quantize_kv(kt)
+    vq, vs = tref.quantize_kv(vt)
+    kd, vd = tref.dequantize_pages(kq, ks), tref.dequantize_pages(vq, vs)
+    before = dict(pk.LAUNCHES)
+    np.testing.assert_array_equal(
+        ops.paged_attention(q, kq, vq, bt, lengths, k_scale=ks,
+                            v_scale=vs).numpy(),
+        tref.paged_attention_ref(q, kd, vd, bt, lengths).numpy())
+    np.testing.assert_array_equal(
+        ops.paged_mixed_attention(q, kq, vq, bt, lengths, k_scale=ks,
+                                  v_scale=vs).numpy(),
+        tref.paged_mixed_attention_ref(q, kd, vd, bt, lengths).numpy())
+    np.testing.assert_array_equal(
+        ops.paged_prefill_attention(q, kq, vq, bt[0], torch.tensor(4),
+                                    torch.tensor(2), k_scale=ks,
+                                    v_scale=vs).numpy(),
+        tref.paged_prefill_attention_ref(q, kd, vd, bt[0], 4, 2).numpy())
+    assert pk.LAUNCHES == before
     with pytest.raises(ValueError, match="unknown impl"):
         ops.paged_attention(q, kt, vt, bt, lengths, impl="pallas")
     # the kernel wrappers take CUDA tensors only: a CPU tensor is an error,

@@ -104,6 +104,21 @@ def test_whole_prompt_streams_match_jax(weights, step_mode):
     assert teng.stats["prefill_chunks"] == 0
 
 
+def test_whole_prompt_int8_streams_match_jax(weights):
+    """Whole-prompt prefill into an int8 pool: ``write_prefill_pages``
+    quantizes the dense K/V as the JAX package does."""
+    jcfg, jparams, cfg, state = weights
+    reqs = _requests(6)
+    kw = dict(max_len=48, max_slots=3, page_size=8, prefill_chunk=None,
+              kv_quant="int8")
+    teng = ContinuousBatchingEngine(cfg, state, device="cpu", **kw)
+    want, jsteps = _serve(JEngine(jcfg, jparams, **kw), JRequest,
+                          JSamplingParams, reqs)
+    got, tsteps = _serve(teng, Request, SamplingParams, reqs)
+    assert teng.cache.pages["k"].dtype == torch.int8
+    assert got == want and tsteps == jsteps
+
+
 def test_lockstep_batch_never_exceeds_max_len(weights):
     """Two requests that are individually valid but whose padded batch
     would decode past ``max_len`` (long prompt + long max_new) are split

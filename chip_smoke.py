@@ -8,13 +8,18 @@ Phases (any failure exits non-zero):
 1. device  — needs ``torch.cuda.is_available()``; prints the card's name and
    power limit as ``nvidia-smi`` reports them.
 2. build   — compiles the hand-written CUDA kernels from the sources in this
-   checkout (``nvcc``, sm_90a) and prints the build seconds.
+   checkout (``nvcc``, sm_90a) and prints the build seconds, then the bf16
+   tensor-core kernels' registers and spill stores from ptxas' report and,
+   from the card, their registers, local bytes, dynamic shared memory and
+   blocks per SM at D 64, 80 and 128.
 3. kernels — each paged-attention kernel against its plain PyTorch version
    on the card, at the main path's widths (KVH 5, G 3, D 64, page 16), at
    llama3-8b's (KVH 8, G 4, D 128, page 8) and at zamba2-2.7b's (KVH 32,
    G 1, D 80, page 16), each over a pool of q's dtype and over an int8
-   pool with f32 scales (the int8 variant, dequantizing as it stages each
-   page, against ``dequantize_pages`` + the plain versions): bf16 within
+   pool with f32 scales (the int8 variant, which reads the pool in int8
+   and applies the scales on the card, against ``dequantize_pages`` + the
+   plain versions); with bf16 q the chunked prefill runs the tensor-core
+   kernel, everything else the CUDA-core kernels: bf16 within
    2e-2 absolute (f32 accumulation, bf16 output: a few bf16 ulps of
    outputs of magnitude ~1), f32 within 1e-3, and dead rows (idle slots,
    padded chunk rows, length 0) bit-exact zeros. Every width runs the
@@ -25,7 +30,9 @@ Phases (any failure exits non-zero):
    Then times each kernel, its plain version and a library yardstick
    (``F.scaled_dot_product_attention`` on the gathered dense K/V, which the
    port never calls) at the shapes of one engine step, cycling over 32
-   layers' pools as a step does.
+   layers' pools as a step does; and the chunked-prefill kernel (bf16 q:
+   the tensor-core kernel) the same way at the llama3-8b and zamba2-2.7b
+   widths.
 4. engine  — full-width smollm-360m (bf16, seeded random weights) served by
    ``ContinuousBatchingEngine(max_slots=8, page_size=16, prefill_chunk=64)``:
    16 requests of 100-600 prompt tokens (half share a 128-token prefix),
@@ -50,11 +57,13 @@ Phases (any failure exits non-zero):
    128 to 1024. Then every (B, S) that phases 7 and 8 gave the kernel, as
    recorded from their prefills (the check runs after them for that
    reason), and zamba2's D 80 (32 heads, G 1), causal and not. The ragged lengths go to the kernel's wrapper directly (the op
-   keeps the reference's Skv-multiple-of-256 rule). Before the engines it
-   times the kernel, its plain version and ``F.scaled_dot_product_attention
-   (..., is_causal=True, enable_gqa=True)`` (which the port never calls) at
-   the two engine shapes: lockstep (B 8, S 256) and whole-prompt (B 1,
-   S 512), cycling over 32 layers' inputs.
+   keeps the reference's Skv-multiple-of-256 rule), and llama3-8b's D 128
+   (32 / 8 heads). bf16 runs the tensor-core kernel, f32 the CUDA-core
+   one. Before the engines it times the kernel, its plain version and
+   ``F.scaled_dot_product_attention (..., is_causal=True, enable_gqa=True)``
+   (which the port never calls) at the two engine shapes: lockstep (B 8,
+   S 256) and whole-prompt (B 1, S 512), cycling over 32 layers' inputs, at
+   smollm's widths and at llama3-8b's and zamba2-2.7b's.
 7. lockstep — full-width smollm-360m through ``GenerationEngine(max_batch=8,
    max_len=512)``: 16 requests of 64-256 prompt tokens (every batch's
    longest prompt inside the reference's flash contract), 32 new tokens
@@ -102,8 +111,9 @@ Phases (any failure exits non-zero):
 
 13. int8 timing — the int8 variant of the three paged kernels (checked in
    phase 3), their plain versions and SDPA on K/V dequantized and gathered
-   in advance, at phase 3's engine-step shapes; the bound counts int8 K/V
-   plus a 4-byte scale per (position, kv head).
+   in advance, at phase 3's engine-step shapes, and the chunked-prefill
+   one also at the llama3-8b and zamba2-2.7b widths; the bound counts int8
+   K/V plus a 4-byte scale per (position, kv head).
 14. int8 engine — phase 4's trace through ``ContinuousBatchingEngine(...,
    kv_quant="int8")`` on full-width smollm-360m, in turns with bf16 pages
    (bf16, int8, int8, bf16): every request finishes by length, the prefix
@@ -193,8 +203,15 @@ MAIN_WIDTH = "smollm D64"  # the widths the engine phases run
 TIER_PAGES, TIER_HOST_PAGES = 128, 64
 # the 4-slot tier parity pool: reclaims and spills, preempts nothing
 TIER_PARITY_PAGES = 80
+# device kernel names the trace windows count as paged / flash attention
+PAGED_TRACE_KEYS = ("paged_attention_kernel", "paged_prefill_mma_kernel")
+FLASH_TRACE_KEYS = ("flash_attention_kernel", "flash_attention_mma_kernel")
 # smollm-360m's whole-prompt paths: q heads, the engines' shapes
 FLASH_H, LOCK_BATCH, LOCK_MAX_LEN, WHOLE_MAX_LEN = KVH * G, 8, 512, 1024
+# (q heads, kv heads, head_dim) of the flash checks and timings: smollm-360m
+# (the engines' widths), llama3-8b and zamba2-2.7b
+FLASH_WIDTHS = {"smollm D64": (FLASH_H, KVH, D), "llama3 D128": (32, 8, 128),
+                "zamba2 D80": (32, 32, 80)}
 
 
 def log(msg: str) -> None:
@@ -336,32 +353,40 @@ def _time_ms(torch, fn, iters=64, warmup=8):
 
 
 def _bound(n_positions, rows_attended, q_rows, tables_elems, scalars, elt,
-           quant=False):
-    """Least time for the function: every K/V position it must read (each
-    (page, offset) once, all kv heads; int8 pages: one byte per element
-    plus a 4-byte f32 scale per (position, kv head)), q in, out back, its
-    int32 tables and positions; against the operations of QK^T and PV over
-    the attended positions. Returns (ms, 'bytes' | 'operations')."""
-    kv_bytes = 2 * n_positions * KVH * (D + 4 if quant else D * elt)
-    qo_bytes = 2 * q_rows * KVH * G * D * elt
+           quant=False, width=None):
+    """Least time for the function at one of PAGED_WIDTHS (the main one by
+    default): every K/V position it must read (each (page, offset) once,
+    all kv heads; int8 pages: one byte per element plus a 4-byte f32 scale
+    per (position, kv head)), q in, out back, its int32 tables and
+    positions; against the operations of QK^T and PV over the attended
+    positions. Returns (ms, 'bytes' | 'operations')."""
+    kvh, group, d, _ = width or PAGED_WIDTHS[MAIN_WIDTH]
+    kv_bytes = 2 * n_positions * kvh * (d + 4 if quant else d * elt)
+    qo_bytes = 2 * q_rows * kvh * group * d * elt
     nbytes = kv_bytes + qo_bytes + 4 * (tables_elems + scalars)
-    flops = 4 * D * KVH * G * rows_attended
+    flops = 4 * d * kvh * group * rows_attended
     rate = BF16_FLOP_PER_S if elt == 2 else F32_FLOP_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
-def time_kernels(torch, F, ops, ref, quant=False):
+def time_kernels(torch, F, ops, ref, quant=False, wname=MAIN_WIDTH,
+                 names=None):
     """kernel / plain / library times (ms) and the bound, at the shapes of
-    one full-width engine step, cycling through 32 layers' pools so each
-    launch finds its pages outside L2 as in a real step. ``quant``: int8
-    pools with f32 scales (the plain version dequantizes them, SDPA reads
-    K/V dequantized to bf16 and gathered in advance)."""
-    mp = -(-MAX_LEN // PAGE)
+    one full-width engine step at one of PAGED_WIDTHS, cycling through 32
+    layers' pools so each launch finds its pages outside L2 as in a real
+    step. ``quant``: int8 pools with f32 scales (the plain version
+    dequantizes them, SDPA reads K/V dequantized to bf16 and gathered in
+    advance). ``names``: the kernels to time (default all three)."""
+    width = PAGED_WIDTHS[wname]
+    kvh, group, d, page = width
+    names = names or ("paged_attention_bkgd", "paged_prefill_attention_ckgd",
+                      "paged_mixed_attention_rkgd")
+    mp = -(-MAX_LEN // page)
     n_pages = SLOTS * mp + 1
     dt = torch.bfloat16
-    kp, vp = _pools(torch, n_pages, dt, layers=LAYERS, seed=5)
+    kp, vp = _pools(torch, n_pages, dt, layers=LAYERS, seed=5, width=width)
     sc = [{}] * LAYERS
     if quant:
         (kq, ks), (vq, vs) = ref.quantize_kv(kp), ref.quantize_kv(vp)
@@ -372,15 +397,16 @@ def time_kernels(torch, F, ops, ref, quant=False):
     lengths = torch.randint(100, 632, (SLOTS,), generator=g, device="cuda",
                             dtype=torch.int32)
     tables = _tables(torch, SLOTS, mp, n_pages, seed=7)
-    q = torch.randn(SLOTS, KVH * G, D, generator=g, device="cuda").to(dt)
-    qc = torch.randn(CHUNK, KVH * G, D, generator=g, device="cuda").to(dt)
+    q = torch.randn(SLOTS, kvh * group, d, generator=g, device="cuda").to(dt)
+    qc = torch.randn(CHUNK, kvh * group, d, generator=g,
+                     device="cuda").to(dt)
     start = torch.tensor(256, dtype=torch.int32, device="cuda")
     valid = torch.tensor(CHUNK, dtype=torch.int32, device="cuda")
     cpos = torch.arange(CHUNK, dtype=torch.int32, device="cuda")
     last_pos = torch.cat([lengths - 1, 256 + cpos])
     mtables = torch.cat([tables, tables[0:1].expand(CHUNK, mp)]).contiguous()
     qm = torch.cat([q, qc])
-    scale = D ** -0.5
+    scale = d ** -0.5
 
     def layer(i):
         if quant:
@@ -390,25 +416,17 @@ def time_kernels(torch, F, ops, ref, quant=False):
     def dense(tbl, n):
         """Gathered dense K/V for SDPA: (rows, H, n, D) over the q heads."""
         def gather(pool):
-            x = pool[tbl.long()].reshape(tbl.shape[0], -1, KVH, D)[:, :n]
-            return x.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+            x = pool[tbl.long()].reshape(tbl.shape[0], -1, kvh, d)[:, :n]
+            return x.permute(0, 2, 1, 3).repeat_interleave(group, dim=1)
         return [(gather(kp[i]), gather(vp[i])) for i in range(LAYERS)]
 
-    lens = lengths.tolist()
-    n_max = max(lens)
-    dec_dense = dense(tables, n_max)
-    dec_mask = (torch.arange(n_max, device="cuda")[None, :]
-                < lengths[:, None])[:, None, None, :]
-    pre_dense = dense(tables[0:1], 256 + CHUNK)
-    kpos = torch.arange(256 + CHUNK, device="cuda")
-    pre_mask = (kpos[None, :] <= 256 + cpos[:, None])[None, None]
-    mix_n = max(n_max, 256 + CHUNK)
-    mix_dense = dense(mtables, mix_n)
-    mix_mask = (torch.arange(mix_n, device="cuda")[None, :]
-                <= last_pos[:, None])[:, None, None, :]
-
-    rows = {
-        "paged_attention_bkgd": dict(
+    def decode_row():
+        lens = lengths.tolist()
+        n_max = max(lens)
+        dec_dense = dense(tables, n_max)
+        dec_mask = (torch.arange(n_max, device="cuda")[None, :]
+                    < lengths[:, None])[:, None, None, :]
+        return dict(
             kernel=lambda i: ops.paged_attention(
                 q, *layer(i), tables, lengths, scale=scale,
                 **sc[i % LAYERS]),
@@ -419,8 +437,13 @@ def time_kernels(torch, F, ops, ref, quant=False):
                 q[:, :, None], *dec_dense[i % LAYERS],
                 attn_mask=dec_mask),
             bound=_bound(sum(lens), sum(lens), SLOTS, SLOTS * mp, SLOTS, 2,
-                         quant)),
-        "paged_prefill_attention_ckgd": dict(
+                         quant, width))
+
+    def prefill_row():
+        pre_dense = dense(tables[0:1], 256 + CHUNK)
+        kpos = torch.arange(256 + CHUNK, device="cuda")
+        pre_mask = (kpos[None, :] <= 256 + cpos[:, None])[None, None]
+        return dict(
             kernel=lambda i: ops.paged_prefill_attention(
                 qc, *layer(i), tables[0], start, valid, scale=scale,
                 **sc[i % LAYERS]),
@@ -431,8 +454,15 @@ def time_kernels(torch, F, ops, ref, quant=False):
                 qc.transpose(0, 1)[None], *pre_dense[i % LAYERS],
                 attn_mask=pre_mask),
             bound=_bound(256 + CHUNK, sum(257 + c for c in range(CHUNK)),
-                         CHUNK, mp, 2, 2, quant)),
-        "paged_mixed_attention_rkgd": dict(
+                         CHUNK, mp, 2, 2, quant, width))
+
+    def mixed_row():
+        lens = lengths.tolist()
+        mix_n = max(max(lens), 256 + CHUNK)
+        mix_dense = dense(mtables, mix_n)
+        mix_mask = (torch.arange(mix_n, device="cuda")[None, :]
+                    <= last_pos[:, None])[:, None, None, :]
+        return dict(
             kernel=lambda i: ops.paged_mixed_attention(
                 qm, *layer(i), mtables, last_pos, scale=scale,
                 **sc[i % LAYERS]),
@@ -446,10 +476,14 @@ def time_kernels(torch, F, ops, ref, quant=False):
             bound=_bound(sum(lens) + max(0, 256 + CHUNK - lens[0]),
                          sum(lens) + sum(257 + c for c in range(CHUNK)),
                          SLOTS + CHUNK, (SLOTS + CHUNK) * mp, SLOTS + CHUNK,
-                         2, quant)),
-    }
+                         2, quant, width))
+
+    makers = {"paged_attention_bkgd": decode_row,
+              "paged_prefill_attention_ckgd": prefill_row,
+              "paged_mixed_attention_rkgd": mixed_row}
     out = {}
-    for name, r in rows.items():
+    for name in names:
+        r = makers[name]()  # its gathered K/V for SDPA live for one row
         # plain, kernel, kernel, plain: compare within one call, in turns
         p1 = _time_ms(torch, r["plain"])
         k1 = _time_ms(torch, r["kernel"])
@@ -459,10 +493,11 @@ def time_kernels(torch, F, ops, ref, quant=False):
         out[name] = dict(ms=min(k1, k2), plain_ms=min(p1, p2),
                          library_ms=lib, bound_ms=r["bound"][0],
                          bound_by=r["bound"][1])
-        log(f"timing {name}{' int8' if quant else ''}: kernel "
-            f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, sdpa "
-            f"{lib:.4f} ms, bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
-    del dec_dense, pre_dense, mix_dense
+        log(f"timing {name}{' int8' if quant else ''} [{wname}: KVH {kvh}, "
+            f"G {group}, D {d}, page {page}]: kernel {k1:.4f}/{k2:.4f} ms, "
+            f"plain {p1:.4f}/{p2:.4f} ms, sdpa {lib:.4f} ms, bound "
+            f"{r['bound'][0]:.5f} ms ({r['bound'][1]})")
+        del r
     return out
 
 
@@ -738,7 +773,7 @@ def run_engine(torch, np, cfg, serving, models, pk, card):
     _trace(torch,
            lambda: serving.ContinuousBatchingEngine(cfg, params, **engine_kw),
            _requests(serving, 8, np.random.default_rng(5), sampled_every=0),
-           ("paged_attention_kernel",), "paged-attention kernels")
+           PAGED_TRACE_KEYS, "paged-attention kernels")
     return launches
 
 
@@ -909,7 +944,7 @@ def run_int8_engine(torch, np, cfg, serving, models, pk, card):
         _trace(torch, lambda quant=quant: make(quant),
                _requests(serving, 8, np.random.default_rng(5),
                          sampled_every=0),
-               ("paged_attention_kernel",), f"paged-attention kernels "
+               PAGED_TRACE_KEYS, f"paged-attention kernels "
                f"({quant} pages)")
     return launches
 
@@ -1181,8 +1216,9 @@ def check_flash(torch, fk, ref, engine_shapes):
     """The flash kernel against its plain version at smollm widths: fixed
     ragged and contract cases, every whole-prompt bucket, and each
     (B, S) in ``engine_shapes`` (the prefills the engine phases ran); then
-    at zamba2's D 80 (32 heads, G 1), causal and not. Returns the max abs
-    error over the smollm bf16 cases and logs the rest."""
+    at zamba2's D 80 (32 heads, G 1) and llama3's D 128 (32 / 8 heads),
+    causal and not. Returns the max abs error over the smollm bf16 cases
+    and logs the rest."""
     cases = [(LOCK_BATCH, s, s, True) for s in (1, 64, 100, 256, 300, 512)]
     cases += [(LOCK_BATCH, 64, 320, True), (LOCK_BATCH, 37, 300, False)]
     buckets = [1 << i for i in range(7, WHOLE_MAX_LEN.bit_length())]
@@ -1191,8 +1227,11 @@ def check_flash(torch, fk, ref, engine_shapes):
               not in cases]
     d80_cases = [(2, 100, 100, True), (1, 256, 256, True),
                  (2, 37, 300, False), (1, 64, 320, True)]
-    widths = {"smollm": ((FLASH_H, KVH, D), cases),
-              "D 80": ((32, 32, 80), d80_cases)}
+    d128_cases = d80_cases + [(1, 512, 512, True), (LOCK_BATCH, 256, 256,
+                                                     True)]
+    widths = {"smollm": (FLASH_WIDTHS["smollm D64"], cases),
+              "D 80": (FLASH_WIDTHS["zamba2 D80"], d80_cases),
+              "D 128": (FLASH_WIDTHS["llama3 D128"], d128_cases)}
     err_bf16 = 0.0
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
         label = str(dtype).removeprefix("torch.")
@@ -1224,19 +1263,24 @@ def check_flash(torch, fk, ref, engine_shapes):
         log(f"flash kernel check {label} D 80 (32 heads, G 1; causal 100, "
             f"256 and 64 < 320, non-causal 37 x 300): max abs err "
             f"{worst['D 80']:.3e} (bound {tol})")
+        log(f"flash kernel check {label} D 128 (32 / 8 heads; the D 80 cases"
+            f", B 1 x 512 and B 8 x 256): max abs err {worst['D 128']:.3e} "
+            f"(bound {tol})")
         if dtype == torch.bfloat16:
             err_bf16 = worst["smollm"]
     return {"flash_attention_bhsd": err_bf16}
 
 
-def _flash_bound(b, sq, skv, causal, elt):
-    """Least time for one flash call: q, k, v read once and out written
-    once, against 4 D H flops per attended (query, key) pair at the
-    inputs' type's peak. Returns (ms, 'bytes' | 'operations')."""
-    nbytes = elt * D * b * (2 * FLASH_H * sq + 2 * KVH * skv)
+def _flash_bound(b, sq, skv, causal, elt, width=None):
+    """Least time for one flash call at FLASH_WIDTHS[width] (smollm's by
+    default): q, k, v read once and out written once, against 4 D H flops
+    per attended (query, key) pair at the inputs' type's peak. Returns
+    (ms, 'bytes' | 'operations')."""
+    h, kvh, d = FLASH_WIDTHS[width or "smollm D64"]
+    nbytes = elt * d * b * (2 * h * sq + 2 * kvh * skv)
     off = skv - sq
     pairs = (sum(off + i + 1 for i in range(sq)) if causal else sq * skv) * b
-    flops = 4 * D * FLASH_H * pairs
+    flops = 4 * d * h * pairs
     rate = BF16_FLOP_PER_S if elt == 2 else F32_FLOP_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -1245,49 +1289,52 @@ def _flash_bound(b, sq, skv, causal, elt):
 
 def time_flash(torch, F, fk, ref):
     """kernel / plain / SDPA times (ms) and the bound at the two engine
-    shapes (bf16, causal), each cycling over 32 layers' inputs so every
-    launch reads them from HBM. Returns the lockstep shape's row (the one
-    the kernels line carries) and logs both."""
+    shapes (bf16, causal) at every one of FLASH_WIDTHS, each cycling over
+    32 layers' inputs so every launch reads them from HBM. Returns smollm's
+    lockstep row (the one the kernels line carries) and logs all."""
     rows = {}
-    for label, b, s in (("lockstep", LOCK_BATCH, 256), ("whole-prompt", 1,
-                                                        512)):
-        g = torch.Generator(device="cuda").manual_seed(32)
-        qs = torch.randn(LAYERS, b, FLASH_H, s, D, generator=g,
-                         device="cuda").to(torch.bfloat16)
-        ks, vs = (torch.randn(LAYERS, b, KVH, s, D, generator=g,
-                              device="cuda").to(torch.bfloat16)
-                  for _ in range(2))
-        # the plain version's own (B, S, H, D) layout, made in advance
-        qt, kt, vt = (x.transpose(2, 3).contiguous() for x in (qs, ks, vs))
+    for wname, (h, kvh, d) in FLASH_WIDTHS.items():
+        for label, b, s in (("lockstep", LOCK_BATCH, 256),
+                            ("whole-prompt", 1, 512)):
+            g = torch.Generator(device="cuda").manual_seed(32)
+            qs = torch.randn(LAYERS, b, h, s, d, generator=g,
+                             device="cuda").to(torch.bfloat16)
+            ks, vs = (torch.randn(LAYERS, b, kvh, s, d, generator=g,
+                                  device="cuda").to(torch.bfloat16)
+                      for _ in range(2))
+            # the plain version's own (B, S, H, D) layout, made in advance
+            qt, kt, vt = (x.transpose(2, 3).contiguous() for x in (qs, ks, vs))
 
-        def kernel(i):
-            l = i % LAYERS
-            fk.flash_attention_bhsd(qs[l], ks[l], vs[l], causal=True)
+            def kernel(i):
+                l = i % LAYERS
+                fk.flash_attention_bhsd(qs[l], ks[l], vs[l], causal=True)
 
-        def plain(i):
-            l = i % LAYERS
-            ref.flash_attention_chunked(qt[l], kt[l], vt[l], causal=True,
-                                        chunk_kv=256)
+            def plain(i):
+                l = i % LAYERS
+                ref.flash_attention_chunked(qt[l], kt[l], vt[l], causal=True,
+                                            chunk_kv=256)
 
-        def library(i):
-            l = i % LAYERS
-            F.scaled_dot_product_attention(qs[l], ks[l], vs[l],
-                                           is_causal=True, enable_gqa=True)
+            def library(i):
+                l = i % LAYERS
+                F.scaled_dot_product_attention(qs[l], ks[l], vs[l],
+                                               is_causal=True,
+                                               enable_gqa=True)
 
-        p1 = _time_ms(torch, plain, iters=32)
-        k1 = _time_ms(torch, kernel)
-        k2 = _time_ms(torch, kernel)
-        p2 = _time_ms(torch, plain, iters=32)
-        lib = _time_ms(torch, library)
-        bound = _flash_bound(b, s, s, True, 2)
-        rows[label] = dict(ms=min(k1, k2), plain_ms=min(p1, p2),
-                           library_ms=lib, bound_ms=bound[0],
-                           bound_by=bound[1])
-        log(f"timing flash_attention_bhsd {label} (B {b}, S {s}, causal, "
-            f"bf16): kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} "
-            f"ms, sdpa {lib:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]})")
-        del qs, ks, vs, qt, kt, vt
-    return {"flash_attention_bhsd": rows["lockstep"]}
+            p1 = _time_ms(torch, plain, iters=32)
+            k1 = _time_ms(torch, kernel)
+            k2 = _time_ms(torch, kernel)
+            p2 = _time_ms(torch, plain, iters=32)
+            lib = _time_ms(torch, library)
+            bound = _flash_bound(b, s, s, True, 2, wname)
+            rows[wname, label] = dict(ms=min(k1, k2), plain_ms=min(p1, p2),
+                                      library_ms=lib, bound_ms=bound[0],
+                                      bound_by=bound[1])
+            log(f"timing flash_attention_bhsd {label} [{wname}: H {h}, KVH "
+                f"{kvh}] (B {b}, S {s}, causal, bf16): kernel "
+                f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, sdpa "
+                f"{lib:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]})")
+            del qs, ks, vs, qt, kt, vt
+    return {"flash_attention_bhsd": rows["smollm D64", "lockstep"]}
 
 
 def _record_prefills(model):
@@ -1340,7 +1387,7 @@ def run_lockstep(torch, np, cfg, serving, models, fk, card):
     _trace(torch, lambda: serving.GenerationEngine(cfg, params, **kw),
            _random_requests(serving, 8, np.random.default_rng(41), 0, lo=64,
                             hi=256, max_new=32, uid="l", vocab=49152, seed0=3000),
-           ("flash_attention_kernel",), "flash kernel")
+           FLASH_TRACE_KEYS, "flash kernel")
     return launches, prefills
 
 
@@ -1386,7 +1433,7 @@ def run_whole_prompt(torch, np, cfg, serving, models, fk, pk, card):
     _trace(torch, lambda: serving.ContinuousBatchingEngine(cfg, params, **kw),
            _random_requests(serving, 8, np.random.default_rng(51), 0, lo=100,
                             hi=600, max_new=32, uid="w", vocab=49152, seed0=3000),
-           ("flash_attention_kernel", "paged_attention_kernel"),
+           PAGED_TRACE_KEYS + FLASH_TRACE_KEYS,
            "flash + paged kernels")
     return launches, paged, prefills
 
@@ -1580,6 +1627,52 @@ def run_mamba_parity(torch, np, cfg, serving, models):
         f"one discard preemption")
 
 
+# the bf16 tensor-core kernels: library -> (C info entry, its page kinds)
+MMA_KERNELS = {"flash_attention": ("flash_attention_mma_info", (None,)),
+               "paged_attention": ("paged_attention_prefill_mma_info",
+                                   (0, 1))}
+
+
+def report_mma_kernels(build):
+    """Phase 2's report on the bf16 tensor-core kernels, one instance per
+    head dim, page kind and warp-group count: registers and spill stores as
+    ptxas gave them in this process's build (none when the libraries were
+    already built), then the card's own figures through each library's
+    info entry: registers and local (spilled) bytes a thread, dynamic
+    shared memory a block, and blocks resident per SM."""
+    import ctypes
+
+    entry = re.compile(r"Compiling entry function '(\w+)'")
+    for lib, (info_fn, kinds) in MMA_KERNELS.items():
+        ptxas = build.build_log.get(lib, "")
+        parts = entry.split(ptxas)
+        for name, body in zip(parts[1::2], parts[2::2]):
+            if "_mma_kernel" not in name:
+                continue
+            regs = re.search(r"Used (\d+) registers", body)
+            spill = re.search(r"(\d+) bytes spill stores", body)
+            d, groups = re.findall(r"Li(\d+)E", name)[:2]
+            pages = " int8 pages" if "kernelIa" in name else ""
+            log(f"ptxas {lib} mma D {d}{pages} groups {groups}: "
+                f"{regs.group(1) if regs else '?'} registers, "
+                f"{spill.group(1) if spill else '?'} bytes spill stores")
+        fn = getattr(build.load(lib), info_fn)
+        info = (ctypes.c_int * 4)()
+        for d in (64, 80, 128):
+            for quant in kinds:
+                for groups in (1, 2):
+                    args = (d, groups) if quant is None else (d, quant, groups)
+                    err = fn(*args, info)
+                    if err != 0:
+                        raise RuntimeError(f"{info_fn}{args}: error {err}")
+                    pages = "" if quant is None else (
+                        " int8 pages" if quant else " bf16 pages")
+                    log(f"card {lib} mma D {d}{pages} groups {groups}: "
+                        f"{info[0]} registers, {info[1]} local bytes a "
+                        f"thread, {info[2]} B dynamic shared memory, "
+                        f"{info[3]} blocks per SM")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1625,6 +1718,7 @@ def main() -> int:
         log(f"ptxas {lib}: registers per thread {regs}, spill-store bytes "
             f"{spills} over {ptxas.count('Compiling entry function')} "
             f"kernel instances")
+    report_mma_kernels(build)
 
     lap("build")
     # kernel -> max abs err over the main width's bf16 cases, per pool kind
@@ -1636,6 +1730,10 @@ def main() -> int:
                 (int8_errs if quant else errs).update(e)
     lap("paged kernel checks")
     times = time_kernels(torch, F, ops, ref)
+    for wname in PAGED_WIDTHS:  # the redesigned prefill at the other widths
+        if wname != MAIN_WIDTH:
+            time_kernels(torch, F, ops, ref, wname=wname,
+                         names=("paged_prefill_attention_ckgd",))
     lap("paged timing")
     cfg = get_arch("smollm-360m")
     # kernel -> {path: launches read just after that path's run}
@@ -1672,6 +1770,10 @@ def main() -> int:
 
     lap("mamba2 parity")
     int8_times = time_kernels(torch, F, ops, ref, quant=True)
+    for wname in PAGED_WIDTHS:
+        if wname != MAIN_WIDTH:
+            time_kernels(torch, F, ops, ref, quant=True, wname=wname,
+                         names=("paged_prefill_attention_ckgd",))
     lap("int8 timing")
     for name, n in run_int8_engine(torch, np, cfg, serving, models, pk,
                                    card).items():

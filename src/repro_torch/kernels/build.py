@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 into ``build/kernels/<name>-<hash>.so`` at the repository root (``build/``
-is git-ignored). The hash covers the source text and the compiler flags, so
-an edited kernel rebuilds on first use and an unchanged one loads from the
-directory. All libraries not yet built compile in parallel, one ``nvcc``
+is git-ignored). The hash covers the source text, every header in
+``csrc/`` (``*.cuh``, which a source may include) and the compiler flags,
+so an edited kernel or header rebuilds on first use and an unchanged one
+loads from the directory. All libraries not yet built compile in parallel, one ``nvcc``
 per source. Building and loading hold one process-wide lock, so engines
 created on several threads at once (the serve driver's workers) compile
 each library once and never load a half-written one. Nothing here runs at
@@ -62,9 +63,11 @@ def _flags() -> list[str]:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(_flags()).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(_flags()).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=SOURCES) -> dict[str, Path]:

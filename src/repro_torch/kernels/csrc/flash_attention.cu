@@ -1,4 +1,4 @@
-// Dense grouped-query flash attention (forward) as a CUDA kernel for Hopper
+// Dense grouped-query flash attention (forward) as CUDA kernels for Hopper
 // (sm_90a).
 //
 // Replaces the Pallas TPU kernel of the JAX package:
@@ -13,46 +13,66 @@
 // 1e-30, the output cast to q's dtype, as in the Pallas kernel.
 //
 // Layouts (all contiguous): q/out (B, H, Sq, D); k/v (B, KVH, Skv, D).
-// Inputs f32 or bf16 (one type for all three), D 64, 80 or 128. The staged
-// q, K and V tiles are DP = D rounded up to a multiple of 32 columns wide
-// (96 for D 80; zeros past D), so every lane owns DP / 32 whole output
-// columns; the zero columns add nothing to a dot product and are never
-// written back.
+// Inputs f32 or bf16 (one type for all three), D 64, 80 or 128.
 //
-// Design. The Pallas kernel walks a sequential grid of (b, h, q block, kv
-// block) with the online-softmax state in VMEM scratch. Here blocks run in
-// parallel and nothing carries between them, so one block owns one
+// The Pallas kernel walks a sequential grid of (b, h, q block, kv block)
+// with the online-softmax state in VMEM scratch. Here blocks run in
+// parallel and nothing carries between them, so a block owns one
 // (b, kv head) and a tile of flattened (query position, grouped head) rows
-// — 192 rows at D 64, i.e. 64 query positions of all 3 heads of a smollm
-// group — and loops over the K/V tiles itself. Each K/V tile is staged in
-// shared memory (as f32) once and serves every grouped head of the block.
-// Each of the 8 warps owns 24 rows (12 at D 128): a lane computes the
-// scores of two keys for all of the warp's rows (CUDA-core f32 FMAs over
-// float4 reads of the staged q and K), the row max and sum are warp
-// shuffles, the probabilities go through the warp's slice of shared memory,
-// and a lane accumulates P.V for D/32 output columns; m, l and acc live in
-// registers. Causal blocks read no K/V tile past their last query, warps
-// skip tiles that lie wholly after their own queries, and the ragged last
-// query and key tiles are masked inside the kernel, so any Sq <= Skv works
-// (the JAX op's Skv-multiple-of-256 rule is the caller's, not this
-// kernel's). Row tiles are issued heaviest first.
+// and loops over the K/V tiles itself; each staged K/V tile serves every
+// grouped head of the block. Both kernels below are built so, and in both
+// causal blocks read no K/V tile past their last query; warps skip tiles
+// that lie wholly after their own queries and mask only the tiles that
+// need it; ragged
+// last query and key tiles are masked in the kernel, so any Sq <= Skv
+// works (the JAX op's Skv-multiple-of-256 rule is the caller's); row
+// tiles are issued heaviest first.
 //
 // What bounds it on the H100: at the engine's shapes (lockstep B 8 x 256
 // tokens, whole-prompt B 1 x 512; 15 q / 5 kv heads, D 64, bf16) the least
 // time is the bytes of q, k, v and out (10.5 MB and 2.6 MB: ~3.1 and ~0.8
 // us at 3.35 TB/s); the ~1 GFLOP of the lockstep shape takes ~1 us at the
-// bf16 tensor-core peak. This first version does its products on CUDA
-// cores in f32 (67 TFLOP/s: ~15 us for that GFLOP) and loads synchronously,
-// with one 129 KB block per SM, so it is bound by FMA issue and shared-
-// memory reads, not bytes. Tensor cores (mma.sync / wgmma) for both
-// products and asynchronous tile loads are the next steps.
+// bf16 tensor-core peak. At these sizes a launch is a few hundred short
+// blocks, so what decides the time is the launch itself, each block's
+// first loads and last stores, and the serial chain of K/V tiles a block
+// walks: the tile work must be short, run on tensor cores, and overlap the
+// next tile's loads.
+//
+// bf16 (flash_attention_mma_kernel): attention_mma.cuh's tile engine. A
+// block owns 64 flattened rows, 16 a warp; K/V stages stay bf16 in shared
+// memory, in a ring of two filled by cp.async, so the next stage's loads
+// overlap this one's products; QK^T and P.V both run on mma.sync m16n8k16
+// with m, l and acc in f32 registers and P reused from registers as the A
+// operand; each probability costs one FFMA and one ex2.approx, and a
+// masked score is -inf, so masking is one select. D 64, 80 and 128 map
+// without padding (k-steps D/16, n-tiles D/8). When the grid has no more
+// blocks than the card has SMs (whole-prompt: 1536 / 64 rows x 5 kv heads
+// = 120) a block is two warp groups that split its keys (alternate 64-key
+// tiles, merged by logsumexp at the end), which halves its serial chain;
+// a larger grid (lockstep: 12 x 5 x 8 = 480, or 32 heads at D 128 / 80)
+// keeps one group, so that more blocks fit per SM. Shared memory: q 64 x
+// (D + 8) x 2 B plus the ring, 46 KB (one group) / 83 KB (two) at D 64.
+// Why mma.sync and not wgmma: at 1-3 us of work the kernel is bound by
+// latency, not by tensor-core rate; wgmma needs 64-row warpgroup tiles
+// and shared-memory descriptors with a fixed swizzle, which add risk and
+// no time at 120-480 blocks.
+//
+// f32 (flash_attention_kernel, unchanged from the first version): CUDA-core
+// f32 FMAs, 8 warps over 192 / 128 rows (12-24 a warp), K/V staged as f32
+// (D 80 staged as 96 zero-padded columns). It stays on CUDA cores because
+// it serves the f32 parity runs (TF32 off), whose token streams must equal
+// the plain version's: tensor-core products in TF32 would need the 1e-3
+// bound loosened.
 //
 // Every launch goes on the caller's stream, allocates nothing, and returns
-// cudaGetLastError() (or -1 for an unsupported head dim or dtype, which the
-// Python wrapper rules out before calling).
+// cudaGetLastError(), -1 for an unsupported head dim or dtype (which the
+// Python wrapper rules out before calling), or -2 when a bf16 pointer is
+// not 16-byte aligned.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -264,6 +284,188 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernel
+// ---------------------------------------------------------------------------
+
+namespace mma = attn_mma;
+
+template <int D, int G>
+struct MmaTile {
+  using Cfg = mma::Config<D, G>;
+  static constexpr int kStages = 2;  // K/V stages in the ring
+  // q [kRows][kLd], then K and V [kStages][G x kKeys][kLd]; the merge of
+  // the groups reuses the ring
+  static constexpr size_t kRingBytes =
+      (size_t)2 * kStages * Cfg::kStage * sizeof(__nv_bfloat16);
+  static_assert(Cfg::kMergeBytes <= kRingBytes, "merge buffer");
+  static constexpr size_t kSmemBytes =
+      (size_t)mma::kRows * Cfg::kLd * sizeof(__nv_bfloat16) + kRingBytes;
+};
+
+template <int D, int G>
+__global__ void __launch_bounds__(mma::Config<D, G>::kThreads,
+                                  mma::Config<D, G>::kMinBlocks)
+    flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                               const __nv_bfloat16* __restrict__ k,
+                               const __nv_bfloat16* __restrict__ v,
+                               __nv_bfloat16* __restrict__ out, int h,
+                               int kvh, int sq, int skv, int causal,
+                               float scale_log2) {
+  using Cfg = mma::Config<D, G>;
+  constexpr int LD = Cfg::kLd, CH = Cfg::kChunks, NT = Cfg::kThreads;
+  constexpr int ROWS = mma::kRows;
+  constexpr int NS = MmaTile<D, G>::kStages, SK = Cfg::kStageKeys;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ks = qs + ROWS * LD;  // [NS][SK][LD]
+  __nv_bfloat16* vs = ks + NS * Cfg::kStage;
+
+  const int group = h / kvh;
+  const int n_rows = sq * group;  // flattened (position, g) rows
+  const int base = (gridDim.x - 1 - blockIdx.x) * ROWS;  // heaviest first
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int q_offset = skv - sq;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int wg = tid / mma::kGroupThreads;  // warp group: its key tiles
+  const int wr = (tid % mma::kGroupThreads) >> 5;  // warp: its 16 rows
+  // the last key a flattened row attends; -1 past the last row
+  auto lim_of = [&](int r) {
+    return r >= n_rows ? -1
+           : causal    ? min(skv - 1, q_offset + r / group)
+                       : skv - 1;
+  };
+  const int n_keys = lim_of(min(base + ROWS, n_rows) - 1) + 1;
+  const int n_stages = (n_keys + SK - 1) / SK;
+  const __nv_bfloat16* kh = k + ((size_t)b * kvh + hk) * skv * D;
+  const __nv_bfloat16* vh = v + ((size_t)b * kvh + hk) * skv * D;
+
+  // the block's query rows (zeros past the last), in the first group
+  for (int idx = tid; idx < ROWS * CH; idx += NT) {
+    const int i = idx / CH, c = idx % CH, r = base + i;
+    const bool ok = r < n_rows;
+    const __nv_bfloat16* src =
+        ok ? q + (((size_t)b * h + hk * group + r % group) * sq + r / group) *
+                     D + c * 8
+           : q;
+    mma::cp_async_16(qs + i * LD + c * 8, src, ok);
+  }
+  auto load_kv = [&](int t) {  // stage t into slot t % NS; zeros past skv
+    const int k0 = t * SK;
+    __nv_bfloat16* kd = ks + (t % NS) * Cfg::kStage;
+    __nv_bfloat16* vd = vs + (t % NS) * Cfg::kStage;
+    for (int idx = tid; idx < SK * CH; idx += NT) {
+      const int j = idx / CH, c = idx % CH;
+      const bool ok = k0 + j < skv;
+      const size_t off = ok ? (size_t)(k0 + j) * D + c * 8 : 0;
+      mma::cp_async_16(kd + j * LD + c * 8, kh + off, ok);
+      mma::cp_async_16(vd + j * LD + c * 8, vh + off, ok);
+    }
+  };
+  // one commit group per stage (the q rows ride with stage 0), NS - 1 ahead
+#pragma unroll
+  for (int t = 0; t < NS - 1; ++t) {
+    if (t < n_stages) load_kv(t);
+    mma::cp_async_commit();
+  }
+
+  const int wrow0 = base + wr * 16;  // the warp's first row
+  const mma::RowLimits lim(lim_of(wrow0 + (lane & 15)));
+  mma::WarpAttention<D> att;
+  att.init();
+  __nv_bfloat16* qw = qs + wr * 16 * LD;
+  for (int t = 0; t < n_stages; ++t) {
+    mma::cp_async_wait<NS - 2>();
+    __syncthreads();  // stage t visible; every warp is done with t - 1
+    if (t + NS - 1 < n_stages) load_kv(t + NS - 1);  // the slot of t - 1
+    mma::cp_async_commit();
+    const int k0 = t * SK + wg * mma::kKeys;  // this group's tile
+    const size_t off = (size_t)(t % NS) * Cfg::kStage + wg * mma::kKeys * LD;
+    if (lim.live(k0))
+      att.tile(qw, ks + off, vs + off, k0, lim, lim.masked(k0), scale_log2);
+  }
+  if (n_stages == 0) {  // no key at all: the q copies must land first
+    mma::cp_async_wait<0>();
+    __syncthreads();
+  }
+  mma::merge_groups<D, G>(att, reinterpret_cast<float*>(ks));
+  if (wg == 0)
+    att.finish(qw, [&](int i) -> __nv_bfloat16* {
+      const int r = wrow0 + i;
+      if (r >= n_rows) return nullptr;
+      return out +
+             (((size_t)b * h + hk * group + r % group) * sq + r / group) * D;
+    });
+}
+
+template <int D, int G>
+int launch_groups(const void* q, const void* k, const void* v, void* out,
+                  int b, int h, int kvh, int sq, int skv, int causal,
+                  float scale, cudaStream_t stream) {
+  using Cfg = mma::Config<D, G>;
+  const size_t smem = MmaTile<D, G>::kSmemBytes;
+  auto kernel = flash_attention_mma_kernel<D, G>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int threads = Cfg::kThreads;
+  const int n_rows = sq * (h / kvh);
+  if (b > 0 && n_rows > 0) {
+    dim3 grid((n_rows + mma::kRows - 1) / mma::kRows, kvh, b);
+    kernel<<<grid, threads, smem, stream>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v),
+        static_cast<__nv_bfloat16*>(out), h, kvh, sq, skv, causal,
+        scale * mma::kLog2e);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, void* out, int b,
+               int h, int kvh, int sq, int skv, int causal, float scale,
+               cudaStream_t stream) {
+  if (!mma::aligned16(q, k, v, out)) return -2;
+  const int blocks = (sq * (h / kvh) + mma::kRows - 1) / mma::kRows * kvh * b;
+  if (mma::warp_groups(blocks) == 2)
+    return launch_groups<D, 2>(q, k, v, out, b, h, kvh, sq, skv, causal,
+                               scale, stream);
+  return launch_groups<D, 1>(q, k, v, out, b, h, kvh, sq, skv, causal, scale,
+                             stream);
+}
+
+template <int D, int G>
+int mma_info_groups(int* info) {
+  auto kernel = flash_attention_mma_kernel<D, G>;
+  const int smem = (int)MmaTile<D, G>::kSmemBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, kernel, mma::Config<D, G>::kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  info[0] = attr.numRegs;
+  info[1] = (int)attr.localSizeBytes;
+  info[2] = smem;
+  info[3] = blocks;
+  return 0;
+}
+
+template <int D>
+int mma_info(int groups, int* info) {
+  if (groups == 1) return mma_info_groups<D, 1>(info);
+  if (groups == 2) return mma_info_groups<D, 2>(info);
+  return -1;
+}
+
+// ---------------------------------------------------------------------------
+// f32: the CUDA-core kernel above
+// ---------------------------------------------------------------------------
+
 template <typename T, int D>
 int launch_typed(const void* q, const void* k, const void* v, void* out,
                  int b, int h, int kvh, int sq, int skv, int causal,
@@ -277,7 +479,7 @@ int launch_typed(const void* q, const void* k, const void* v, void* out,
   if (err != cudaSuccess) return (int)err;
   const int n_rows = sq * (h / kvh);
   if (b > 0 && n_rows > 0) {
-    dim3 grid((n_rows + Cfg::kRows - 1) / Cfg::kRows, kvh, b);
+    dim3 grid((n_rows + mma::kRows - 1) / mma::kRows, kvh, b);
     kernel<<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(out), h, kvh, sq, skv,
@@ -297,15 +499,29 @@ int flash_attention_forward(const void* q, const void* k, const void* v,
                             int head_dim, int causal, float scale, int dtype,
                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FLASH_CASE(T, DIM) \
-  return launch_typed<T, DIM>(q, k, v, out, b, h, kvh, sq, skv, causal, scale, s)
-  if (dtype == 0 && head_dim == 64) FLASH_CASE(float, 64);
-  if (dtype == 0 && head_dim == 80) FLASH_CASE(float, 80);
-  if (dtype == 0 && head_dim == 128) FLASH_CASE(float, 128);
-  if (dtype == 1 && head_dim == 64) FLASH_CASE(__nv_bfloat16, 64);
-  if (dtype == 1 && head_dim == 80) FLASH_CASE(__nv_bfloat16, 80);
-  if (dtype == 1 && head_dim == 128) FLASH_CASE(__nv_bfloat16, 128);
+#define FLASH_CASE(DIM) \
+  return launch_typed<float, DIM>(q, k, v, out, b, h, kvh, sq, skv, causal, scale, s)
+#define MMA_CASE(DIM) \
+  return launch_mma<DIM>(q, k, v, out, b, h, kvh, sq, skv, causal, scale, s)
+  if (dtype == 0 && head_dim == 64) FLASH_CASE(64);
+  if (dtype == 0 && head_dim == 80) FLASH_CASE(80);
+  if (dtype == 0 && head_dim == 128) FLASH_CASE(128);
+  if (dtype == 1 && head_dim == 64) MMA_CASE(64);
+  if (dtype == 1 && head_dim == 80) MMA_CASE(80);
+  if (dtype == 1 && head_dim == 128) MMA_CASE(128);
+#undef MMA_CASE
 #undef FLASH_CASE
+  return -1;
+}
+
+// The bf16 kernel at head_dim with 1 or 2 warp groups as the card runs it:
+// info[0] registers a thread, [1] local (spilled) bytes a thread, [2]
+// dynamic shared memory bytes a block, [3] blocks resident per SM. Returns
+// 0 or a CUDA error.
+int flash_attention_mma_info(int head_dim, int groups, int* info) {
+  if (head_dim == 64) return mma_info<64>(groups, info);
+  if (head_dim == 80) return mma_info<80>(groups, info);
+  if (head_dim == 128) return mma_info<128>(groups, info);
   return -1;
 }
 

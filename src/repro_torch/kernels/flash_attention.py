@@ -3,10 +3,14 @@
 ``flash_attention_bhsd`` replaces the Pallas TPU kernel of the same name
 (``repro/kernels/flash_attention.py``): dense grouped-query attention over
 q ``(B, H, Sq, D)`` and k/v ``(B, KVH, Skv, D)``, causal or not, with the
-causal queries the last Sq of the Skv positions. It checks device, dtype,
-shape and contiguity, launches on ``torch.cuda.current_stream()``, raises
-when the launch reports an error, and adds one to :data:`LAUNCHES` per
-launch. It takes CUDA tensors only: the plain versions for the CPU live in
+causal queries the last Sq of the Skv positions. bf16 inputs run the
+tensor-core kernel (``mma.sync`` products, ``cp.async`` K/V tiles; its
+copies need 16-byte aligned tensors, as torch allocates them, and a
+launch with any other reports error -2), f32 inputs the CUDA-core one
+that the f32 parity runs compare with the plain version. It checks
+device, dtype, shape and contiguity, launches on
+``torch.cuda.current_stream()``, raises when the launch reports an error,
+and adds one to :data:`LAUNCHES` per launch. It takes CUDA tensors only: the plain versions for the CPU live in
 :mod:`repro_torch.kernels.ref` and the choice between the two is
 :mod:`repro_torch.kernels.ops`'.
 """

@@ -14,7 +14,11 @@ Shapes follow the JAX kernels: q arrives grouped ``(N, KVH, G, D)`` and the
 output has the same shape and dtype. The pages are of q's dtype, or int8
 with f32 ``k_scale``/``v_scale`` of shape ``(P, page, KVH)`` (the int8
 branch of the Pallas kernels; the kernel dequantizes each page as it loads
-it). Head dims 64, 80 and 128. Each wrapper checks device, dtype,
+it). Head dims 64, 80 and 128. The chunked prefill with bf16 q runs a
+tensor-core kernel (``mma.sync`` products, ``cp.async`` tiles assembled
+from the pages; its copies need 16-byte aligned tensors, as torch
+allocates them, and a launch with any other reports error -2); decode,
+mixed and f32 q run the CUDA-core kernels. Each wrapper checks device, dtype,
 shape and contiguity, launches on ``torch.cuda.current_stream()``, raises
 when the launch reports an error, and adds one to its entry of
 :data:`LAUNCHES` per launch. They accept CUDA tensors only: the plain

@@ -61,3 +61,36 @@ def test_concurrent_builds_compile_each_library_once(tmp_path, monkeypatch):
     assert len(compiled) == len(build.SOURCES)  # once per library
     assert not [p for p in os.listdir(tmp_path / "kernels")
                 if p.endswith(".tmp")]
+
+
+@pytest.mark.parametrize("name", build.SOURCES)
+def test_library_path_follows_headers(name, tmp_path, monkeypatch):
+    """A library's path (the hash it is cached under) changes when a
+    ``.cuh`` header in ``csrc/`` changes, or when one is added, so an
+    edited header rebuilds (with the stand-in compiler) instead of loading
+    a stale library; an unchanged tree builds nothing the second time."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for src in build.CSRC.iterdir():
+        if src.suffix in (".cu", ".cuh"):
+            (csrc / src.name).write_bytes(src.read_bytes())
+    calls = tmp_path / "calls.txt"
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text(FAKE_NVCC.format(python=sys.executable, calls=str(calls)))
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IXUSR)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
+
+    def compiles():
+        return len(calls.read_text().split()) if calls.exists() else 0
+
+    before = build.build((name,))[name]
+    assert build.build((name,))[name] == before and compiles() == 1
+    header = csrc / "attention_mma.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    edited = build.build((name,))[name]
+    assert edited != before and edited.exists() and compiles() == 2
+    (csrc / "extra.cuh").write_text("#pragma once\n")
+    assert build.library_path(name) not in (before, edited)

@@ -1,6 +1,8 @@
 """The port's CUDA kernels (paged attention over pools of q's dtype and
 over int8 pools, flash attention, Mamba2 SSD) against their plain versions,
-on the card, at head dims 64, 80 and 128.
+on the card, at head dims 64, 80 and 128; bf16 flash and the bf16 chunked
+prefill at the shapes that reach their tensor-core kernels' one- and
+two-warp-group blocks.
 
 Marked ``cuda``: these skip without a GPU (the kernels have no CPU mode;
 the CPU suite holds the plain versions against JAX in
@@ -104,6 +106,117 @@ def test_flash_kernel_on_card(dtype):
     torch.testing.assert_close(
         ops.flash_attention(q, k, k).float(),
         ops.flash_attention(q, k, k, impl="ref").float(), atol=tol, rtol=0)
+
+
+# (q heads, kv heads, head_dim): smollm-360m, zamba2-2.7b, llama3-8b
+FLASH_WIDTHS = {"D64": (15, 5, 64), "D80": (32, 32, 80), "D128": (32, 8, 128)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(1, 512, 512, True), (8, 256, 256, True),
+                                  (2, 64, 320, True), (2, 37, 300, False),
+                                  (4, 1, 1, True)],
+                         ids=["whole-prompt", "lockstep", "sq<skv",
+                              "non-causal", "s1"])
+@pytest.mark.parametrize("width", list(FLASH_WIDTHS))
+def test_flash_bf16_tensor_core_kernel(width, case):
+    """The bf16 flash kernel (tensor cores, cp.async K/V tiles) against the
+    plain version at the engine shapes (B 1 x S 512, B 8 x S 256), causal
+    Sq 64 < Skv 320, non-causal 37 x 300 and S 1, at D 64, 80 and 128:
+    within 2e-2 after f32 accumulation. A q that is not 16-byte aligned is
+    refused (the kernel's copies need it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    h, kvh, d = FLASH_WIDTHS[width]
+    b, sq, skv, causal = case
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q = torch.randn(b, h, sq, d, generator=g, device="cuda").bfloat16()
+    k = torch.randn(b, kvh, skv, d, generator=g, device="cuda").bfloat16()
+    v = torch.randn(b, kvh, skv, d, generator=g, device="cuda").bfloat16()
+    out = flash_attention_bhsd(q, k, v, causal=causal)
+    want = ref.flash_attention_chunked(
+        q.float().transpose(1, 2), k.float().transpose(1, 2),
+        v.float().transpose(1, 2), causal=causal,
+        chunk_kv=skv).transpose(1, 2)
+    torch.testing.assert_close(out.float(), want, atol=2e-2, rtol=0)
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype,
+                          device="cuda")[1:].view(q.shape)
+    shifted.copy_(q)
+    with pytest.raises(RuntimeError, match="error -2"):
+        flash_attention_bhsd(shifted, k, v, causal=causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("widths", [(5, 3, 64, 16), (5, 3, 64, 8),
+                                    (8, 4, 128, 8), (8, 4, 128, 16),
+                                    (32, 1, 80, 16)],
+                         ids=["D64-page16", "D64-page8", "D128-page8",
+                              "D128-page16", "D80-page16"])
+def test_paged_prefill_bf16_tensor_core_kernel(widths, quant):
+    """The bf16 chunked-prefill kernel (tensor cores, 64-key tiles
+    assembled from pages by cp.async) over bf16 pools and int8 pools with
+    f32 scales, at pages 8 and 16 and D 64, 80 and 128, against the plain
+    version: a chunk straddling a page with valid < C, a full chunk from
+    position 0, an all-padding chunk (exact zeros), and prefixes that are
+    not a multiple of 64 (so a key tile is not a whole number of live
+    pages), within 2e-2; padded rows are exact zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    kvh, group, d, page = widths
+    g = torch.Generator(device="cuda").manual_seed(2)
+    mp, npages, c = 704 // page, 400, 64
+    kp = torch.randn(npages, page, kvh, d, generator=g, device="cuda")
+    vp = torch.randn(npages, page, kvh, d, generator=g, device="cuda")
+    if quant:
+        (kp, ks), (vp, vs) = ref.quantize_kv(kp), ref.quantize_kv(vp)
+        sc = dict(k_scale=ks, v_scale=vs)
+    else:
+        kp, vp, sc = kp.bfloat16(), vp.bfloat16(), {}
+    table = (torch.randperm(npages - 1, generator=g, device="cuda")[:mp]
+             + 1).int()
+    q = torch.randn(c, kvh * group, d, generator=g, device="cuda").bfloat16()
+    for start, valid in ((23, 41), (0, c), (300, 0), (100, c), (37, 50),
+                         (130, 17), (575, c)):
+        st = torch.tensor(start, dtype=torch.int32, device="cuda")
+        va = torch.tensor(valid, dtype=torch.int32, device="cuda")
+        out = ops.paged_prefill_attention(q, kp, vp, table, st, va, **sc)
+        want = ops.paged_prefill_attention(q, kp, vp, table, st, va,
+                                           impl="ref", **sc)
+        torch.testing.assert_close(out.float(), want.float(), atol=2e-2,
+                                   rtol=0, msg=f"start {start} valid {valid}")
+        assert (out[valid:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_paged_prefill_bf16_long_chunk(quant):
+    """A 768-row chunk at smollm widths (180 blocks of 64 flattened rows,
+    more than the card's SMs) takes the bf16 prefill kernel's one-warp-
+    group blocks, where the engine's 64-row chunks take two groups: the
+    same bound against the plain version, padded rows exact zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    kvh, group, d, page, c = 5, 3, 64, 16, 768
+    g = torch.Generator(device="cuda").manual_seed(3)
+    mp, npages = 1024 // page, 400
+    kp = torch.randn(npages, page, kvh, d, generator=g, device="cuda")
+    vp = torch.randn(npages, page, kvh, d, generator=g, device="cuda")
+    if quant:
+        (kp, ks), (vp, vs) = ref.quantize_kv(kp), ref.quantize_kv(vp)
+        sc = dict(k_scale=ks, v_scale=vs)
+    else:
+        kp, vp, sc = kp.bfloat16(), vp.bfloat16(), {}
+    table = (torch.randperm(npages - 1, generator=g, device="cuda")[:mp]
+             + 1).int()
+    q = torch.randn(c, kvh * group, d, generator=g, device="cuda").bfloat16()
+    st = torch.tensor(100, dtype=torch.int32, device="cuda")
+    va = torch.tensor(700, dtype=torch.int32, device="cuda")
+    out = ops.paged_prefill_attention(q, kp, vp, table, st, va, **sc)
+    want = ops.paged_prefill_attention(q, kp, vp, table, st, va, impl="ref",
+                                       **sc)
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=0)
+    assert (out[700:] == 0).all()
 
 
 def _ssd_inputs(g, b, s, h, p, n, dt_):

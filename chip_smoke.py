@@ -9,17 +9,21 @@ Phases (any failure exits non-zero):
    power limit as ``nvidia-smi`` reports them.
 2. build   — compiles the hand-written CUDA kernels from the sources in this
    checkout (``nvcc``, sm_90a) and prints the build seconds, then the bf16
-   tensor-core kernels' registers and spill stores from ptxas' report and,
-   from the card, their registers, local bytes, dynamic shared memory and
-   blocks per SM at D 64, 80 and 128.
+   tensor-core kernels' and the split decode kernel's registers and spill
+   stores from ptxas' report and, from the card, their registers, local
+   bytes, dynamic shared memory and blocks per SM at D 64, 80 and 128.
 3. kernels — each paged-attention kernel against its plain PyTorch version
    on the card, at the main path's widths (KVH 5, G 3, D 64, page 16), at
    llama3-8b's (KVH 8, G 4, D 128, page 8) and at zamba2-2.7b's (KVH 32,
    G 1, D 80, page 16), each over a pool of q's dtype and over an int8
    pool with f32 scales (the int8 variant, which reads the pool in int8
    and applies the scales on the card, against ``dequantize_pages`` + the
-   plain versions); with bf16 q the chunked prefill runs the tensor-core
-   kernel, everything else the CUDA-core kernels: bf16 within
+   plain versions). Decode runs the split decode kernel; the mixed step
+   runs as the engine calls it (``num_decode=SLOTS``: with bf16 q the
+   decode rows through the split kernel, the chunk rows through the
+   tensor-core chunk kernel) and without the hint (every row through the
+   split kernel); the chunked prefill runs the tensor-core kernel with
+   bf16 q and the CUDA-core one with f32 q: bf16 within
    2e-2 absolute (f32 accumulation, bf16 output: a few bf16 ulps of
    outputs of magnitude ~1), f32 within 1e-3, and dead rows (idle slots,
    padded chunk rows, length 0) bit-exact zeros. Every width runs the
@@ -30,9 +34,9 @@ Phases (any failure exits non-zero):
    Then times each kernel, its plain version and a library yardstick
    (``F.scaled_dot_product_attention`` on the gathered dense K/V, which the
    port never calls) at the shapes of one engine step, cycling over 32
-   layers' pools as a step does; and the chunked-prefill kernel (bf16 q:
-   the tensor-core kernel) the same way at the llama3-8b and zamba2-2.7b
-   widths.
+   layers' pools as a step does (the mixed kernel with the engine's hint,
+   and also without it); and all three the same way at the llama3-8b and
+   zamba2-2.7b widths.
 4. engine  — full-width smollm-360m (bf16, seeded random weights) served by
    ``ContinuousBatchingEngine(max_slots=8, page_size=16, prefill_chunk=64)``:
    16 requests of 100-600 prompt tokens (half share a 128-token prefix),
@@ -41,7 +45,9 @@ Phases (any failure exits non-zero):
    (reset just before this run) must be > 0: the decode-only, chunk-only
    and mixed routes all ran. Prints tok/s, TTFT and ITL, then a
    torch.profiler window over a second run (device busy share, the
-   paged-attention kernels' share of it, the top device ops).
+   paged-attention kernels' share of it by kernel, the top device ops);
+   the window must show the split decode kernel and no instance of the
+   CUDA-core prefill template (which serves f32 q only).
 5. parity  — the same engine in f32 with TF32 off, once through the kernels
    and once through the plain versions (``attn_impl="ref"``): the greedy
    token streams must be identical. Depth is cut to 2 layers for this
@@ -75,7 +81,7 @@ Phases (any failure exits non-zero):
    max_len=1024)`` (buckets 128-1024, all inside the contract): 8 requests
    of 100-600 prompt tokens, 32 new each. Flash launches = 32 per
    admission, decode-kernel launches > 0. Prints tok/s, TTFT, ITL and a
-   profiler window.
+   profiler window (checked as phase 4's).
 9. whole-prompt parity — f32, TF32 off: the one-prefill logit gap of the
    flash kernel to its plain version at 32 and at 2 layers, then at 2
    layers (PARITY_LAYERS, as phase 5) greedy lockstep streams through the
@@ -111,15 +117,16 @@ Phases (any failure exits non-zero):
 
 13. int8 timing — the int8 variant of the three paged kernels (checked in
    phase 3), their plain versions and SDPA on K/V dequantized and gathered
-   in advance, at phase 3's engine-step shapes, and the chunked-prefill
-   one also at the llama3-8b and zamba2-2.7b widths; the bound counts int8
+   in advance, at phase 3's engine-step shapes and at the llama3-8b and
+   zamba2-2.7b widths; the bound counts int8
    K/V plus a 4-byte scale per (position, kv head).
 14. int8 engine — phase 4's trace through ``ContinuousBatchingEngine(...,
    kv_quant="int8")`` on full-width smollm-360m, in turns with bf16 pages
    (bf16, int8, int8, bf16): every request finishes by length, the prefix
    index hits and each paged kernel runs (path ``chunked_int8`` in
    ``launches_by_path``, the first int8 turn). Prints tok/s, TTFT, ITL
-   per turn and a profiler window of each page type.
+   per turn and a profiler window of each page type (checked as phase
+   4's).
 15. tier restart — full-width smollm-360m, once with bf16 pages (path
    ``tiered``) and once with int8 pages (path ``tiered_int8``), a pool of
    128 pages with ``host_pages`` and ``persist_dir`` in a temporary
@@ -150,7 +157,8 @@ The line before the last is ``{"kernels": [...]}`` (all six ported
 kernels); each kernel's ``launches`` is the sum of ``launches_by_path``,
 the counts read after each engine path that ran it (each reset just
 before its path). The three paged kernels also carry ``int8``: the int8
-variant's max abs error, times and bound. The last line is
+variant's max abs error, times and bound; the mixed kernel's ``ms`` is the
+hinted call's and ``generic_ms`` the call without the hint. The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -204,7 +212,10 @@ TIER_PAGES, TIER_HOST_PAGES = 128, 64
 # the 4-slot tier parity pool: reclaims and spills, preempts nothing
 TIER_PARITY_PAGES = 80
 # device kernel names the trace windows count as paged / flash attention
-PAGED_TRACE_KEYS = ("paged_attention_kernel", "paged_prefill_mma_kernel")
+PAGED_TRACE_KEYS = ("paged_decode_split_kernel", "paged_decode_merge_kernel",
+                    "paged_prefill_mma_kernel", "paged_prefill_f32_kernel")
+# the CUDA-core template, which serves f32 q only: no bf16 window may show it
+PAGED_F32_KEY = "paged_prefill_f32_kernel"
 FLASH_TRACE_KEYS = ("flash_attention_kernel", "flash_attention_mma_kernel")
 # smollm-360m's whole-prompt paths: q heads, the engines' shapes
 FLASH_H, LOCK_BATCH, LOCK_MAX_LEN, WHOLE_MAX_LEN = KVH * G, 8, 512, 1024
@@ -254,7 +265,8 @@ def check_kernels(torch, ops, ref, wname, quant):
     f32 scales, at the main path's shapes: tables of MAX_LEN / page
     entries over 400 pages, decode lengths up to 631, and chunks from
     position 0, straddling a page and all padding. Returns max abs error
-    per kernel over the bf16 cases and logs the f32 ones."""
+    per kernel over the bf16 cases (the mixed one over the hinted and the
+    generic call) and logs the f32 ones."""
     kvh, group, d, page = PAGED_WIDTHS[wname]
     mp, n_pages = -(-MAX_LEN // page), 400
     pool_kind = "int8" if quant else "pool"
@@ -310,19 +322,22 @@ def check_kernels(torch, ops, ref, wname, quant):
                                             impl="ref", **sc),
                 dead, tol, f"{label} start={start} valid={valid}"))
         # mixed: decode rows (one idle) + a chunk straddling a page with a
-        # dead suffix, every row its own table row
+        # dead suffix, every row its own table row; with the engine's hint
+        # (the chunk's rows share table row 5) and without it
         cpos = torch.arange(CHUNK, dtype=torch.int32, device="cuda")
         last_pos = torch.cat([lengths - 1,
                               torch.where(cpos < 41, 23 + cpos, -1)])
         mtables = torch.cat([tables, tables[5:6].expand(CHUNK, mp)])
         mtables = mtables.contiguous()
         qm = torch.cat([q, qc])
-        e_mix = compare(
+        want = ops.paged_mixed_attention(qm, kp, vp, mtables, last_pos,
+                                         impl="ref", **sc)
+        e_mix = max(compare(
             "paged_mixed_attention_rkgd",
-            ops.paged_mixed_attention(qm, kp, vp, mtables, last_pos, **sc),
             ops.paged_mixed_attention(qm, kp, vp, mtables, last_pos,
-                                      impl="ref", **sc),
-            last_pos < 0, tol, label)
+                                      num_decode=hint, **sc),
+            want, last_pos < 0, tol, f"{label} num_decode={hint}")
+            for hint in (SLOTS, None))
         log(f"kernel check {label} (KVH {kvh}, G {group}, D {d}, page {page},"
             f" {mp}-entry tables): decode {e_dec:.3e}, prefill {e_pre:.3e}, "
             f"mixed {e_mix:.3e} (bound {tol})")
@@ -371,18 +386,15 @@ def _bound(n_positions, rows_attended, q_rows, tables_elems, scalars, elt,
                                        else "operations")
 
 
-def time_kernels(torch, F, ops, ref, quant=False, wname=MAIN_WIDTH,
-                 names=None):
+def time_kernels(torch, F, ops, ref, quant=False, wname=MAIN_WIDTH):
     """kernel / plain / library times (ms) and the bound, at the shapes of
     one full-width engine step at one of PAGED_WIDTHS, cycling through 32
     layers' pools so each launch finds its pages outside L2 as in a real
     step. ``quant``: int8 pools with f32 scales (the plain version
     dequantizes them, SDPA reads K/V dequantized to bf16 and gathered in
-    advance). ``names``: the kernels to time (default all three)."""
+    advance)."""
     width = PAGED_WIDTHS[wname]
     kvh, group, d, page = width
-    names = names or ("paged_attention_bkgd", "paged_prefill_attention_ckgd",
-                      "paged_mixed_attention_rkgd")
     mp = -(-MAX_LEN // page)
     n_pages = SLOTS * mp + 1
     dt = torch.bfloat16
@@ -462,13 +474,17 @@ def time_kernels(torch, F, ops, ref, quant=False, wname=MAIN_WIDTH,
         mix_dense = dense(mtables, mix_n)
         mix_mask = (torch.arange(mix_n, device="cuda")[None, :]
                     <= last_pos[:, None])[:, None, None, :]
+        # as the engine calls it: with the hint (kernel and plain)
         return dict(
             kernel=lambda i: ops.paged_mixed_attention(
+                qm, *layer(i), mtables, last_pos, scale=scale,
+                num_decode=SLOTS, **sc[i % LAYERS]),
+            generic=lambda i: ops.paged_mixed_attention(
                 qm, *layer(i), mtables, last_pos, scale=scale,
                 **sc[i % LAYERS]),
             plain=lambda i: ops.paged_mixed_attention(
                 qm, *layer(i), mtables, last_pos, scale=scale, impl="ref",
-                **sc[i % LAYERS]),
+                num_decode=SLOTS, **sc[i % LAYERS]),
             library=lambda i: F.scaled_dot_product_attention(
                 qm[:, :, None], *mix_dense[i % LAYERS],
                 attn_mask=mix_mask),
@@ -482,8 +498,8 @@ def time_kernels(torch, F, ops, ref, quant=False, wname=MAIN_WIDTH,
               "paged_prefill_attention_ckgd": prefill_row,
               "paged_mixed_attention_rkgd": mixed_row}
     out = {}
-    for name in names:
-        r = makers[name]()  # its gathered K/V for SDPA live for one row
+    for name, make in makers.items():
+        r = make()  # its gathered K/V for SDPA live for one row
         # plain, kernel, kernel, plain: compare within one call, in turns
         p1 = _time_ms(torch, r["plain"])
         k1 = _time_ms(torch, r["kernel"])
@@ -493,9 +509,14 @@ def time_kernels(torch, F, ops, ref, quant=False, wname=MAIN_WIDTH,
         out[name] = dict(ms=min(k1, k2), plain_ms=min(p1, p2),
                          library_ms=lib, bound_ms=r["bound"][0],
                          bound_by=r["bound"][1])
+        extra = ""
+        if "generic" in r:  # the mixed kernel without the hint
+            g1, g2 = (_time_ms(torch, r["generic"]) for _ in range(2))
+            out[name]["generic_ms"] = min(g1, g2)
+            extra = f" (hinted; without the hint {g1:.4f}/{g2:.4f} ms)"
         log(f"timing {name}{' int8' if quant else ''} [{wname}: KVH {kvh}, "
-            f"G {group}, D {d}, page {page}]: kernel {k1:.4f}/{k2:.4f} ms, "
-            f"plain {p1:.4f}/{p2:.4f} ms, sdpa {lib:.4f} ms, bound "
+            f"G {group}, D {d}, page {page}]: kernel {k1:.4f}/{k2:.4f} ms"
+            f"{extra}, plain {p1:.4f}/{p2:.4f} ms, sdpa {lib:.4f} ms, bound "
             f"{r['bound'][0]:.5f} ms ({r['bound'][1]})")
         del r
     return out
@@ -773,18 +794,20 @@ def run_engine(torch, np, cfg, serving, models, pk, card):
     _trace(torch,
            lambda: serving.ContinuousBatchingEngine(cfg, params, **engine_kw),
            _requests(serving, 8, np.random.default_rng(5), sampled_every=0),
-           PAGED_TRACE_KEYS, "paged-attention kernels")
+           PAGED_TRACE_KEYS, "paged-attention kernels", paged_bf16=True)
     return launches
 
 
-def _trace(torch, make_engine, reqs, kernel_keys, label):
+def _trace(torch, make_engine, reqs, kernel_keys, label, paged_bf16=False):
     """Where a step's time goes: a torch.profiler window over a fresh
     engine serving ``reqs``. Device busy = the sum of the device activities
     (kernels, copies, fills) the profiler recorded (one stream, so no
     overlap) over the window's wall time; the kernels' share sums the
-    activities whose name holds one of ``kernel_keys``. The raw events are
-    read, not ``key_averages()``, which takes minutes over a window's
-    several hundred thousand events."""
+    activities whose name holds one of ``kernel_keys``, also logged kernel
+    by kernel. The raw events are read, not ``key_averages()``, which takes
+    minutes over a window's several hundred thousand events.
+    ``paged_bf16``: a paged engine with bf16 q, whose window must show the
+    split decode kernel and not PAGED_F32_KEY."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -807,6 +830,19 @@ def _trace(torch, make_engine, reqs, kernel_keys, label):
         return
     kern_ms = sum(ms for name, (ms, _) in by_name.items()
                   if any(k in name for k in kernel_keys))
+    for key in kernel_keys:
+        hits = [(ms, n) for name, (ms, n) in by_name.items() if key in name]
+        if hits:
+            ms, n = sum(h[0] for h in hits), sum(h[1] for h in hits)
+            log(f"trace kernel: {key} {ms:.2f} ms x{n} "
+                f"({1e3 * ms / n:.2f} us each)")
+    if paged_bf16:
+        stale = [name for name in by_name if PAGED_F32_KEY in name]
+        if stale or not any("paged_decode_split_kernel" in name
+                            for name in by_name):
+            raise AssertionError(f"a bf16 paged window ran a CUDA-core "
+                                 f"template or no split decode kernel: "
+                                 f"{stale}")
     top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:6]
     log(f"trace: {steps} steps in {wall_ms:.1f} ms wall "
         f"({wall_ms / steps:.2f} ms/step); device busy {busy_ms:.1f} ms = "
@@ -945,7 +981,7 @@ def run_int8_engine(torch, np, cfg, serving, models, pk, card):
                _requests(serving, 8, np.random.default_rng(5),
                          sampled_every=0),
                PAGED_TRACE_KEYS, f"paged-attention kernels "
-               f"({quant} pages)")
+               f"({quant} pages)", paged_bf16=True)
     return launches
 
 
@@ -1434,7 +1470,7 @@ def run_whole_prompt(torch, np, cfg, serving, models, fk, pk, card):
            _random_requests(serving, 8, np.random.default_rng(51), 0, lo=100,
                             hi=600, max_new=32, uid="w", vocab=49152, seed0=3000),
            PAGED_TRACE_KEYS + FLASH_TRACE_KEYS,
-           "flash + paged kernels")
+           "flash + paged kernels", paged_bf16=True)
     return launches, paged, prefills
 
 
@@ -1653,7 +1689,8 @@ def report_mma_kernels(build):
             spill = re.search(r"(\d+) bytes spill stores", body)
             d, groups = re.findall(r"Li(\d+)E", name)[:2]
             pages = " int8 pages" if "kernelIa" in name else ""
-            log(f"ptxas {lib} mma D {d}{pages} groups {groups}: "
+            rows = " mixed chunk rows" if "MixedChunkLimits" in name else ""
+            log(f"ptxas {lib} mma D {d}{pages}{rows} groups {groups}: "
                 f"{regs.group(1) if regs else '?'} registers, "
                 f"{spill.group(1) if spill else '?'} bytes spill stores")
         fn = getattr(build.load(lib), info_fn)
@@ -1671,6 +1708,47 @@ def report_mma_kernels(build):
                         f"{info[0]} registers, {info[1]} local bytes a "
                         f"thread, {info[2]} B dynamic shared memory, "
                         f"{info[3]} blocks per SM")
+
+
+def report_decode_kernel(torch, build, pk):
+    """Phase 2's report on the split decode kernel (decode, and mixed rows
+    without the hint): registers and spill stores per instance as ptxas
+    gave them in this process's build, then the card's figures through
+    ``paged_attention_decode_info`` for bf16 q over bf16 and int8 pages at
+    each of PAGED_WIDTHS' head dim and group, with the split size the
+    decode step of SLOTS rows takes there."""
+    import ctypes
+
+    parts = re.compile(r"Compiling entry function '(\w+)'").split(
+        build.build_log.get("paged_attention", ""))
+    for name, body in zip(parts[1::2], parts[2::2]):
+        if "paged_decode_split_kernel" not in name:
+            continue
+        regs = re.search(r"Used (\d+) registers", body)
+        spill = re.search(r"(\d+) bytes spill stores", body)
+        d, gm = re.findall(r"Li(\d+)E", name)[:2]
+        qt = "bf16" if "kernelI13__nv_bfloat16" in name else "f32"
+        pages = "int8" if re.search(r"kernelI(f|13__nv_bfloat16)a", name) \
+            else qt
+        log(f"ptxas paged_attention split decode D {d} G {gm} q {qt} pages "
+            f"{pages}:"
+            f" {regs.group(1) if regs else '?'} registers, "
+            f"{spill.group(1) if spill else '?'} bytes spill stores")
+    fn = build.load("paged_attention").paged_attention_decode_info
+    info = (ctypes.c_int * 4)()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for wname, (kvh, group, d, page) in PAGED_WIDTHS.items():
+        splits, pps = pk.decode_splits(SLOTS, kvh, -(-MAX_LEN // page), sms)
+        for quant in (0, 1):
+            err = fn(d, 1, quant, group, pps, info)
+            if err != 0:
+                raise RuntimeError(f"paged_attention_decode_info({d}, 1, "
+                                   f"{quant}, {group}, {pps}): error {err}")
+            log(f"card paged_attention split decode [{wname}] D {d} G "
+                f"{group} bf16 q, {'int8' if quant else 'bf16'} pages, "
+                f"{splits} splits of {pps} pages: "
+                f"{info[0]} registers, {info[1]} local bytes a thread, "
+                f"{info[2]} B dynamic shared memory, {info[3]} blocks per SM")
 
 
 def main() -> int:
@@ -1719,6 +1797,7 @@ def main() -> int:
             f"{spills} over {ptxas.count('Compiling entry function')} "
             f"kernel instances")
     report_mma_kernels(build)
+    report_decode_kernel(torch, build, pk)
 
     lap("build")
     # kernel -> max abs err over the main width's bf16 cases, per pool kind
@@ -1730,10 +1809,9 @@ def main() -> int:
                 (int8_errs if quant else errs).update(e)
     lap("paged kernel checks")
     times = time_kernels(torch, F, ops, ref)
-    for wname in PAGED_WIDTHS:  # the redesigned prefill at the other widths
+    for wname in PAGED_WIDTHS:  # the redesigned kernels at the other widths
         if wname != MAIN_WIDTH:
-            time_kernels(torch, F, ops, ref, wname=wname,
-                         names=("paged_prefill_attention_ckgd",))
+            time_kernels(torch, F, ops, ref, wname=wname)
     lap("paged timing")
     cfg = get_arch("smollm-360m")
     # kernel -> {path: launches read just after that path's run}
@@ -1772,8 +1850,7 @@ def main() -> int:
     int8_times = time_kernels(torch, F, ops, ref, quant=True)
     for wname in PAGED_WIDTHS:
         if wname != MAIN_WIDTH:
-            time_kernels(torch, F, ops, ref, quant=True, wname=wname,
-                         names=("paged_prefill_attention_ckgd",))
+            time_kernels(torch, F, ops, ref, quant=True, wname=wname)
     lap("int8 timing")
     for name, n in run_int8_engine(torch, np, cfg, serving, models, pk,
                                    card).items():

@@ -187,11 +187,14 @@ def paged_mixed_attention(
     """Fused mixed-step attention over a paged KV cache. Returns (R, H, D);
     dead rows (``last_pos = -1``) return exact zeros.
 
-    ``num_decode`` is an optional structure hint: rows ``[num_decode, R)``
-    form one prefill chunk (one shared block-table row, contiguous live
-    positions, dead suffix). The plain version then gathers the chunk's
-    K/V once (:func:`ref.paged_mixed_attention_split_ref`); the kernel is
-    row-generic and ignores it."""
+    ``num_decode`` is an optional structure hint, the caller's promise:
+    rows ``[num_decode, R)`` form one prefill chunk (one shared block-table
+    row, contiguous live positions, dead suffix). The plain version then
+    gathers the chunk's K/V once (:func:`ref.paged_mixed_attention_split_ref`);
+    with bf16 q the kernel runs the decode rows through the split decode
+    kernel and the chunk rows through the tensor-core chunk kernel, which
+    reads the chunk's pages once per kv head. Without it (or with f32 q)
+    every row goes through the split decode kernel on its own table row."""
     if _use_ref(q, impl, k_pages, k_scale, v_scale, "paged_mixed_attention"):
         k_pages, v_pages = _dequantized(k_pages, v_pages, k_scale, v_scale)
         r = q.shape[0]
@@ -203,7 +206,8 @@ def paged_mixed_attention(
             scale=scale)
     out = paged_mixed_attention_rkgd(
         _grouped(q, k_pages.shape[2]), k_pages, v_pages, block_tables,
-        last_pos, k_scale=k_scale, v_scale=v_scale, scale=scale)
+        last_pos, k_scale=k_scale, v_scale=v_scale, scale=scale,
+        num_decode=num_decode)
     return out.reshape(q.shape)
 
 

@@ -14,16 +14,25 @@ Shapes follow the JAX kernels: q arrives grouped ``(N, KVH, G, D)`` and the
 output has the same shape and dtype. The pages are of q's dtype, or int8
 with f32 ``k_scale``/``v_scale`` of shape ``(P, page, KVH)`` (the int8
 branch of the Pallas kernels; the kernel dequantizes each page as it loads
-it). Head dims 64, 80 and 128. The chunked prefill with bf16 q runs a
+it). Head dims 64, 80 and 128.
+
+Decode, and every mixed row without the chunk hint, runs the split page
+walk: one block per (row, kv head, split) on CUDA cores, a split being a
+run of consecutive logical pages, then a merge kernel that combines the
+splits by logsumexp. :func:`decode_splits` picks the split count on the
+host from the table width alone (about two blocks per SM), and the wrapper
+allocates the f32 partials. The chunked prefill with bf16 q runs a
 tensor-core kernel (``mma.sync`` products, ``cp.async`` tiles assembled
-from the pages; its copies need 16-byte aligned tensors, as torch
-allocates them, and a launch with any other reports error -2); decode,
-mixed and f32 q run the CUDA-core kernels. Each wrapper checks device, dtype,
-shape and contiguity, launches on ``torch.cuda.current_stream()``, raises
-when the launch reports an error, and adds one to its entry of
-:data:`LAUNCHES` per launch. They accept CUDA tensors only: the plain
-versions for the CPU live in :mod:`repro_torch.kernels.ref` and the choice
-between the two is :mod:`repro_torch.kernels.ops`'.
+from the pages), and so do the chunk rows of a bf16 mixed step given the
+engine's ``num_decode`` hint; f32 q prefill runs a CUDA-core kernel. The
+``cp.async`` kernels need 16-byte aligned tensors, as torch allocates
+them; a launch with any other reports error -2. Each wrapper checks
+device, dtype, shape and contiguity, launches on
+``torch.cuda.current_stream()``, raises when the launch reports an error,
+and adds one to its entry of :data:`LAUNCHES` per call. They accept CUDA
+tensors only: the plain versions for the CPU live in
+:mod:`repro_torch.kernels.ref` and the choice between the two is
+:mod:`repro_torch.kernels.ops`'.
 """
 
 from __future__ import annotations
@@ -39,9 +48,12 @@ LAUNCHES = {"paged_attention_bkgd": 0, "paged_prefill_attention_ckgd": 0,
             "paged_mixed_attention_rkgd": 0}
 
 HEAD_DIMS = (64, 80, 128)
+MAX_GROUP = 8  # q heads per kv head the split kernel takes
+BLOCKS_PER_SM = 2  # the split rule's target
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _lib = None
+_sms: dict[int, int] = {}  # device index -> SM count
 
 
 def reset_launches() -> None:
@@ -49,19 +61,58 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def decode_splits(rows: int, kvh: int, mp: int, n_sms: int) -> tuple[int, int]:
+    """The split rule of the decode kernel: ``(splits, pages_per_split)``
+    for ``rows`` rows of ``kvh`` kv heads over ``mp``-entry block tables on
+    a card of ``n_sms`` SMs. Enough splits for about BLOCKS_PER_SM blocks
+    on every SM, at most one a page, none empty: split ``s`` covers logical
+    pages ``[s * pages_per_split, (s + 1) * pages_per_split)``. It reads
+    the table width only, never the lengths, so it needs nothing from the
+    device."""
+    mp = max(mp, 1)
+    pairs = max(rows * kvh, 1)
+    want = max(1, min(mp, -(-BLOCKS_PER_SM * n_sms // pairs)))
+    pps = -(-mp // want)
+    return -(-mp // pps), pps
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sms[idx]
+
+
+def _splits_and_partials(rows, kvh, group, d, mp, device):
+    """The split rule's choice for ``rows`` rows and, for more than one
+    split, the f32 partials the kernel fills: rows x KVH x splits x G x
+    (D + 2) (acc, then m and l)."""
+    splits, pps = decode_splits(rows, kvh, mp, _sm_count(device))
+    partials = None
+    if splits > 1:
+        partials = torch.empty(rows * kvh * splits * group * (d + 2),
+                               dtype=torch.float32, device=device)
+    return splits, pps, partials
+
+
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = build.load("paged_attention")
-        # q, k, v, k_scale, v_scale, tables, lengths | last_pos, out
-        decode_like = [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _P]
-        for fn in (lib.paged_attention_decode, lib.paged_attention_mixed):
-            fn.argtypes = decode_like
-            fn.restype = _I
+        # q, k, v, k_scale, v_scale, tables, lengths, out, partials;
+        # b, kvh, group, head_dim, page, mp, splits, pages_per_split
+        lib.paged_attention_decode.argtypes = (
+            [_P] * 9 + [_I] * 8 + [ctypes.c_float, _I, _P])
+        # ... the same with num_decode after pages_per_split
+        lib.paged_attention_mixed.argtypes = (
+            [_P] * 9 + [_I] * 9 + [ctypes.c_float, _I, _P])
         # q, k, v, k_scale, v_scale, table, start, valid, out
         lib.paged_attention_prefill.argtypes = (
             [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I, _P])
-        lib.paged_attention_prefill.restype = _I
+        for fn in (lib.paged_attention_decode, lib.paged_attention_mixed,
+                   lib.paged_attention_prefill):
+            fn.restype = _I
         _lib = lib
     return _lib
 
@@ -114,6 +165,16 @@ def _check(q, k_pages, v_pages, ints: dict, k_scale=None, v_scale=None):
             v_scale.data_ptr() if quant else None)
 
 
+def _check_group(group: int) -> None:
+    if group > MAX_GROUP:
+        raise ValueError(f"{group} q heads per kv head: the decode kernel "
+                         f"takes at most {MAX_GROUP}")
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} launch failed: error {err}")
@@ -142,12 +203,15 @@ def paged_attention_bkgd(
             or lengths.shape != (b,):
         raise ValueError(f"block_tables {tuple(block_tables.shape)} / lengths "
                          f"{tuple(lengths.shape)} do not match batch {b}")
+    _check_group(group)
     mp = block_tables.shape[1]
+    splits, pps, partials = _splits_and_partials(b, kvh, group, d, mp,
+                                                 q.device)
     out = torch.empty_like(q)
     err = _library().paged_attention_decode(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ks, vs,
         block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        b, kvh, group, d, page, mp,
+        _ptr(partials), b, kvh, group, d, page, mp, splits, pps,
         scale if scale is not None else d ** -0.5, dt, _stream(q))
     _raise_on(err, "paged_attention_bkgd")
     LAUNCHES["paged_attention_bkgd"] += 1
@@ -194,22 +258,37 @@ def paged_mixed_attention_rkgd(
     k_scale: torch.Tensor | None = None,  # (P, page, KVH) f32, int8 pages
     v_scale: torch.Tensor | None = None,
     scale: float | None = None,
+    num_decode: int | None = None,
 ) -> torch.Tensor:
+    """``num_decode``: the fused step's structure hint, the caller's promise
+    (as in JAX) that rows ``[num_decode, R)`` are one prefill chunk sharing
+    the block-table row ``block_tables[num_decode]``, with contiguous
+    positions and dead rows as a suffix. With bf16 q and ``0 < num_decode
+    < R`` the decode rows take the split kernel and the chunk rows the
+    tensor-core chunk kernel, which reads the chunk's pages once per kv
+    head; nothing checks the promise. Otherwise (f32 q, or no hint) every
+    row takes the split kernel on its own table row and ``last_pos``."""
     kvh, group, d, page, dt, ks, vs = _check(
         q, k_pages, v_pages,
         {"block_tables": block_tables, "last_pos": last_pos}, k_scale,
         v_scale)
+    _check_group(group)
     r = q.shape[0]
     if block_tables.dim() != 2 or block_tables.shape[0] != r \
             or last_pos.shape != (r,):
         raise ValueError(f"block_tables {tuple(block_tables.shape)} / "
                          f"last_pos {tuple(last_pos.shape)} do not match {r} "
                          f"rows")
+    hint = num_decode if (q.dtype == torch.bfloat16 and num_decode is not None
+                          and 0 < num_decode < r) else 0
+    mp = block_tables.shape[1]
+    splits, pps, partials = _splits_and_partials(hint or r, kvh, group, d,
+                                                 mp, q.device)
     out = torch.empty_like(q)
     err = _library().paged_attention_mixed(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ks, vs,
         block_tables.data_ptr(), last_pos.data_ptr(), out.data_ptr(),
-        r, kvh, group, d, page, block_tables.shape[1],
+        _ptr(partials), r, kvh, group, d, page, mp, splits, pps, hint,
         scale if scale is not None else d ** -0.5, dt, _stream(q))
     _raise_on(err, "paged_mixed_attention_rkgd")
     LAUNCHES["paged_mixed_attention_rkgd"] += 1

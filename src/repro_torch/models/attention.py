@@ -285,8 +285,10 @@ def mixed_step_attention_paged(
     rows (``positions = -1``) write into the sink and return exact zeros.
 
     ``num_decode`` forwards the structure hint to
-    :func:`repro_torch.kernels.ops.paged_mixed_attention` (the plain version
-    gathers the chunk's K/V once; the kernel ignores it)."""
+    :func:`repro_torch.kernels.ops.paged_mixed_attention`: the plain version
+    gathers the chunk's K/V once, and with bf16 q the kernel reads the
+    chunk's pages once per kv head (decode rows through the split decode
+    kernel, chunk rows through the tensor-core chunk kernel)."""
     live = positions >= 0
     pos = positions.clamp_min(0)
     q, k, v = _project_qkv(p, x, cfg, pos[:, None], rope)

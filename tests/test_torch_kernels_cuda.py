@@ -32,7 +32,10 @@ def test_kernels_on_card(dtype, widths, quant):
     (llama3-8b) and D 80 / G 1 (zamba2-2.7b), over a pool of q's dtype or
     an int8 pool with f32 scales (whose plain version is
     ``dequantize_pages`` + the f32 versions): f32 within 1e-3, bf16 within
-    2e-2 after f32 accumulation, dead rows bit-exact zeros."""
+    2e-2 after f32 accumulation, dead rows bit-exact zeros. The mixed kernel
+    also runs the engine's fused step (decode rows, then one chunk on a
+    shared table row with a dead suffix) with and without the engine's
+    ``num_decode`` hint."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dt = getattr(torch, dtype)
@@ -69,6 +72,52 @@ def test_kernels_on_card(dtype, widths, quant):
                                        impl="ref", **sc)
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=0)
     assert (out[50:] == 0).all()
+    # the fused step as the engine calls it: the 6 decode rows, then the
+    # chunk's 64 rows on table row 5 (positions 9.., 14 dead past valid),
+    # with the engine's num_decode hint and without it
+    cpos = torch.arange(c, dtype=torch.int32, device="cuda")
+    last_pos = torch.cat([lengths - 1, torch.where(cpos < 50, 9 + cpos, -1)])
+    mtables = torch.cat([tables, tables[5:6].expand(c, mp)]).contiguous()
+    qm = torch.cat([q, qc])
+    want = ops.paged_mixed_attention(qm, kp, vp, mtables, last_pos,
+                                     impl="ref", **sc)
+    for hint in (6, None):
+        out = ops.paged_mixed_attention(qm, kp, vp, mtables, last_pos,
+                                        num_decode=hint, **sc)
+        torch.testing.assert_close(out.float(), want.float(), atol=tol,
+                                   rtol=0, msg=f"num_decode {hint}")
+        assert (out[last_pos < 0] == 0).all()
+
+
+@pytest.mark.cuda
+def test_split_decode_after_info_query():
+    """The split decode kernel's shared memory grows with its split's page
+    count. Querying the kernel (``paged_attention_decode_info``, phase 2
+    of ``chip_smoke.py``) for one-page splits, then launching it with one
+    split over a 44-entry table (an unhinted mixed step of 72 rows), must
+    still launch, and match the plain version."""
+    import ctypes
+
+    from repro_torch.kernels import paged_attention as pk
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    info = (ctypes.c_int * 4)()
+    assert pk._library().paged_attention_decode_info(64, 1, 0, 3, 1, info) == 0
+    g = torch.Generator(device="cuda").manual_seed(4)
+    kvh, group, d, page, mp, rows = 5, 3, 64, 16, 44, 72
+    kp, vp = (torch.randn(rows * mp + 1, page, kvh, d, generator=g,
+                          device="cuda").bfloat16() for _ in range(2))
+    tables = torch.randperm(rows * mp, generator=g, device="cuda").reshape(
+        rows, mp).int() + 1
+    last_pos = torch.randint(-1, mp * page, (rows,), generator=g,
+                             device="cuda", dtype=torch.int32)
+    q = torch.randn(rows, kvh * group, d, generator=g,
+                    device="cuda").bfloat16()
+    out = ops.paged_mixed_attention(q, kp, vp, tables, last_pos)
+    want = ops.paged_mixed_attention(q, kp, vp, tables, last_pos, impl="ref")
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=0)
+    assert (out[last_pos < 0] == 0).all()
 
 
 @pytest.mark.cuda

@@ -11,7 +11,9 @@ Phases (any failure exits non-zero):
    checkout (``nvcc``, sm_90a) and prints the build seconds, then the bf16
    tensor-core kernels' and the split decode kernel's registers and spill
    stores from ptxas' report and, from the card, their registers, local
-   bytes, dynamic shared memory and blocks per SM at D 64, 80 and 128.
+   bytes, dynamic shared memory and blocks per SM at D 64, 80 and 128; the
+   same for the SSD scan kernels (``ssd_scan_info``) at the calls phases
+   10-12 make.
 3. kernels — each paged-attention kernel against its plain PyTorch version
    on the card, at the main path's widths (KVH 5, G 3, D 64, page 16), at
    llama3-8b's (KVH 8, G 4, D 128, page 8) and at zamba2-2.7b's (KVH 32,
@@ -93,20 +95,27 @@ Phases (any failure exits non-zero):
    card at mamba2-1.3b widths (H 64, P 64, N 128): bf16 within 5e-2 and
    f32 within 1e-3 (atol and rtol; the JAX package's SSD bounds). Scan
    cases: a 64-token chunk whose tail has dt = 0 (valid 41 < C) from a
-   non-zero init_state, a full chunk from a non-zero state, and S = 200
-   over two sequences (four of the kernel's 64-token sub-chunks, ragged
-   end) from zero; decode: 8 slots with 3 idle, in place, the idle slots'
-   state bit for bit unchanged. Then times each kernel and its plain
-   version at one engine step's shapes (decode: 8 slots, 2 of them idle;
-   scan: one 64-token chunk of one sequence), cycling over 48 layers'
-   states.
+   non-zero init_state, a full chunk from a non-zero state, S = 200 over
+   two sequences (four of the kernel's 64-token sub-chunks, ragged end)
+   from zero, a whole 512-token prompt from zero, the first and third at
+   zamba2-2.7b's SSD widths (H 80, N 64), and the engine's pattern: 7
+   chained 64-token calls carrying the state against one plain call over
+   448 tokens. bf16 scans must all take the tensor-core kernel and f32
+   ones the CUDA-core template (``LAUNCHES_BY_PATH``). Decode: 8 slots
+   with 3 idle, in place, the idle slots' state bit for bit unchanged.
+   Then times each kernel and its plain version at one engine step's
+   shapes (decode: 8 slots, 2 of them idle; scan: one 64-token chunk of
+   one sequence), cycling over 48 layers' states, and the scan at S 512
+   and at zamba2's widths.
 11. mamba2  — full-width mamba2-1.3b (bf16, seeded random weights, 48
    layers) served by ``SSMEngine(max_slots=8, prefill_chunk=64,
    max_len=512)``: 8 requests of 64-400 prompt tokens, 24 new tokens each,
    greedy and seeded top-p alternating. Every request must finish by
-   length and both SSD launch counts (reset just before this run) must be
-   > 0. Prints tok/s, TTFT and ITL and a torch.profiler window (device
-   busy share, the SSD kernels' share of it, the top device ops).
+   length, both SSD launch counts (reset just before this run) must be
+   > 0, and every scan launch must have taken the tensor-core kernel.
+   Prints tok/s, TTFT and ITL and a torch.profiler window (device busy
+   share, the SSD kernels' share of it, the top device ops), which must
+   show the tensor-core scan and no CUDA-core scan instance.
 12. mamba2 parity — f32 with TF32 off, at the full 48 layers (the SSD
    kernels keep the one-chunk logit gap to plain far below the argmax
    margin, unlike the smollm phase's attention, so no depth cut): the
@@ -203,6 +212,7 @@ PARITY_LAYERS = 2
 # mamba2-1.3b: SSD widths, layers, and the engine's shape
 SSD_H, SSD_P, SSD_N, M_LAYERS, M_MAX_LEN = 64, 64, 128, 48, 512
 SSD_BF16_TOL, SSD_F32_TOL = 5e-2, 1e-3
+ZAMBA_SSD = (80, 64)  # zamba2-2.7b's SSD heads and N (P 64 as mamba2's)
 # (kv heads, group, head_dim, page) of the paged int8 / head-dim checks:
 # smollm-360m, llama3-8b (32 / 8 heads, D 128) and zamba2-2.7b (D 80)
 PAGED_WIDTHS = {"smollm D64": (KVH, G, D, PAGE),
@@ -214,8 +224,11 @@ TIER_PARITY_PAGES = 80
 # device kernel names the trace windows count as paged / flash attention
 PAGED_TRACE_KEYS = ("paged_decode_split_kernel", "paged_decode_merge_kernel",
                     "paged_prefill_mma_kernel", "paged_prefill_f32_kernel")
-# the CUDA-core template, which serves f32 q only: no bf16 window may show it
-PAGED_F32_KEY = "paged_prefill_f32_kernel"
+# (the kernel a bf16 window must show, the CUDA-core template it must not)
+PAGED_BF16_CHECK = ("paged_decode_split_kernel", "paged_prefill_f32_kernel")
+SSD_TRACE_KEYS = ("ssd_scan_mma_kernel", "ssd_scan_kernel",
+                  "ssd_decode_kernel")
+SSD_BF16_CHECK = ("ssd_scan_mma_kernel", "ssd_scan_kernel")
 FLASH_TRACE_KEYS = ("flash_attention_kernel", "flash_attention_mma_kernel")
 # smollm-360m's whole-prompt paths: q heads, the engines' shapes
 FLASH_H, LOCK_BATCH, LOCK_MAX_LEN, WHOLE_MAX_LEN = KVH * G, 8, 512, 1024
@@ -527,24 +540,26 @@ def time_kernels(torch, F, ops, ref, quant=False, wname=MAIN_WIDTH):
 # ---------------------------------------------------------------------------
 
 
-def _ssd_inputs(torch, g, b, s, dtype, layers=None):
+def _ssd_inputs(torch, g, b, s, dtype, layers=None, h=SSD_H, n=SSD_N):
     """The JAX package's SSD test distribution (tests/test_kernels.py) at
-    mamba2 widths: x ~ N(0, 1), dt in [0.1, 1), A in (-1.1, -0.1], B/C ~
-    N(0, 1/N); with ``layers``, a leading layer axis on all but A."""
+    mamba2 widths (or ``h`` heads of N ``n``): x ~ N(0, 1), dt in [0.1, 1),
+    A in (-1.1, -0.1], B/C ~ N(0, 1/N); with ``layers``, a leading layer
+    axis on all but A."""
     pre = (layers,) if layers else ()
-    x = torch.randn(pre + (b, s, SSD_H, SSD_P), generator=g,
+    x = torch.randn(pre + (b, s, h, SSD_P), generator=g,
                     device="cuda").to(dtype)
-    dt = 0.1 + 0.9 * torch.rand(pre + (b, s, SSD_H), generator=g,
-                                device="cuda")
-    A = -torch.rand(SSD_H, generator=g, device="cuda") - 0.1
-    bc = [(torch.randn(pre + (b, s, SSD_N), generator=g, device="cuda")
-           / SSD_N ** 0.5).to(dtype) for _ in range(2)]
+    dt = 0.1 + 0.9 * torch.rand(pre + (b, s, h), generator=g, device="cuda")
+    A = -torch.rand(h, generator=g, device="cuda") - 0.1
+    bc = [(torch.randn(pre + (b, s, n), generator=g, device="cuda")
+           / n ** 0.5).to(dtype) for _ in range(2)]
     return x, dt, A, bc[0], bc[1]
 
 
-def check_ssd_kernels(torch, ops):
+def check_ssd_kernels(torch, ops, sk):
     """Both SSD kernels against their plain versions; returns the max abs
-    error per kernel over the bf16 cases and logs the f32 ones."""
+    error per kernel over the bf16 cases and logs the f32 ones. Every bf16
+    scan must take the tensor-core kernel, every f32 one the CUDA-core
+    template (``LAUNCHES_BY_PATH``)."""
     errs = {}
 
     def compare(name, got, want, tol, label):
@@ -562,20 +577,50 @@ def check_ssd_kernels(torch, ops):
         label = str(dtype).removeprefix("torch.")
         g = torch.Generator(device="cuda").manual_seed(11)
         e_scan = 0.0
-        for b, s, valid, with_init in ((1, CHUNK, 41, True),
-                                       (1, CHUNK, CHUNK, True),
-                                       (2, 200, 200, False)):
-            x, dt, A, Bm, Cm = _ssd_inputs(torch, g, b, s, dtype)
+        sk.reset_launches()
+        # (B, S, valid, init, H, N): the engine's chunk (a dt = 0 tail, or
+        # full) from a state; S 200 from zero; a whole 512-token prompt;
+        # zamba2-2.7b's SSD widths (H 80, N 64)
+        for b, s, valid, with_init, h, n in (
+                (1, CHUNK, 41, True, SSD_H, SSD_N),
+                (1, CHUNK, CHUNK, True, SSD_H, SSD_N),
+                (2, 200, 200, False, SSD_H, SSD_N),
+                (1, 512, 512, False, SSD_H, SSD_N),
+                (1, CHUNK, 41, True, *ZAMBA_SSD),
+                (2, 200, 200, False, *ZAMBA_SSD)):
+            x, dt, A, Bm, Cm = _ssd_inputs(torch, g, b, s, dtype, h=h, n=n)
             dt[:, valid:] = 0.0
-            init = (torch.randn(b, SSD_H, SSD_P, SSD_N, generator=g,
-                                device="cuda") if with_init else None)
+            init = (torch.randn(b, h, SSD_P, n, generator=g, device="cuda")
+                    if with_init else None)
             y, fs = ops.ssd_scan(x, dt, A, Bm, Cm, init_state=init)
             yr, fsr = ops.ssd_scan(x, dt, A, Bm, Cm, init_state=init,
                                    impl="ref")
-            case = f"{label} B={b} S={s} valid={valid} init={with_init}"
+            case = (f"{label} B={b} S={s} valid={valid} init={with_init} "
+                    f"H={h} N={n}")
             e_scan = max(e_scan,
                          compare("ssd_scan_bshp y", y, yr, tol, case),
                          compare("ssd_scan_bshp state", fs, fsr, tol, case))
+        # the engine's pattern: 7 chained 64-token calls carrying the state
+        # against one plain call over the 448 tokens
+        x, dt, A, Bm, Cm = _ssd_inputs(torch, g, 1, 7 * CHUNK, dtype)
+        init = torch.randn(1, SSD_H, SSD_P, SSD_N, generator=g, device="cuda")
+        yr, fsr = ops.ssd_scan(x, dt, A, Bm, Cm, init_state=init, impl="ref")
+        fs, ys = init, []
+        for k in range(7):
+            sl = slice(k * CHUNK, (k + 1) * CHUNK)
+            y, fs = ops.ssd_scan(x[:, sl], dt[:, sl], A, Bm[:, sl],
+                                 Cm[:, sl], init_state=fs, chunk=CHUNK)
+            ys.append(y)
+        case = f"{label} 7 chained chunks"
+        e_scan = max(e_scan,
+                     compare("ssd_scan_bshp y", torch.cat(ys, 1), yr, tol,
+                             case),
+                     compare("ssd_scan_bshp state", fs, fsr, tol, case))
+        paths = dict(sk.LAUNCHES_BY_PATH)
+        want = "mma" if dtype == torch.bfloat16 else "cuda_core"
+        if paths[want] != 13 or sum(paths.values()) != 13:
+            raise AssertionError(f"{label} scans took {paths}, expected all "
+                                 f"13 through {want}")
         state = torch.randn(SLOTS, SSD_H, SSD_P, SSD_N, generator=g,
                             device="cuda")
         x, dt, A, Bm, Cm = _ssd_inputs(torch, g, SLOTS, 1, dtype)
@@ -596,30 +641,33 @@ def check_ssd_kernels(torch, ops):
         e_dec = max(compare("ssd_decode_step_bh y", y, yr, tol, label),
                     compare("ssd_decode_step_bh state", state, sr, tol,
                             label))
-        log(f"ssd kernel check {label}: scan {e_scan:.3e}, decode "
-            f"{e_dec:.3e} (atol=rtol={tol}); idle slots untouched")
+        log(f"ssd kernel check {label}: scan {e_scan:.3e} (paths {paths}), "
+            f"decode {e_dec:.3e} (atol=rtol={tol}); idle slots untouched")
         if dtype == torch.bfloat16:
             errs = {"ssd_scan_bshp": e_scan, "ssd_decode_step_bh": e_dec}
     return errs
 
 
-def _ssd_bound(b, s, elt, decode, written=None):
-    """Least time for one SSD call at mamba2 widths: the bytes it must move
-    (inputs read once, outputs written once; the f32 state read for all b
-    rows and written for the ``written`` rows, all b unless given: the
-    in-place decode step writes only its active slots) against its
+def _ssd_bound(b, s, elt, decode, written=None, h=SSD_H, n=SSD_N,
+               read_state=True):
+    """Least time for one SSD call at mamba2 widths (or ``h`` heads of N
+    ``n``): the bytes it must move (inputs read once, outputs written once;
+    the f32 state read for all b rows and written for the ``written`` rows,
+    all b unless given: the in-place decode step writes only its active
+    slots; a scan without an entering state reads none) against its
     operations at the inputs' type's peak. The scan counts the chunked
     algorithm at the kernel's 64-token chunk: causal C B^T, the decay mask,
     the causal (scores)(x dt), C state and the state update.
     Returns (ms, 'bytes' | 'operations')."""
-    h, p, n = SSD_H, SSD_P, SSD_N
+    p = SSD_P
     written = b if written is None else written
-    state_bytes = (b + written) * h * p * n * 4
     if decode:
+        state_bytes = (b + written) * h * p * n * 4
         nbytes = (state_bytes + 2 * b * h * p * elt + b * h * 4 + h * 4
                   + 2 * b * n * elt + b * 4)
         flops = 5 * b * h * p * n + b * h * p
     else:
+        state_bytes = (written + (b if read_state else 0)) * h * p * n * 4
         nbytes = (state_bytes + 2 * b * s * h * p * elt + b * s * h * 4
                   + h * 4 + 2 * b * s * n * elt)
         q = min(64, s)
@@ -633,13 +681,18 @@ def _ssd_bound(b, s, elt, decode, written=None):
                                        else "operations")
 
 
-def time_ssd_kernels(torch, ops):
+def time_ssd_kernels(torch, ops, sk):
     """kernel / plain times (ms) and the bound at the shapes of one
     full-width mamba2 engine step (bf16): decode over 8 slots (2 idle, so
-    the bound counts 6 slots' state written back) in place, and one 64-token prefill chunk of one sequence from a carried
-    state, each cycling through 48 layers' states so every launch finds
-    its state outside L2, as in a real step. No single PyTorch call
-    computes either function: library_ms is null."""
+    the bound counts 6 slots' state written back) in place, and one
+    64-token prefill chunk of one sequence from a carried state, each
+    cycling through 48 layers' states so every launch finds its state
+    outside L2, as in a real step. Then the scan alone at a whole
+    512-token prompt from zero (B 1) and at zamba2-2.7b's SSD widths (H 80,
+    N 64; the engine's chunk from a state), kernel calls only: no engine
+    takes those yet. No single PyTorch call computes either function:
+    library_ms is null. Logs the scan's LAUNCHES_BY_PATH over the timed
+    calls."""
     g = torch.Generator(device="cuda").manual_seed(12)
     dt_ = torch.bfloat16
     bank = torch.randn(M_LAYERS, SLOTS, SSD_H, SSD_P, SSD_N, generator=g,
@@ -647,9 +700,6 @@ def time_ssd_kernels(torch, ops):
     dx, ddt, A, dB, dC = _ssd_inputs(torch, g, SLOTS, 1, dt_, M_LAYERS)
     active = torch.tensor([1, 1, 1, 0, 1, 1, 0, 1], dtype=torch.int32,
                           device="cuda")
-    init = torch.randn(M_LAYERS, 1, SSD_H, SSD_P, SSD_N, generator=g,
-                       device="cuda")
-    sx, sdt, _, sB, sC = _ssd_inputs(torch, g, 1, CHUNK, dt_, M_LAYERS)
 
     def decode(impl):
         def fn(i):
@@ -659,18 +709,28 @@ def time_ssd_kernels(torch, ops):
                                 impl=impl)
         return fn
 
-    def scan(impl):
-        def fn(i):
-            l = i % M_LAYERS
-            ops.ssd_scan(sx[l], sdt[l], A, sB[l], sC[l], init_state=init[l],
-                         impl=impl)
-        return fn
+    def scan_inputs(s, with_init, h=SSD_H, n=SSD_N):
+        sx, sdt, sA, sB, sC = _ssd_inputs(torch, g, 1, s, dt_, M_LAYERS,
+                                          h=h, n=n)
+        init = (torch.randn(M_LAYERS, 1, h, SSD_P, n, generator=g,
+                            device="cuda") if with_init else None)
+
+        def scan(impl):
+            def fn(i):
+                l = i % M_LAYERS
+                ops.ssd_scan(sx[l], sdt[l], sA, sB[l], sC[l],
+                             init_state=None if init is None else init[l],
+                             impl=impl)
+            return fn
+        return scan
 
     n_active = int(active.sum().item())
     rows = {"ssd_decode_step_bh": (decode, _ssd_bound(SLOTS, 1, 2, True,
                                                        n_active)),
-            "ssd_scan_bshp": (scan, _ssd_bound(1, CHUNK, 2, False))}
+            "ssd_scan_bshp": (scan_inputs(CHUNK, True),
+                              _ssd_bound(1, CHUNK, 2, False))}
     out = {}
+    sk.reset_launches()
     for name, (make, bound) in rows.items():
         p1 = _time_ms(torch, make("ref"), iters=96)
         k1 = _time_ms(torch, make("auto"), iters=96)
@@ -682,7 +742,19 @@ def time_ssd_kernels(torch, ops):
         log(f"timing {name}: kernel {k1:.4f}/{k2:.4f} ms, plain "
             f"{p1:.4f}/{p2:.4f} ms, no library call, bound "
             f"{bound[0]:.5f} ms ({bound[1]})")
-    del bank, init
+    del bank
+    for label, make, bound in (
+            ("S 512 from zero", scan_inputs(512, False),
+             _ssd_bound(1, 512, 2, False, written=1, read_state=False)),
+            ("zamba2 H 80 N 64", scan_inputs(CHUNK, True, *ZAMBA_SSD),
+             _ssd_bound(1, CHUNK, 2, False, h=ZAMBA_SSD[0],
+                        n=ZAMBA_SSD[1]))):
+        k1 = _time_ms(torch, make("auto"), iters=48)
+        p1 = _time_ms(torch, make("ref"), iters=48)
+        k2 = _time_ms(torch, make("auto"), iters=48)
+        log(f"timing ssd_scan_bshp [{label}]: kernel {k1:.4f}/{k2:.4f} ms, "
+            f"plain {p1:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]})")
+    log(f"timing ssd_scan_bshp paths: {dict(sk.LAUNCHES_BY_PATH)}")
     return out
 
 
@@ -794,11 +866,12 @@ def run_engine(torch, np, cfg, serving, models, pk, card):
     _trace(torch,
            lambda: serving.ContinuousBatchingEngine(cfg, params, **engine_kw),
            _requests(serving, 8, np.random.default_rng(5), sampled_every=0),
-           PAGED_TRACE_KEYS, "paged-attention kernels", paged_bf16=True)
+           PAGED_TRACE_KEYS, "paged-attention kernels",
+           check=PAGED_BF16_CHECK)
     return launches
 
 
-def _trace(torch, make_engine, reqs, kernel_keys, label, paged_bf16=False):
+def _trace(torch, make_engine, reqs, kernel_keys, label, check=None):
     """Where a step's time goes: a torch.profiler window over a fresh
     engine serving ``reqs``. Device busy = the sum of the device activities
     (kernels, copies, fills) the profiler recorded (one stream, so no
@@ -806,8 +879,8 @@ def _trace(torch, make_engine, reqs, kernel_keys, label, paged_bf16=False):
     activities whose name holds one of ``kernel_keys``, also logged kernel
     by kernel. The raw events are read, not ``key_averages()``, which takes
     minutes over a window's several hundred thousand events.
-    ``paged_bf16``: a paged engine with bf16 q, whose window must show the
-    split decode kernel and not PAGED_F32_KEY."""
+    ``check``: (a kernel the window must show, one it must not), for a
+    bf16 engine (PAGED_BF16_CHECK, SSD_BF16_CHECK)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -836,13 +909,12 @@ def _trace(torch, make_engine, reqs, kernel_keys, label, paged_bf16=False):
             ms, n = sum(h[0] for h in hits), sum(h[1] for h in hits)
             log(f"trace kernel: {key} {ms:.2f} ms x{n} "
                 f"({1e3 * ms / n:.2f} us each)")
-    if paged_bf16:
-        stale = [name for name in by_name if PAGED_F32_KEY in name]
-        if stale or not any("paged_decode_split_kernel" in name
-                            for name in by_name):
-            raise AssertionError(f"a bf16 paged window ran a CUDA-core "
-                                 f"template or no split decode kernel: "
-                                 f"{stale}")
+    if check:
+        shown, barred = check
+        stale = [name for name in by_name if barred in name]
+        if stale or not any(shown in name for name in by_name):
+            raise AssertionError(f"a bf16 window ran a CUDA-core template "
+                                 f"or no {shown}: {stale}")
     top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:6]
     log(f"trace: {steps} steps in {wall_ms:.1f} ms wall "
         f"({wall_ms / steps:.2f} ms/step); device busy {busy_ms:.1f} ms = "
@@ -981,7 +1053,7 @@ def run_int8_engine(torch, np, cfg, serving, models, pk, card):
                _requests(serving, 8, np.random.default_rng(5),
                          sampled_every=0),
                PAGED_TRACE_KEYS, f"paged-attention kernels "
-               f"({quant} pages)", paged_bf16=True)
+               f"({quant} pages)", check=PAGED_BF16_CHECK)
     return launches
 
 
@@ -1470,7 +1542,7 @@ def run_whole_prompt(torch, np, cfg, serving, models, fk, pk, card):
            _random_requests(serving, 8, np.random.default_rng(51), 0, lo=100,
                             hi=600, max_new=32, uid="w", vocab=49152, seed0=3000),
            PAGED_TRACE_KEYS + FLASH_TRACE_KEYS,
-           "flash + paged kernels", paged_bf16=True)
+           "flash + paged kernels", check=PAGED_BF16_CHECK)
     return launches, paged, prefills
 
 
@@ -1568,15 +1640,20 @@ def run_mamba_engine(torch, np, cfg, serving, models, sk, card):
     handles, steps = _drive(torch, engine, reqs)
     wall = time.perf_counter() - t0
     launches = dict(sk.LAUNCHES)
+    paths = dict(sk.LAUNCHES_BY_PATH)
     results = [h.result() for h in handles]
     _check_served(np, cfg, results, 24)
     if not all(launches[k] > 0 for k in launches):
         raise AssertionError(f"an SSD kernel never ran: {launches}")
+    if paths != {"mma": launches["ssd_scan_bshp"], "cuda_core": 0}:
+        raise AssertionError(f"a bf16 scan left the tensor-core kernel: "
+                             f"{paths}")
     st = engine.stats
     _log_run("engine", cfg, card, reqs, results, wall, steps,
              f"decode_steps {st['decode_steps']}, prefill_chunks "
              f"{st['prefill_chunks']}, preemptions {st['preemptions']}; "
-             f"kernel launches {launches} over {M_LAYERS} layers per "
+             f"kernel launches {launches} (scan paths {paths}) over "
+             f"{M_LAYERS} layers per "
              f"dispatch; peak device memory "
              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log("utilization: " + engine.utilization.format())
@@ -1585,7 +1662,7 @@ def run_mamba_engine(torch, np, cfg, serving, models, sk, card):
            _random_requests(serving, 8, np.random.default_rng(21), 0, lo=64,
                             hi=400, max_new=24, uid="m", vocab=50280,
                             seed0=2000),
-           ("ssd_scan_kernel", "ssd_decode_kernel"), "SSD kernels")
+           SSD_TRACE_KEYS, "SSD kernels", check=SSD_BF16_CHECK)
     return launches
 
 
@@ -1751,6 +1828,40 @@ def report_decode_kernel(torch, build, pk):
                 f"{info[2]} B dynamic shared memory, {info[3]} blocks per SM")
 
 
+def report_ssd_scan(torch, build, sk):
+    """Phase 2's report on the scan kernels: registers and spill stores per
+    instance as ptxas gave them in this process's build, then the card's
+    figures through ``ssd_scan_info`` for the calls the engine and the
+    timing phase make: bf16 at the engine's chunk (S 64) and a 512-token
+    prompt at mamba2's widths, bf16 at zamba2's N 64, and f32 (the
+    CUDA-core template of the parity runs)."""
+    parts = re.compile(r"Compiling entry function '(\w+)'").split(
+        build.build_log.get("ssd_scan", ""))
+    for name, body in zip(parts[1::2], parts[2::2]):
+        # the anonymous namespace's mangled name holds the file's name, so
+        # match the kernels' own names
+        if not re.search(r"ssd_scan_(mma_)?kernel", name):
+            continue
+        regs = re.search(r"Used (\d+) registers", body)
+        spill = re.search(r"(\d+) bytes spill stores", body)
+        rows = re.search(r"Li(\d+)E", name)
+        kind = (f"mma rows {rows.group(1)}" if "mma" in name and rows else
+                "cuda-core " + ("bf16" if "bfloat16" in name else "f32"))
+        log(f"ptxas ssd_scan {kind}: {regs.group(1) if regs else '?'} "
+            f"registers, {spill.group(1) if spill else '?'} bytes spill "
+            f"stores")
+    for label, dtype, s, n in (
+            ("bf16 engine chunk S 64 N 128", torch.bfloat16, CHUNK, SSD_N),
+            ("bf16 prompt S 512 N 128", torch.bfloat16, 512, SSD_N),
+            ("bf16 zamba2 S 64 N 64", torch.bfloat16, CHUNK, ZAMBA_SSD[1]),
+            ("f32 S 64 N 128", torch.float32, CHUNK, SSD_N)):
+        i = sk.ssd_scan_info(dtype, s, SSD_P, n)
+        log(f"card ssd_scan [{label}]: {i['path']}, {i['rows']} P rows a "
+            f"block, {i['registers']} registers, {i['local_bytes']} local "
+            f"bytes a thread, {i['smem_bytes']} B dynamic shared memory, "
+            f"{i['blocks_per_sm']} blocks per SM")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1798,6 +1909,7 @@ def main() -> int:
             f"kernel instances")
     report_mma_kernels(build)
     report_decode_kernel(torch, build, pk)
+    report_ssd_scan(torch, build, sk)
 
     lap("build")
     # kernel -> max abs err over the main width's bf16 cases, per pool kind
@@ -1836,8 +1948,8 @@ def main() -> int:
     lap("flash check")
     run_whole_prompt_parity(torch, np, cfg, serving, models)
     lap("whole-prompt parity")
-    errs.update(check_ssd_kernels(torch, ops))
-    times.update(time_ssd_kernels(torch, ops))
+    errs.update(check_ssd_kernels(torch, ops, sk))
+    times.update(time_ssd_kernels(torch, ops, sk))
     lap("ssd check and timing")
     mcfg = get_arch("mamba2-1.3b")
     for name, n in run_mamba_engine(torch, np, mcfg, serving, models, sk,

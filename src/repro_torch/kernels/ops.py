@@ -234,10 +234,13 @@ def ssd_scan(
     dt·x=0), and the padded outputs are sliced off. ``init_state``
     continues a scan from a carried state (chunked prefill). The plain
     version pads here and runs ``ref.ssd_chunked`` at ``min(chunk, S)``,
-    as the JAX op runs it on the CPU; the kernel pads its own ragged last
-    sub-chunk the same way, loads ``init_state`` as its carried state, and
-    uses a fixed inner chunk of 64 (the result does not depend on the
-    chunk length up to f32 rounding)."""
+    as the JAX op runs it on the CPU. On the card the kernel ignores
+    ``chunk``: it walks 64-token sub-chunks (the result does not depend
+    on the chunk length up to rounding), zero-fills its own ragged last
+    one the same way, and loads ``init_state`` as its carried state. bf16
+    with P and N multiples of 16 and N <= 256 runs on tensor cores (bf16
+    operands, f32 sums, the carried state f32 throughout); other shapes
+    and f32 run the CUDA-core kernel in f32 (``kernels/ssd_scan.py``)."""
     if _use_plain(x, impl, "ssd_scan"):
         s = x.shape[1]
         chunk_eff = min(chunk, s)

@@ -5,14 +5,19 @@ Two kernels, each replacing a Pallas TPU kernel of the JAX package:
 * ``ssd_scan_bshp``      — the chunked prefill scan
   (``repro/kernels/ssd_scan.py`` ``ssd_scan_bhsp``), reading the ops layout
   ``(B, S, H, P)`` directly, continuing from an optional ``init_state`` and
-  taking any S (the kernel pads its ragged last sub-chunk with dt = 0);
+  taking any S (the kernel zero-fills its ragged last 64-token sub-chunk:
+  dt = 0, x = B = C = 0). bf16 with P and N multiples of 16 and N <= 256
+  runs the tensor-core kernel (``ssd_scan_mma_kernel``, :func:`scan_rows`
+  P rows a block); every other shape, and f32, the CUDA-core template
+  (``ssd_scan_kernel``). The choice is by shape alone;
 * ``ssd_decode_step_bh`` — the one-token recurrence
   (``ssd_decode_step_bh``), advancing the state in place, gated per slot
   by an optional ``active`` vector.
 
 Each wrapper checks device, dtype, shape and contiguity, launches on
 ``torch.cuda.current_stream()``, raises when the launch reports an error,
-and adds one to its entry of :data:`LAUNCHES` per launch. They accept CUDA
+and adds one to its entry of :data:`LAUNCHES` per launch (the scan also
+to its path's entry of :data:`LAUNCHES_BY_PATH`). They accept CUDA
 tensors only: the plain versions for the CPU live in
 :mod:`repro_torch.kernels.ref` and the choice between the two is
 :mod:`repro_torch.kernels.ops`'.
@@ -28,16 +33,36 @@ from repro_torch.kernels import build
 
 # launches per kernel since the last reset_launches()
 LAUNCHES = {"ssd_scan_bshp": 0, "ssd_decode_step_bh": 0}
+# scan launches per kernel: tensor cores (bf16) or the CUDA-core template
+LAUNCHES_BY_PATH = {"mma": 0, "cuda_core": 0}
 
-MAX_STATE = 256  # N: the scan stages (64, N) tiles of B and C in shared memory
+# N: both scan kernels stage 64 x N tiles of B and C in shared memory, and
+# the tensor-core kernel holds a block's R x N state in registers
+MAX_STATE = 256
+# P rows a tensor-core scan block owns where P allows it: the fastest of 16,
+# 32 and 64 at the engine's shape (tools/ssd_ablation.py)
+MMA_ROWS = 32
+MMA_STATE_ELEMS = 64 * 128  # R x N at most: 8 16x16 state tiles a warp
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _lib = None
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, LAUNCHES_BY_PATH):
+        for k in counts:
+            counts[k] = 0
+
+
+def scan_rows(dtype: torch.dtype, p: int, n: int) -> int:
+    """P rows a block of the tensor-core scan owns for these shapes, or 0
+    for the CUDA-core template: bf16 with P and N multiples of 16, 16 <= N
+    <= MAX_STATE; MMA_ROWS where it divides P and R x N <= MMA_STATE_ELEMS,
+    else 32, else 16."""
+    if dtype != torch.bfloat16 or p % 16 or n % 16 or not 16 <= n <= MAX_STATE:
+        return 0
+    return next(r for r in (MMA_ROWS, 32, 16)
+                if p % r == 0 and r * n <= MMA_STATE_ELEMS)
 
 
 def _library() -> ctypes.CDLL:
@@ -46,8 +71,10 @@ def _library() -> ctypes.CDLL:
         lib = build.load("ssd_scan")
         lib.ssd_decode.argtypes = [_P] * 8 + [_I] * 5 + [_P]
         lib.ssd_decode.restype = _I
-        lib.ssd_scan_chunked.argtypes = [_P] * 8 + [_I] * 6 + [_P]
+        lib.ssd_scan_chunked.argtypes = [_P] * 8 + [_I] * 7 + [_P]
         lib.ssd_scan_chunked.restype = _I
+        lib.ssd_scan_info.argtypes = [_I] * 4 + [_P]
+        lib.ssd_scan_info.restype = _I
         _lib = lib
     return _lib
 
@@ -103,16 +130,36 @@ def ssd_scan_bshp(
     if init_state is not None:
         tensors["init_state"] = init_state
     _check(x.device, tensors, shapes, dtypes)
+    rows = scan_rows(x.dtype, p, n)
+    if rows and any(tensors[k].data_ptr() % 16 for k in tensors
+                    if k in ("x", "Bm", "Cm", "init_state")):
+        raise ValueError("x, Bm, Cm and init_state must be 16-byte aligned "
+                         "(the tensor-core scan copies 16-byte chunks)")
     y = torch.empty_like(x)
     fs = torch.empty((b, h, p, n), dtype=f32, device=x.device)
     err = _library().ssd_scan_chunked(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), _ptr(init_state), y.data_ptr(), fs.data_ptr(),
-        b, s, h, p, n, _DTYPES[x.dtype],
+        b, s, h, p, n, _DTYPES[x.dtype], rows,
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, "ssd_scan_bshp")
     LAUNCHES["ssd_scan_bshp"] += 1
+    LAUNCHES_BY_PATH["mma" if rows else "cuda_core"] += 1
     return y, fs
+
+
+def ssd_scan_info(dtype: torch.dtype, s: int, p: int, n: int) -> dict:
+    """The scan kernel a call of this dtype and S, P, N launches, as the
+    card runs it: its path and P rows a block, registers and local
+    (spilled) bytes a thread, dynamic shared memory a block, blocks
+    resident per SM."""
+    rows = scan_rows(dtype, p, n)
+    info = (ctypes.c_int * 4)()
+    _raise_on(_library().ssd_scan_info(_DTYPES[dtype], rows, s, n, info),
+              "ssd_scan_info")
+    return {"path": "mma" if rows else "cuda_core", "rows": rows or 16,
+            "registers": info[0], "local_bytes": info[1],
+            "smem_bytes": info[2], "blocks_per_sm": info[3]}
 
 
 def ssd_decode_step_bh(

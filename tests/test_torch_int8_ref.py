@@ -5,8 +5,9 @@ oracles and the three paged ops with ``k_scale``/``v_scale``.
 reference as the JAX engine runs it (under ``jit``, where XLA turns
 ``absmax / 127.0`` into a multiplication by the f32 reciprocal), on f32 and
 bf16 rows, all-zero rows and values that fall exactly on .5. The
-round trip keeps every element within scale / 2 (the port of
-``tests/test_kernel_fuzz.py``'s property). The paged ops with scales, run
+round trip keeps every element within scale / 2 plus the f32 rounding of
+``x / scale`` and ``q * scale`` (the port of ``tests/test_kernel_fuzz.py``'s
+property, whose scale / 2 holds only in exact arithmetic). The paged ops with scales, run
 on the CPU (``dequantize_pages`` then the f32 plain versions), stay within
 1e-5 of the JAX ops run with ``impl="pallas_interpret"`` (the Pallas int8
 branch in interpret mode) on the same seeded numpy inputs, with length-0
@@ -71,15 +72,24 @@ def _roundtrip_check(rows, kvh, d, scale_exp, seed):
     q, scale = ref.quantize_kv(torch.from_numpy(x))
     assert q.dtype == torch.int8 and tuple(scale.shape) == x.shape[:-1]
     back = ref.dequantize_pages(q, scale).numpy()
-    bound = scale.numpy()[..., None] / 2 + 1e-9
+    # scale / 2 holds in exact arithmetic only. With u = 2^-24 (f32's unit
+    # roundoff) and s the stored scale: fl(x / s) = (x / s)(1 + d1), |d1| <=
+    # u, so the rounded (and clipped) q is within 1/2 + u |x| / s of x / s;
+    # fl(q s) = q s (1 + d2), |d2| <= u, adds u |q| s <= u (|x| + s). So
+    # |back - x| <= s / 2 + 2u |x| + u s; the bound doubles the f32 term.
+    s = scale.numpy()[..., None]
+    bound = s / 2 + 2.0 ** -22 * (np.abs(x) + s)
     assert (np.abs(back - x) <= bound).all(), (
-        f"round-trip exceeded scale/2 at rows={rows} d={d} 2^{scale_exp}")
+        f"round-trip exceeded scale/2 + f32 rounding at rows={rows} d={d} "
+        f"2^{scale_exp}")
     assert (back[0] == 0).all()
 
 
 @pytest.mark.parametrize("rows,kvh,d,scale_exp,seed", [
     (1, 1, 4, 0, 0), (16, 2, 8, -8, 1), (40, 4, 32, 8, 2), (7, 1, 16, -3, 3),
-    (24, 2, 4, 5, 4)])
+    (24, 2, 4, 5, 4),
+    # Hypothesis's counterexample: scale / 2 alone is exceeded by 4.9e-08
+    (11, 4, 32, 0, 56391)])
 def test_quantize_dequant_roundtrip_grid(rows, kvh, d, scale_exp, seed):
     _roundtrip_check(rows, kvh, d, scale_exp, seed)
 
@@ -90,7 +100,8 @@ def test_quantize_dequant_roundtrip_grid(rows, kvh, d, scale_exp, seed):
        seed=st.integers(0, 2**16))
 def test_quantize_dequant_roundtrip_bound(rows, kvh, d, scale_exp, seed):
     """quantize_kv -> dequantize_pages recovers every element within
-    scale/2 across magnitudes 2^-8..2^8; all-zero rows come back zero."""
+    scale/2 (plus f32 rounding) across magnitudes 2^-8..2^8; all-zero rows
+    come back zero."""
     _roundtrip_check(rows, kvh, d, scale_exp, seed)
 
 

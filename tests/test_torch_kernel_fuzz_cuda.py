@@ -1,5 +1,6 @@
-"""Differential fuzzing of the port's paged decode and mixed CUDA kernels on
-the card, against the port's plain versions (``repro_torch.kernels.ref``).
+"""Differential fuzzing of the port's paged decode and mixed CUDA kernels and
+of its SSD scan on the card, against the port's plain versions
+(``repro_torch.kernels.ref``).
 
 The sweeps are those of the JAX package's ``tests/test_kernel_fuzz.py``
 (decode: batch, GQA grouping, page size, table width, forked tables; mixed:
@@ -12,6 +13,15 @@ int8 pool with f32 scales; mixed runs both with and without the engine's
 again with a dead suffix of chunk rows. Bounds: f32 1e-3, bf16 2e-2 (f32
 accumulation, bf16 output), dead rows and length-0 rows exact zeros.
 
+The SSD scan runs the JAX package's SSD sweeps (fresh and carried state,
+S not a multiple of the chunk) with P mapped into {16, 64}, N into {16,
+64}, S tripled (up to five of the kernel's 64-token sub-chunks), plus N
+128 cases and one bf16 case at P 8, against ``ref.ssd_chunked``: bf16
+within 5e-2, f32 within 1e-3 (atol and rtol, the JAX package's SSD
+bounds). Every bf16 case whose P and N the tensor-core kernel takes must
+go through it (``LAUNCHES_BY_PATH``), the rest through the CUDA-core
+template.
+
 Marked ``cuda``; no JAX here, so this runs on a machine with only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernel_fuzz_cuda.py
@@ -23,6 +33,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import ssd_scan as sk  # noqa: E402
 
 TOLS = {"float32": 1e-3, "bfloat16": 2e-2}
 D_MAP = {8: 64, 16: 80, 32: 128}
@@ -207,3 +218,66 @@ def test_paged_mixed_kernel_fuzz(params, dtype, quant):
                 _check(got, want, last < 0, TOLS[dtype],
                        f"mixed {params} seed {seed} {dtype} int8={quant} "
                        f"num_decode={hint} dead_chunk={dead_chunk}")
+
+
+# ---------------------------------------------------------------------------
+# SSD scan: (b, s, h, p, n, chunk of the plain version)
+# ---------------------------------------------------------------------------
+
+SSD_TOLS = {"float32": 1e-3, "bfloat16": 5e-2}
+SSD_P_MAP = {8: 16, 16: 64}
+SSD_N_MAP = {16: 16, 32: 64}
+
+
+def _ssd_sweep():
+    """tests/test_kernel_fuzz.py's SSD sweep, mapped to the port's widths."""
+    cases = []
+    rng = np.random.default_rng(0x55D)
+    for _ in range(8):
+        chunk = int(rng.choice([8, 16, 32]))
+        cases.append((
+            int(rng.integers(1, 3)), chunk * int(rng.integers(1, 4))
+            + int(rng.choice([0, 3])), int(rng.choice([1, 2, 4])),
+            int(rng.choice([8, 16])), int(rng.choice([16, 32])), chunk,
+        ))
+    cases = [(b, 3 * s, h, SSD_P_MAP[p], SSD_N_MAP[n], c)
+             for b, s, h, p, n, c in cases]
+    # mamba2-1.3b's N, and P 8: a shape only the CUDA-core template takes
+    cases += [(1, 64, 4, 64, 128, 64), (2, 200, 2, 64, 128, 32),
+              (1, 131, 2, 16, 128, 64), (1, 100, 2, 8, 16, 32)]
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("init", [False, True], ids=["fresh", "init"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("params", _ssd_sweep(),
+                         ids=lambda p: "b{}s{}h{}p{}n{}c{}".format(*p))
+def test_ssd_scan_kernel_fuzz(params, dtype, init):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    b, s, h, p, n, chunk = params
+    dt_ = getattr(torch, dtype)
+    rng = np.random.default_rng(sum(params) ^ (0x1517 if init else 0))
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = (0.1 + 0.9 * rng.random((b, s, h))).astype(np.float32)
+    A = (-1.0 * rng.random((h,)) - 0.1).astype(np.float32)
+    Bm = (rng.standard_normal((b, s, n)) / np.sqrt(n)).astype(np.float32)
+    Cm = (rng.standard_normal((b, s, n)) / np.sqrt(n)).astype(np.float32)
+    h0 = rng.standard_normal((b, h, p, n)).astype(np.float32)
+    cuda = [torch.from_numpy(a).cuda() for a in (x, dt, A, Bm, Cm, h0)]
+    x, dt, A, Bm, Cm, h0 = cuda
+    x, Bm, Cm = x.to(dt_), Bm.to(dt_), Cm.to(dt_)
+    h0 = h0 if init else None
+    sk.reset_launches()
+    y, fs = ops.ssd_scan(x, dt, A, Bm, Cm, init_state=h0)
+    path = dict(sk.LAUNCHES_BY_PATH)
+    yr, fsr = ops.ssd_scan(x, dt, A, Bm, Cm, init_state=h0, chunk=chunk,
+                           impl="ref")
+    torch.cuda.synchronize()
+    tol = SSD_TOLS[dtype]
+    torch.testing.assert_close(y.float(), yr.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(fs, fsr, atol=tol, rtol=tol)
+    mma = sk.scan_rows(dt_, p, n) > 0
+    assert mma == (dtype == "bfloat16" and p % 16 == 0), params
+    assert path == {"mma": int(mma), "cuda_core": int(not mma)}, path

@@ -285,9 +285,12 @@ def test_ssd_kernels_on_card(dtype):
     """Both SSD kernels against their plain versions at mamba2-1.3b widths
     (H 64, P 64, N 128): f32 within 1e-3, bf16 within 5e-2 (atol and
     rtol, the JAX package's SSD bf16 bound). Scan cases: a chunk with a
-    dt = 0 tail (valid < C) from a non-zero init_state, and S spanning
-    several of the kernel's 64-token sub-chunks with a ragged end. Decode:
-    idle slots keep their state bit for bit, in place and out of place."""
+    dt = 0 tail (valid < C) from a non-zero init_state, S spanning
+    several of the kernel's 64-token sub-chunks with a ragged end, and the
+    engine's pattern: 7 chained 64-token calls, each from the state the
+    last returned, against one plain call over the 448 tokens (rounding
+    must not compound through the carried state). Decode: idle slots keep
+    their state bit for bit, in place and out of place."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dt_ = getattr(torch, dtype)
@@ -304,6 +307,18 @@ def test_ssd_kernels_on_card(dtype):
                                impl="ref")
         torch.testing.assert_close(y.float(), yr.float(), atol=tol, rtol=tol)
         torch.testing.assert_close(fs, fsr, atol=tol, rtol=tol)
+    x, dt, A, Bm, Cm = _ssd_inputs(g, 1, 7 * 64, h, p, n, dt_)
+    init = torch.randn(1, h, p, n, generator=g, device="cuda")
+    yr, fsr = ops.ssd_scan(x, dt, A, Bm, Cm, init_state=init, impl="ref")
+    fs, ys = init, []
+    for k in range(7):
+        sl = slice(64 * k, 64 * (k + 1))
+        y, fs = ops.ssd_scan(x[:, sl], dt[:, sl], A, Bm[:, sl], Cm[:, sl],
+                             init_state=fs, chunk=64)
+        ys.append(y)
+    torch.testing.assert_close(torch.cat(ys, 1).float(), yr.float(),
+                               atol=tol, rtol=tol)
+    torch.testing.assert_close(fs, fsr, atol=tol, rtol=tol)
     b = 8
     state = torch.randn(b, h, p, n, generator=g, device="cuda")
     x, dt, A, Bm, Cm = _ssd_inputs(g, b, 1, h, p, n, dt_)

@@ -63,11 +63,13 @@ Phases (any failure exits non-zero):
    Sq = Skv in {1, 64, 100, 256, 300, 512}, causal with Sq 64 < Skv 320,
    non-causal with Sq 37, Skv 300; at B 1 every whole-prompt bucket from
    128 to 1024. Then every (B, S) that phases 7 and 8 gave the kernel, as
-   recorded from their prefills (the check runs after them for that
-   reason), and zamba2's D 80 (32 heads, G 1), causal and not. The ragged lengths go to the kernel's wrapper directly (the op
-   keeps the reference's Skv-multiple-of-256 rule), and llama3-8b's D 128
-   (32 / 8 heads). bf16 runs the tensor-core kernel, f32 the CUDA-core
-   one. Before the engines it times the kernel, its plain version and
+   recorded from their prefills, and zamba2's D 80 (32 heads, G 1),
+   causal and not, with every (B, S) of phase 15's zamba2 prefills (the
+   check runs after phase 15 for that reason). The ragged lengths go to
+   the kernel's wrapper directly (the op keeps the reference's
+   Skv-multiple-of-256 rule), and llama3-8b's D 128 (32 / 8 heads). bf16
+   runs the tensor-core kernel, f32 the CUDA-core one. Before the engines
+   it times the kernel, its plain version and
    ``F.scaled_dot_product_attention (..., is_causal=True, enable_gqa=True)``
    (which the port never calls) at the two engine shapes: lockstep (B 8,
    S 256) and whole-prompt (B 1, S 512), cycling over 32 layers' inputs, at
@@ -92,18 +94,22 @@ Phases (any failure exits non-zero):
    lockstep engine's (one request at a time) on the same requests.
 
 10. ssd     — both Mamba2 SSD kernels against their plain versions on the
-   card at mamba2-1.3b widths (H 64, P 64, N 128): bf16 within 5e-2 and
-   f32 within 1e-3 (atol and rtol; the JAX package's SSD bounds). Scan
-   cases: a 64-token chunk whose tail has dt = 0 (valid 41 < C) from a
-   non-zero init_state, a full chunk from a non-zero state, S = 200 over
-   two sequences (four of the kernel's 64-token sub-chunks, ragged end)
-   from zero, a whole 512-token prompt from zero, the first and third at
-   zamba2-2.7b's SSD widths (H 80, N 64), and the engine's pattern: 7
-   chained 64-token calls carrying the state against one plain call over
-   448 tokens. bf16 scans must all take the tensor-core kernel and f32
-   ones the CUDA-core template (``LAUNCHES_BY_PATH``). Decode: 8 slots
-   with 3 idle, in place, the idle slots' state bit for bit unchanged.
-   Then times each kernel and its plain version at one engine step's
+   card at mamba2-1.3b widths (H 64, P 64, N 128) and zamba2-2.7b's
+   (H 80, N 64): bf16 within 5e-2 and f32 within 1e-3 (atol and rtol;
+   the JAX package's SSD bounds). The check runs after phase 15, to take
+   its prompts. Scan cases, at both widths: a 64-token chunk whose tail
+   has dt = 0 (valid 41 < C) from a non-zero init_state, a full chunk
+   from a non-zero state, and the engines' pattern: 7 chained 64-token
+   calls carrying the state against one plain call over 448 tokens; S =
+   200 over two sequences (four of the kernel's 64-token sub-chunks,
+   ragged end) from zero; a whole 512-token prompt from zero (mamba2);
+   and every (B, S) batch of phase 15's lockstep prefills from zero at
+   its arch's widths. bf16 scans must all take the tensor-core kernel and
+   f32 ones the CUDA-core template (``LAUNCHES_BY_PATH``). Decode, at
+   both widths: 8 slots with 3 idle, in place, the idle slots' state bit
+   for bit unchanged, and 8 slots ungated (the lockstep engine's call).
+   Before the engines it times each kernel and its plain version at one
+   engine step's
    shapes (decode: 8 slots, 2 of them idle; scan: one 64-token chunk of
    one sequence), cycling over 48 layers' states, and the scan at S 512
    and at zamba2's widths.
@@ -123,20 +129,55 @@ Phases (any failure exits non-zero):
    through the kernels equal those through the plain versions
    (``ssd_impl="ref"``), and a run with one snapshot preemption and one
    discard preemption gives the same streams as the undisturbed run.
+13. zamba2  — full-width zamba2-2.7b (bf16, seeded random weights, all 54
+   Mamba2 layers in 9 groups, each led by the one shared attention + MLP
+   block, 32 heads of D 80) served by ``SSMEngine(max_slots=8,
+   prefill_chunk=64, max_len=512, page_size=16)``: 8 requests of 64-400
+   prompt tokens, 24 new each, greedy and seeded top-p alternating; then 8
+   more over a pool of Z_TIGHT_PAGES pages, on which decode-time page
+   growth preempts (youngest first, at least once). Every request must
+   finish by length; the paged decode and chunk kernels and both SSD
+   kernels (counts reset before each run) must launch in each run, the
+   fused mixed kernel never (the hybrid engine has no mixed step), and
+   every scan must take the tensor-core kernel. Prints tok/s, TTFT, ITL
+   and a profiler window (device busy share, each kernel's share of it),
+   which must show the split decode, tensor-core chunk, tensor-core scan
+   and SSD decode kernels and neither CUDA-core template.
+14. zamba2 parity — f32, TF32 off, at Z_PARITY_LAYERS (24): the one-chunk
+   logit gaps of the kernels to the plain versions and of the plain path
+   in f32 to the same path with f64 weights (``_hybrid_chunk_logits``)
+   beside the top-2 margin, and the plain engine's greedy streams in f32
+   and in f64, which must agree (f32 rounding alone flips no argmax of
+   the check; at 54 and 36 layers it does). There, greedy
+   ``SSMEngine`` streams through the kernels equal the plain f32 ones
+   (``attn_impl``/``ssd_impl="ref"``) and those of a run over
+   Z_PARITY_TIGHT_PAGES pages that preempts, and
+   ``preempt_youngest(snapshot=True)`` on a hybrid slot raises.
+15. lockstep ssm/hybrid — full-width mamba2-1.3b and zamba2-2.7b (bf16)
+   through ``GenerationEngine(max_batch=8, max_len=512)``: 8 requests of
+   64-256 prompt tokens (the flash contract), 16 new each; every request
+   finishes by length, the scan (all on the tensor-core kernel), the SSD
+   decode and (zamba2) flash launch counts are > 0. Then, in f32 at the
+   parity depths (mamba2 48, zamba2 24), the greedy streams of 5
+   equal-length prompts (one left-pad-free batch) through lockstep equal
+   those through ``SSMEngine``.
+16. ssm serve driver — ``python -m repro_torch.launch.serve --arch
+   zamba2-2.7b`` and ``--engine lockstep --arch mamba2-1.3b`` at full
+   width: 8/8 served, ``engine=ssm`` and ``engine=lockstep``.
 
-13. int8 timing — the int8 variant of the three paged kernels (checked in
+17. int8 timing — the int8 variant of the three paged kernels (checked in
    phase 3), their plain versions and SDPA on K/V dequantized and gathered
    in advance, at phase 3's engine-step shapes and at the llama3-8b and
    zamba2-2.7b widths; the bound counts int8
    K/V plus a 4-byte scale per (position, kv head).
-14. int8 engine — phase 4's trace through ``ContinuousBatchingEngine(...,
+18. int8 engine — phase 4's trace through ``ContinuousBatchingEngine(...,
    kv_quant="int8")`` on full-width smollm-360m, in turns with bf16 pages
    (bf16, int8, int8, bf16): every request finishes by length, the prefix
    index hits and each paged kernel runs (path ``chunked_int8`` in
    ``launches_by_path``, the first int8 turn). Prints tok/s, TTFT, ITL
    per turn and a profiler window of each page type (checked as phase
    4's).
-15. tier restart — full-width smollm-360m, once with bf16 pages (path
+19. tier restart — full-width smollm-360m, once with bf16 pages (path
    ``tiered``) and once with int8 pages (path ``tiered_int8``), a pool of
    128 pages with ``host_pages`` and ``persist_dir`` in a temporary
    directory: phase 4's trace must reclaim and spill parked pages; after
@@ -145,14 +186,14 @@ Phases (any failure exits non-zero):
    is printed), and every page it reloaded holds, byte for byte, what the
    store kept under the page's content key, for every pool tensor (int8
    K/V and their f32 scales for int8 pages).
-16. tier + int8 parity — f32, TF32 off, PARITY_LAYERS layers: greedy int8
+20. tier + int8 parity — f32, TF32 off, PARITY_LAYERS layers: greedy int8
    streams through the kernels equal those through the plain versions;
    the tiered run, its restart from the store and an untiered run give
    the same streams with one slot (f32 pages) and with four slots (f32
    and int8 pages, interleaved steps, a pool on which the tiered run
    reclaims and spills while other slots are live; its dispatches must
    equal the untiered run's one for one, and no run may preempt).
-17. serve driver — ``python -m repro_torch.launch.serve --kv-quant int8
+21. serve driver — ``python -m repro_torch.launch.serve --kv-quant int8
    --host-pages 8 --persist-dir DIR`` at full width, twice on one
    directory: 12/12 served each time, persisted hits only on the second.
 
@@ -213,6 +254,16 @@ PARITY_LAYERS = 2
 SSD_H, SSD_P, SSD_N, M_LAYERS, M_MAX_LEN = 64, 64, 128, 48, 512
 SSD_BF16_TOL, SSD_F32_TOL = 5e-2, 1e-3
 ZAMBA_SSD = (80, 64)  # zamba2-2.7b's SSD heads and N (P 64 as mamba2's)
+# zamba2-2.7b's engine max_len; the page-pressure pools of phase 13's and
+# phase 14's traces (each preempts twice); the f32 parity depth: 4 of the
+# 9 groups of attn_every 6, the deepest of 54/36/24 at which the plain
+# engine's f32 and f64 greedy streams agreed on the H100 (at 54 and 36 f32
+# rounding alone flips an argmax)
+Z_MAX_LEN, Z_TIGHT_PAGES, Z_PARITY_TIGHT_PAGES = 512, 48, 32
+Z_PARITY_LAYERS = 24
+# the kernels of the hybrid engine's path (no fused mixed step)
+HYBRID_KERNELS = ("paged_attention_bkgd", "paged_prefill_attention_ckgd",
+                  "ssd_scan_bshp", "ssd_decode_step_bh")
 # (kv heads, group, head_dim, page) of the paged int8 / head-dim checks:
 # smollm-360m, llama3-8b (32 / 8 heads, D 128) and zamba2-2.7b (D 80)
 PAGED_WIDTHS = {"smollm D64": (KVH, G, D, PAGE),
@@ -224,11 +275,18 @@ TIER_PARITY_PAGES = 80
 # device kernel names the trace windows count as paged / flash attention
 PAGED_TRACE_KEYS = ("paged_decode_split_kernel", "paged_decode_merge_kernel",
                     "paged_prefill_mma_kernel", "paged_prefill_f32_kernel")
-# (the kernel a bf16 window must show, the CUDA-core template it must not)
-PAGED_BF16_CHECK = ("paged_decode_split_kernel", "paged_prefill_f32_kernel")
+# (the kernels a bf16 window must show, the CUDA-core templates it must
+# not)
+PAGED_BF16_CHECK = (("paged_decode_split_kernel",),
+                    ("paged_prefill_f32_kernel",))
 SSD_TRACE_KEYS = ("ssd_scan_mma_kernel", "ssd_scan_kernel",
                   "ssd_decode_kernel")
-SSD_BF16_CHECK = ("ssd_scan_mma_kernel", "ssd_scan_kernel")
+SSD_BF16_CHECK = (("ssd_scan_mma_kernel",), ("ssd_scan_kernel",))
+# (the kernels a bf16 zamba2 window must show, the CUDA-core templates it
+# must not)
+ZAMBA_BF16_CHECK = (("paged_decode_split_kernel", "paged_prefill_mma_kernel",
+                     "ssd_scan_mma_kernel", "ssd_decode_kernel"),
+                    ("ssd_scan_kernel", "paged_prefill_f32_kernel"))
 FLASH_TRACE_KEYS = ("flash_attention_kernel", "flash_attention_mma_kernel")
 # smollm-360m's whole-prompt paths: q heads, the engines' shapes
 FLASH_H, LOCK_BATCH, LOCK_MAX_LEN, WHOLE_MAX_LEN = KVH * G, 8, 512, 1024
@@ -555,12 +613,15 @@ def _ssd_inputs(torch, g, b, s, dtype, layers=None, h=SSD_H, n=SSD_N):
     return x, dt, A, bc[0], bc[1]
 
 
-def check_ssd_kernels(torch, ops, sk):
-    """Both SSD kernels against their plain versions; returns the max abs
-    error per kernel over the bf16 cases and logs the f32 ones. Every bf16
-    scan must take the tensor-core kernel, every f32 one the CUDA-core
-    template (``LAUNCHES_BY_PATH``)."""
+def check_ssd_kernels(torch, ops, sk, engine_scans):
+    """Both SSD kernels against their plain versions, at mamba2-1.3b's and
+    zamba2-2.7b's SSD widths; ``engine_scans`` adds each (B, S, H, N)
+    whole-prompt scan from a zero state that the lockstep phases ran.
+    Returns the max abs error per kernel over the bf16 cases and logs the
+    f32 ones. Every bf16 scan must take the tensor-core kernel, every f32
+    one the CUDA-core template (``LAUNCHES_BY_PATH``)."""
     errs = {}
+    widths = ((SSD_H, SSD_N), ZAMBA_SSD)
 
     def compare(name, got, want, tol, label):
         torch.cuda.synchronize()
@@ -572,22 +633,23 @@ def check_ssd_kernels(torch, ops, sk):
                                  f"atol=rtol={tol} (max abs err {err})")
         return err
 
+    # (B, S, valid, init, H, N): at both widths the engine's chunk (a
+    # dt = 0 tail, or full) from a state; S 200 from zero; a whole
+    # 512-token prompt; the lockstep phases' prompts
+    cases = [(1, CHUNK, valid, True, h, n) for h, n in widths
+             for valid in (41, CHUNK)]
+    cases += [(2, 200, 200, False, SSD_H, SSD_N),
+              (1, 512, 512, False, SSD_H, SSD_N),
+              (2, 200, 200, False, *ZAMBA_SSD)]
+    cases += [(b, s, s, False, h, n) for b, s, h, n in engine_scans]
+    n_scans = len(cases) + 7 * len(widths)
     for dtype, tol in ((torch.bfloat16, SSD_BF16_TOL),
                        (torch.float32, SSD_F32_TOL)):
         label = str(dtype).removeprefix("torch.")
         g = torch.Generator(device="cuda").manual_seed(11)
         e_scan = 0.0
         sk.reset_launches()
-        # (B, S, valid, init, H, N): the engine's chunk (a dt = 0 tail, or
-        # full) from a state; S 200 from zero; a whole 512-token prompt;
-        # zamba2-2.7b's SSD widths (H 80, N 64)
-        for b, s, valid, with_init, h, n in (
-                (1, CHUNK, 41, True, SSD_H, SSD_N),
-                (1, CHUNK, CHUNK, True, SSD_H, SSD_N),
-                (2, 200, 200, False, SSD_H, SSD_N),
-                (1, 512, 512, False, SSD_H, SSD_N),
-                (1, CHUNK, 41, True, *ZAMBA_SSD),
-                (2, 200, 200, False, *ZAMBA_SSD)):
+        for b, s, valid, with_init, h, n in cases:
             x, dt, A, Bm, Cm = _ssd_inputs(torch, g, b, s, dtype, h=h, n=n)
             dt[:, valid:] = 0.0
             init = (torch.randn(b, h, SSD_P, n, generator=g, device="cuda")
@@ -600,49 +662,64 @@ def check_ssd_kernels(torch, ops, sk):
             e_scan = max(e_scan,
                          compare("ssd_scan_bshp y", y, yr, tol, case),
                          compare("ssd_scan_bshp state", fs, fsr, tol, case))
-        # the engine's pattern: 7 chained 64-token calls carrying the state
-        # against one plain call over the 448 tokens
-        x, dt, A, Bm, Cm = _ssd_inputs(torch, g, 1, 7 * CHUNK, dtype)
-        init = torch.randn(1, SSD_H, SSD_P, SSD_N, generator=g, device="cuda")
-        yr, fsr = ops.ssd_scan(x, dt, A, Bm, Cm, init_state=init, impl="ref")
-        fs, ys = init, []
-        for k in range(7):
-            sl = slice(k * CHUNK, (k + 1) * CHUNK)
-            y, fs = ops.ssd_scan(x[:, sl], dt[:, sl], A, Bm[:, sl],
-                                 Cm[:, sl], init_state=fs, chunk=CHUNK)
-            ys.append(y)
-        case = f"{label} 7 chained chunks"
-        e_scan = max(e_scan,
-                     compare("ssd_scan_bshp y", torch.cat(ys, 1), yr, tol,
-                             case),
-                     compare("ssd_scan_bshp state", fs, fsr, tol, case))
+        # the engines' pattern: 7 chained 64-token calls carrying the
+        # state against one plain call over the 448 tokens
+        for h, n in widths:
+            x, dt, A, Bm, Cm = _ssd_inputs(torch, g, 1, 7 * CHUNK, dtype,
+                                           h=h, n=n)
+            init = torch.randn(1, h, SSD_P, n, generator=g, device="cuda")
+            yr, fsr = ops.ssd_scan(x, dt, A, Bm, Cm, init_state=init,
+                                   impl="ref")
+            fs, ys = init, []
+            for k in range(7):
+                sl = slice(k * CHUNK, (k + 1) * CHUNK)
+                y, fs = ops.ssd_scan(x[:, sl], dt[:, sl], A, Bm[:, sl],
+                                     Cm[:, sl], init_state=fs, chunk=CHUNK)
+                ys.append(y)
+            case = f"{label} 7 chained chunks H={h} N={n}"
+            e_scan = max(e_scan,
+                         compare("ssd_scan_bshp y", torch.cat(ys, 1), yr,
+                                 tol, case),
+                         compare("ssd_scan_bshp state", fs, fsr, tol, case))
         paths = dict(sk.LAUNCHES_BY_PATH)
         want = "mma" if dtype == torch.bfloat16 else "cuda_core"
-        if paths[want] != 13 or sum(paths.values()) != 13:
+        if paths[want] != n_scans or sum(paths.values()) != n_scans:
             raise AssertionError(f"{label} scans took {paths}, expected all "
-                                 f"13 through {want}")
-        state = torch.randn(SLOTS, SSD_H, SSD_P, SSD_N, generator=g,
-                            device="cuda")
-        x, dt, A, Bm, Cm = _ssd_inputs(torch, g, SLOTS, 1, dtype)
-        step = (x[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0])
-        active = torch.tensor([1, 0, 1, 1, 0, 1, 0, 1], dtype=torch.int32,
-                              device="cuda")
-        yr, sr = ops.ssd_decode_step(state.clone(), *step, active=active,
-                                     impl="ref")
-        old = state.clone()
-        y, s_out = ops.ssd_decode_step(state, *step, active=active)
-        if s_out.data_ptr() != state.data_ptr():
-            raise AssertionError("ssd_decode_step_bh: made a copy of the "
-                                 "state instead of advancing it in place")
-        idle = active == 0
-        if not torch.equal(state[idle], old[idle]):
-            raise AssertionError("ssd_decode_step_bh: an idle slot's state "
-                                 "changed")
-        e_dec = max(compare("ssd_decode_step_bh y", y, yr, tol, label),
-                    compare("ssd_decode_step_bh state", state, sr, tol,
-                            label))
-        log(f"ssd kernel check {label}: scan {e_scan:.3e} (paths {paths}), "
-            f"decode {e_dec:.3e} (atol=rtol={tol}); idle slots untouched")
+                                 f"{n_scans} through {want}")
+        # the decode step at the engines' SLOTS rows: gated by an active
+        # vector with idle rows (the SSM engine), and ungated (lockstep)
+        e_dec = 0.0
+        for h, n in widths:
+            x, dt, A, Bm, Cm = _ssd_inputs(torch, g, SLOTS, 1, dtype, h=h,
+                                           n=n)
+            step = (x[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0])
+            for active in (torch.tensor([1, 0, 1, 1, 0, 1, 0, 1],
+                                        dtype=torch.int32, device="cuda"),
+                           None):
+                state = torch.randn(SLOTS, h, SSD_P, n, generator=g,
+                                    device="cuda")
+                yr, sr = ops.ssd_decode_step(state.clone(), *step,
+                                             active=active, impl="ref")
+                old = state.clone()
+                y, s_out = ops.ssd_decode_step(state, *step, active=active)
+                case = f"{label} H={h} N={n} active={active is not None}"
+                if s_out.data_ptr() != state.data_ptr():
+                    raise AssertionError(f"ssd_decode_step_bh [{case}]: made "
+                                         f"a copy of the state instead of "
+                                         f"advancing it in place")
+                if active is not None:
+                    idle = active == 0
+                    if not torch.equal(state[idle], old[idle]):
+                        raise AssertionError(f"ssd_decode_step_bh [{case}]: "
+                                             f"an idle slot's state changed")
+                e_dec = max(e_dec,
+                            compare("ssd_decode_step_bh y", y, yr, tol, case),
+                            compare("ssd_decode_step_bh state", state, sr,
+                                    tol, case))
+        log(f"ssd kernel check {label}: {n_scans} scans (H/N {widths}; "
+            f"lockstep (B, S, H, N) {engine_scans}) {e_scan:.3e} (paths "
+            f"{paths}), decode at {SLOTS} slots, gated and not, "
+            f"{e_dec:.3e} (atol=rtol={tol}); idle slots untouched")
         if dtype == torch.bfloat16:
             errs = {"ssd_scan_bshp": e_scan, "ssd_decode_step_bh": e_dec}
     return errs
@@ -879,8 +956,9 @@ def _trace(torch, make_engine, reqs, kernel_keys, label, check=None):
     activities whose name holds one of ``kernel_keys``, also logged kernel
     by kernel. The raw events are read, not ``key_averages()``, which takes
     minutes over a window's several hundred thousand events.
-    ``check``: (a kernel the window must show, one it must not), for a
-    bf16 engine (PAGED_BF16_CHECK, SSD_BF16_CHECK)."""
+    ``check``: (the kernels the window must show, the ones it must not),
+    for a bf16 engine (PAGED_BF16_CHECK, SSD_BF16_CHECK,
+    ZAMBA_BF16_CHECK)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -908,13 +986,15 @@ def _trace(torch, make_engine, reqs, kernel_keys, label, check=None):
         if hits:
             ms, n = sum(h[0] for h in hits), sum(h[1] for h in hits)
             log(f"trace kernel: {key} {ms:.2f} ms x{n} "
-                f"({1e3 * ms / n:.2f} us each)")
+                f"({1e3 * ms / n:.2f} us each) = "
+                f"{100 * ms / busy_ms:.1f}% of busy")
     if check:
         shown, barred = check
-        stale = [name for name in by_name if barred in name]
-        if stale or not any(shown in name for name in by_name):
+        stale = [name for name in by_name if any(b in name for b in barred)]
+        missing = [k for k in shown if not any(k in name for name in by_name)]
+        if stale or missing:
             raise AssertionError(f"a bf16 window ran a CUDA-core template "
-                                 f"or no {shown}: {stale}")
+                                 f"or missed {missing}: {stale}")
     top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:6]
     log(f"trace: {steps} steps in {wall_ms:.1f} ms wall "
         f"({wall_ms / steps:.2f} ms/step); device busy {busy_ms:.1f} ms = "
@@ -995,7 +1075,7 @@ def run_parity(torch, np, cfg, serving, models):
 
 
 # ---------------------------------------------------------------------------
-# phases 14-16: int8 pages and the KV tiers in the engine
+# phases 18-20: int8 pages and the KV tiers in the engine
 # ---------------------------------------------------------------------------
 
 
@@ -1320,11 +1400,12 @@ def _flash_plain(ref, q, k, v, causal):
     return out.transpose(1, 2)
 
 
-def check_flash(torch, fk, ref, engine_shapes):
+def check_flash(torch, fk, ref, engine_shapes, d80_shapes):
     """The flash kernel against its plain version at smollm widths: fixed
     ragged and contract cases, every whole-prompt bucket, and each
     (B, S) in ``engine_shapes`` (the prefills the engine phases ran); then
-    at zamba2's D 80 (32 heads, G 1) and llama3's D 128 (32 / 8 heads),
+    at zamba2's D 80 (32 heads, G 1; with each (B, S) in ``d80_shapes``,
+    the lockstep zamba2 prefills) and llama3's D 128 (32 / 8 heads),
     causal and not. Returns the max abs error over the smollm bf16 cases
     and logs the rest."""
     cases = [(LOCK_BATCH, s, s, True) for s in (1, 64, 100, 256, 300, 512)]
@@ -1337,6 +1418,7 @@ def check_flash(torch, fk, ref, engine_shapes):
                  (2, 37, 300, False), (1, 64, 320, True)]
     d128_cases = d80_cases + [(1, 512, 512, True), (LOCK_BATCH, 256, 256,
                                                      True)]
+    d80_cases += [(b, s, s, True) for b, s in sorted(set(d80_shapes))]
     widths = {"smollm": (FLASH_WIDTHS["smollm D64"], cases),
               "D 80": (FLASH_WIDTHS["zamba2 D80"], d80_cases),
               "D 128": (FLASH_WIDTHS["llama3 D128"], d128_cases)}
@@ -1369,8 +1451,9 @@ def check_flash(torch, fk, ref, engine_shapes):
             f"{sorted(set(engine_shapes))}): max abs err "
             f"{worst['smollm']:.3e} (bound {tol})")
         log(f"flash kernel check {label} D 80 (32 heads, G 1; causal 100, "
-            f"256 and 64 < 320, non-causal 37 x 300): max abs err "
-            f"{worst['D 80']:.3e} (bound {tol})")
+            f"256 and 64 < 320, non-causal 37 x 300; lockstep zamba2 (B, S) "
+            f"{sorted(set(d80_shapes))}): max abs err {worst['D 80']:.3e} "
+            f"(bound {tol})")
         log(f"flash kernel check {label} D 128 (32 / 8 heads; the D 80 cases"
             f", B 1 x 512 and B 8 x 256): max abs err {worst['D 128']:.3e} "
             f"(bound {tol})")
@@ -1740,6 +1823,314 @@ def run_mamba_parity(torch, np, cfg, serving, models):
         f"one discard preemption")
 
 
+# ---------------------------------------------------------------------------
+# phases 13-16: the zamba2 hybrid engine, the ssm/hybrid lockstep engine
+# ---------------------------------------------------------------------------
+
+
+def _path_launches(pk, sk, fk=None):
+    """The launch counts of every kernel since the last reset."""
+    out = {**pk.LAUNCHES, **sk.LAUNCHES}
+    if fk is not None:
+        out.update(fk.LAUNCHES)
+    return out
+
+
+def _check_scans_mma(sk, what):
+    paths = dict(sk.LAUNCHES_BY_PATH)
+    if paths != {"mma": sk.LAUNCHES["ssd_scan_bshp"], "cuda_core": 0}:
+        raise AssertionError(f"{what}: a bf16 scan left the tensor-core "
+                             f"kernel: {paths}")
+    return paths
+
+
+def run_zamba_engine(torch, np, cfg, serving, models, pk, sk, card):
+    """Full-width zamba2-2.7b through the hybrid SSM engine, with an ample
+    pool and with one that preempts; returns {path: the hybrid path's
+    kernels' launch counts} for both runs."""
+    params = models.build_model(cfg, device="cuda").init(seed=0)
+    kw = dict(max_len=Z_MAX_LEN, max_slots=SLOTS, prefill_chunk=CHUNK,
+              page_size=PAGE, device="cuda")
+    rng = np.random.default_rng(60)
+    # warm-up (cuBLAS handles, allocator, first launches): not measured
+    _drive(torch, serving.SSMEngine(cfg, params, **kw),
+           _random_requests(serving, 2, rng, 2, lo=64, hi=400, max_new=4,
+                            uid="z", vocab=cfg.vocab_size, seed0=4000))
+    out = {}
+    for path, pages, seed in (("zamba2", None, 61),
+                              ("zamba2 page pressure", Z_TIGHT_PAGES, 62)):
+        engine = serving.SSMEngine(cfg, params, num_pages=pages, **kw)
+        reqs = _random_requests(serving, 8, np.random.default_rng(seed), 2,
+                                lo=64, hi=400, max_new=24, uid="z",
+                                vocab=cfg.vocab_size, seed0=4000)
+        pk.reset_launches()
+        sk.reset_launches()
+        t0 = time.perf_counter()
+        handles, steps = _drive(torch, engine, reqs)
+        wall = time.perf_counter() - t0
+        launches = _path_launches(pk, sk)
+        paths = _check_scans_mma(sk, path)
+        results = [h.result() for h in handles]
+        _check_served(np, cfg, results, 24)
+        if not all(launches[k] > 0 for k in HYBRID_KERNELS):
+            raise AssertionError(f"{path}: a kernel of the hybrid path never "
+                                 f"ran: {launches}")
+        if launches["paged_mixed_attention_rkgd"] != 0:
+            raise AssertionError(f"{path}: the hybrid engine ran a mixed "
+                                 f"step: {launches}")
+        st = engine.stats
+        if (st["preemptions"] > 0) != (pages is not None):
+            raise AssertionError(f"{path}: preemptions {st['preemptions']} "
+                                 f"with num_pages {pages}")
+        _log_run(path, cfg, card, reqs, results, wall, steps,
+                 f"decode_steps {st['decode_steps']}, prefill_chunks "
+                 f"{st['prefill_chunks']}, preemptions {st['preemptions']}, "
+                 f"pool {engine.cache.num_pages - 1} pages of "
+                 f"{engine.cache.page_nbytes} B over "
+                 f"{cfg.num_layers // cfg.attn_every} attention layers; "
+                 f"kernel launches {launches} (scan paths {paths}); peak "
+                 f"device memory "
+                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        log("utilization: " + engine.utilization.format())
+        out[path] = {k: launches[k] for k in HYBRID_KERNELS}
+        del engine
+    _trace(torch, lambda: serving.SSMEngine(cfg, params, **kw),
+           _random_requests(serving, 8, np.random.default_rng(63), 0, lo=64,
+                            hi=400, max_new=24, uid="z", vocab=cfg.vocab_size,
+                            seed0=4000),
+           PAGED_TRACE_KEYS + SSD_TRACE_KEYS, "paged + SSD kernels",
+           check=ZAMBA_BF16_CHECK)
+    return out
+
+
+def _hybrid_chunk_logits(torch, np, model, serving, impl):
+    """Logits of one 64-token prompt chunk (valid 50) from a zero state
+    into an empty pool, through ``prefill_chunk_hybrid``."""
+    cfg = model.cfg
+    model.attn_impl = model.ssd_impl = impl
+    dt = getattr(torch, cfg.dtype)
+    shape = (cfg.num_layers // cfg.attn_every, 6, PAGE, cfg.eff_kv_heads,
+             cfg.head_dim)  # null page, 4 pages, sink
+    pages = {k: torch.zeros(shape, dtype=dt, device="cuda")
+             for k in ("k", "v")}
+    bank = serving.SlotStateBank(cfg, 1, dt, device="cuda")
+    row = torch.tensor([1, 2, 3, 4], dtype=torch.int32, device="cuda")
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        1, cfg.vocab_size, CHUNK).astype(np.int32)).cuda()
+    _, logits = model.prefill_chunk_hybrid(pages, bank.state, row, toks, 0,
+                                           50)
+    return logits[:cfg.vocab_size].double()
+
+
+def _first_diffs(a, b):
+    """Per stream, the index of the first token where two runs differ
+    (None where equal)."""
+    return [next((i for i, (x, y) in enumerate(zip(ra, rb)) if x != y),
+                 None) for ra, rb in zip(a, b)]
+
+
+def _plain_f32_streams(torch, np, cfg, serving, models, requests, kw):
+    """The plain engine's greedy streams at Z_PARITY_LAYERS in f32, held
+    equal to those with f64 weights, activations and matmuls (the plain
+    versions' norms, attention and SSD sums stay f32): f32 rounding flips
+    no greedy decision of the stream check. Prints the one-chunk gaps
+    (kernels - plain, plain f32 - f64) beside the top-2 margin."""
+    logits, streams = {}, {}
+    for dtype in ("float32", "float64"):
+        c = dataclasses.replace(cfg, dtype=dtype, num_layers=Z_PARITY_LAYERS)
+        model = models.build_model(c, device="cuda")
+        params = model.init(seed=1)
+        if dtype == "float32":
+            logits["kernel"] = _hybrid_chunk_logits(torch, np, model,
+                                                    serving, "auto")
+        logits[dtype] = _hybrid_chunk_logits(torch, np, model, serving,
+                                             "ref")
+        streams[dtype] = _ssm_streams(torch, serving.SSMEngine(
+            c, params, attn_impl="ref", ssd_impl="ref", **kw), requests())
+        del model, params
+    a, b, c = logits["kernel"], logits["float32"], logits["float64"]
+    top2 = c.topk(2).values
+    log(f"zamba2 parity: f32, TF32 off, {Z_PARITY_LAYERS} layers, one "
+        f"64-token chunk (valid 50): max |logit kernel - plain| = "
+        f"{(a - b).abs().max().item():.3e}, plain f32 - f64 = "
+        f"{(b - c).abs().max().item():.3e}, argmax {a.argmax().item()} / "
+        f"{b.argmax().item()} / {c.argmax().item()}, f64 top-2 margin "
+        f"{(top2[0] - top2[1]).item():.3e}")
+    diffs = _first_diffs(streams["float32"], streams["float64"])
+    if any(d is not None for d in diffs):
+        raise AssertionError(f"at {Z_PARITY_LAYERS} layers the plain path's "
+                             f"f32 and f64 greedy streams differ (first "
+                             f"differing token per stream {diffs})")
+    return streams["float32"]
+
+
+def _ssm_streams(torch, engine, reqs):
+    handles, _ = _drive(torch, engine, reqs)
+    return [list(h.tokens) for h in handles]
+
+
+def run_zamba_parity(torch, np, cfg, serving, models):
+    """f32 with TF32 off, at Z_PARITY_LAYERS: the plain streams agree
+    with f64 (``_plain_f32_streams``), the hybrid engine's greedy streams
+    through the kernels = through the plain versions = under page-pressure
+    preemption, and snapshot preemption of a hybrid slot refused."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = dict(max_len=Z_MAX_LEN, max_slots=4, prefill_chunk=CHUNK,
+              page_size=PAGE, device="cuda")
+
+    def requests():
+        return _random_requests(serving, 5, np.random.default_rng(3), 0,
+                                lo=70, hi=200, max_new=16, uid="z",
+                                vocab=cfg.vocab_size, seed0=4000)
+
+    plain = _plain_f32_streams(torch, np, cfg, serving, models, requests,
+                               kw)
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                num_layers=Z_PARITY_LAYERS)
+    params = models.build_model(cfg32, device="cuda").init(seed=1)
+    streams = _ssm_streams(torch, serving.SSMEngine(cfg32, params, **kw),
+                           requests())
+    if streams != plain:
+        raise AssertionError(f"f32 kernel vs plain streams differ at "
+                             f"{_first_diffs(streams, plain)}")
+    tight = serving.SSMEngine(cfg32, params, num_pages=Z_PARITY_TIGHT_PAGES,
+                              **kw)
+    if _ssm_streams(torch, tight, requests()) != streams:
+        raise AssertionError("streams under page-pressure preemption differ "
+                             "from the undisturbed run")
+    if tight.stats["preemptions"] == 0:
+        raise AssertionError(f"{Z_PARITY_TIGHT_PAGES} pages never preempted")
+    engine = serving.SSMEngine(cfg32, params, **kw)
+    engine.submit(requests()[0])
+    while not engine._has_decodable():
+        engine.step()
+    try:
+        engine.preempt_youngest(snapshot=True)
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("snapshot preemption of a hybrid slot passed")
+    engine.abort_all()
+    _drive(torch, engine, [])
+    log(f"zamba2 parity: {Z_PARITY_LAYERS} layers, full width: "
+        f"{len(streams)} greedy streams of 16 tokens identical through "
+        f"kernels and plain versions, and through "
+        f"{tight.stats['preemptions']} page-pressure "
+        f"preemptions ({Z_PARITY_TIGHT_PAGES} pages); snapshot preemption "
+        f"refused: {refusal}")
+
+
+def run_lockstep_ssm(torch, np, cfgs, serving, models, fk, pk, sk, card):
+    """Full-width mamba2-1.3b and zamba2-2.7b through the lockstep engine;
+    returns {path: kernel launches} (scan, SSD decode, zamba2's flash) and
+    {arch: the (B, S) of its prefills}."""
+    out, shapes = {}, {}
+    kw = dict(max_len=LOCK_MAX_LEN, max_batch=LOCK_BATCH, device="cuda")
+    for name, cfg in cfgs.items():
+        params = models.build_model(cfg, device="cuda").init(seed=0)
+        vocab = cfg.vocab_size
+        rng = np.random.default_rng(70)
+        _drive(torch, serving.GenerationEngine(cfg, params, **kw),
+               _random_requests(serving, 2, rng, 2, lo=64, hi=256, max_new=4,
+                                uid="s", vocab=vocab, seed0=5000))
+        engine = serving.GenerationEngine(cfg, params, **kw)
+        prefills = _record_prefills(engine.model)
+        reqs = _random_requests(serving, 8, rng, 2, lo=64, hi=256,
+                                max_new=16, uid="s", vocab=vocab, seed0=5000)
+        for mod in (fk, pk, sk):
+            mod.reset_launches()
+        t0 = time.perf_counter()
+        handles, steps = _drive(torch, engine, reqs)
+        wall = time.perf_counter() - t0
+        launches = _path_launches(pk, sk, fk)
+        paths = _check_scans_mma(sk, f"lockstep {name}")
+        results = [h.result() for h in handles]
+        _check_served(np, cfg, results, 16)
+        want = ["ssd_scan_bshp", "ssd_decode_step_bh"]
+        # per prefilled batch: one scan per Mamba layer, one flash call per
+        # shared-block occurrence
+        exact = {"ssd_scan_bshp": cfg.num_layers * len(prefills)}
+        if cfg.family == "hybrid":
+            want.append("flash_attention_bhsd")
+            exact["flash_attention_bhsd"] = (
+                cfg.num_layers // cfg.attn_every * len(prefills))
+        if (not all(launches[k] > 0 for k in want)
+                or any(launches[k] != n for k, n in exact.items())
+                or any(launches[k] for k in pk.LAUNCHES)):
+            raise AssertionError(f"lockstep {name}: launches {launches}, "
+                                 f"{len(prefills)} prefilled batches")
+        _log_run(f"lockstep {name}", cfg, card, reqs, results, wall, steps,
+                 f"{len(prefills)} prefilled batches (B, S) {prefills}; "
+                 f"kernel launches {launches} (scan paths {paths})")
+        out[f"lockstep {name}"] = {k: launches[k] for k in want}
+        shapes[name] = prefills
+        del engine, params
+    return out, shapes
+
+
+def run_lockstep_ssm_parity(torch, np, cfgs, depths, serving, models):
+    """f32, TF32 off, at each arch's parity depth: 5 equal-length prompts
+    (one batch with no left padding) give the same greedy streams through
+    the lockstep engine as through the SSM engine, as
+    ``tests/test_ssm_engine.py:285`` asserts on the CPU."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for name, cfg in cfgs.items():
+        cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                    num_layers=depths[name])
+        params = models.build_model(cfg32, device="cuda").init(seed=1)
+        rng = np.random.default_rng(8)
+        prompts = [rng.integers(1, cfg.vocab_size, 160).tolist()
+                   for _ in range(5)]
+
+        def requests():
+            return [serving.Request(f"e{i}", list(p), sampling=serving
+                                    .SamplingParams(max_new_tokens=16))
+                    for i, p in enumerate(prompts)]
+
+        lock = _ssm_streams(torch, serving.GenerationEngine(
+            cfg32, params, max_len=LOCK_MAX_LEN, max_batch=LOCK_BATCH,
+            device="cuda"), requests())
+        ssm = _ssm_streams(torch, serving.SSMEngine(
+            cfg32, params, max_len=LOCK_MAX_LEN, max_slots=SLOTS,
+            prefill_chunk=CHUNK, device="cuda"), requests())
+        if lock != ssm:
+            raise AssertionError(f"{name}: lockstep vs SSM engine streams "
+                                 f"differ at {_first_diffs(lock, ssm)}")
+        log(f"lockstep parity: {name}, f32, {depths[name]} layers, full "
+            f"width: 5 greedy streams of 16 tokens (prompts of 160) "
+            f"identical through the lockstep and SSM engines")
+        del params
+
+
+def run_serve_ssm(card):
+    """The serving driver at full width on the recurrent families: zamba2
+    through the SSM engine, mamba2 through lockstep."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    with tempfile.TemporaryDirectory(prefix="serve_ssm_") as tmp:
+        for args, kind in ((["--arch", "zamba2-2.7b"], "ssm"),
+                           (["--engine", "lockstep", "--arch",
+                             "mamba2-1.3b"], "lockstep")):
+            t0 = time.perf_counter()
+            run = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.serve", *args,
+                 "--requests", "8", "--max-new", "8", "--workdir",
+                 f"{tmp}/{kind}"],
+                capture_output=True, text=True, env=env, timeout=300,
+                cwd=ROOT)
+            if run.returncode != 0:
+                raise AssertionError(f"serve {args} exited "
+                                     f"{run.returncode}: {run.stderr[-2000:]}")
+            if ("served 8/8" not in run.stdout
+                    or f"engine={kind}" not in run.stdout):
+                raise AssertionError(f"serve {args}: {run.stdout[-2000:]}")
+            served = next(line for line in run.stdout.splitlines()
+                          if line.startswith("served"))
+            log(f"serve driver {' '.join(args)} on {card} "
+                f"({time.perf_counter() - t0:.1f} s with start-up): {served}")
+
+
 # the bf16 tensor-core kernels: library -> (C info entry, its page kinds)
 MMA_KERNELS = {"flash_attention": ("flash_attention_mma_info", (None,)),
                "paged_attention": ("paged_attention_prefill_mma_info",
@@ -1944,21 +2335,43 @@ def main() -> int:
     for name, n in paged.items():
         by_path[name]["whole-prompt"] = n
     lap("flash timing, lockstep, whole-prompt")
-    errs.update(check_flash(torch, fk, ref, lock_shapes + whole_shapes))
-    lap("flash check")
     run_whole_prompt_parity(torch, np, cfg, serving, models)
     lap("whole-prompt parity")
-    errs.update(check_ssd_kernels(torch, ops, sk))
     times.update(time_ssd_kernels(torch, ops, sk))
-    lap("ssd check and timing")
+    lap("ssd timing")
     mcfg = get_arch("mamba2-1.3b")
     for name, n in run_mamba_engine(torch, np, mcfg, serving, models, sk,
                                     card).items():
         by_path[name]["mamba2"] = n
     lap("mamba2 engine")
     run_mamba_parity(torch, np, mcfg, serving, models)
-
     lap("mamba2 parity")
+    zcfg = get_arch("zamba2-2.7b")
+    for path, counts in run_zamba_engine(torch, np, zcfg, serving, models,
+                                         pk, sk, card).items():
+        for name, n in counts.items():
+            by_path[name][path] = n
+    lap("zamba2 engine")
+    run_zamba_parity(torch, np, zcfg, serving, models)
+    lap("zamba2 parity")
+    ssm_cfgs = {"mamba2": mcfg, "zamba2": zcfg}
+    counts_by_path, ssm_shapes = run_lockstep_ssm(
+        torch, np, ssm_cfgs, serving, models, fk, pk, sk, card)
+    for path, counts in counts_by_path.items():
+        for name, n in counts.items():
+            by_path[name][path] = n
+    run_lockstep_ssm_parity(torch, np, ssm_cfgs, {
+        "mamba2": mcfg.num_layers, "zamba2": Z_PARITY_LAYERS}, serving, models)
+    lap("lockstep ssm/hybrid")
+    # the flash and SSD checks, at every shape the engines gave the kernels
+    errs.update(check_flash(torch, fk, ref, lock_shapes + whole_shapes,
+                            ssm_shapes["zamba2"]))
+    errs.update(check_ssd_kernels(torch, ops, sk, [
+        (b, s, c.ssm_heads, c.ssm_state) for name, c in ssm_cfgs.items()
+        for b, s in ssm_shapes[name]]))
+    lap("flash and ssd checks")
+    run_serve_ssm(card)
+    lap("ssm serve driver")
     int8_times = time_kernels(torch, F, ops, ref, quant=True)
     for wname in PAGED_WIDTHS:
         if wname != MAIN_WIDTH:

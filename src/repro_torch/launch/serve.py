@@ -4,8 +4,9 @@ streaming deltas.
 Requests land on the ``requests`` topic (Kafka analogue). Worker threads
 each drive one engine — :class:`repro_torch.serving.ContinuousBatchingEngine`
 for the dense family (``--prefill-chunk 0``: whole-prompt prefill),
-:class:`repro_torch.serving.GenerationEngine` for ``--engine lockstep``,
-:class:`repro_torch.serving.SSMEngine` for the pure-SSM (mamba2) family —
+:class:`repro_torch.serving.SSMEngine` for the ssm (mamba2) and hybrid
+(zamba2) families, :class:`repro_torch.serving.GenerationEngine` for
+``--engine lockstep`` (dense, ssm and hybrid) —
 through the engine protocol: pull up to
 ``engine.capacity()`` messages,
 parse them with the shared boundary parser, ``submit()``, and publish each
@@ -23,6 +24,8 @@ attention and SSD versions on the CPU, for tests and reduced configs):
       --requests 12 --shared-prefix 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
       --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
+      --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --engine lockstep \\
       --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
@@ -37,11 +40,11 @@ directory prefetches the prefixes back instead of prefilling them.
 ``--kv-quant int8`` stores the pages as int8 with f32 scales, dequantized
 inside the paged kernels.
 
-Only the driver role of the paged, lockstep and SSM engines is ported: the
-hybrid (zamba2) family (ROADMAP A.8b), ``--fleet`` and ``--role worker``
-(A.9) raise or exit with a message naming their ROADMAP item; the JAX
-package's mesh and speculation flags have no counterpart yet (ROADMAP
-A.6, A.10).
+Only the driver role of the paged, lockstep and SSM engines is ported:
+the moe and vlm families (ROADMAP A.7), encoder-decoder configs (A.11),
+``--fleet`` and ``--role worker`` (A.9) raise or exit with a message
+naming their ROADMAP item; the JAX package's mesh and speculation flags
+have no counterpart yet (ROADMAP A.6, A.10).
 """
 
 from __future__ import annotations
@@ -59,7 +62,11 @@ _NOT_PORTED = {
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--arch", default="smollm-360m",
+                    help="a config of repro_torch.configs: dense (e.g. "
+                         "smollm-360m: paged or lockstep), ssm (mamba2-1.3b) "
+                         "or hybrid (zamba2-2.7b): the SSM engine, or "
+                         "lockstep")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="where the model, page pool and steps live "
@@ -106,8 +113,8 @@ def main() -> int:
                          "the plain versions on the CPU; 'ref': the plain "
                          "versions everywhere")
     ap.add_argument("--ssd-impl", default="auto", choices=["auto", "ref"],
-                    help="the same choice for the SSM engine's SSD scan and "
-                         "decode step")
+                    help="the same choice for the SSD scan and decode step "
+                         "(SSM engine and lockstep)")
     ap.add_argument("--fleet", type=int, default=0, metavar="N")
     ap.add_argument("--role", choices=["driver", "worker"], default="driver")
     ap.add_argument("--workdir", default="experiments/serve_run_torch")
@@ -139,12 +146,13 @@ def main() -> int:
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    ssm_ok = cfg.family in ("ssm", "hybrid")  # hybrid: SSMEngine raises
+    ssm_ok = cfg.family in ("ssm", "hybrid")
     if cfg.is_encoder_decoder or not (ssm_ok or cfg.family == "dense"):
         raise UnsupportedConfigError(
-            f"{cfg.name} (family={cfg.family!r}): only the dense (paged, "
-            f"lockstep) and the pure-SSM engines are ported (ROADMAP A.7, "
-            f"A.11)")
+            f"{cfg.name} (family={cfg.family!r}): the port serves the dense "
+            f"(paged, lockstep), ssm and hybrid (SSM engine, lockstep) "
+            f"families; moe/vlm wait for ROADMAP A.7, encoder-decoder for "
+            f"A.11")
     use_ssm = args.engine == "paged" and ssm_ok
     use_paged = args.engine == "paged" and not ssm_ok
     workdir = Path(args.workdir)
@@ -181,11 +189,12 @@ def main() -> int:
                 "deadline": DeadlineAdmission}
 
     def make_engine():
-        if args.engine == "lockstep":  # GenerationEngine refuses non-dense
+        if args.engine == "lockstep":
             return GenerationEngine(
                 cfg, params, max_len=max_len, max_batch=args.max_batch,
                 admission=policies[args.admission](),
-                attn_impl=args.attn_impl, device=args.device,
+                attn_impl=args.attn_impl, ssd_impl=args.ssd_impl,
+                device=args.device,
             )
         if use_ssm:
             return SSMEngine(
@@ -193,6 +202,7 @@ def main() -> int:
                 max_slots=max(args.max_batch, 2),
                 prefill_chunk=args.prefill_chunk or None,
                 admission=policies[args.admission](),
+                attn_impl=args.attn_impl,
                 ssd_impl=args.ssd_impl,
                 device=args.device,
             )

@@ -4,8 +4,8 @@
     params = model.init(seed)           # seeded random weights (state dict)
     model.load_state_dict(params_from_jax(cfg, tree))  # or the JAX weights
 
-The dense and ssm decoders are ported; the encoder-decoder (whisper)
-family waits for ROADMAP A.11.
+The dense, ssm and hybrid decoders are ported; the moe and vlm families
+wait for ROADMAP A.7, the encoder-decoder (whisper) family for A.11.
 """
 
 from __future__ import annotations

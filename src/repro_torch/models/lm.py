@@ -1,30 +1,37 @@
-"""Decoder-only LM, dense and ssm families, with the serving entry points.
+"""Decoder-only LM, dense, ssm and hybrid families, with the serving entry
+points.
 
 One ``nn.Module`` holding the same stacked ``(L, ...)`` parameters as
 ``repro/models/lm.py`` (names ``embed``, ``final_norm``, ``layers.ln1``,
 ``layers.attn.wq`` ... for dense, ``layers.ln``, ``layers.mamba.w_z`` ...
-for ssm), on an explicit device. The entry points serve the engines, each
-a Python loop over the layers:
+for ssm and hybrid, plus the hybrid's unstacked ``shared.{ln1, attn, ln2,
+mlp}`` block), on an explicit device. The hybrid (Zamba2) stack is
+``L // attn_every`` groups, each the shared attention + MLP block (the
+same weights every time, its own KV layer each time) followed by
+``attn_every`` Mamba2 layers. The entry points serve the engines, each a
+Python loop over the layers:
 
-  * dense, dense per-sequence KV cache (the lockstep engine, and the
-    whole-prompt admission of the paged engine): ``init_cache``,
-    ``prefill`` (a whole padded batch of prompts through the flash kernel,
-    K/V padded to ``max_len``) and ``decode_step`` (one token per row, the
-    cache written in place);
+  * dense, ssm and hybrid, dense per-sequence cache (the lockstep engine,
+    and the whole-prompt admission of the paged engine): ``init_cache``,
+    ``prefill`` (a whole padded batch of prompts; attention through the
+    flash kernel, K/V padded to ``max_len``; Mamba layers through
+    ``mamba_block``, the scan from a zero state) and ``decode_step`` (one
+    token per row, the cache written in place);
   * dense (paged KV pool, written in place):
     ``decode_step_paged`` (one token per in-flight slot), ``prefill_chunk``
     (one fixed-size prompt chunk of one sequence), ``mixed_step_paged``
     (decode rows + one chunk in one pass);
   * ssm (per-slot recurrent state bank): ``decode_step_ssm`` (one token per
     slot, the bank advanced in place) and ``prefill_chunk_ssm`` (one chunk
-    of one sequence from its carried state).
+    of one sequence from its carried state);
+  * hybrid (a ``L // attn_every``-layer paged pool beside the state bank):
+    ``decode_step_hybrid`` and ``prefill_chunk_hybrid``.
 
 Each returns f32 logits. Vocab is padded to a multiple of 256, as in the
 JAX package.
 
 Not ported yet: training (``loss_fn``, A.11), ``verify_step_paged``
-(A.6), the ssm family's dense-cache ``prefill``/``decode_step``, and the
-moe, vlm (A.7) and hybrid (A.8b) families.
+(A.6), and the moe and vlm families (A.7).
 """
 
 from __future__ import annotations
@@ -47,7 +54,6 @@ VOCAB_PAD_MULTIPLE = 256
 _NOT_PORTED = {
     "moe": "ROADMAP A.7 (moe family)",
     "vlm": "ROADMAP A.7 (vlm path)",
-    "hybrid": "ROADMAP A.8b (hybrid zamba2 engine)",
     "audio": "ROADMAP A.11 (encoder-decoder)",
 }
 
@@ -83,14 +89,15 @@ def _register(module: nn.Module, specs: dict, default_dtype: str,
 
 
 class DecoderLM(nn.Module):
-    """Dense or ssm decoder-only LM; the port's counterpart of ``repro``'s
-    ``DecoderLM`` for the paged and recurrent-state serving paths."""
+    """Dense, ssm or hybrid decoder-only LM; the port's counterpart of
+    ``repro``'s ``DecoderLM`` for the dense-cache, paged and
+    recurrent-state serving paths."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda",
                  attn_impl: str = "auto", ssd_impl: str = "auto"):
         super().__init__()
         assert not cfg.is_encoder_decoder
-        if cfg.family not in ("dense", "ssm"):
+        if cfg.family not in ("dense", "ssm", "hybrid"):
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet: "
                 f"{_NOT_PORTED.get(cfg.family, 'ROADMAP A')}")
@@ -100,6 +107,7 @@ class DecoderLM(nn.Module):
         self.device = resolve_device(device)
         _register(self, self.param_specs(), cfg.dtype, self.device)
         self._layer_views: list[dict] | None = None
+        self._shared_view: dict | None = None
         self._unembed_cache: tuple | None = None
 
     # ------------------------------------------------------------------
@@ -115,11 +123,18 @@ class DecoderLM(nn.Module):
         }
         if not cfg.tie_embeddings:
             specs["unembed"] = ParamSpec((D, vp), (None, "vocab"))
-        if cfg.family == "ssm":
+        if cfg.family in ("ssm", "hybrid"):
             specs["layers"] = {
                 "ln": ParamSpec((L, D), ("stack", None), init="ones"),
                 "mamba": ssm_mod.mamba_param_specs(cfg, stacked=L),
             }
+            if cfg.family == "hybrid":
+                specs["shared"] = {
+                    "ln1": ParamSpec((D,), (None,), init="ones"),
+                    "attn": attn.attn_param_specs(cfg),
+                    "ln2": ParamSpec((D,), (None,), init="ones"),
+                    "mlp": mlp_param_specs(cfg),
+                }
             return specs
         specs["layers"] = {
             "ln1": ParamSpec((L, D), ("stack", None), init="ones"),
@@ -159,19 +174,31 @@ class DecoderLM(nn.Module):
     def _layers(self) -> list[dict]:
         """Per-layer views of the stacked parameters, nested like the JAX
         tree (``{"ln1", "attn": {...}, "ln2", "mlp": {...}}``, or
-        ``{"ln", "mamba": {...}}`` for ssm)."""
+        ``{"ln", "mamba": {...}}`` for ssm and hybrid)."""
         if self._layer_views is None:
-            stack = self.layers
-
-            def views(mod: nn.Module, l: int) -> dict:
-                out = {k: p[l] for k, p in mod.named_parameters(recurse=False)}
-                for k, child in mod.named_children():
-                    out[k] = views(child, l)
-                return out
-
-            self._layer_views = [views(stack, l)
+            self._layer_views = [_views(self.layers, lambda p, l=l: p[l])
                                  for l in range(self.cfg.num_layers)]
         return self._layer_views
+
+    def _stack(self):
+        """The layer stack in order, one ``(kind, i, params)`` per block:
+        ``("attn", KV layer i, attention + MLP block)`` or ``("mamba",
+        layer i, Mamba layer)``. dense: attention layer l; ssm: Mamba layer
+        l; hybrid: for each of the ``L // attn_every`` groups g, the shared
+        block (``{"ln1", "attn", "ln2", "mlp"}``, the same weights every
+        time) on KV layer g, then Mamba layers ``g * attn_every`` onward."""
+        cfg, layers = self.cfg, self._layers()
+        if cfg.family != "hybrid":
+            kind = "attn" if cfg.family == "dense" else "mamba"
+            yield from ((kind, l, pl) for l, pl in enumerate(layers))
+            return
+        if self._shared_view is None:
+            self._shared_view = _views(self.shared, lambda p: p)
+        every = cfg.attn_every
+        for g in range(cfg.num_layers // every):
+            yield "attn", g, self._shared_view
+            for l in range(g * every, (g + 1) * every):
+                yield "mamba", l, layers[l]
 
     def _unembed(self, x: torch.Tensor) -> torch.Tensor:
         """(N, S, D) -> (N, S, Vp) f32 logits. The product runs in f32 on
@@ -196,29 +223,96 @@ class DecoderLM(nn.Module):
     def _as_scalar(self, v) -> torch.Tensor:
         return torch.as_tensor(v, dtype=torch.int32, device=self.device)
 
-    # ------------------------------------------------------------------
-    # dense KV cache (lockstep engine, whole-prompt prefill)
-    # ------------------------------------------------------------------
-    def _dense_only(self, entry: str) -> None:
-        if self.cfg.family != "dense":
-            raise NotImplementedError(
-                f"{entry}: the dense-cache path is ported for the dense "
-                f"family only (family {self.cfg.family!r}: ROADMAP A.7/A.8)")
+    def _mamba(self, pl: dict, x: torch.Tensor, step):
+        """One Mamba layer: ``x + step(mamba params, rms_norm(x))``;
+        ``step`` returns (h, its new cache), handed back beside x."""
+        h, new = step(pl["mamba"], rms_norm(x, pl["ln"], self.cfg.norm_eps))
+        return x + h, new
 
+    def _mamba_decode(self, pl: dict, x: torch.Tensor, cl: dict,
+                      active: torch.Tensor | None) -> torch.Tensor:
+        """One Mamba layer's decode step on the layer's cache ``cl`` (the
+        SSD state advanced in place, the conv tails written back in place).
+        ``active`` gates the writeback per row, as the JAX ``_mask_state``
+        gates its bank: the SSD kernel gates its own state rows, the conv
+        tails go through the same mask. None advances every row (the
+        lockstep cache)."""
+        x, new = self._mamba(pl, x, lambda p, h: ssm_mod.mamba_decode(
+            p, h, cl, self.cfg, ssd_impl=self.ssd_impl, active=active))
+        keep = None if active is None else active.to(torch.bool)[:, None, None]
+        for k in ("conv_x", "conv_b", "conv_c"):
+            cl[k].copy_(new[k] if keep is None
+                        else torch.where(keep, new[k], cl[k]))
+        return x
+
+    def _logits_at(self, x: torch.Tensor, logits_index) -> torch.Tensor:
+        """(B, S, D) -> (B, Vp) f32 logits of one position: the last when
+        ``logits_index`` is None, else that index (an int or an int scalar
+        tensor; negative wraps and out-of-range clamps, like the JAX
+        ``dynamic_slice``)."""
+        s = x.shape[1]
+        if logits_index is None:
+            x = x[:, -1:]
+        else:
+            row = self._as_scalar(logits_index)
+            row = torch.where(row < 0, row + s, row).clamp(0, s - 1)
+            x = x.index_select(1, row.reshape(1).long())
+        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        return self._unembed(x)[:, 0]
+
+    # ------------------------------------------------------------------
+    # dense cache (lockstep engine, whole-prompt prefill)
+    # ------------------------------------------------------------------
     def cache_struct(self, batch: int, max_len: int) -> dict:
-        """Shapes and dtypes of the dense cache: k/v (L, B, max_len, KVH,
-        Dh) in the model's dtype, ``pos`` an int32 scalar (positions
-        written so far, shared by every row)."""
-        self._dense_only("cache_struct")
-        cfg = self.cfg
-        kv = ((cfg.num_layers, batch, max_len, cfg.num_kv_heads,
-               cfg.head_dim), getattr(torch, cfg.dtype))
-        return {"k": kv, "v": kv, "pos": ((), torch.int32)}
+        """Shapes and dtypes of the dense cache, ``pos`` an int32 scalar
+        (positions written so far, shared by every row) in each:
 
-    def init_cache(self, batch: int, max_len: int) -> dict[str, torch.Tensor]:
-        return {name: torch.zeros(shape, dtype=dt, device=self.device)
-                for name, (shape, dt) in
-                self.cache_struct(batch, max_len).items()}
+        * dense: k/v (L, B, max_len, KVH, Dh) in the model's dtype;
+        * ssm: ``mamba``, the ``init_mamba_cache`` tree stacked over L
+          (f32 SSD state (L, B, H, P, N), conv tails in the model's dtype);
+        * hybrid: ``mamba`` as ssm, plus ``shared_k``/``shared_v`` (g, B,
+          max_len, KVH, Dh), one layer per attention occurrence."""
+        cfg = self.cfg
+        dt = getattr(torch, cfg.dtype)
+        pos = ((), torch.int32)
+        if cfg.family == "dense":
+            kv = ((cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+                   cfg.head_dim), dt)
+            return {"k": kv, "v": kv, "pos": pos}
+        mc = ssm_mod.init_mamba_cache(cfg, batch, dt, device="meta")
+        struct = {"mamba": {k: ((cfg.num_layers,) + tuple(v.shape), v.dtype)
+                            for k, v in mc.items()}}
+        if cfg.family == "hybrid":
+            kv = ((cfg.num_layers // cfg.attn_every, batch, max_len,
+                   cfg.num_kv_heads, cfg.head_dim), dt)
+            struct.update(shared_k=kv, shared_v=kv)
+        struct["pos"] = pos
+        return struct
+
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        def zeros(struct):
+            if isinstance(struct, dict):
+                return {k: zeros(v) for k, v in struct.items()}
+            shape, dt = struct
+            return torch.zeros(shape, dtype=dt, device=self.device)
+
+        return zeros(self.cache_struct(batch, max_len))
+
+    def _kv_layer(self, cache: dict, i: int) -> dict:
+        """Attention occurrence i's K/V in the dense cache (views)."""
+        pre = "shared_" if self.cfg.family == "hybrid" else ""
+        return {"k": cache[pre + "k"][i], "v": cache[pre + "v"][i]}
+
+    def _attend_prompt(self, p: dict, h: torch.Tensor, cl: dict,
+                       positions: torch.Tensor) -> torch.Tensor:
+        """Self-attention over the whole prompt, its K/V written into the
+        cache layer ``cl`` at ``[:S]``."""
+        out, (k, v) = attn.self_attention_with_cache_write(
+            p, h, self.cfg, positions=positions, attn_impl=self.attn_impl)
+        s = h.shape[1]
+        cl["k"][:, :s] = k
+        cl["v"][:, :s] = v
+        return out
 
     @torch.no_grad()
     def prefill(self, batch: dict, max_len: int, *, logits_index=None):
@@ -226,14 +320,15 @@ class DecoderLM(nn.Module):
 
         batch: ``{"tokens": (B, S) int}`` on the model's device, all rows at
         positions ``0..S-1`` (the lockstep engine left-pads with token 0
-        and masks nothing: real tokens attend the pads, as in the JAX
-        package). The cache is :meth:`init_cache`'s, K/V written at
-        ``[:S]`` and zero past it (S <= max_len), ``pos`` = S. Returns
-        logits (B, Vp) f32 of position ``logits_index`` (an int or an int
-        scalar tensor; negative wraps and out-of-range clamps, like the
-        JAX ``dynamic_slice``), or of the last position when None.
+        and masks nothing: real tokens attend the pads, and the pads run
+        through the Mamba recurrence, as in the JAX package). The cache is
+        :meth:`init_cache`'s: K/V written at ``[:S]`` and zero past it (S
+        <= max_len), the Mamba layers' state and conv tails after position
+        S, ``pos`` = S. Returns logits (B, Vp) f32 of position
+        ``logits_index`` (an int or an int scalar tensor; negative wraps
+        and out-of-range clamps, like the JAX ``dynamic_slice``), or of the
+        last position when None.
         """
-        self._dense_only("prefill")
         cfg = self.cfg
         tokens = batch["tokens"]
         b, s = tokens.shape
@@ -242,41 +337,42 @@ class DecoderLM(nn.Module):
         cache = self.init_cache(b, max_len)
         positions = torch.arange(s, device=self.device)
         x = self.embed[tokens.long()]  # (B,S,D)
-        for l, pl in enumerate(self._layers()):
-            def attend(p, h, l=l):
-                out, (k, v) = attn.self_attention_with_cache_write(
-                    p, h, cfg, positions=positions, attn_impl=self.attn_impl)
-                cache["k"][l, :, :s] = k
-                cache["v"][l, :, :s] = v
-                return out
-            x = self._block(pl, x, attend)
+
+        for kind, i, pl in self._stack():
+            if kind == "attn":
+                cl = self._kv_layer(cache, i)
+                x = self._block(pl, x, lambda p, h: self._attend_prompt(
+                    p, h, cl, positions))
+            else:
+                x, mc = self._mamba(pl, x, lambda p, h: ssm_mod.mamba_block(
+                    p, h, cfg, ssd_impl=self.ssd_impl, return_cache=True))
+                for k, v in mc.items():
+                    cache["mamba"][k][i] = v
         cache["pos"].fill_(s)
-        if logits_index is None:
-            x = x[:, -1:]
-        else:
-            row = self._as_scalar(logits_index)
-            row = torch.where(row < 0, row + s, row).clamp(0, s - 1)
-            x = x.index_select(1, row.reshape(1).long())
-        x = rms_norm(x, self.final_norm, cfg.norm_eps)
-        return cache, self._unembed(x)[:, 0]
+        return cache, self._logits_at(x, logits_index)
 
     @torch.no_grad()
     def decode_step(self, cache: dict, tokens):
-        """tokens (B, 1) -> (cache, logits (B, Vp) f32). Every row writes
-        its K/V at ``cache["pos"]`` (clamped into the cache) IN PLACE and
-        attends positions ``<= pos``; ``pos`` then advances by one. The
-        JAX step returns a new cache (its engine donates the old one)."""
-        self._dense_only("decode_step")
+        """tokens (B, 1) -> (cache, logits (B, Vp) f32). Every attention
+        layer writes its K/V at ``cache["pos"]`` (clamped into the cache)
+        IN PLACE and attends positions ``<= pos``; every Mamba layer
+        advances its state and conv tails in place, every row; ``pos`` then
+        advances by one. The JAX step returns a new cache (its engine
+        donates the old one)."""
         cfg = self.cfg
         pos = cache["pos"]
         x = self.embed[tokens.long()]  # (B,1,D)
-        for l, pl in enumerate(self._layers()):
-            cl = {"k": cache["k"][l], "v": cache["v"][l]}
-            x = self._block(pl, x, lambda p, h: attn.decode_self_attention(
-                p, h, cl, pos, cfg)[0])
+
+        for kind, i, pl in self._stack():
+            if kind == "attn":
+                cl = self._kv_layer(cache, i)
+                x = self._block(pl, x, lambda p, h: attn.decode_self_attention(
+                    p, h, cl, pos, cfg)[0])
+            else:
+                x = self._mamba_decode(
+                    pl, x, {k: v[i] for k, v in cache["mamba"].items()}, None)
         pos.add_(1)
-        x = rms_norm(x, self.final_norm, cfg.norm_eps)
-        return cache, self._unembed(x)[:, 0]
+        return cache, self._logits_at(x, None)
 
     # ------------------------------------------------------------------
     # paged decode (continuous batching)
@@ -291,14 +387,27 @@ class DecoderLM(nn.Module):
         lengths (S,) int32 (tokens already cached per slot; idle slots are
         0), tokens (S, 1) int. Returns logits (S, Vp) f32.
         """
+        return self._decode_pool(pages, None, block_tables, lengths, tokens,
+                                 None)
+
+    def _decode_pool(self, pages, state, block_tables, lengths, tokens,
+                     active):
+        """One token per slot through the stack: attention blocks on the
+        paged pool (``pages``, ``block_tables``, ``lengths``), Mamba layers
+        on the state bank (``state``, writeback gated by ``active``), both
+        IN PLACE. Returns logits (S, Vp) f32."""
         cfg = self.cfg
         x = self.embed[tokens.long()]  # (S,1,D)
-        for l, pl in enumerate(self._layers()):
-            cl = {key: arr[l] for key, arr in pages.items()}
-            x = self._block(pl, x, lambda p, h: attn.decode_self_attention_paged(
-                p, h, cl, block_tables, lengths, cfg, attn_impl=self.attn_impl))
-        x = rms_norm(x, self.final_norm, cfg.norm_eps)
-        return self._unembed(x)[:, 0]
+        for kind, i, pl in self._stack():
+            if kind == "attn":
+                cl = {key: arr[i] for key, arr in pages.items()}
+                x = self._block(pl, x, lambda p, h: attn.decode_self_attention_paged(
+                    p, h, cl, block_tables, lengths, cfg,
+                    attn_impl=self.attn_impl))
+            else:
+                x = self._mamba_decode(pl, x, {k: v[i] for k, v in state.items()},
+                                       active)
+        return self._logits_at(x, None)
 
     @torch.no_grad()
     def mixed_step_paged(self, pages, block_tables, positions, tokens, *,
@@ -354,7 +463,7 @@ class DecoderLM(nn.Module):
         return self._unembed(x)[0, 0]
 
     # ------------------------------------------------------------------
-    # recurrent-state serving (SSM continuous batching)
+    # recurrent-state serving (SSM / hybrid continuous batching)
     # ------------------------------------------------------------------
     @torch.no_grad()
     def decode_step_ssm(self, state, tokens, active):
@@ -368,21 +477,38 @@ class DecoderLM(nn.Module):
         untouched (their rows still run; the SSD kernel gates its own
         writeback, the conv tails are written through the same mask, as
         the JAX ``_mask_state``). Returns logits (S, Vp) f32."""
+        assert self.cfg.family == "ssm", self.cfg.family
+        return self._decode_pool(None, state, None, None, tokens, active)
+
+    def _prefill_chunk_bank(self, pages, state_slot, block_table, tokens,
+                            start: int, valid: int):
+        """One chunk of one sequence through the stack: attention blocks on
+        its pages (in place), Mamba layers from the slot's carried state
+        (not modified). Returns (new_state_slot, logits (Vp,) f32 at chunk
+        position ``max(valid - 1, 0)``: clamped, as the JAX
+        ``prefill_chunk_ssm`` and ``prefill_chunk_hybrid`` do; the dense
+        ``prefill_chunk`` wraps)."""
         cfg = self.cfg
-        assert cfg.family == "ssm", cfg.family
-        keep = active.to(torch.bool)[:, None, None]
-        x = self.embed[tokens.long()]  # (S,1,D)
-        for l, pl in enumerate(self._layers()):
-            cl = {k: v[l] for k, v in state.items()}
-            h = rms_norm(x, pl["ln"], cfg.norm_eps)
-            h, new_cl = ssm_mod.mamba_decode(
-                pl["mamba"], h, cl, cfg, ssd_impl=self.ssd_impl,
-                active=active)
-            for k in ("conv_x", "conv_b", "conv_c"):
-                cl[k].copy_(torch.where(keep, new_cl[k], cl[k]))
-            x = x + h
-        x = rms_norm(x, self.final_norm, cfg.norm_eps)
-        return self._unembed(x)[:, 0]
+        valid = int(valid)
+        start_t, valid_t = self._as_scalar(start), self._as_scalar(valid)
+        x = self.embed[tokens.long()][None]  # (1,C,D)
+        new_state = {k: [] for k in state_slot}
+        for kind, i, pl in self._stack():
+            if kind == "attn":
+                cl = {key: arr[i] for key, arr in pages.items()}
+                x = self._block(pl, x, lambda p, h: attn.prefill_chunk_attention_paged(
+                    p, h, cl, block_table, start_t, valid_t, cfg,
+                    attn_impl=self.attn_impl))
+            else:
+                cl = {k: v[i] for k, v in state_slot.items()}
+                x, new = self._mamba(pl, x, lambda p, h: ssm_mod.mamba_prefill_chunk(
+                    p, h, cl, cfg, valid=valid, ssd_impl=self.ssd_impl))
+                for k, v in new.items():
+                    new_state[k].append(v)
+        row = max(valid - 1, 0)
+        x = rms_norm(x[:, row:row + 1], self.final_norm, cfg.norm_eps)
+        return ({k: torch.stack(v) for k, v in new_state.items()},
+                self._unembed(x)[0, 0])
 
     @torch.no_grad()
     def prefill_chunk_ssm(self, state_slot, tokens, valid: int):
@@ -393,23 +519,55 @@ class DecoderLM(nn.Module):
         ssm (L,1,HN,PN,N) f32 plus conv tails; it is not modified. tokens
         (C,) int; valid (host int) is the number of real tokens in this
         possibly-padded chunk. Returns (new_state_slot, logits (Vp,) f32)
-        with logits at chunk position ``max(valid - 1, 0)`` — clamped, as
-        the JAX ``prefill_chunk_ssm`` does — meaningful on the prompt's
-        final chunk."""
-        cfg = self.cfg
-        assert cfg.family == "ssm", cfg.family
-        valid = int(valid)
-        x = self.embed[tokens.long()][None]  # (1,C,D)
-        new_state = {k: [] for k in state_slot}
-        for l, pl in enumerate(self._layers()):
-            cl = {k: v[l] for k, v in state_slot.items()}
-            h = rms_norm(x, pl["ln"], cfg.norm_eps)
-            h, new_cl = ssm_mod.mamba_prefill_chunk(
-                pl["mamba"], h, cl, cfg, valid=valid, ssd_impl=self.ssd_impl)
-            for k, v in new_cl.items():
-                new_state[k].append(v)
-            x = x + h
-        row = max(valid - 1, 0)
-        x = rms_norm(x[:, row:row + 1], self.final_norm, cfg.norm_eps)
-        logits = self._unembed(x)[0, 0]
-        return {k: torch.stack(v) for k, v in new_state.items()}, logits
+        with logits at chunk position ``max(valid - 1, 0)`` — meaningful on
+        the prompt's final chunk."""
+        assert self.cfg.family == "ssm", self.cfg.family
+        return self._prefill_chunk_bank(None, state_slot, None, tokens, 0,
+                                        valid)
+
+    @torch.no_grad()
+    def decode_step_hybrid(self, pages, state, block_tables, lengths,
+                           tokens, active):
+        """Hybrid (Zamba2) paged decode: the shared attention block reads
+        and writes the g-layer paged KV pool (g = L // attn_every) while
+        every Mamba layer steps the per-slot state bank — one pass, both
+        written IN PLACE.
+
+        pages: {"k": (g,P+1,page,KVH,Dh), "v": ...} (with its sink page);
+        state: the stacked bank (slot axis second), as
+        :meth:`decode_step_ssm`'s; block_tables (S, MP) int32 / lengths
+        (S,) int32 index the pool as in :meth:`decode_step_paged` (idle
+        slots: the null page and length 0, so their K/V rows go to the
+        sink); tokens (S, 1) int; active (S,) int32 gates the bank's
+        writeback. Returns logits (S, Vp) f32."""
+        assert self.cfg.family == "hybrid", self.cfg.family
+        return self._decode_pool(pages, state, block_tables, lengths, tokens,
+                                 active)
+
+    @torch.no_grad()
+    def prefill_chunk_hybrid(self, pages, state_slot, block_table, tokens,
+                             start: int, valid: int):
+        """Hybrid chunked prefill of ONE sequence: the shared block's chunk
+        rows scatter into the sequence's pages (positions ``start ..
+        start + valid - 1``; padded rows go to the sink) and attend its
+        cached prefix, IN PLACE, while the Mamba layers continue from the
+        slot's carried state.
+
+        pages: the g-layer pool; state_slot: one slot's state, slot axis
+        kept singleton, not modified; block_table (MP,) int32; tokens (C,)
+        int; start / valid host ints. Returns (new_state_slot, logits (Vp,)
+        f32) with logits at chunk position ``max(valid - 1, 0)``, clamped
+        as in :meth:`prefill_chunk_ssm`."""
+        assert self.cfg.family == "hybrid", self.cfg.family
+        return self._prefill_chunk_bank(pages, state_slot, block_table,
+                                        tokens, start, valid)
+
+
+def _views(mod: nn.Module, pick) -> dict:
+    """The module's parameters as a nested dict (the JAX tree's layout),
+    each leaf ``pick(param)`` (one layer's slice of a stacked parameter,
+    or the parameter itself)."""
+    out = {k: pick(p) for k, p in mod.named_parameters(recurse=False)}
+    for k, child in mod.named_children():
+        out[k] = _views(child, pick)
+    return out

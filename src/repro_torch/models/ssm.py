@@ -1,12 +1,12 @@
 """Mamba2 (SSD) block for serving: in_proj -> causal depthwise conv -> SSD
 scan -> gated norm -> out_proj, one decode token or one prefill chunk at a
-time against a carried cache.
+time against a carried cache, or a whole sequence from a zero state.
 
 The port of ``repro/models/ssm.py`` at tensor-parallel degree 1 (its
 ``psum_tp``/``pmean_tp`` are identities there). The depthwise conv stays
-split into x / B / C streams as in the JAX package. The whole-sequence
-``mamba_block`` (lockstep prefill, training) waits for ROADMAP A.7/A.11.
-The projections are plain matmuls; the SSD recurrence goes through
+split into x / B / C streams as in the JAX package. ``mamba_block`` is the
+whole-sequence forward (the lockstep engine's prefill; training waits for
+ROADMAP A.11). The projections are plain matmuls; the SSD recurrence goes through
 ``ops.ssd_scan`` / ``ops.ssd_decode_step`` (the CUDA kernels on the card).
 """
 
@@ -112,6 +112,26 @@ def _post_ssd(p, y, xs_heads, z, cfg: ModelConfig):
 
 def _a(p) -> torch.Tensor:
     return -torch.exp(p["a_log"].float())
+
+
+def mamba_block(p, x, cfg: ModelConfig, *, ssd_impl: str = "auto",
+                return_cache: bool = False):
+    """Full-sequence Mamba2 block from a zero state. x (B,S,D) -> y
+    (B,S,D), and with ``return_cache`` also the cache the sequence leaves
+    behind: the scan's final f32 state and the conv tails ending at
+    position S (every position counts, padding included, as in the JAX
+    package)."""
+    b, s, _ = x.shape
+    pn = cfg.ssm_head_dim
+    z, xs, bm, cm, dt, tails = _pre_ssd(p, x, cfg)
+    xs_h = xs.reshape(b, s, xs.shape[-1] // pn, pn)
+    y, state = ops.ssd_scan(xs_h, dt, _a(p), bm, cm, chunk=cfg.ssm_chunk,
+                            impl=ssd_impl)
+    out = _post_ssd(p, y, xs_h, z, cfg)
+    if return_cache:
+        return out, {"ssm": state, "conv_x": tails["x"],
+                     "conv_b": tails["b"], "conv_c": tails["c"]}
+    return out
 
 
 def mamba_decode(p, x, cache, cfg: ModelConfig, *, ssd_impl: str = "auto",

@@ -9,13 +9,15 @@ admission, chunked prefill fused with decode, copy-on-write prefix sharing
 with parked prefix pages (``repro_torch.serving.kv_tiers``), or
 whole-prompt prefill through the flash kernel — running its paged
 attention through the hand-written CUDA kernels on the card.
-``GenerationEngine`` is the lockstep baseline over a dense KV cache (its
-prefill through the flash kernel). ``SSMEngine`` serves the pure-SSM
-(mamba2) family over a :class:`SlotStateBank` of per-slot recurrent state,
-through the SSD kernels on the card.
+``GenerationEngine`` is the lockstep baseline over a dense cache (dense,
+ssm and hybrid families; its attention prefill through the flash kernel).
+``SSMEngine`` serves the ssm (mamba2) and hybrid (zamba2) families over a
+:class:`SlotStateBank` of per-slot recurrent state (the hybrid's shared
+attention over a paged pool beside it), through the SSD and paged kernels
+on the card.
 
-Still to port (ROADMAP A): the fleet, speculative decoding and the hybrid
-(zamba2) engine.
+Still to port (ROADMAP A): the fleet, speculative decoding and the moe
+and vlm families.
 """
 
 from repro_torch.serving.api import (

@@ -6,10 +6,12 @@ Both implement the :class:`repro_torch.serving.api.EngineCore` protocol —
 :class:`repro_torch.serving.api.EngineBase`.
 
 ``GenerationEngine`` is the lockstep baseline: one ``step()`` forms a
-left-padded micro-batch and prefills it (``DecoderLM.prefill``, through the
-flash kernel on the card), each further call runs one decode step over the
-whole batch on a dense KV cache, and the batch retires when every row has
-finished (rows that stop early are masked, not evicted).
+left-padded micro-batch and prefills it (``DecoderLM.prefill``: attention
+through the flash kernel, Mamba layers through the SSD scan on the card),
+each further call runs one decode step over the whole batch on a dense
+cache (K/V, or recurrent state, or both for the hybrid family), and the
+batch retires when every row has finished (rows that stop early are
+masked, not evicted).
 
 ``ContinuousBatchingEngine`` is the hot path, built from two layers:
 
@@ -85,25 +87,31 @@ class GenerationEngine(EngineBase):
     / stop / cancel) and are masked until the slowest row retires the batch
     — the classic lockstep cost the continuous batcher removes.
 
-    ``params`` is the model's state dict; ``device`` is where the model,
-    the dense cache and every step live (``"cuda"`` unless the caller asks
-    for ``"cpu"``). ``attn_impl="ref"`` runs the plain attention versions
-    on the card too.
+    Serves the dense, ssm and hybrid families. ``params`` is the model's
+    state dict; ``device`` is where the model, the dense cache and every
+    step live (``"cuda"`` unless the caller asks for ``"cpu"``).
+    ``attn_impl``/``ssd_impl`` ``"ref"`` run the plain attention / SSD
+    versions on the card too.
     """
 
     def __init__(self, cfg, params, *, max_len: int = 256, seed: int = 0,
                  max_batch: int = 8,
                  admission: AdmissionPolicy | None = None,
-                 attn_impl: str | None = None, device="cuda"):
-        if cfg.family != "dense" or cfg.is_encoder_decoder:
+                 attn_impl: str | None = None, ssd_impl: str | None = None,
+                 device="cuda"):
+        if cfg.is_encoder_decoder:
             raise NotImplementedError(
-                f"{cfg.name} (family {cfg.family!r}): the lockstep engine is "
-                f"ported for the dense family only (moe/vlm: ROADMAP A.7; "
-                f"ssm/hybrid: A.8; encoder-decoder: A.11)")
+                f"{cfg.name}: the encoder-decoder lockstep path is not "
+                f"ported yet (ROADMAP A.11)")
+        if cfg.family not in ("dense", "ssm", "hybrid"):
+            raise NotImplementedError(
+                f"{cfg.name} (family {cfg.family!r}): the moe and vlm "
+                f"families are not ported yet (ROADMAP A.7)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = build_model(cfg, device=self.device,
-                                 attn_impl=attn_impl or "auto")
+                                 attn_impl=attn_impl or "auto",
+                                 ssd_impl=ssd_impl or "auto")
         self.model.load_state_dict(params)
         self.params = self.model.state_dict()
         self.max_len = max_len
@@ -273,10 +281,15 @@ class ContinuousBatchingEngine(EngineBase):
         device="cuda",
     ):
         assert not cfg.is_encoder_decoder, "paged engine is decoder-only"
+        if cfg.family in ("ssm", "hybrid"):
+            raise NotImplementedError(
+                f"family {cfg.family!r}: continuous batching needs a paged "
+                f"KV path; serve it with SSMEngine (recurrent state) or "
+                f"GenerationEngine (lockstep)")
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"family {cfg.family!r}: only the dense paged path is ported "
-                f"(moe/vlm: ROADMAP A.7; ssm/hybrid: A.8)")
+                f"(moe/vlm: ROADMAP A.7)")
         if speculative != "off":
             raise NotImplementedError(
                 "speculative decoding is not ported yet (ROADMAP A.6)")

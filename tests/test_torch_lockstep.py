@@ -176,11 +176,22 @@ def test_paged_engine_matches_lockstep(weights, prefill_chunk):
 
 def test_lockstep_engine_defaults_to_cuda_and_refuses_other_families(weights):
     """The lockstep engine runs on ``cuda`` unless asked (and raises the
-    port's typed error without a card); families whose dense-cache path is
-    not ported are refused by name."""
+    port's typed error without a card); the ssm and hybrid families'
+    dense-cache paths are ported and build; the families still unported
+    are refused by name (moe: A.7, encoder-decoder: A.11)."""
+    from repro_torch.models import build_model
+
     _, _, cfg, state = weights
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             GenerationEngine(cfg, state)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        GenerationEngine(reduced(ARCHS["mamba2-1.3b"]), {}, device="cpu")
+    for arch in ("mamba2-1.3b", "zamba2-2.7b"):
+        rcfg = reduced(ARCHS[arch])
+        eng = GenerationEngine(
+            rcfg, build_model(rcfg, device="cpu").init(seed=0), max_len=16,
+            device="cpu")
+        assert eng.model.cfg.family == rcfg.family
+    with pytest.raises(NotImplementedError, match="A.7"):
+        GenerationEngine(reduced(ARCHS["dbrx-132b"]), {}, device="cpu")
+    with pytest.raises(NotImplementedError, match="A.11"):
+        GenerationEngine(reduced(ARCHS["whisper-tiny"]), {}, device="cpu")

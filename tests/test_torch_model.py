@@ -263,10 +263,16 @@ def test_decode_step_matches_jax(models):
 
 
 def test_entry_points_refuse_cuda_without_a_card():
+    """The model defaults to ``cuda`` for every ported family (dense, ssm,
+    hybrid) and raises without a card; the hybrid family builds on the
+    CPU when asked; the moe family is still refused by its ROADMAP
+    label."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    cfg = reduced(ARCHS["smollm-360m"])
-    with pytest.raises(RuntimeError, match="CUDA"):
-        build_model(cfg)  # device defaults to cuda
-    with pytest.raises(NotImplementedError, match="A.8b"):
-        build_model(reduced(ARCHS["zamba2-2.7b"]), device="cpu")
+    for arch in ("smollm-360m", "mamba2-1.3b", "zamba2-2.7b"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build_model(reduced(ARCHS[arch]))  # device defaults to cuda
+    hybrid = build_model(reduced(ARCHS["zamba2-2.7b"]), device="cpu")
+    assert hybrid.cfg.family == "hybrid" and hasattr(hybrid, "shared")
+    with pytest.raises(NotImplementedError, match="A.7"):
+        build_model(reduced(ARCHS["dbrx-132b"]), device="cpu")

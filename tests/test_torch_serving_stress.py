@@ -1,6 +1,7 @@
-"""Engine-invariant stress arms of the port's tiered and int8 paged engine,
-ported from ``tests/test_serving_stress.py`` (the tiers arm and the int8
-arm) with the port's own trace, driver and invariant helpers.
+"""Engine-invariant stress arms of the port's tiered and int8 paged engine
+and of its SSM/hybrid engine, ported from ``tests/test_serving_stress.py``
+(the tiers arm, the int8 arm, the two ssm arms and the hybrid arm) with the
+port's own trace, driver and invariant helpers.
 
 A randomized submit/cancel/shared-prefix trace runs through
 ``ContinuousBatchingEngine.step()`` on reduced smollm-360m (f32, the
@@ -14,6 +15,15 @@ equals the live sequence set. At drain every handle has a typed finish
 and every stream is byte-identical to an unperturbed oracle run: with
 every tier engaged (parked, host RAM, a persisted ``ArtifactStore``)
 against a tiers-off run, and with int8 pages against an int8 oracle.
+
+The SSM arms run the same trace through ``SSMEngine`` on reduced
+mamba2-1.3b and zamba2-2.7b: after every step the live slots and the free
+list (or, hybrid, the page cache's occupancy) partition the slots and
+parked state snapshots belong only to evicted-but-live requests. Forced
+discard and snapshot preemptions mid-trace, an engine restart mid-trace
+(a fresh engine re-serving the in-flight requests) and, hybrid, organic
+page-pressure preemption all leave every stream byte-identical to an
+unperturbed replay.
 """
 
 import numpy as np
@@ -28,6 +38,7 @@ from repro_torch.serving import (  # noqa: E402
     FinishReason,
     Request,
     SamplingParams,
+    SSMEngine,
 )
 from repro_torch.serving.kv_cache import NULL_PAGE  # noqa: E402
 
@@ -115,9 +126,9 @@ def _check_drained(cache) -> None:
     assert set(cache._page_key) == parked
 
 
-def _drive(engine, reqs, actions):
-    """Run the schedule through ``step()``, checking the invariants and the
-    events' well-formedness after every step."""
+def _drive(engine, reqs, actions, check=_check_invariants):
+    """Run the schedule through ``step()``, checking the invariants
+    (``check``) and the events' well-formedness after every step."""
     by_uid = {r.uid: r for r in reqs}
     handles, finished, cancelled, last = {}, set(), set(), {}
     step = 0
@@ -136,17 +147,16 @@ def _drive(engine, reqs, actions):
                 assert ev.index > last.get(ev.uid, -1)
                 last[ev.uid] = ev.index
                 assert handles[ev.uid].tokens[ev.index] == ev.token
-        _check_invariants(engine)
+        check(engine)
         step += 1
         if all(s <= step for s in actions) and engine.idle:
             return handles, cancelled
         assert step < 600, "trace failed to drain"
 
 
-def _replay(cfg, params, reqs, **kw):
+def _replay(cfg, params, reqs, engine_cls=ContinuousBatchingEngine, **kw):
     """Unperturbed oracle run: the same requests, no cancels."""
-    eng = ContinuousBatchingEngine(cfg, params, max_len=MAX_LEN,
-                                   device="cpu", **kw)
+    eng = engine_cls(cfg, params, max_len=MAX_LEN, device="cpu", **kw)
     handles = [eng.submit(Request(r.uid, list(r.prompt), sampling=r.sampling))
                for r in reqs]
     while not eng.idle:
@@ -200,3 +210,176 @@ def test_quantized_engine_invariants_and_determinism(smollm, seed):
     assert engine.cache.pages["k"].dtype == torch.int8
     _check_drained(engine.cache)
     _assert_streams(handles, cancelled, _replay(cfg, params, reqs, **kw))
+
+
+# ---------------------------------------------------------------------------
+# SSM / hybrid recurrent-state engine arms
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def mamba2():
+    cfg = reduced(ARCHS["mamba2-1.3b"])
+    return cfg, build_model(cfg, device="cpu").init(seed=0)
+
+
+@pytest.fixture(scope="module")
+def zamba2():
+    cfg = reduced(ARCHS["zamba2-2.7b"])
+    return cfg, build_model(cfg, device="cpu").init(seed=0)
+
+
+def _check_ssm_invariants(engine) -> None:
+    """Slot-bank bookkeeping: live sequences and the free list exactly
+    partition the slot range (pure SSM) or match the cache's occupancy
+    (hybrid), and parked state snapshots belong only to evicted-but-live
+    requests — never to an occupant or a finished handle."""
+    live = set(engine.slots)
+    if engine.hybrid:
+        cache = engine.cache
+        assert live == {s for s in range(cache.max_slots)
+                        if cache._slot_pages[s]}, "slot/page-map mismatch"
+    else:
+        free = engine._free
+        assert len(set(free)) == len(free), "double-freed slot"
+        assert not set(free) & live, "slot simultaneously free and live"
+        assert set(free) | live == set(range(engine.max_slots)), "leaked slot"
+    for slot, seq in engine.slots.items():
+        assert len(seq.tokens) <= seq.request.sampling.max_new_tokens
+        assert seq.request.uid not in engine._snapshots, (
+            f"slot {slot}: occupant still has a parked snapshot")
+    for uid in engine._snapshots:
+        h = engine._handles.get(uid)
+        assert h is not None and not h.done, (
+            f"snapshot parked for finished/unknown request {uid}")
+
+
+def _assert_prefix_streams(handles, cancelled, oracle):
+    """As ``_assert_streams``, for traces whose finishes the arm checks
+    itself: a cancelled stream is a prefix of the oracle's, every other
+    one equals it."""
+    for uid, h in handles.items():
+        assert isinstance(h.finish_reason, FinishReason), uid
+        want = oracle[uid].tokens
+        if uid in cancelled:
+            assert h.tokens == want[:len(h.tokens)], uid
+        else:
+            assert h.tokens == want, uid
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_ssm_engine_invariants_under_stress(mamba2, seed):
+    """The randomized submit/cancel trace on the recurrent-state engine,
+    with forced youngest-first preemptions injected mid-trace — alternating
+    discard (re-prefill) and snapshot (state restored verbatim) eviction —
+    and only 2 slots so the queue stays under pressure. Every surviving
+    stream must be byte-identical to an unperturbed replay."""
+    cfg, params = mamba2
+    reqs, actions = _make_trace(seed, n=10)
+    by_uid = {r.uid: r for r in reqs}
+    engine = SSMEngine(cfg, params, max_len=MAX_LEN, max_slots=2,
+                       prefill_chunk=PAGE, seed=seed, device="cpu")
+    handles, cancelled = {}, set()
+    preempt_at = {4: False, 7: True, 10: False, 13: True}  # step -> snapshot
+    step = 0
+    while True:
+        for kind, uid in actions.get(step, []):
+            if kind == "submit":
+                handles[uid] = engine.submit(by_uid[uid])
+            elif engine.cancel(uid):
+                cancelled.add(uid)
+        if step in preempt_at:
+            engine.preempt_youngest(snapshot=preempt_at[step])
+        engine.step()
+        _check_ssm_invariants(engine)
+        step += 1
+        if all(s <= step for s in actions) and engine.idle:
+            break
+        assert step < 600, "trace failed to drain"
+    assert engine.stats["preemptions"] > 0
+    assert engine.stats["restores"] > 0, (
+        "no snapshot preemption ever restored: move the snapshot steps")
+    assert not engine._snapshots, "parked snapshot leaked past drain"
+    assert len(engine._free) == engine.max_slots
+    _assert_prefix_streams(handles, cancelled, _replay(
+        cfg, params, reqs, SSMEngine, max_slots=2, prefill_chunk=PAGE,
+        seed=seed))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_ssm_engine_restart_mid_trace(mamba2, seed):
+    """Crash-replay arm: the engine dies mid-trace — recurrent state gone,
+    handles stranded — and a fresh engine re-serves every in-flight
+    request under its original sampling seed. The combined streams must be
+    byte-identical to the unperturbed oracle, the pre-crash delivery an
+    exact prefix of the regenerated stream."""
+    cfg, params = mamba2
+    reqs, actions = _make_trace(seed, n=10)
+    by_uid = {r.uid: r for r in reqs}
+    kw = dict(max_slots=3, prefill_chunk=PAGE, seed=seed)
+    engine = SSMEngine(cfg, params, max_len=MAX_LEN, device="cpu", **kw)
+    handles, cancelled = {}, set()
+    step = 0
+    while True:
+        for kind, uid in actions.get(step, []):
+            if kind == "submit":
+                handles[uid] = engine.submit(by_uid[uid])
+            elif engine.cancel(uid):
+                cancelled.add(uid)
+        engine.step()
+        _check_ssm_invariants(engine)
+        step += 1
+        mid_stream = any(h.tokens for h in handles.values() if not h.done)
+        if step >= 6 and all(s < step for s in actions) and mid_stream:
+            break
+        assert step < 600, "trace never reached a crashable state"
+
+    delivered = {uid: list(h.tokens) for uid, h in handles.items()}
+    pre_crash = {uid: h for uid, h in handles.items() if h.done}
+    inflight = [uid for uid, h in handles.items() if not h.done]
+    assert inflight, "crash step too late: nothing was in flight"
+    assert any(delivered[u] for u in inflight), (
+        "crash step too early: no mid-stream request to resume")
+    del engine
+
+    engine2 = SSMEngine(cfg, params, max_len=MAX_LEN, device="cpu", **kw)
+    handles2 = {
+        uid: engine2.submit(Request(uid, list(by_uid[uid].prompt),
+                                    sampling=by_uid[uid].sampling))
+        for uid in inflight
+    }
+    steps = 0
+    while not engine2.idle:
+        engine2.step()
+        _check_ssm_invariants(engine2)
+        steps += 1
+        assert steps < 600, "restarted trace failed to drain"
+
+    oracle = _replay(cfg, params, reqs, SSMEngine, **kw)
+    _assert_prefix_streams(pre_crash, cancelled, oracle)
+    for uid, h in handles2.items():
+        assert h.finish_reason in (FinishReason.LENGTH, FinishReason.STOP), uid
+        assert h.tokens == oracle[uid].tokens, uid
+        pre = delivered[uid]
+        assert h.tokens[:len(pre)] == pre, (
+            f"{uid}: pre-crash delivery is not a prefix of the replay")
+
+
+@pytest.mark.parametrize("seed", [0])
+def test_hybrid_engine_invariants_under_stress(zamba2, seed):
+    """Hybrid (Zamba2) arm: attention pages and recurrent state advance in
+    the same step, with the page pool sized so decode-time growth runs it
+    dry and ORGANIC youngest-first preemption fires. Streams must still be
+    byte-identical to an unpressured replay."""
+    cfg, params = zamba2
+    reqs, actions = _make_trace(seed, n=10)
+    engine = SSMEngine(cfg, params, max_len=MAX_LEN, max_slots=4,
+                       page_size=PAGE, num_pages=8, prefill_chunk=PAGE,
+                       seed=seed, device="cpu")
+    handles, cancelled = _drive(engine, reqs, actions, _check_ssm_invariants)
+    assert engine.stats["preemptions"] > 0, (
+        "trace too gentle: hybrid page-pressure preemption never fired")
+    assert engine.cache.pool.available == engine.cache.num_pages - 1
+    _assert_prefix_streams(handles, cancelled, _replay(
+        cfg, params, reqs, SSMEngine, max_slots=4, page_size=PAGE,
+        prefill_chunk=PAGE, seed=seed))

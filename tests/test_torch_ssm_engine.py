@@ -9,7 +9,8 @@ The pure-SSM arms of the JAX engine's unit suite are ported: the bank's
 snapshot/restore round trip, no state leak from a recycled slot, discard
 and snapshot preemption byte-identical to an undisturbed run (and to the
 JAX stream), youngest-decoder choice. Also runs the port's serve driver on
-mamba2 end to end, and checks that the hybrid family raises.
+mamba2 end to end, and checks that the hybrid family builds and serves
+(its streams against JAX's: ``tests/test_torch_hybrid_engine.py``).
 """
 
 import os
@@ -222,8 +223,29 @@ def test_preempt_youngest_picks_newest_decoder(weights):
 
 
 def test_hybrid_engine_is_not_ported_yet(weights):
-    with pytest.raises(NotImplementedError, match="A.8b"):
-        SSMEngine(reduced(ARCHS["zamba2-2.7b"]), weights[3], device="cpu")
+    """The hybrid engine is ported now: on zamba2 the SSM engine builds a
+    ``num_layers // attn_every``-layer page pool beside its bank and
+    serves a request (``tests/test_torch_hybrid_engine.py`` holds its
+    streams against JAX's). Families without recurrent state are still
+    refused, and the paged engine refuses both recurrent families, naming
+    the engines that serve them."""
+    from repro_torch.models import build_model
+    from repro_torch.serving import ContinuousBatchingEngine
+
+    cfg = reduced(ARCHS["zamba2-2.7b"])
+    state = build_model(cfg, device="cpu").init(seed=0)
+    eng = SSMEngine(cfg, state, max_len=32, max_slots=2, page_size=8,
+                    device="cpu")
+    assert eng.hybrid and eng.cache.pages["k"].shape[0] == (
+        cfg.num_layers // cfg.attn_every)
+    (res,) = eng.generate([Request("z", [3, 1, 4], max_new_tokens=3)])
+    assert res.finish_reason == FinishReason.LENGTH and len(res.tokens) == 3
+    assert eng.cache.pool.available == eng.cache.num_pages - 1
+    with pytest.raises(AssertionError, match="recurrent-state"):
+        SSMEngine(reduced(ARCHS["dbrx-132b"]), {}, device="cpu")
+    for arch in ("zamba2-2.7b", "mamba2-1.3b"):
+        with pytest.raises(NotImplementedError, match="SSMEngine"):
+            ContinuousBatchingEngine(reduced(ARCHS[arch]), {}, device="cpu")
 
 
 def test_serve_cli_mamba2(tmp_path):

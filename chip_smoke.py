@@ -197,6 +197,53 @@ Phases (any failure exits non-zero):
    --host-pages 8 --persist-dir DIR`` at full width, twice on one
    directory: 12/12 served each time, persisted hits only on the second.
 
+22. verify — the chunk kernel (row 2) at speculative-verify widths: bundles
+   of C = k + 1 rows (k 1-8) with valid < C, at the smollm, llama3 and
+   zamba2 widths, over bf16, int8 and f32 pools, on a plain and a
+   COW-forked table, against ``paged_verify_attention_ref`` (bf16 within
+   2e-2, f32 1e-3, padded rows exact zeros); the paged kernels at the
+   other shapes phases 23-25 give them, bf16 and f32, against their plain
+   versions: decode of 1 row over 44-entry tables (the draft's greedy
+   steps: 44 splits of one page), of 4 rows over 16-entry tables (the
+   chaos engines) and over 44-entry ones, the chunk kernel at C 32 (the
+   draft's catch-up) from position 0, a page boundary and deep in the
+   table, the hinted mixed step with num_decode 4 over 16-entry tables;
+   then the C 5 call (SPEC_K 4 drafts + 1) timed against its plain
+   version, SDPA and its bound.
+23. spec engine — the first SPEC_REQUESTS (8) of phase 4's requests on
+   full-width smollm-360m (bf16) with speculation off, ``ngram`` and a
+   2-layer smollm draft on its own seeded weights (the reduced config's
+   256-token vocabulary cannot draft for a 49152-token target), SPEC_K 4:
+   every request finishes by length, the page pool and the draft pool
+   drain, the draft arm dispatches bundles. Prints each arm's tok/s, TTFT,
+   ITL, bundles, proposed, accepted and rolled-back drafts, and the host
+   seconds in proposals, verify dispatches and plain steps
+   (``launches_by_path``: ``spec ngram``, ``spec draft``). Then a witness
+   for the oracle draft's acceptance in bf16: the target's own weights as
+   the draft on 2 greedy requests, through the kernels and through the
+   plain versions, at full width and at 2 layers, where the kernels must
+   land half the drafts or more; at 16, 8 and 4 layers through the kernels
+   alone (acceptance by depth).
+24. spec parity — f32, TF32 off, PARITY_LAYERS: greedy and seeded top-p
+   streams with ngram, an oracle draft and a random proposer equal
+   speculation off through the kernels and through the plain versions, on
+   prompts repeated around their own spec-off streams; every proposer
+   dispatches bundles, the oracle draft lands drafts and the random
+   proposer rolls back.
+25. fleet — ``python -m repro_torch.launch.serve --fleet 2`` at full width
+   serves 12/12; then two chaos runs in this process (2-3 engine workers,
+   threads on the one card; the long stream's owner killed once two of
+   its tokens reached the client): f32 at PARITY_LAYERS, whose streams
+   equal a single-engine oracle with no mismatched delta, and bf16 at full
+   width, where every request is terminal and each (uid, index) is on
+   ``responses`` once, before its finish (streams differing from the
+   oracle are printed; path ``fleet chaos``: the launches from the fleet's
+   start to the end of its run, after the oracle). Device memory after the
+   chaos runs may not exceed what it was before them (engines collected,
+   cuBLAS workspaces cleared).
+26. put_tree — a tree of CUDA bf16 and f32 tensors stores under the refs of
+   the same values on the CPU.
+
 Kernel and plain times are device time per call: the calls are enqueued
 behind a sleep kernel and timed with CUDA events, so the host's per-call
 overhead stays out (``_time_ms``). A ``[t s] phase: s`` line after each
@@ -208,13 +255,16 @@ kernels); each kernel's ``launches`` is the sum of ``launches_by_path``,
 the counts read after each engine path that ran it (each reset just
 before its path). The three paged kernels also carry ``int8``: the int8
 variant's max abs error, times and bound; the mixed kernel's ``ms`` is the
-hinted call's and ``generic_ms`` the call without the hint. The last line is
+hinted call's and ``generic_ms`` the call without the hint; the chunk
+kernel carries ``verify``: phase 22's errors (bf16, int8 and f32 pools)
+and the C 5 call's times and bound. The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -250,6 +300,19 @@ SLEEP_CYCLES = 200_000_000     # ~0.1 s at the H100's ~1.98 GHz boost clock
 KVH, G, D, PAGE, LAYERS = 5, 3, 64, 16, 32
 SLOTS, CHUNK, MAX_LEN = 8, 64, 704
 PARITY_LAYERS = 2
+# speculative decoding: drafts a bundle, and the verify width timed
+SPEC_K = 4
+VERIFY_C = SPEC_K + 1
+# phase 23 serves the first 8 of phase 4's 16 requests; its oracle-draft
+# witness (k serial draft decodes a slot a step: 61 s over 8 requests at
+# 32 layers) serves the first WITNESS_REQUESTS greedy ones
+SPEC_REQUESTS, WITNESS_REQUESTS = 8, 2
+# the witness's depths: the plain versions run at the first and the last
+WITNESS_DEPTHS = (LAYERS, 16, 8, 4, PARITY_LAYERS)
+# the draft model's catch-up chunk (DraftModelProposer's default)
+DRAFT_CHUNK = 32
+# the chaos runs' engines: slots and max_len (16-entry block tables)
+FLEET_SLOTS, FLEET_MAX_LEN = 4, 256
 # mamba2-1.3b: SSD widths, layers, and the engine's shape
 SSD_H, SSD_P, SSD_N, M_LAYERS, M_MAX_LEN = 64, 64, 128, 48, 512
 SSD_BF16_TOL, SSD_F32_TOL = 5e-2, 1e-3
@@ -2131,6 +2194,648 @@ def run_serve_ssm(card):
                 f"({time.perf_counter() - t0:.1f} s with start-up): {served}")
 
 
+# ---------------------------------------------------------------------------
+# phases 22-26: speculative decoding, the fleet, put_tree on the card
+# ---------------------------------------------------------------------------
+
+
+def check_verify(torch, ops, ref):
+    """Kernel 2 at speculative-verify widths: bundles of C = k + 1 rows (k
+    1-8) with valid < C, at every one of PAGED_WIDTHS, over bf16, int8 and
+    f32 pools, on a plain and a COW-forked table (a prefix of one table's
+    pages, then another's), from starts inside the first page, on a page
+    boundary and deep in the table; against ``paged_verify_attention_ref``
+    (int8: over the dequantized pool). Padded rows must be exact zeros.
+    Returns the max abs error per pool kind."""
+    errs = {"bf16": 0.0, "int8": 0.0, "f32": 0.0}
+    n_pages = 400
+    for wname, width in PAGED_WIDTHS.items():
+        kvh, group, d, page = width
+        mp = -(-MAX_LEN // page)
+        kf, vf = _pools(torch, n_pages, torch.float32, seed=11, width=width)
+        kf, vf = kf[0], vf[0]
+        (kq, ks), (vq, vs) = ref.quantize_kv(kf), ref.quantize_kv(vf)
+        pools = {
+            "bf16": (torch.bfloat16, kf.bfloat16(), vf.bfloat16(), {},
+                     kf.bfloat16(), vf.bfloat16(), BF16_TOL),
+            "int8": (torch.bfloat16, kq, vq, dict(k_scale=ks, v_scale=vs),
+                     ref.dequantize_pages(kq, ks),
+                     ref.dequantize_pages(vq, vs), BF16_TOL),
+            "f32": (torch.float32, kf, vf, {}, kf, vf, F32_TOL)}
+        tables = _tables(torch, 2, mp, n_pages, seed=12)
+        forked = torch.cat([tables[0][:mp // 2], tables[1][mp // 2:]])
+        g = torch.Generator(device="cuda").manual_seed(13)
+        for kind, (dt, kp, vp, sc, kd, vd, tol) in pools.items():
+            n = 0
+            for c in range(2, 10):
+                q = torch.randn(c, kvh * group, d, generator=g,
+                                device="cuda").to(dt)
+                for valid in sorted({1, c // 2, c - 1}):
+                    dead = torch.arange(c, device="cuda") >= valid
+                    for row in (tables[0], forked):
+                        for start in (1, page, mp * page - 10):
+                            st = torch.tensor(start, dtype=torch.int32,
+                                              device="cuda")
+                            va = torch.tensor(valid, dtype=torch.int32,
+                                              device="cuda")
+                            got = ops.paged_prefill_attention(
+                                q, kp, vp, row, st, va, **sc)
+                            want = ref.paged_verify_attention_ref(
+                                q, kd, vd, row, st, va)
+                            torch.cuda.synchronize()
+                            err = (got.float() - want.float()).abs().max()
+                            err = err.item()
+                            if not err <= tol or not (got[dead] == 0).all():
+                                raise AssertionError(
+                                    f"verify {wname} {kind} C={c} valid="
+                                    f"{valid} start={start}: max abs err "
+                                    f"{err} (bound {tol}) or dead rows not 0")
+                            errs[kind] = max(errs[kind], err)
+                            n += 1
+            log(f"verify check {wname} (KVH {kvh}, G {group}, D {d}, page "
+                f"{page}) {kind} pool: {n} bundles, C 2-9, max abs err "
+                f"{errs[kind]:.3e} (bound {tol}); padded rows exact 0")
+    return errs
+
+
+def check_spec_fleet_shapes(torch, ops, pk):
+    """The paged kernels at the other shapes phases 23-25 give them, at the
+    main width over bf16 and f32 pools, against their plain versions:
+    decode of 1 row over MAX_LEN / PAGE-entry tables (the draft model's
+    greedy steps), of FLEET_SLOTS rows over FLEET_MAX_LEN / PAGE-entry
+    tables (the chaos engines) and over MAX_LEN / PAGE-entry ones (phase
+    24's engines), one row idle; the chunk kernel at C = DRAFT_CHUNK (the
+    draft's catch-up) with valid < C from position 0, from a page boundary
+    and deep in the table, and with valid = C; the hinted mixed step with
+    num_decode = FLEET_SLOTS (and unhinted) over the chaos engines' tables.
+    Dead rows must be exact zeros. Returns max abs error per kernel over
+    the bf16 cases."""
+    kvh, group, d, page = PAGED_WIDTHS[MAIN_WIDTH]
+    n_pages = 400
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mp_main, mp_fleet = -(-MAX_LEN // page), -(-FLEET_MAX_LEN // page)
+    kf, vf = _pools(torch, n_pages, torch.float32, seed=17)
+    kf, vf = kf[0], vf[0]
+    errs = {}
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        kp, vp = kf.to(dtype), vf.to(dtype)
+        g = torch.Generator(device="cuda").manual_seed(18)
+        e = dict.fromkeys(("paged_attention_bkgd",
+                           "paged_prefill_attention_ckgd",
+                           "paged_mixed_attention_rkgd"), 0.0)
+
+        def compare(name, got, want, dead, label):
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            if not err <= tol or (dead.any() and not (got[dead] == 0).all()):
+                raise AssertionError(f"{name} [{label}]: max abs err {err} "
+                                     f"(bound {tol}) or dead rows not 0")
+            e[name] = max(e[name], err)
+
+        splits = []
+        for mp, lens in ((mp_main, [1]), (mp_main, [page + 1]),
+                         (mp_main, [400]), (mp_main, [MAX_LEN]),
+                         (mp_fleet, [0, page + 1, 100, FLEET_MAX_LEN]),
+                         (mp_main, [250, 0, 1, MAX_LEN - 3])):
+            rows = len(lens)
+            lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            tables = _tables(torch, rows, mp, n_pages, seed=19 + rows)
+            q = torch.randn(rows, kvh * group, d, generator=g,
+                            device="cuda").to(dtype)
+            compare("paged_attention_bkgd",
+                    ops.paged_attention(q, kp, vp, tables, lengths),
+                    ops.paged_attention(q, kp, vp, tables, lengths,
+                                        impl="ref"),
+                    lengths == 0, f"{rows} rows x {mp} pages, lengths {lens}")
+            splits.append((rows, mp, *pk.decode_splits(rows, kvh, mp, sms)))
+        table = _tables(torch, 1, mp_main, n_pages, seed=23)[0]
+        qc = torch.randn(DRAFT_CHUNK, kvh * group, d, generator=g,
+                         device="cuda").to(dtype)
+        for start, valid in ((0, 20), (2 * page, DRAFT_CHUNK - 1),
+                             (MAX_LEN - 2 * DRAFT_CHUNK, 17),
+                             (0, DRAFT_CHUNK)):
+            st = torch.tensor(start, dtype=torch.int32, device="cuda")
+            va = torch.tensor(valid, dtype=torch.int32, device="cuda")
+            compare("paged_prefill_attention_ckgd",
+                    ops.paged_prefill_attention(qc, kp, vp, table, st, va),
+                    ops.paged_prefill_attention(qc, kp, vp, table, st, va,
+                                                impl="ref"),
+                    torch.arange(DRAFT_CHUNK, device="cuda") >= valid,
+                    f"C {DRAFT_CHUNK} start {start} valid {valid}")
+        lengths = torch.tensor([0, page + 1, 100, FLEET_MAX_LEN - CHUNK],
+                               dtype=torch.int32, device="cuda")
+        tables = _tables(torch, FLEET_SLOTS, mp_fleet, n_pages, seed=24)
+        cpos = torch.arange(CHUNK, dtype=torch.int32, device="cuda")
+        last_pos = torch.cat([lengths - 1,
+                              torch.where(cpos < 41, 23 + cpos, -1)])
+        mtables = torch.cat([tables, tables[2:3].expand(CHUNK, mp_fleet)])
+        mtables = mtables.contiguous()
+        qm = torch.randn(FLEET_SLOTS + CHUNK, kvh * group, d, generator=g,
+                         device="cuda").to(dtype)
+        want = ops.paged_mixed_attention(qm, kp, vp, mtables, last_pos,
+                                         impl="ref")
+        for hint in (FLEET_SLOTS, None):
+            compare("paged_mixed_attention_rkgd",
+                    ops.paged_mixed_attention(qm, kp, vp, mtables, last_pos,
+                                              num_decode=hint),
+                    want, last_pos < 0, f"num_decode={hint}")
+        log(f"spec/fleet shapes {str(dtype).removeprefix('torch.')} "
+            f"{MAIN_WIDTH}: decode (rows, table, splits, pages a split) "
+            f"{sorted(set(splits))} {e['paged_attention_bkgd']:.3e}; chunk C "
+            f"{DRAFT_CHUNK} {e['paged_prefill_attention_ckgd']:.3e}; mixed "
+            f"{FLEET_SLOTS} decode rows + {CHUNK} over {mp_fleet}-entry "
+            f"tables {e['paged_mixed_attention_rkgd']:.3e} (bound {tol}); "
+            f"dead rows exact 0")
+        if dtype == torch.bfloat16:
+            errs = e
+    return errs
+
+
+def time_verify(torch, F, ops, ref):
+    """Kernel 2 at one verify bundle of the spec engine (C = SPEC_K + 1 =
+    VERIFY_C rows at positions 400.., the main width, 32 layers' pools
+    cycled), its plain version (``paged_verify_attention_ref``) and SDPA on
+    the gathered dense K/V, as row 2 is timed."""
+    kvh, group, d, page = PAGED_WIDTHS[MAIN_WIDTH]
+    mp = -(-MAX_LEN // page)
+    n_pages = SLOTS * mp + 1
+    dt = torch.bfloat16
+    kp, vp = _pools(torch, n_pages, dt, layers=LAYERS, seed=14)
+    table = _tables(torch, 1, mp, n_pages, seed=15)[0]
+    g = torch.Generator(device="cuda").manual_seed(16)
+    c, s0 = VERIFY_C, 400
+    q = torch.randn(c, kvh * group, d, generator=g, device="cuda").to(dt)
+    st = torch.tensor(s0, dtype=torch.int32, device="cuda")
+    va = torch.tensor(c, dtype=torch.int32, device="cuda")
+    n = s0 + c
+    dense = []
+    for i in range(LAYERS):
+        kv = [x[i][table.long()].reshape(-1, kvh, d)[:n].permute(1, 0, 2)
+              .repeat_interleave(group, dim=0)[None] for x in (kp, vp)]
+        dense.append(kv)
+    kpos = torch.arange(n, device="cuda")
+    mask = (kpos[None, :] <= s0 + torch.arange(c, device="cuda")[:, None])
+    qd = q.transpose(0, 1)[None]
+    scale = d ** -0.5
+    r = dict(
+        kernel=lambda i: ops.paged_prefill_attention(
+            q, kp[i % LAYERS], vp[i % LAYERS], table, st, va, scale=scale),
+        plain=lambda i: ref.paged_verify_attention_ref(
+            q, kp[i % LAYERS], vp[i % LAYERS], table, st, va, scale=scale),
+        library=lambda i: F.scaled_dot_product_attention(
+            qd, *dense[i % LAYERS], attn_mask=mask[None, None]))
+    bound = _bound(n, sum(s0 + 1 + j for j in range(c)), c, mp, 2, 2)
+    p1 = _time_ms(torch, r["plain"])
+    k1 = _time_ms(torch, r["kernel"])
+    k2 = _time_ms(torch, r["kernel"])
+    p2 = _time_ms(torch, r["plain"])
+    lib = _time_ms(torch, r["library"])
+    log(f"timing paged_prefill_attention_ckgd at verify width [C {c}, "
+        f"start {s0}, {MAIN_WIDTH}]: kernel {k1:.4f}/{k2:.4f} ms, plain "
+        f"{p1:.4f}/{p2:.4f} ms, sdpa {lib:.4f} ms, bound {bound[0]:.5f} ms "
+        f"({bound[1]})")
+    return dict(ms=min(k1, k2), plain_ms=min(p1, p2), library_ms=lib,
+                bound_ms=bound[0], bound_by=bound[1])
+
+
+class _RandomProposer:
+    """Drafts k random tokens for every slot: every bundle dispatches and
+    nearly every draft is rejected (the rollback path)."""
+
+    def __init__(self, seed, vocab):
+        import numpy as np
+
+        self.rng, self.vocab = np.random.default_rng(seed), vocab
+
+    def propose(self, uid, history, k):
+        return [int(t) for t in self.rng.integers(1, self.vocab, k)]
+
+    def retire(self, uid):
+        return None
+
+
+def _spec_counts(engine):
+    u = engine.utilization
+    return dict(bundles=engine.stats["spec_bundles"],
+                proposed=u.spec_proposed, accepted=u.spec_accepted,
+                rollbacks=u.spec_rollbacks)
+
+
+def _host_split(engine):
+    """Wrap the engine's proposal, verify and plain-step calls with wall
+    clocks (each ends in a host sync: a draft argmax, the sampled tokens
+    to the host), to split its step time by where the host waits."""
+    acc = {"propose": 0.0, "verify": 0.0, "step": 0.0}
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            acc[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    engine._propose_bundles = timed("propose", engine._propose_bundles)
+    engine.executor.verify = timed("verify", engine.executor.verify)
+    engine.executor.step = timed("step", engine.executor.step)
+    return acc
+
+
+def _oracle_acceptance(torch, cfg, params, serving, reqs, plain=True):
+    """An oracle draft (the target's own weights) on ``reqs`` through the
+    kernels and (``plain``) through the plain versions (``attn_impl="ref"``,
+    target and draft alike): {impl: spec counts and the streams}."""
+    out = {}
+    for impl in ("kernels", "plain")[:1 + plain]:
+        engine = serving.ContinuousBatchingEngine(
+            cfg, params, max_len=MAX_LEN, max_slots=SLOTS, page_size=PAGE,
+            prefill_chunk=CHUNK, device="cuda", speculative="draft",
+            spec_k=SPEC_K, draft_config=cfg, draft_params=params,
+            attn_impl="ref" if impl == "plain" else None)
+        handles, _ = _drive(torch, engine, reqs)
+        out[impl] = dict(_spec_counts(engine),
+                         streams=[list(h.tokens) for h in handles])
+    return out
+
+
+def run_spec_engine(torch, np, cfg, serving, models, pk, card):
+    """Phase 23: full-width smollm-360m (bf16) serving the first
+    SPEC_REQUESTS requests of phase 4's trace with speculation off, ngram
+    and a 2-layer smollm draft on its own seeded weights (drafts mostly
+    rejected: the rollback path), SPEC_K drafts a bundle. Every request
+    finishes by length and both pools drain. Then the oracle-draft witness:
+    the first WITNESS_REQUESTS greedy requests (16 new tokens) with the
+    target's own weights as the draft, through the kernels at each of
+    WITNESS_DEPTHS and through the plain versions at the first and the
+    last; at PARITY_LAYERS the kernels must land half the drafts or more
+    (the commit path in bf16). Returns
+    {path: launches}."""
+    params = models.build_model(cfg, device="cuda").init(seed=0)
+    # a small draft must share the target's vocabulary (the reduced
+    # config's has 256 tokens): the target's widths cut to 2 layers
+    small = dataclasses.replace(cfg, num_layers=PARITY_LAYERS)
+    engine_kw = dict(max_len=MAX_LEN, max_slots=SLOTS, page_size=PAGE,
+                     prefill_chunk=CHUNK, device="cuda")
+    arms = (("off", {}),
+            ("spec ngram", dict(speculative="ngram")),
+            ("spec draft", dict(
+                speculative="draft", draft_config=small,
+                draft_params=models.build_model(small, device="cuda")
+                .init(seed=5))))
+    out = {}
+    for path, kw in arms:
+        if kw:
+            kw = dict(kw, spec_k=SPEC_K)
+        engine = serving.ContinuousBatchingEngine(cfg, params, **engine_kw,
+                                                  **kw)
+        split = _host_split(engine)
+        rng = np.random.default_rng(0)
+        _requests(serving, 2, rng, sampled_every=2)  # phase 4's warm-up draw
+        trace = _requests(serving, 16, rng, sampled_every=2)
+        reqs = trace[:SPEC_REQUESTS]
+        pk.reset_launches()
+        t0 = time.perf_counter()
+        handles, steps = _drive(torch, engine, reqs)
+        wall = time.perf_counter() - t0
+        launches = dict(pk.LAUNCHES)
+        results = [h.result() for h in handles]
+        _check_served(np, cfg, results, 32)
+        cache = engine.cache
+        if cache.pool.available + cache.parked_count != cache.num_pages - 1:
+            raise AssertionError(f"{path}: the page pool did not drain")
+        dc = getattr(engine.spec, "cache", None)  # the draft model's pool
+        if dc is not None:
+            if (dc.free_slot_count != dc.max_slots
+                    or dc.pool.available != dc.num_pages - 1):
+                raise AssertionError(f"{path}: the draft pool did not drain")
+        counts = _spec_counts(engine)
+        # a random-weight model rarely repeats its history, so the ngram
+        # arm may draft nothing here (phase 24 makes it draft)
+        if "draft" in path and counts["bundles"] <= 0:
+            raise AssertionError(f"{path}: no bundle dispatched")
+        acc = counts["accepted"] / max(counts["proposed"], 1)
+        _log_run(path, cfg, card, reqs, results, wall, steps,
+                 f"decode_steps {engine.stats['decode_steps']}, spec "
+                 f"{counts}, acceptance {acc:.3f}; host s: propose "
+                 f"{split['propose']:.3f}, verify {split['verify']:.3f}, "
+                 f"plain steps {split['step']:.3f}, rest "
+                 f"{wall - sum(split.values()):.3f}; kernel launches "
+                 f"{launches}")
+        if kw:
+            out[path] = launches
+        del engine
+    greedy = [serving.Request(r.uid, r.prompt, sampling=dataclasses.replace(
+        r.sampling, max_new_tokens=16)) for r in trace
+        if r.sampling.temperature <= 0][:WITNESS_REQUESTS]
+    rates = []
+    for depth in WITNESS_DEPTHS:
+        c = dataclasses.replace(cfg, num_layers=depth)
+        p = params if depth == cfg.num_layers else \
+            models.build_model(c, device="cuda").init(seed=0)
+        w = _oracle_acceptance(torch, c, p, serving, greedy,
+                               plain=depth in (cfg.num_layers, PARITY_LAYERS))
+        k = w["kernels"]
+        rate = f"{depth} layers {k['accepted']}/{k['proposed']}"
+        if "plain" in w:
+            same = sum(a == b for a, b in zip(k["streams"],
+                                              w["plain"]["streams"]))
+            rate += (f" (plain {w['plain']['accepted']}/"
+                     f"{w['plain']['proposed']}, streams equal {same}/"
+                     f"{len(greedy)})")
+        rates.append(rate)
+        if depth == PARITY_LAYERS and 2 * k["accepted"] < k["proposed"]:
+            raise AssertionError(f"{depth}-layer bf16 oracle draft landed "
+                                 f"under half its drafts: {k}")
+        del p
+    log(f"oracle draft witness, bf16, {len(greedy)} greedy requests x 16 "
+        f"tokens, accepted/proposed through the kernels: {'; '.join(rates)}")
+    return out
+
+
+def _spec_requests(serving, vocab, streams=None, n=6, new=16):
+    """Greedy and seeded top-p requests alternating, on prompts of 40-150
+    random tokens; given each prompt's spec-off stream ``s``, on ``prompt +
+    s + prompt`` instead, a history that holds n-grams for the ngram
+    proposer to continue."""
+    import numpy as np
+
+    rng = np.random.default_rng(21)
+    reqs = []
+    for i in range(n):
+        prompt = rng.integers(1, vocab, int(rng.integers(40, 151))).tolist()
+        if streams is not None:
+            prompt = prompt + streams[i] + prompt
+        sp = (serving.SamplingParams(temperature=0.8, top_p=0.9,
+                                     max_new_tokens=new, seed=50 + i)
+              if i % 2 else
+              serving.SamplingParams(max_new_tokens=new, seed=50 + i))
+        reqs.append(serving.Request(f"v{i}", prompt, sampling=sp))
+    return reqs
+
+
+def run_spec_parity(torch, np, cfg, serving, models):
+    """Phase 24: f32, TF32 off, PARITY_LAYERS layers: greedy and seeded
+    top-p streams with speculation on (ngram, an oracle draft, a random
+    proposer) equal speculation off through the kernels and through the
+    plain versions, on prompts that repeat themselves around their own
+    spec-off streams (``_spec_requests``); every proposer dispatches
+    bundles, the oracle draft lands drafts and the random proposer rolls
+    back."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                num_layers=PARITY_LAYERS)
+    params = models.build_model(cfg32, device="cuda").init(seed=1)
+    kw = dict(max_len=MAX_LEN, max_slots=4, page_size=PAGE,
+              prefill_chunk=CHUNK, device="cuda")
+    handles, _ = _drive(torch, serving.ContinuousBatchingEngine(
+        cfg32, params, **kw), _spec_requests(serving, cfg.vocab_size))
+    first = [list(h.tokens) for h in handles]
+    arms = {"off": {}, "off plain": dict(attn_impl="ref"),
+            "ngram": dict(speculative="ngram", spec_k=SPEC_K),
+            "draft": dict(speculative="draft", spec_k=SPEC_K,
+                          draft_config=cfg32, draft_params=params),
+            "random": dict(speculative="ngram", spec_k=SPEC_K)}
+    streams, counts = {}, {}
+    for name, akw in arms.items():
+        engine = serving.ContinuousBatchingEngine(cfg32, params, **kw, **akw)
+        if name == "random":
+            engine.spec = _RandomProposer(7, cfg.vocab_size)
+        handles, _ = _drive(torch, engine,
+                            _spec_requests(serving, cfg.vocab_size, first))
+        streams[name] = [list(h.tokens) for h in handles]
+        counts[name] = _spec_counts(engine)
+    bad = [name for name in arms if streams[name] != streams["off"]]
+    if bad:
+        raise AssertionError(f"f32 spec streams differ from spec off: {bad}")
+    if not (all(counts[a]["bundles"] > 0 for a in ("ngram", "draft", "random"))
+            and counts["draft"]["accepted"] > 0
+            and counts["random"]["rollbacks"] > 0):
+        raise AssertionError(f"a spec path went unexercised: {counts}")
+    log(f"spec parity: {PARITY_LAYERS} layers, f32: 6 streams of 16 tokens "
+        f"(greedy and seeded top-p) identical with speculation off (kernels "
+        f"and plain), ngram, oracle draft and random drafts; {counts}")
+
+
+def _fleet_trace(vocab, n=8):
+    """Bus payloads for the chaos runs: prompts of 40-150 tokens, greedy
+    and seeded top-k, two unseeded (the supervisor stamps them), and one
+    long stream to kill mid-decode."""
+    import numpy as np
+
+    rng = np.random.default_rng(31)
+    payloads = []
+    for i in range(n):
+        payloads.append({
+            "uid": f"c{i}",
+            "prompt": rng.integers(1, vocab, int(rng.integers(40, 150)))
+            .tolist(),
+            "max_new_tokens": int(rng.integers(4, 12)),
+            "temperature": 0.7 if i % 3 == 2 else 0.0,
+            "top_k": 8 if i % 3 == 2 else 0,
+            "seed": 1000 + i if i % 4 else None})
+    payloads.append({"uid": "long", "prompt": rng.integers(1, vocab, 60)
+                     .tolist(), "max_new_tokens": 40, "temperature": 0.7,
+                     "top_k": 8, "seed": 4242})
+    return payloads
+
+
+def _chaos(torch, cfg, params, serving, pk, tmp, seed_base=777):
+    """One fleet run over ``payloads`` on the card: 2 engine workers (3 at
+    most), the long stream's owner killed once two of its tokens reached
+    the client, against a single-engine oracle of the same payloads run
+    first. Returns (states, oracle, supervisor, the paged kernels'
+    launches from the fleet's start to the end of its run)."""
+    from repro_torch.core import TopicBus
+    from repro_torch.core.faults import FaultInjector, WorkerKillRule
+
+    payloads = _fleet_trace(cfg.vocab_size)
+    ekw = dict(max_len=FLEET_MAX_LEN, max_slots=FLEET_SLOTS, page_size=PAGE,
+               prefill_chunk=CHUNK, device="cuda")
+    oracle_eng = serving.ContinuousBatchingEngine(cfg, params, **ekw)
+    handles = {}
+    for i, pl in enumerate(payloads):
+        q = dict(pl)
+        if q.get("seed") is None:
+            q["seed"] = serving.fleet_seed(seed_base, i)
+        handles[q["uid"]] = oracle_eng.submit(serving.request_from_message(q))
+    while not oracle_eng.idle:
+        oracle_eng.step()
+    oracle = {u: list(h.tokens) for u, h in handles.items()}
+    del oracle_eng
+    injector = FaultInjector()
+    sup = serving.FleetSupervisor(
+        TopicBus(Path(tmp) / "bus"),
+        lambda: serving.ContinuousBatchingEngine(cfg, params, **ekw),
+        serving.FleetConfig(workers=2, min_replicas=1, max_replicas=3,
+                            beat_interval_s=0.01, seed_base=seed_base,
+                            max_restarts=3),
+        injector=injector)
+    try:
+        for pl in payloads:
+            sup.submit(pl)
+        pk.reset_launches()
+        sup.start()
+        deadline = time.monotonic() + 300
+        while not ("long" in sup.states and sup.states["long"].owner
+                   and len(sup.states["long"].tokens) >= 2):
+            if time.monotonic() > deadline:
+                raise AssertionError("the long stream never started")
+            sup.poll()
+            time.sleep(0.002)
+        owner = sup.states["long"].owner.rsplit("-a", 1)[0]
+        injector.worker_rules.append(
+            WorkerKillRule(worker=owner, after_steps=0, times=1))
+        done = sup.run(expected=[pl["uid"] for pl in payloads],
+                       timeout_s=300)
+        launches = dict(pk.LAUNCHES)
+        if not done:
+            raise AssertionError("fleet run timed out")
+    finally:
+        sup.shutdown()
+    if injector.kills_armed() != 1 or sup.states["long"].resubmits < 1:
+        raise AssertionError("the kill did not land on the long stream")
+    return sup.results(), oracle, sup, launches
+
+
+def _check_responses(sup, states):
+    """Every request terminal; on ``responses`` each (uid, index) once, in
+    order, before the uid's single finish."""
+    seen, finishes = {}, {}
+    for m in sup.bus.read("responses"):
+        v = m.value
+        if v["event"] == "delta":
+            seen.setdefault(v["uid"], []).append(v["index"])
+            if v["uid"] in finishes:
+                raise AssertionError(f"{v['uid']}: delta after finish")
+        elif v["uid"] in finishes:
+            raise AssertionError(f"{v['uid']}: two finishes")
+        else:
+            finishes[v["uid"]] = v
+    for uid, st in states.items():
+        if st.finish_reason not in ("length", "stop"):
+            raise AssertionError(f"{uid}: finished {st.finish_reason}")
+        if seen.get(uid, []) != list(range(len(st.tokens))):
+            raise AssertionError(f"{uid}: delta indices {seen.get(uid)}")
+
+
+def _settled_memory(torch):
+    """Device bytes allocated once dropped engines are collected, then the
+    same once PyTorch's cuBLAS workspaces are cleared (one for each cuBLAS
+    handle that ran a matmul: a thread takes its own handle, and the
+    workspace outlives the thread)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    raw = torch.cuda.memory_allocated()
+    torch._C._cuda_clearCublasWorkspaces()
+    return raw, torch.cuda.memory_allocated()
+
+
+def run_fleet(torch, np, cfg, serving, models, pk, card):
+    """Phase 25: ``launch.serve --fleet 2`` at full width in a subprocess,
+    then two chaos runs in this process (fleet workers are threads on the
+    one card): f32 at PARITY_LAYERS, whose streams must equal the
+    single-engine oracle with no mismatched delta, and bf16 at full width,
+    where every request must be terminal and each (uid, index) on
+    ``responses`` once (mismatches are printed: a replay can see other
+    chunk boundaries, so bf16 rounding can differ). Device memory after
+    the chaos runs, every engine collected and the cuBLAS workspaces
+    cleared, must not exceed what it was before them: the killed workers'
+    pools come back. Returns the bf16 fleet run's kernel launches."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    with tempfile.TemporaryDirectory(prefix="serve_fleet_") as tmp:
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--fleet",
+             "2", "--requests", "12", "--max-new", "8", "--workdir",
+             f"{tmp}/run"],
+            capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
+        if run.returncode != 0 or "fleet served 12/12" not in run.stdout:
+            raise AssertionError(f"serve --fleet 2 exited {run.returncode}: "
+                                 f"{run.stdout[-1500:]} {run.stderr[-1500:]}")
+        served = next(line for line in run.stdout.splitlines()
+                      if line.startswith("fleet served"))
+        log(f"serve driver --fleet 2 on {card} ({time.perf_counter() - t0:.1f}"
+            f" s with start-up): {served}")
+    raw0, mem0 = _settled_memory(torch)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                num_layers=PARITY_LAYERS)
+    params32 = models.build_model(cfg32, device="cuda").init(seed=1)
+    with tempfile.TemporaryDirectory(prefix="chaos32_") as tmp:
+        states, oracle, sup, _ = _chaos(torch, cfg32, params32, serving, pk,
+                                        tmp)
+        _check_responses(sup, states)  # reads the bus under tmp
+    diff = [u for u, st in states.items() if st.tokens != oracle[u]]
+    m = sup.metrics
+    if diff or m.mismatched_deltas or m.gapped_deltas:
+        raise AssertionError(f"f32 chaos: streams {diff} differ from the "
+                             f"oracle; {m.format()}")
+    log(f"fleet chaos f32 ({PARITY_LAYERS} layers): {len(states)} requests "
+        f"equal the single-engine oracle; {m.format()}; recovery s "
+        f"{[round(r, 4) for r in m.recovery_s]}")
+    del sup, params32
+    params = models.build_model(cfg, device="cuda").init(seed=0)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chaos16_") as tmp:
+        states, oracle, sup, launches = _chaos(torch, cfg, params, serving,
+                                               pk, tmp)
+        _check_responses(sup, states)
+    diff = [u for u, st in states.items() if st.tokens != oracle[u]]
+    m = sup.metrics
+    if m.gapped_deltas:
+        raise AssertionError(f"bf16 chaos: gapped deltas; {m.format()}")
+    log(f"fleet chaos bf16 {cfg.name} on {card} "
+        f"({time.perf_counter() - t0:.1f} s with the oracle): "
+        f"{len(states)} requests terminal, each (uid, index) once; "
+        f"{len(diff)} streams differ from the oracle {diff}; "
+        f"mismatched deltas {m.mismatched_deltas}; {m.format()}; kernel "
+        f"launches {launches}")
+    del sup, params
+    raw1, mem1 = _settled_memory(torch)
+    mib = 2 ** 20
+    log(f"fleet chaos device memory: allocated {raw0 / mib:.1f} MiB before, "
+        f"{raw1 / mib:.1f} MiB after (peak "
+        f"{torch.cuda.max_memory_allocated() / mib:.1f} MiB); with the "
+        f"cuBLAS workspaces cleared {mem0 / mib:.1f} MiB before, "
+        f"{mem1 / mib:.1f} MiB after")
+    if mem1 > mem0:
+        raise AssertionError(f"fleet chaos: {(mem1 - mem0) / mib:.1f} MiB "
+                             f"of device memory not returned")
+    return launches
+
+
+def check_put_tree(torch):
+    """Phase 26: a tree of CUDA bf16 and f32 tensors (one requiring grad)
+    and a host int tensor stores under the same refs as the same values
+    on the CPU."""
+    from repro_torch.core import ArtifactStore
+
+    g = torch.Generator(device="cuda").manual_seed(41)
+    dev = {"w": torch.randn(64, 32, generator=g, device="cuda").bfloat16(),
+           "b": [torch.randn(32, generator=g, device="cuda")
+                 .requires_grad_(True), (torch.arange(5), None)],
+           "a": {"z": torch.randn(3, 4, generator=g, device="cuda").t()}}
+
+    def to_cpu(x):
+        if isinstance(x, dict):
+            return {k: to_cpu(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(to_cpu(v) for v in x)
+        return x.detach().cpu() if isinstance(x, torch.Tensor) else x
+
+    with tempfile.TemporaryDirectory(prefix="put_tree_") as tmp:
+        r_dev = ArtifactStore(f"{tmp}/d").put_tree(dev)
+        store = ArtifactStore(f"{tmp}/h")
+        r_cpu = store.put_tree(to_cpu(dev))
+        if r_dev != r_cpu:
+            raise AssertionError(f"put_tree refs differ: {r_dev} {r_cpu}")
+        meta = store.get(r_cpu)
+    log(f"put_tree on the card: CUDA bf16/f32 leaves give the CPU refs; "
+        f"{meta['treedef']}")
+
+
 # the bf16 tensor-core kernels: library -> (C info entry, its page kinds)
 MMA_KERNELS = {"flash_attention": ("flash_attention_mma_info", (None,)),
                "paged_attention": ("paged_attention_prefill_mma_info",
@@ -2389,8 +3094,25 @@ def main() -> int:
     run_tier_int8_parity(torch, np, cfg, serving, models)
     lap("tier + int8 parity")
     run_serve_tiers(card)
-
     lap("serve driver")
+    verify_errs = check_verify(torch, ops, ref)
+    for name, e in check_spec_fleet_shapes(torch, ops, pk).items():
+        errs[name] = max(errs[name], e)
+    verify_times = time_verify(torch, F, ops, ref)
+    lap("verify checks and timing")
+    for path, counts in run_spec_engine(torch, np, cfg, serving, models, pk,
+                                        card).items():
+        for name, n in counts.items():
+            by_path[name][path] = n
+    lap("spec engine")
+    run_spec_parity(torch, np, cfg, serving, models)
+    lap("spec parity")
+    for name, n in run_fleet(torch, np, cfg, serving, models, pk,
+                             card).items():
+        by_path[name]["fleet chaos"] = n
+    lap("fleet")
+    check_put_tree(torch)
+    lap("put_tree")
     kernels = [dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=sum(by_path[name].values()),
                     launches_by_path=by_path[name],
@@ -2400,6 +3122,11 @@ def main() -> int:
         if k["name"] in int8_times:
             k["int8"] = dict(max_abs_err=int8_errs[k["name"]],
                              **int8_times[k["name"]])
+        if k["name"] == "paged_prefill_attention_ckgd":
+            k["verify"] = dict(max_abs_err=verify_errs["bf16"],
+                               int8_max_abs_err=verify_errs["int8"],
+                               f32_max_abs_err=verify_errs["f32"],
+                               **verify_times)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,8 +18,10 @@ from __future__ import annotations
 import hashlib
 import io
 import json
+import os
 import pickle
 import shutil
+import threading
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Any
@@ -80,16 +82,26 @@ class ArtifactStore:
 
     # ------------------------------------------------------------------
     def put(self, obj: Any, tier: str = "shared", name: str = "obj") -> str:
-        blob, kind = self._encode(obj)
+        return self._put_blob(*self._encode(obj), tier=tier, name=name)
+
+    def _put_blob(self, blob: bytes, kind: str, tier: str, name: str) -> str:
         digest = hashlib.sha256(blob).hexdigest()
         d = self._objects(tier) / digest
         d.mkdir(exist_ok=True)
         f = d / "data"
         if not f.exists():  # content-addressed: idempotent
-            tmp = d / ".tmp"
+            # writers of one object (engine workers flushing the same
+            # prefix page) each stage a private file and replace
+            # atomically, the meta before the data, so a reader that finds
+            # the data finds its meta; a shared ".tmp" raced: the second
+            # rename found the first writer had moved it
+            tag = f"{os.getpid()}.{threading.get_ident()}"
+            meta = d / f".meta.{tag}"
+            meta.write_text(json.dumps({"kind": kind, "name": name}))
+            meta.replace(d / "meta.json")
+            tmp = d / f".tmp.{tag}"
             tmp.write_bytes(blob)
-            tmp.rename(f)
-            (d / "meta.json").write_text(json.dumps({"kind": kind, "name": name}))
+            tmp.replace(f)
         return f"{tier}://{digest}/{name}"
 
     def get(self, ref: str) -> Any:
@@ -108,13 +120,36 @@ class ArtifactStore:
         return (self._objects(tier) / digest / "data").exists()
 
     def put_tree(self, tree: Any, tier: str = "shared", name: str = "tree") -> str:
-        """Store a pytree (torch/np arrays + containers) as one artifact."""
-        from torch.utils._pytree import tree_flatten
+        """Store a pytree (torch/np arrays + containers) as one artifact.
 
-        leaves, treedef = tree_flatten(tree)
-        refs = [self.put(np.asarray(v), tier=tier, name=f"{name}.{i}") for i, v in enumerate(leaves)]
-        meta = {"treedef": str(treedef), "leaves": refs}
+        Leaves, their order, their bytes and the meta are the JAX
+        package's for the same values (``jax.tree.flatten`` order: dict
+        keys sorted, lists and tuples in order, None an empty node), so
+        both packages give the same refs: a tensor is stored from the CPU
+        and detached, a bf16 one as the 16-bit pattern JAX's numpy view
+        writes (read back as ``V2``)."""
+        leaves: list = []
+        treedef = f"PyTreeDef({_flatten(tree, leaves)})"
+        refs = [self._put_leaf(v, tier=tier, name=f"{name}.{i}")
+                for i, v in enumerate(leaves)]
+        meta = {"treedef": treedef, "leaves": refs}
         return self.put(meta, tier=tier, name=name)
+
+    def _put_leaf(self, leaf: Any, tier: str, name: str) -> str:
+        import torch
+
+        if not isinstance(leaf, torch.Tensor):
+            return self.put(np.asarray(leaf), tier=tier, name=name)
+        t = leaf.detach().cpu()
+        if t.dtype != torch.bfloat16:
+            return self.put(t.contiguous().numpy(), tier=tier, name=name)
+        # JAX's bfloat16 numpy dtype saves as descr '<V2' (plain numpy's
+        # V2 would write '|V2'): write its header, then the raw bits
+        buf = io.BytesIO()
+        np.lib.format.write_array_header_1_0(buf, {
+            "descr": "<V2", "fortran_order": False, "shape": tuple(t.shape)})
+        buf.write(t.contiguous().view(torch.int16).numpy().tobytes())
+        return self._put_blob(buf.getvalue(), "ndarray", tier=tier, name=name)
 
     # ------------------------------------------------------------------
     def claim(self, name: str, tier: str = "shared", capacity_bytes: int = 1 << 34) -> VolumeClaim:
@@ -125,3 +160,21 @@ class ArtifactStore:
 
     def release(self, claim: VolumeClaim):
         shutil.rmtree(claim.path, ignore_errors=True)
+
+
+def _flatten(node: Any, leaves: list) -> str:
+    """Append ``node``'s leaves to ``leaves`` in ``jax.tree.flatten`` order
+    and return its structure as JAX prints it inside ``PyTreeDef(...)``."""
+    if node is None:
+        return "None"
+    if isinstance(node, dict):
+        inner = ", ".join(f"{k!r}: {_flatten(node[k], leaves)}"
+                          for k in sorted(node))
+        return "{" + inner + "}"
+    if isinstance(node, (list, tuple)):
+        inner = ", ".join(_flatten(v, leaves) for v in node)
+        if isinstance(node, list):
+            return f"[{inner}]"
+        return f"({inner},)" if len(node) == 1 else f"({inner})"
+    leaves.append(node)
+    return "*"

@@ -39,6 +39,16 @@ _lock = threading.RLock()  # build() and load(); load() calls build()
 build_seconds: dict[str, float] = {}
 # per library: what ptxas reported (registers, shared memory, spills)
 build_log: dict[str, str] = {}
+_count_lock = threading.Lock()
+
+
+def count_launch(*entries: tuple[dict[str, int], str]) -> None:
+    """Add one to each ``counts[key]`` of ``entries`` under one lock: engine
+    threads (the serve driver's fleet workers) launch concurrently, and
+    ``+=`` on a dict entry is not atomic across threads."""
+    with _count_lock:
+        for counts, key in entries:
+            counts[key] += 1
 
 
 def nvcc_path() -> str:

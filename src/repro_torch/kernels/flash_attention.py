@@ -87,5 +87,5 @@ def flash_attention_bhsd(
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bhsd launch failed: error {err}")
-    LAUNCHES["flash_attention_bhsd"] += 1
+    build.count_launch((LAUNCHES, "flash_attention_bhsd"))
     return out

@@ -214,7 +214,7 @@ def paged_attention_bkgd(
         _ptr(partials), b, kvh, group, d, page, mp, splits, pps,
         scale if scale is not None else d ** -0.5, dt, _stream(q))
     _raise_on(err, "paged_attention_bkgd")
-    LAUNCHES["paged_attention_bkgd"] += 1
+    build.count_launch((LAUNCHES, "paged_attention_bkgd"))
     return out
 
 
@@ -244,7 +244,7 @@ def paged_prefill_attention_ckgd(
         out.data_ptr(), c, kvh, group, d, page, block_table.shape[0],
         scale if scale is not None else d ** -0.5, dt, _stream(q))
     _raise_on(err, "paged_prefill_attention_ckgd")
-    LAUNCHES["paged_prefill_attention_ckgd"] += 1
+    build.count_launch((LAUNCHES, "paged_prefill_attention_ckgd"))
     return out
 
 
@@ -291,5 +291,5 @@ def paged_mixed_attention_rkgd(
         _ptr(partials), r, kvh, group, d, page, mp, splits, pps, hint,
         scale if scale is not None else d ** -0.5, dt, _stream(q))
     _raise_on(err, "paged_mixed_attention_rkgd")
-    LAUNCHES["paged_mixed_attention_rkgd"] += 1
+    build.count_launch((LAUNCHES, "paged_mixed_attention_rkgd"))
     return out

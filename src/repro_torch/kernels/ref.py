@@ -13,6 +13,9 @@ masks and exact-zero conventions (``repro/kernels/ref.py``):
 * ``paged_mixed_attention_ref``   — fused mixed step: R independent rows,
   each a (block-table row, last attended position) pair; ``last_pos < 0``
   marks a dead row (exact zeros).
+* ``paged_verify_attention_ref`` — a speculation bundle (the last
+  committed token + k drafts of one sequence) through the mixed oracle:
+  verify == chunk == a decode loop.
 * ``paged_mixed_attention_split_ref`` — the same function evaluated as
   decode rows + one chunk, gathering the chunk's K/V once (what
   ``ops.paged_mixed_attention`` runs on the CPU when given ``num_decode``).
@@ -167,6 +170,32 @@ def paged_mixed_attention_split_ref(
         q[s:], k_pages, v_pages, block_tables[s], start, valid, scale=scale,
     )
     return torch.cat([dec, chk], dim=0)
+
+
+def paged_verify_attention_ref(
+    q: torch.Tensor,            # (C, H, D) bundle queries: t_last + k drafts
+    k_pages: torch.Tensor,      # (P, page, KVH, D) shared page pool
+    v_pages: torch.Tensor,
+    block_table: torch.Tensor,  # (MP,) int32 the sequence's block-table row
+    start: torch.Tensor | int,  # scalar: cached length L before the bundle
+    valid: torch.Tensor | int,  # scalar: 1 + number of drafted tokens
+    *,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Speculative-verify oracle: row i is the query at absolute position
+    ``start + i`` (row 0 the last committed token, rows 1..k the drafts)
+    and attends what an i-step decode loop would see: the cached prefix
+    plus the bundle rows ``<= i`` (their K/V already in the pages). That is
+    the mixed oracle with the table broadcast to every row and ``last_pos
+    = start + i``, dead past ``valid``, so verify == chunk attention == an
+    unrolled decode loop. Returns (C, H, D) in q.dtype; padded rows are
+    exact zeros."""
+    c = q.shape[0]
+    idx = torch.arange(c, device=q.device)
+    last_pos = torch.where(idx < valid, start + idx, -1).to(torch.int32)
+    tables = block_table.expand(c, block_table.shape[0])
+    return paged_mixed_attention_ref(q, k_pages, v_pages, tables, last_pos,
+                                     scale=scale)
 
 
 # ---------------------------------------------------------------------------

@@ -143,8 +143,8 @@ def ssd_scan_bshp(
         b, s, h, p, n, _DTYPES[x.dtype], rows,
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, "ssd_scan_bshp")
-    LAUNCHES["ssd_scan_bshp"] += 1
-    LAUNCHES_BY_PATH["mma" if rows else "cuda_core"] += 1
+    build.count_launch((LAUNCHES, "ssd_scan_bshp"),
+                       (LAUNCHES_BY_PATH, "mma" if rows else "cuda_core"))
     return y, fs
 
 
@@ -202,5 +202,5 @@ def ssd_decode_step_bh(
         y.data_ptr(), b, h, p, n, _DTYPES[x_t.dtype],
         torch.cuda.current_stream(state.device).cuda_stream)
     _raise_on(err, "ssd_decode_step_bh")
-    LAUNCHES["ssd_decode_step_bh"] += 1
+    build.count_launch((LAUNCHES, "ssd_decode_step_bh"))
     return y, state

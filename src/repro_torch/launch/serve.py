@@ -31,6 +31,10 @@ attention and SSD versions on the CPU, for tests and reduced configs):
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
       --shared-prefix 32 --kv-quant int8 --host-pages 8 \\
       --persist-dir "$TMPDIR/kv"
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
+      --spec draft --draft-config smollm-360m --spec-k 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
+      --fleet 2
 
 The paged engine's KV cache is tiered: finished prompts' prefix pages park
 on the device, spill under pressure to host RAM (``--host-pages N``) and
@@ -38,13 +42,21 @@ write through to an artifact store (``--persist-dir PATH``); each worker
 flushes its parked pages there when it exits, so a rerun on the same
 directory prefetches the prefixes back instead of prefilling them.
 ``--kv-quant int8`` stores the pages as int8 with f32 scales, dequantized
-inside the paged kernels.
+inside the paged kernels. ``--spec ngram|draft`` turns on speculative
+decoding in the paged engine (``--spec-k`` drafts a bundle; ``--spec
+draft`` drafts with ``--draft-config``'s model on seeded weights, reduced
+with the target under ``--reduced``); streams are those of ``--spec off``.
 
-Only the driver role of the paged, lockstep and SSM engines is ported:
-the moe and vlm families (ROADMAP A.7), encoder-decoder configs (A.11),
-``--fleet`` and ``--role worker`` (A.9) raise or exit with a message
-naming their ROADMAP item; the JAX package's mesh and speculation flags
-have no counterpart yet (ROADMAP A.6, A.10).
+``--fleet N`` runs the supervised fleet (``serving/fleet.py``) instead of
+the flat worker pool: N engine workers, threads of this process that share
+the read-only weights and each build their own engine and page pool on
+``--device``, with heartbeat probes, crash replay and autoscaling.
+``--role worker --worker-name NAME`` runs one fleet worker loop against an
+existing ``--workdir`` bus, whose supervisor runs elsewhere.
+
+The moe and vlm families (ROADMAP A.7) and encoder-decoder configs (A.11)
+raise with a message naming their ROADMAP item; the JAX package's mesh
+flag has no counterpart yet (ROADMAP A.10).
 """
 
 from __future__ import annotations
@@ -53,12 +65,6 @@ import argparse
 import threading
 import time
 from pathlib import Path
-
-_NOT_PORTED = {
-    "fleet": "--fleet: the supervised fleet (ROADMAP A.9)",
-    "role": "--role worker: fleet workers (ROADMAP A.9)",
-}
-
 
 def main() -> int:
     ap = argparse.ArgumentParser()
@@ -115,14 +121,30 @@ def main() -> int:
     ap.add_argument("--ssd-impl", default="auto", choices=["auto", "ref"],
                     help="the same choice for the SSD scan and decode step "
                          "(SSM engine and lockstep)")
-    ap.add_argument("--fleet", type=int, default=0, metavar="N")
-    ap.add_argument("--role", choices=["driver", "worker"], default="driver")
+    ap.add_argument("--spec", default="off",
+                    choices=["off", "ngram", "draft"],
+                    help="paged engine: speculative decoding proposer; "
+                         "'ngram' drafts from the request's own history, "
+                         "'draft' runs a draft model (--draft-config) on its "
+                         "own page pool; streams equal 'off' either way")
+    ap.add_argument("--spec-k", type=int, default=4, metavar="K",
+                    help="speculative decoding: drafted tokens per bundle")
+    ap.add_argument("--draft-config", default=None, metavar="ARCH",
+                    help="--spec draft: the draft model's arch ('-reduced' "
+                         "suffix honored, and --reduced reduces it too), on "
+                         "seeded weights")
+    ap.add_argument("--fleet", type=int, default=0, metavar="N",
+                    help="run the supervised fleet with N initial engine "
+                         "workers (heartbeat probes, crash replay, "
+                         "autoscaling) instead of the flat worker pool")
+    ap.add_argument("--role", choices=["driver", "worker"], default="driver",
+                    help="'worker': run ONE fleet worker loop against an "
+                         "existing --workdir bus and exit when its work "
+                         "topic drains")
+    ap.add_argument("--worker-name", default="w0",
+                    help="--role worker: this worker's pod name")
     ap.add_argument("--workdir", default="experiments/serve_run_torch")
     args = ap.parse_args()
-    unported = {"fleet": args.fleet > 0, "role": args.role == "worker"}
-    for flag, hit in unported.items():
-        if hit:
-            ap.exit(2, f"{ap.prog}: {_NOT_PORTED[flag]} is not ported yet\n")
 
     from repro_torch.configs import get_arch, reduced
     from repro_torch.core import TopicBus
@@ -167,16 +189,17 @@ def main() -> int:
 
     # ---- producer: enqueue requests (mixed sampling params, so the full
     # Request surface travels through the bus, not just uid/prompt) ----
-    for i in range(args.requests):
-        bus.publish(
-            "requests",
-            {"uid": f"r{i}",
-             "prompt": shared + [1 + (i % 30), 2, 3 + (i % 7)],
-             "max_new_tokens": args.max_new,
-             "temperature": 0.7 if i % 4 == 3 else 0.0,
-             "seed": i,
-             "priority": i % 3},
-        )
+    if args.role == "driver":
+        for i in range(args.requests):
+            bus.publish(
+                "requests",
+                {"uid": f"r{i}",
+                 "prompt": shared + [1 + (i % 30), 2, 3 + (i % 7)],
+                 "max_new_tokens": args.max_new,
+                 "temperature": 0.7 if i % 4 == 3 else 0.0,
+                 "seed": i,
+                 "priority": i % 3},
+            )
 
     group = "servers"
     scaler = Autoscaler(
@@ -187,6 +210,12 @@ def main() -> int:
     )
     policies = {"fifo": FIFOAdmission, "priority": PriorityAdmission,
                 "deadline": DeadlineAdmission}
+
+    # --reduced shrinks the target; a draft arch named on the CLI shrinks
+    # with it, or the "small" draft model is full-size
+    draft_config = args.draft_config
+    if draft_config and args.reduced and not draft_config.endswith("-reduced"):
+        draft_config = f"{draft_config}-reduced"
 
     def make_engine():
         if args.engine == "lockstep":
@@ -218,8 +247,16 @@ def main() -> int:
             kv_quant=args.kv_quant,
             host_pages=args.host_pages,
             persist_dir=args.persist_dir,
+            speculative=args.spec,
+            spec_k=args.spec_k,
+            draft_config=draft_config,
             device=args.device,
         )
+
+    if args.role == "worker":
+        return _run_worker(args, bus, make_engine)
+    if args.fleet:
+        return _run_fleet(args, bus, events, make_engine)
 
     done: dict[str, list[int]] = {}
     latencies: list = []  # Results, for TTFT/ITL percentiles
@@ -348,6 +385,79 @@ def main() -> int:
         "deltas must precede completion on the bus"
     print(f"streaming: {sum(len(t) for t in done.values())} deltas published "
           f"before {len(finish_at)} completions")
+    return 0
+
+
+def _run_fleet(args, bus, events, make_engine) -> int:
+    """Supervised-fleet driver: FleetSupervisor + N engine workers with
+    probes, crash-replay recovery and autoscaling (``serving/fleet.py``)."""
+    from repro_torch.serving.fleet import FleetConfig, FleetSupervisor
+
+    fcfg = FleetConfig(
+        workers=args.fleet,
+        min_replicas=1,
+        max_replicas=max(args.fleet, 4),
+        target_lag_per_replica=args.max_batch * 2,
+    )
+    sup = FleetSupervisor(bus, make_engine, fcfg, events=events)
+    expected = [f"r{i}" for i in range(args.requests)]
+    t0 = time.time()
+    ok = sup.run(expected=expected, timeout_s=600)
+    wall = time.time() - t0
+    sup.shutdown()
+    states = sup.results()
+    n_tokens = sum(len(s.tokens) for s in states.values())
+    print(f"fleet served {len(states)}/{args.requests} requests in "
+          f"{wall:.1f}s ({n_tokens / wall:.1f} tok/s), "
+          f"workers={args.fleet}+auto, "
+          f"supervision: {sup.metrics.format()}")
+    autoscales = events.history("autoscale")
+    print("autoscale events:", [(e["old"], e["new"]) for e in autoscales])
+    assert ok, "fleet run timed out with requests still in flight"
+
+    # same streaming invariant as the flat pool: every streamed request's
+    # first delta precedes its terminal finish on the responses topic
+    first_delta: dict[str, int] = {}
+    finish_at: dict[str, int] = {}
+    for m in bus.read("responses"):
+        uid, event = m.value["uid"], m.value["event"]
+        if event == "delta":
+            first_delta.setdefault(uid, m.offset)
+        elif event == "finish":
+            finish_at[uid] = m.offset
+    streamed = [u for u, s in states.items() if s.tokens]
+    assert all(first_delta[u] < finish_at[u] for u in streamed), \
+        "deltas must precede completion on the bus"
+    print(f"streaming: {n_tokens} deltas published before "
+          f"{len(finish_at)} completions")
+    return 0
+
+
+def _run_worker(args, bus, make_engine) -> int:
+    """Standalone fleet worker: the multi-process deployment shape. A
+    supervisor in another process (same ``--workdir`` bus) publishes
+    ``fleet.work``; this process serves it until the topic drains."""
+    from repro_torch.serving.fleet import (
+        EngineWorker,
+        FleetConfig,
+        WORK_TOPIC,
+        WORKER_GROUP,
+    )
+
+    w = EngineWorker(args.worker_name, 0, bus, make_engine,
+                     threading.Lock(), FleetConfig(workers=1, autoscale=False))
+    w.start()
+    idle_since = None
+    while w.thread.is_alive():
+        busy = bus.lag(WORK_TOPIC, WORKER_GROUP) > 0 or w.inflight
+        idle_since = None if busy else (idle_since or time.time())
+        if idle_since is not None and time.time() - idle_since > 2.0:
+            w.retire()
+            break
+        time.sleep(0.05)
+    w.thread.join(timeout=30)
+    print(f"worker {w.pod_id}: steps={w.steps_run} "
+          f"tokens={w.tokens_emitted} clean={w.stopped_cleanly}")
     return 0
 
 

@@ -20,7 +20,9 @@ Python loop over the layers:
   * dense (paged KV pool, written in place):
     ``decode_step_paged`` (one token per in-flight slot), ``prefill_chunk``
     (one fixed-size prompt chunk of one sequence), ``mixed_step_paged``
-    (decode rows + one chunk in one pass);
+    (decode rows + one chunk in one pass), ``verify_step_paged`` (a
+    speculation bundle of one sequence through the chunk path, every row
+    unembedded);
   * ssm (per-slot recurrent state bank): ``decode_step_ssm`` (one token per
     slot, the bank advanced in place) and ``prefill_chunk_ssm`` (one chunk
     of one sequence from its carried state);
@@ -30,8 +32,8 @@ Python loop over the layers:
 Each returns f32 logits. Vocab is padded to a multiple of 256, as in the
 JAX package.
 
-Not ported yet: training (``loss_fn``, A.11), ``verify_step_paged``
-(A.6), and the moe and vlm families (A.7).
+Not ported yet: training (``loss_fn``, A.11) and the moe and vlm
+families (A.7).
 """
 
 from __future__ import annotations
@@ -170,6 +172,18 @@ class DecoderLM(nn.Module):
             p.copy_(torch.randn(spec.shape, generator=gen, device=self.device,
                                 dtype=torch.float32) * scale)
         return self.state_dict()
+
+    def load_params(self, params: dict) -> None:
+        """Load a state dict. When every tensor already lies on the model's
+        device in its parameter's dtype, the tensors become the parameters
+        themselves, not copies: engines built from one state dict (fleet
+        workers, a draft model on its target's weights) share the weights,
+        which serving only reads. Any other state dict is copied in."""
+        own = self.state_dict()
+        share = all(k in own and v.device == own[k].device
+                    and v.dtype == own[k].dtype for k, v in params.items())
+        self.load_state_dict(params, assign=share)
+        self._layer_views = self._shared_view = None
 
     def _layers(self) -> list[dict]:
         """Per-layer views of the stacked parameters, nested like the JAX
@@ -448,6 +462,19 @@ class DecoderLM(nn.Module):
         chunk). Returns logits (Vp,) f32 of chunk position ``valid - 1`` —
         meaningful on the prompt's final chunk.
         """
+        valid = self._as_scalar(valid)
+        x = self._chunk_stack(pages, block_table, tokens, start, valid)
+        # negative index wraps like JAX's dynamic slice: valid 0 -> row C-1
+        row = torch.remainder(valid - 1, x.shape[1])
+        x = x.index_select(1, row.reshape(1).long())
+        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        return self._unembed(x)[0, 0]
+
+    def _chunk_stack(self, pages, block_table, tokens, start, valid):
+        """C chunk rows of one sequence through every layer: each layer
+        scatters the rows' K/V into the sequence's pages (in place; rows
+        past ``valid`` into the sink) and attends them over the cached
+        prefix, causal. Returns the last hidden states (1, C, D)."""
         cfg = self.cfg
         start, valid = self._as_scalar(start), self._as_scalar(valid)
         x = self.embed[tokens.long()][None]  # (1,C,D)
@@ -456,11 +483,28 @@ class DecoderLM(nn.Module):
             x = self._block(pl, x, lambda p, h: attn.prefill_chunk_attention_paged(
                 p, h, cl, block_table, start, valid, cfg,
                 attn_impl=self.attn_impl))
-        # negative index wraps like JAX's dynamic slice: valid 0 -> row C-1
-        row = torch.remainder(valid - 1, x.shape[1])
-        x = x.index_select(1, row.reshape(1).long())
-        x = rms_norm(x, self.final_norm, cfg.norm_eps)
-        return self._unembed(x)[0, 0]
+        return x
+
+    # ------------------------------------------------------------------
+    # speculative verify (continuous batching)
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def verify_step_paged(self, pages, block_table, tokens, start, valid):
+        """Score a speculation bundle: C chunk rows of ONE sequence (the
+        last committed token, then k drafted tokens, padded to the bundle
+        width) scattered into its pages and attended exactly as a prefill
+        chunk (the chunk kernel on the card), with every row unembedded.
+
+        block_table (MP,) int32; tokens (C,) int ``[t_last, d_1 .. d_k]``;
+        start (int32 scalar) is the cached length L (t_last's K/V lands at
+        L, draft i at L + i); valid (int32 scalar) is 1 + k (rows past it
+        write into the sink and return garbage the caller ignores).
+        Returns logits (C, Vp) f32: row i scores token index ``idx0 + i``
+        given the history plus drafts ``d_1 .. d_i``, as a sequential
+        decode loop would."""
+        x = self._chunk_stack(pages, block_table, tokens, start, valid)
+        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        return self._unembed(x)[0]
 
     # ------------------------------------------------------------------
     # recurrent-state serving (SSM / hybrid continuous batching)

@@ -16,8 +16,12 @@ ssm and hybrid families; its attention prefill through the flash kernel).
 attention over a paged pool beside it), through the SSD and paged kernels
 on the card.
 
-Still to port (ROADMAP A): the fleet, speculative decoding and the moe
-and vlm families.
+Speculative decoding (``serving.speculative``: the ngram and draft-model
+proposers) rides the paged engine's chunk path; ``serving.fleet`` runs
+engines as supervised workers over the bus, with heartbeats, crash replay
+and autoscaling.
+
+Still to port (ROADMAP A): the moe and vlm families.
 """
 
 from repro_torch.serving.api import (
@@ -39,6 +43,12 @@ from repro_torch.serving.engine import (
     ContinuousBatchingEngine,
     GenerationEngine,
 )
+from repro_torch.serving.fleet import (
+    EngineWorker,
+    FleetConfig,
+    FleetSupervisor,
+    fleet_seed,
+)
 from repro_torch.serving.kv_cache import PagedKVCache, PagePool
 from repro_torch.serving.kv_tiers import KVTierManager
 from repro_torch.serving.metrics import (
@@ -46,18 +56,29 @@ from repro_torch.serving.metrics import (
     format_latency,
     latency_percentiles,
 )
+from repro_torch.serving.speculative import (
+    DraftModelProposer,
+    NgramProposer,
+    SpeculativeProposer,
+    build_proposer,
+)
 from repro_torch.serving.ssm_engine import SlotStateBank, SSMEngine
 
 __all__ = [
     "AdmissionPolicy",
     "ContinuousBatchingEngine",
     "DeadlineAdmission",
+    "DraftModelProposer",
     "EngineCore",
+    "EngineWorker",
     "FIFOAdmission",
     "FinishReason",
+    "FleetConfig",
     "FleetMetrics",
+    "FleetSupervisor",
     "GenerationEngine",
     "KVTierManager",
+    "NgramProposer",
     "PagedKVCache",
     "PagePool",
     "PriorityAdmission",
@@ -67,8 +88,11 @@ __all__ = [
     "SSMEngine",
     "SamplingParams",
     "SlotStateBank",
+    "SpeculativeProposer",
     "StreamEvent",
     "UnsupportedConfigError",
+    "build_proposer",
+    "fleet_seed",
     "format_latency",
     "latency_percentiles",
     "request_from_message",

@@ -33,8 +33,10 @@ per admission, prefix sharing off), copy-on-write prefix sharing with the
 tiered KV cache (parked pages, a host-RAM tier ``host_pages`` and a
 persisted ``ArtifactStore`` tier ``persist_dir`` that outlives the
 process), int8 pages (``kv_quant="int8"``, dequantized inside the paged
-kernels), preemption and the admission policies. Speculative decoding
-(ROADMAP A.6) is not ported yet and raises.
+kernels), preemption, the admission policies and speculative decoding
+(``speculative="ngram"|"draft"``: a proposer drafts ``spec_k`` tokens per
+decoding slot, one verify dispatch per bundle scores them through the
+chunk kernel, and the rejected tail rolls back by a length rewind).
 """
 
 from __future__ import annotations
@@ -63,6 +65,7 @@ from repro_torch.serving.kv_cache import PagedKVCache, cdiv
 from repro_torch.serving.kv_tiers import KVTierManager
 from repro_torch.serving.metrics import UtilizationMetrics
 from repro_torch.serving.scheduler import Scheduler, Sequence
+from repro_torch.serving.speculative import SPEC_MODES, build_proposer
 
 __all__ = ["ContinuousBatchingEngine", "GenerationEngine", "Request",
            "Result"]
@@ -112,7 +115,7 @@ class GenerationEngine(EngineBase):
         self.model = build_model(cfg, device=self.device,
                                  attn_impl=attn_impl or "auto",
                                  ssd_impl=ssd_impl or "auto")
-        self.model.load_state_dict(params)
+        self.model.load_params(params)
         self.params = self.model.state_dict()
         self.max_len = max_len
         self.max_batch = max_batch
@@ -250,6 +253,10 @@ class ContinuousBatchingEngine(EngineBase):
     host-RAM tier and an ``ArtifactStore`` tier to spill to, from which a
     later prefix hit prefetches them back (across restarts, for the
     store). ``kv_quant="int8"`` stores the pages as int8 with f32 scales.
+    ``speculative`` (``"off"``, ``"ngram"`` or ``"draft"``, with
+    ``spec_k`` drafts a bundle; ``draft_config``/``draft_params`` name the
+    draft model) turns on speculative decoding; streams are byte-identical
+    to ``"off"``.
     ``params`` is the model's state dict (``DecoderLM.init`` or
     :func:`repro_torch.models.params_from_jax`); ``device`` is where the
     model, the page pool and every step live (``"cuda"`` unless the caller
@@ -278,6 +285,9 @@ class ContinuousBatchingEngine(EngineBase):
         host_pages: int = 0,
         persist_dir: str | None = None,
         speculative: str = "off",
+        spec_k: int = 4,
+        draft_config=None,
+        draft_params=None,
         device="cuda",
     ):
         assert not cfg.is_encoder_decoder, "paged engine is decoder-only"
@@ -290,9 +300,6 @@ class ContinuousBatchingEngine(EngineBase):
             raise NotImplementedError(
                 f"family {cfg.family!r}: only the dense paged path is ported "
                 f"(moe/vlm: ROADMAP A.7)")
-        if speculative != "off":
-            raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP A.6)")
         if kv_quant not in ("none", "int8"):
             raise ValueError(
                 f"kv_quant must be 'none' or 'int8', got {kv_quant!r}")
@@ -355,10 +362,33 @@ class ContinuousBatchingEngine(EngineBase):
         )
         self.model = self.executor.model
         self.params = self.executor.params
+        # speculative decoding: a proposer drafts spec_k tokens per
+        # decoding slot; the executor verifies each bundle in one dispatch;
+        # rejected tails roll back by rewinding the sequence length
+        if speculative not in SPEC_MODES:
+            raise ValueError(
+                f"speculative must be one of {SPEC_MODES}, got {speculative!r}"
+            )
+        if spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+        self.spec_mode = speculative
+        self.spec_k = spec_k
+        self.spec = None
+        if speculative != "off":
+            if step_mode != "fused":
+                raise ValueError(
+                    "speculative decoding requires step_mode='fused'")
+            self.spec = build_proposer(
+                speculative, draft_config=draft_config,
+                draft_params=draft_params, max_slots=max_slots,
+                max_len=max_len, page_size=page_size, seed=seed,
+                attn_impl=attn_impl, device=self.device,
+            )
         self._init_api(admission=admission, seed=seed)
         self.utilization = UtilizationMetrics()
         self.stats.update({"decode_steps": 0, "prefills": 0,
-                           "prefill_chunks": 0, "preemptions": 0})
+                           "prefill_chunks": 0, "preemptions": 0,
+                           "spec_bundles": 0})
 
     # ------------------------------------------------------------------
     # EngineBase hooks
@@ -374,7 +404,13 @@ class ContinuousBatchingEngine(EngineBase):
             )
 
     def _release_slot(self, slot: int) -> Sequence:
-        return self.scheduler.release(slot)
+        """Release a slot and retire any proposer state for its uid: every
+        engine-side release funnels through here, so a finished or
+        cancelled request never leaks a draft-cache slot."""
+        seq = self.scheduler.release(slot)
+        if self.spec is not None:
+            self.spec.retire(seq.request.uid)
+        return seq
 
     def _cancel_active(self, uid: str) -> bool:
         slot = self.scheduler.find(uid)
@@ -444,6 +480,8 @@ class ContinuousBatchingEngine(EngineBase):
         pressure: requeue transparently (already-streamed deltas are never
         re-emitted) or finish ``preempted`` past ``max_preemptions``."""
         self.stats["preemptions"] += 1
+        if self.spec is not None:
+            self.spec.retire(seq.request.uid)
         h = seq.handle
         h.preemptions += 1
         if (self.max_preemptions is not None
@@ -508,6 +546,64 @@ class ContinuousBatchingEngine(EngineBase):
                 persisted=t.persisted_count, counters=t.counters,
             )
 
+    # ------------------------------------------------------------------
+    # speculative decoding
+    # ------------------------------------------------------------------
+    def _propose_bundles(self) -> dict[int, list[int]]:
+        """Ask the proposer for drafts for every decoding slot. ``k`` is
+        capped so a fully-accepted bundle can neither overshoot the
+        request's validated page budget (context + k + 1 must stay within
+        max_pages_per_seq) nor draft past max_new_tokens."""
+        out: dict[int, list[int]] = {}
+        cache = self.cache
+        ctx_cap = cache.max_pages_per_seq * cache.page_size
+        for slot, seq in self.scheduler.decoding():
+            sp = seq.request.sampling
+            if not sp.speculative:
+                continue
+            k = min(self.spec_k,
+                    sp.max_new_tokens - len(seq.tokens) - 1,
+                    ctx_cap - int(cache.lengths[slot]) - 1)
+            if k < 1:
+                continue
+            history = list(seq.request.prompt) + seq.tokens
+            drafts = self.spec.propose(seq.request.uid, history, k)
+            if drafts:
+                out[slot] = drafts[:k]
+        return out
+
+    def _harvest_bundle(self, bundle, now: float) -> None:
+        """Dispatch one verify bundle and commit its outcome.
+
+        The verify step sampled a token for every bundle row under the key
+        sequential decode would have used, so acceptance is a host-side
+        comparison: ``a`` = the length of the leading run where the sampled
+        token equals the draft. Rows 0..a hold K/V of tokens the sampler
+        itself produced: commit advances the cached length to ``start + a
+        + 1`` and the rejected tail falls out by never being advanced past
+        (append-only pages: nothing to free, nothing published).
+        ``sampled[a]`` is the bonus/correction token, not cached yet, like
+        a plain decode step's newest token. Emission goes through the same
+        ``_deliver`` as plain decode, so a finish mid-bundle releases the
+        slot and drops the unemitted remainder."""
+        sched = self.scheduler
+        toks = self.executor.verify(bundle)
+        k = len(bundle.drafts)
+        a = 0
+        while a < k and int(toks[a]) == bundle.drafts[a]:
+            a += 1
+        sched.commit_speculation(bundle.slot, bundle.start + a + 1)
+        self.stats["spec_bundles"] += 1
+        self.utilization.record_spec(proposed=k, accepted=a,
+                                     rollbacks=k - a)
+        seq = bundle.seq
+        for j in range(a + 1):
+            tok = int(toks[j])
+            sched.append_speculated(bundle.slot, tok)
+            if self._deliver(seq.handle, tok, len(seq.tokens) - 1, now):
+                self._release_slot(bundle.slot)
+                break
+
     def _step_fused(self) -> list[StreamEvent]:
         sched = self.scheduler
         # publish last step's prefetched pages BEFORE admission matches
@@ -526,8 +622,13 @@ class ContinuousBatchingEngine(EngineBase):
 
         # every decode row needs a writable page BEFORE the plan captures
         # block tables (growth/COW dirties them; eviction can also claim
-        # the slot a chunk would have targeted)
-        for seq in sched.ensure_decode_capacity():
+        # the slot a chunk would have targeted); speculating slots pre-grow
+        # their k extra positions, so the verify dispatch never faults
+        proposals = (self._propose_bundles()
+                     if self.spec is not None else {})
+        extra = ({s: len(d) for s, d in proposals.items()}
+                 if proposals else None)
+        for seq in sched.ensure_decode_capacity(extra=extra):
             self._handle_preempted(seq)
         if not sched.has_decodable():
             return self._drain_events()  # preemption can empty the decode set
@@ -537,7 +638,15 @@ class ContinuousBatchingEngine(EngineBase):
         self.utilization.record(active=decoding, slots=slots,
                                 pages_used=used, pages_total=total)
         self._record_tiers()
-        plan = sched.build_step_plan()
+        # eviction may have dropped a proposal's sequence: bundle only
+        # slots that still hold the decoding sequence drafted for
+        bundles = [
+            sched.build_spec_bundle(s, d, self.spec_k + 1)
+            for s, d in sorted(proposals.items())
+            if sched.slots.get(s) is not None
+            and sched.slots[s].phase == "decode"
+        ]
+        plan = sched.build_step_plan(spec=bundles)
         toks = None
         if plan.decode_slots or plan.chunk is not None:
             toks = self._dispatch_plan(plan)
@@ -551,6 +660,9 @@ class ContinuousBatchingEngine(EngineBase):
             sched.append_decoded(slot, tok)
             if self._deliver(seq.handle, tok, len(seq.tokens) - 1, now):
                 self._release_slot(slot)
+        # bundled slots step through their verify dispatch instead
+        for bundle in plan.spec or ():
+            self._harvest_bundle(bundle, now)
         self._record_tiers()  # post-release: captures end-of-life parking
         return self._drain_events()
 

@@ -10,6 +10,10 @@ dispatches, each ending in its own paged-attention kernel on the card:
 * chunk-only (cold start, refill)   -> ``prefill_chunk``      -> prefill kernel
 * decode + chunk (fused)            -> ``mixed_step_paged``   -> mixed kernel
 
+and ``verify`` scores one speculation bundle (the last committed token + k
+drafts of one sequence) in one more dispatch: ``verify_step_paged`` -> the
+prefill kernel, every row sampled with its own ``(seed, index)`` key.
+
 Without chunking (``prefill_chunk=None``), ``prefill_whole`` prefills each
 admitted prompt in one executor call instead: ``DecoderLM.prefill`` over the
 prompt padded to a power-of-two bucket (through the flash kernel), the
@@ -35,7 +39,8 @@ import torch
 from repro_torch.models import build_model
 from repro_torch.models.common import pick_tokens
 from repro_torch.serving.kv_cache import write_prefill_pages
-from repro_torch.serving.scheduler import DecodeInputs, PrefillChunk, StepPlan
+from repro_torch.serving.scheduler import (DecodeInputs, PrefillChunk,
+                                          SpecBundle, StepPlan)
 
 __all__ = ["ModelExecutor"]
 
@@ -55,7 +60,7 @@ class ModelExecutor:
         self.cfg = cfg
         self.model = build_model(cfg, device=device,
                                  attn_impl=attn_impl or "auto")
-        self.model.load_state_dict(params)
+        self.model.load_params(params)
         self.device = self.model.device
         self.params = self.model.state_dict()
         self.cache = cache
@@ -209,6 +214,43 @@ class ModelExecutor:
         toks = self._mixed(chunk, self._greedy_only and sp.temperature <= 0.0)
         host = toks.cpu().numpy()
         return host[:-1], int(host[-1])
+
+    # ------------------------------------------------------------------
+    # speculative verify (one bundle = one dispatch)
+    # ------------------------------------------------------------------
+    def verify(self, bundle: SpecBundle) -> np.ndarray:
+        """Dispatch one speculation bundle: the verify forward (a k+1-row
+        chunk over the slot's own block table, its K/V written in place)
+        and per-row sampling. Row j samples with the request's ``(seed,
+        idx0 + j)`` key, the key a sequential decode loop uses for token
+        index ``idx0 + j``, so where the drafted prefix matches what
+        sequential decoding would produce the samples match too (greedy
+        rows are an argmax). Returns the sampled token per bundle row, (W,)
+        int32 on the host; rows past ``valid`` are garbage the engine
+        ignores. The decode mirrors are untouched: the scheduler re-dirties
+        the slot, so the next decode-bearing step refreshes them."""
+        sp = bundle.seq.request.sampling
+        row = self.cache.block_tables[bundle.slot]
+        mp, w = row.shape[0], bundle.tokens.shape[0]
+        # one transfer: [block-table row | padded tokens | start, valid,
+        # top_k, seed, idx0]
+        vi = np.empty(mp + w + 5, np.int32)
+        vi[:mp] = row
+        vi[mp:mp + w] = bundle.tokens
+        vi[mp + w:] = (bundle.start, bundle.valid, sp.top_k,
+                       bundle.seq.handle.seed, len(bundle.seq.tokens))
+        vi = self._to_device(vi)
+        logits = self.model.verify_step_paged(
+            self.cache.pages, vi[:mp], vi[mp:mp + w], vi[mp + w],
+            vi[mp + w + 1])  # (W, Vp): row j scores token index idx0 + j
+        ones = torch.ones((w,), dtype=torch.float32, device=self.device)
+        toks = pick_tokens(
+            logits, ones * sp.temperature, vi[mp + w + 2].expand(w),
+            ones * sp.top_p, vi[mp + w + 3].expand(w),
+            vi[mp + w + 4] + torch.arange(w, dtype=torch.int32,
+                                          device=self.device),
+            self.cfg.vocab_size, sp.temperature <= 0.0)
+        return toks.cpu().numpy()
 
     # ------------------------------------------------------------------
     # chunked prefill

@@ -127,7 +127,7 @@ class SSMExecutor:
         self.model = build_model(cfg, device=device,
                                  attn_impl=attn_impl or "auto",
                                  ssd_impl=ssd_impl or "auto")
-        self.model.load_state_dict(params)
+        self.model.load_params(params)
         self.device = self.model.device
         self.params = self.model.state_dict()
         self.bank = bank

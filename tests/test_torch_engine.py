@@ -133,8 +133,7 @@ def test_streams_match_jax_engine(weights, kind, step_mode):
         SamplingParams, reqs)
     assert got == want
     assert tlog == jlog
-    jstats = dict(jstats)
-    assert jstats.pop("spec_bundles") == 0  # speculation: not ported, off
+    assert jstats["spec_bundles"] == 0  # speculation off
     assert tstats == jstats
     assert tcache == jcache
     assert all(reason == "length" for reason, _ in got)
@@ -164,8 +163,6 @@ def test_int8_streams_match_jax_engine(weights, kind, step_mode):
     assert eng.cache.pages["k"].dtype == torch.int8
     assert got == want
     assert tlog == jlog
-    jstats = dict(jstats)
-    jstats.pop("spec_bundles")
     assert tstats == jstats and tcache == jcache
     if kind == "prefix":
         assert tcache["prefix_hits"] > 0
@@ -210,9 +207,17 @@ def test_tiered_engine_matches_jax_and_untiered(weights, tmp_path, kv_quant):
 
 def test_unported_options_raise(weights):
     _, _, cfg, state = weights
-    with pytest.raises(NotImplementedError, match="A.6"):
-        ContinuousBatchingEngine(cfg, state, device="cpu",
-                                 speculative="ngram")
+    # speculative decoding is ported (ROADMAP A.6): it builds an engine
+    # that serves, with streams equal to spec off (a prompt holding most of
+    # the reduced vocabulary, so the ngram proposer finds its suffixes)
+    reqs = [Request("s", list(range(1, 200)), max_new_tokens=6)]
+    eng = ContinuousBatchingEngine(cfg, state, device="cpu", max_len=256,
+                                   page_size=8, speculative="ngram")
+    out = eng.generate(reqs)[0]
+    off = ContinuousBatchingEngine(cfg, state, device="cpu", max_len=256,
+                                   page_size=8).generate(reqs)[0]
+    assert out.tokens == off.tokens and len(out.tokens) == 6
+    assert eng.stats["spec_bundles"] > 0
     with pytest.raises(ValueError, match="kv_quant"):
         ContinuousBatchingEngine(cfg, state, device="cpu", kv_quant="fp8")
     # int8 pages and the host tier are ported (ROADMAP A.5): each builds
@@ -276,8 +281,12 @@ def test_serve_driver_reduced_cpu(tmp_path):
         hits = re.search(r"tier_hits=dev\d+/host\d+/pv(\d+);", run.stdout)
         assert hits, run.stdout
         assert (int(hits.group(1)) > 0) == (n == 2), run.stdout
-    refused = subprocess.run(
+    # the supervised fleet is ported (ROADMAP A.9): two engine workers
+    # serve every request
+    fleet = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--fleet", "2",
-         "--device", "cpu", "--workdir", str(tmp_path / "run2")],
+         "--device", "cpu", "--reduced", "--requests", "6", "--max-new",
+         "3", "--workdir", str(tmp_path / "run2")],
         capture_output=True, text=True, env=env, timeout=120, cwd=REPO)
-    assert refused.returncode == 2 and "A.9" in refused.stderr
+    assert fleet.returncode == 0, fleet.stderr[-2000:]
+    assert "fleet served 6/6" in fleet.stdout

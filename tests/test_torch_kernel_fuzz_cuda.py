@@ -1,5 +1,5 @@
-"""Differential fuzzing of the port's paged decode and mixed CUDA kernels and
-of its SSD scan on the card, against the port's plain versions
+"""Differential fuzzing of the port's paged decode, chunked-prefill and mixed
+CUDA kernels and of its SSD scan on the card, against the port's plain versions
 (``repro_torch.kernels.ref``).
 
 The sweeps are those of the JAX package's ``tests/test_kernel_fuzz.py``
@@ -12,6 +12,15 @@ int8 pool with f32 scales; mixed runs both with and without the engine's
 ``num_decode`` hint (where the case has decode rows and a chunk), and
 again with a dead suffix of chunk rows. Bounds: f32 1e-3, bf16 2e-2 (f32
 accumulation, bf16 output), dead rows and length-0 rows exact zeros.
+
+The chunked prefill runs the JAX package's prefill sweep (edge cases and
+24 seeded ones: chunks of 1-32 rows from fresh or deep history, padded
+and all-padding chunks, GQA and MQA, forked tables) with the same head-dim
+and page maps, over pools of q's dtype and int8 pools (whose f32 calls
+also stay within the JAX sweep's 8e-2 of attention over the unquantized
+pool); and a verify-width sweep: bundles of C = k + 1 rows (k 1-8, the
+engine's draft depths) with valid < C and valid = C, at the smollm,
+llama3 and zamba2 widths, against ``ref.paged_verify_attention_ref``.
 
 The SSD scan runs the JAX package's SSD sweeps (fresh and carried state,
 S not a multiple of the chunk) with P mapped into {16, 64}, N into {16,
@@ -218,6 +227,130 @@ def test_paged_mixed_kernel_fuzz(params, dtype, quant):
                 _check(got, want, last < 0, TOLS[dtype],
                        f"mixed {params} seed {seed} {dtype} int8={quant} "
                        f"num_decode={hint} dead_chunk={dead_chunk}")
+
+
+# ---------------------------------------------------------------------------
+# chunked prefill: (c, start, valid, h, kvh, d, page, extra table entries)
+# ---------------------------------------------------------------------------
+
+QTOL = 8e-2  # int8 against the unquantized pool (tests/test_kernel_fuzz.py)
+
+_PREFILL_EDGES = [
+    (1, 0, 1, 4, 2, 16, 8, 1),    # single query, no history
+    (1, 17, 1, 4, 1, 8, 8, 0),    # C=1 deep in history, MQA
+    (3, 5, 3, 4, 4, 16, 8, 2),    # odd chunk, history mid-page, MHA
+    (8, 0, 8, 4, 2, 16, 8, 0),    # chunk == page, aligned
+    (8, 3, 8, 4, 2, 16, 8, 1),    # chunk straddles a page boundary
+    (8, 29, 5, 8, 2, 16, 8, 1),   # multi-page history ending mid-page + pad
+    (16, 8, 16, 8, 4, 32, 8, 0),  # chunk spans two whole pages
+    (16, 15, 1, 4, 2, 16, 16, 1),  # one live token landing last-in-page
+    (5, 0, 0, 4, 2, 16, 8, 1),    # fully padded chunk -> exact zeros
+    (32, 40, 32, 4, 2, 16, 16, 0),  # big chunk over 2.5 pages of history
+]
+
+
+def _prefill_sweep():
+    cases = list(_PREFILL_EDGES)
+    rng = np.random.default_rng(0xC0FFEE)
+    for _ in range(24):
+        page = int(rng.choice([4, 8, 16]))
+        c = int(rng.integers(1, 33))
+        start = int(rng.integers(0, 4 * page))
+        valid = int(rng.integers(1, c + 1))
+        group = int(rng.choice([1, 2, 4]))
+        kvh = int(rng.choice([1, 2, 4]))
+        d = int(rng.choice([8, 16, 32]))
+        cases.append((c, start, valid, kvh * group, kvh, d, page,
+                      int(rng.integers(0, 3))))
+    return [(c, st, v, h, kvh, D_MAP[d], PAGE_MAP[p], x)
+            for c, st, v, h, kvh, d, p, x in cases]
+
+
+def _prefill_case(params, seed, dtype, quant, forked=False):
+    """Pool and block table of one chunk call; ``forked`` aliases a twin's
+    pages with a privately copied tail (non-monotonic page order)."""
+    c, start, valid, h, kvh, d, page, extra = params
+    rng = np.random.default_rng(seed)
+    need = _cdiv(max(start + valid, 1), page)
+    num_pages = need * (2 if forked else 1) + 3
+    q = torch.from_numpy(rng.standard_normal((c, h, d)).astype(np.float32))
+    kp, vp, sc = _pool(rng, num_pages, page, kvh, d, dtype, quant)
+    perm = rng.permutation(np.arange(1, num_pages))
+    bt = np.zeros((need + extra,), np.int32)
+    bt[:need] = perm[:need]
+    if forked and need > 1:
+        bt[need - 1] = perm[need]
+    i32 = dict(dtype=torch.int32, device="cuda")
+    return (q.cuda().to(dtype), kp, vp, torch.from_numpy(bt).cuda(),
+            torch.tensor(start, **i32), torch.tensor(valid, **i32), sc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["pool", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("params", _prefill_sweep(),
+                         ids=lambda p: "c{}s{}v{}h{}k{}d{}p{}x{}".format(*p))
+def test_paged_prefill_kernel_fuzz(params, dtype, quant):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dt = getattr(torch, dtype)
+    c, valid = params[0], params[2]
+    dead = torch.arange(c, device="cuda") >= valid
+    for seed, forked in ((0, False), (1, True)):
+        q, kp, vp, bt, st, va, sc = _prefill_case(params, seed, dt, quant,
+                                                  forked)
+        got = ops.paged_prefill_attention(q, kp, vp, bt, st, va, **sc)
+        want = ops.paged_prefill_attention(q, kp, vp, bt, st, va,
+                                           impl="ref", **sc)
+        what = f"prefill {params} seed {seed} {dtype} int8={quant}"
+        _check(got, want, dead, TOLS[dtype], what)
+        if quant and dtype == "float32":  # the quantization error itself
+            kf, vf = (ref.dequantize_pages(kp, sc["k_scale"]),
+                      ref.dequantize_pages(vp, sc["v_scale"]))
+            err = (ops.paged_prefill_attention(q, kf, vf, bt, st, va,
+                                               impl="ref")
+                   - got).abs().max().item()
+            assert err <= QTOL, f"{what}: int8 vs f32 pool {err:.3e}"
+
+
+def _verify_sweep():
+    """Bundles of C = k + 1 rows at the engines' widths (kv heads, q heads,
+    D, page): every draft depth k 1-8, padded (valid < C) and full."""
+    widths = [(5, 15, 64, 16), (8, 32, 128, 8), (32, 32, 80, 16)]
+    rng = np.random.default_rng(0x5BEC)
+    cases = []
+    for k in range(1, 9):
+        kvh, h, d, page = widths[k % 3]
+        start = int(rng.integers(1, 6 * page))
+        for valid in sorted({1, max(1, k // 2), k, k + 1}):
+            cases.append((k + 1, start, valid, h, kvh, d, page, 1))
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["pool", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("params", _verify_sweep(),
+                         ids=lambda p: "c{}s{}v{}h{}k{}d{}p{}x{}".format(*p))
+def test_paged_verify_width_fuzz(params, dtype, quant):
+    """The chunk kernel at speculative-verify widths (C 2-9, far below its
+    64-row blocks) against the verify oracle, on plain and forked tables."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dt = getattr(torch, dtype)
+    c, valid = params[0], params[2]
+    dead = torch.arange(c, device="cuda") >= valid
+    for seed, forked in ((0, False), (1, True)):
+        q, kp, vp, bt, st, va, sc = _prefill_case(params, seed, dt, quant,
+                                                  forked)
+        got = ops.paged_prefill_attention(q, kp, vp, bt, st, va, **sc)
+        kf, vf = kp, vp
+        if quant:
+            kf = ref.dequantize_pages(kp, sc["k_scale"])
+            vf = ref.dequantize_pages(vp, sc["v_scale"])
+        want = ref.paged_verify_attention_ref(q, kf, vf, bt, st, va)
+        _check(got, want, dead, TOLS[dtype],
+               f"verify {params} seed {seed} {dtype} int8={quant}")
 
 
 # ---------------------------------------------------------------------------

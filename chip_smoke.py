@@ -244,6 +244,46 @@ Phases (any failure exits non-zero):
 26. put_tree — a tree of CUDA bf16 and f32 tensors stores under the refs of
    the same values on the CPU.
 
+27. notebook — the notebook of ``examples/notebook_to_pipeline.py`` (its
+   cells copied here) through ``repro_torch.core`` on the card: split
+   into piped sections, sealed (every capsule must record the ``cuda``
+   backend and ``torch.cuda.device_count()``), deployed as Deployment and
+   PV/PVC YAML into a temporary directory, then scheduled with one chaos
+   kill of its second step: the ``report`` must equal
+   ``Notebook.run_linear``'s and the killed step must have been retried.
+28. flash gradients — ``ops.flash_attention`` under autograd on the card
+   (the kernel's forward inside ``FlashAttentionFunction``, the plain
+   version's recompute for backward) against the plain version's own
+   autograd, with a loss whose upstream gradient depends on the output:
+   at the training shapes (B 16 x S 64, 15 / 5 heads, D 64) and at D 80
+   (32 / 32 heads) and D 128 (32 / 8), bf16 and f32; the q, k and v
+   gradients within 2e-2 (bf16) and 1e-3 (f32) of the gradient's largest
+   magnitude (at least 1). Prints the largest gaps. Then times the
+   kernel at the training shape (cycling over 32 layers' inputs) against
+   its plain version, SDPA and its bound, and forward + backward through
+   the autograd Function, the plain version's autograd and SDPA's (the
+   kernels line's flash ``train`` entry).
+29. train — ``launch.train`` (``repro_torch.launch.train.run``) at full
+   width: smollm-360m, 32 layers, bf16 parameters, f32 moments, B 16 x S
+   64, TRAIN_STEPS steps at ``--lr`` TRAIN_LR, a checkpoint every 10,
+   ``--chaos`` (the train pod killed twice): the loss must improve, the train step must be retried
+   twice, the flash kernel must launch (path ``train`` in
+   ``launches_by_path``: the counts reset just before the run and read
+   just after), and the third attempt must start within 64 MiB of the
+   first attempt's device memory (the killed attempts' model and train
+   state freed; what remains is a cuBLAS workspace per dead thread).
+   Prints s/step and tokens/s, checkpoint save and restore seconds and
+   bytes, device memory at each attempt's start and after the run, and a
+   torch.profiler window over TRACE_TRAIN_STEPS train steps (device busy
+   share, flash's share of it, the top device ops). Then 2 layers in f32
+   (TF32 off), PARITY_TRAIN_STEPS steps: through the kernel, again with
+   ``--chaos``, through the plain version (``--attn-impl ref``) and through
+   the plain version in f64 (every f32 cast of the plain path kept at
+   f64): the chaos run's losses must equal the uninterrupted run's
+   exactly (after at least one kill), and the largest per-step gap
+   between the kernel and the plain version may not exceed the plain
+   version's own largest f32-vs-f64 gap.
+
 Kernel and plain times are device time per call: the calls are enqueued
 behind a sleep kernel and timed with CUDA events, so the host's per-call
 overhead stays out (``_time_ms``). A ``[t s] phase: s`` line after each
@@ -257,7 +297,11 @@ before its path). The three paged kernels also carry ``int8``: the int8
 variant's max abs error, times and bound; the mixed kernel's ``ms`` is the
 hinted call's and ``generic_ms`` the call without the hint; the chunk
 kernel carries ``verify``: phase 22's errors (bf16, int8 and f32 pools)
-and the C 5 call's times and bound. The last line is
+and the C 5 call's times and bound; flash carries ``train``: phase 28's
+largest bf16 gradient gap at the training shape and the times there
+(forward, and forward + backward). Flash's ``train`` path counts its
+launches in phase 29's full-width run (each layer's forward, again in
+the backward's recompute, and the evaluation). The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -311,6 +355,15 @@ SPEC_REQUESTS, WITNESS_REQUESTS = 8, 2
 WITNESS_DEPTHS = (LAYERS, 16, 8, 4, PARITY_LAYERS)
 # the draft model's catch-up chunk (DraftModelProposer's default)
 DRAFT_CHUNK = 32
+# phase 29: the full-width trainer's steps, the profiled steps, and the
+# 2-layer f32 runs' steps and checkpoint interval (attempts that outlive
+# --chaos's 1 s kill timer, and restore from a checkpoint)
+TRAIN_STEPS, TRACE_TRAIN_STEPS = 60, 5
+# the full-width run's learning rate (tools/train_lr_sweep.py): from the
+# driver's default 3e-3 a 32-layer smollm does not leave its ln(vocab)
+# plateau within the run, from 3e-2 it diverges
+TRAIN_LR = 1e-2
+PARITY_TRAIN_STEPS, PARITY_CKPT_EVERY = 60, 20
 # the chaos runs' engines: slots and max_len (16-entry block tables)
 FLEET_SLOTS, FLEET_MAX_LEN = 4, 256
 # mamba2-1.3b: SSD widths, layers, and the engine's shape
@@ -2836,6 +2889,409 @@ def check_put_tree(torch):
         f"{meta['treedef']}")
 
 
+# ---------------------------------------------------------------------------
+# phases 27-29: the notebook pipeline, flash under autograd, the trainer
+# ---------------------------------------------------------------------------
+
+# the notebook of examples/notebook_to_pipeline.py
+NOTEBOOK = [
+    "import math\n"
+    "samples = [math.sin(i / 7.0) + 0.1 * ((i * 2654435761) % 97 / 97.0)\n"
+    "           for i in range(2000)]",
+    "cleaned = [s for s in samples if abs(s) < 1.05]",
+    "# %%pipe\n"
+    "n = len(cleaned)\n"
+    "mean = sum(cleaned) / n",
+    "var = sum((s - mean) ** 2 for s in cleaned) / n\n"
+    "std = math.sqrt(var)",
+    "# %%pipe\n"
+    "zscores = [(s - mean) / std for s in cleaned]",
+    "outliers = [z for z in zscores if abs(z) > 2.0]\n"
+    "report = {'n': n, 'mean': round(mean, 4), 'std': round(std, 4),\n"
+    "          'outliers': len(outliers)}",
+]
+
+
+def run_notebook(torch):
+    """Phase 27: the example notebook split, sealed, deployed and run with
+    one chaos kill on the card."""
+    from repro_torch.core import (ArtifactStore, Notebook, TopicBus,
+                                  WorkflowScheduler, split_pipeline)
+    from repro_torch.core.deployer import DynamicPodDeployer, PodManager
+    from repro_torch.core.faults import FaultInjector, KillRule
+    from repro_torch.core.scheduler import RetryPolicy
+
+    nb = Notebook.from_sources(NOTEBOOK, name="analysis")
+    graph = split_pipeline(nb)
+    with tempfile.TemporaryDirectory(prefix="notebook_") as tmp:
+        specs = DynamicPodDeployer(PodManager(graph), out_dir=Path(tmp, "k8s"),
+                                   device="cuda").deploy_all()
+        rendered = sorted(p.name for p in Path(tmp, "k8s").iterdir())
+        if len(rendered) != 2 * len(graph.steps):
+            raise AssertionError(f"notebook: rendered {rendered}")
+        victim = sorted(graph.steps)[1]
+        sched = WorkflowScheduler(
+            graph, TopicBus(Path(tmp, "bus")), ArtifactStore(Path(tmp, "store")),
+            retry=RetryPolicy(max_attempts=4, backoff_s=0.02),
+            fault_injector=FaultInjector(
+                [KillRule(step=victim, after_s=0.0, times=1)]),
+            device="cuda")
+        arts = sched.run(timeout_s=60)
+        kinds = [e["kind"] for e in sched.events.history()]
+    linear = nb.run_linear()
+    if arts["report"] != linear["report"]:
+        raise AssertionError(f"notebook: distributed report {arts['report']} "
+                             f"!= linear {linear['report']}")
+    if kinds.count("step_retry_scheduled") < 1:
+        raise AssertionError(f"notebook: the chaos kill did not land: {kinds}")
+    platforms = {n: st.image.capsule.platform for n, st in sched._state.items()}
+    want = {"torch_backend": "cuda",
+            "device_count": str(torch.cuda.device_count())}
+    bad = {n: p for n, p in platforms.items()
+           if any(p[k] != v for k, v in want.items())}
+    if bad:
+        raise AssertionError(f"notebook: capsules record {bad}, want {want}")
+    log(f"notebook: {len(nb.cells)} cells -> {len(graph.steps)} steps "
+        f"{[(s.name, s.role, s.replicas) for s in specs]}; {len(rendered)} "
+        f"manifests; '{victim}' killed once, retried; report {arts['report']}"
+        f" = the linear run's; capsules {want}, "
+        f"{next(iter(platforms.values()))['torch_cuda']} CUDA, tag "
+        f"{sched._state[victim].image.tag}")
+
+
+def check_flash_grads(torch, ops, ref, fk):
+    """Phase 28: the flash kernel under autograd against the plain
+    version's autograd. Returns the largest bf16 gap over the training
+    shapes."""
+    shapes = {"train D 64": (16, 64, FLASH_H, KVH, D),
+              "D 80": (2, 256, 32, 32, 80), "D 128": (2, 256, 32, 8, 128)}
+    worst = {}
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        for wname, (b, s, h, kvh, d) in shapes.items():
+            g = torch.Generator(device="cuda").manual_seed(43)
+            base = [torch.randn(b, s, n, d, generator=g, device="cuda")
+                    .to(dtype) for n in (h, kvh, kvh)]
+            w = torch.randn(b, s, h, d, generator=g, device="cuda")
+
+            def grads(attend):
+                q, k, v = (t.detach().clone().requires_grad_() for t in base)
+                out = attend(q, k, v)
+                loss = (0.5 * out.float().square() + w * out.float()).sum()
+                return out, torch.autograd.grad(loss, (q, k, v))
+
+            n0 = fk.LAUNCHES["flash_attention_bhsd"]
+            out, got = grads(lambda q, k, v: ops.flash_attention(q, k, v))
+            if (type(out.grad_fn).__name__ != "FlashAttentionFunctionBackward"
+                    or fk.LAUNCHES["flash_attention_bhsd"] != n0 + 1):
+                raise AssertionError(f"flash grads [{wname}]: the forward did "
+                                     f"not run the kernel inside the Function")
+            _, want = grads(lambda q, k, v: ref.flash_attention_chunked(
+                q, k, v, causal=True, chunk_kv=256))
+            torch.cuda.synchronize()
+            errs = [((a.float() - r.float()).abs().max()
+                     / r.float().abs().max().clamp_min(1.0)).item()
+                    for a, r in zip(got, want)]
+            label = f"{str(dtype).removeprefix('torch.')} {wname}"
+            worst[label] = max(errs)
+            if not max(errs) <= tol:
+                raise AssertionError(f"flash grads [{label}]: dq/dk/dv gaps "
+                                     f"{errs} > {tol}")
+    log("flash gradient check (the kernel's forward in the autograd "
+        "Function vs the plain version's autograd; max |gap| over max(1, "
+        "max |grad|)): " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f" (bounds bf16 {BF16_TOL}, f32 {F32_TOL})")
+    return worst["bfloat16 train D 64"]
+
+
+def time_flash_train(torch, F, ops, ref, fk):
+    """The flash kernel at the trainer's shape (B 16 x S 64, 15 / 5 heads,
+    D 64, causal, bf16), cycling over 32 layers' inputs: the forward
+    (kernel, plain version, SDPA) against its bound, and forward +
+    backward (``ops.flash_attention``'s autograd Function, the plain
+    version's autograd, SDPA's). Returns the kernels line's ``train``
+    entry."""
+    b, s, h, kvh, d = 16, 64, FLASH_H, KVH, D
+    g = torch.Generator(device="cuda").manual_seed(44)
+
+    def make(n, grad=False):
+        return torch.randn(LAYERS, b, s, n, d, generator=g, device="cuda").to(
+            torch.bfloat16).requires_grad_(grad)
+
+    q, k, v = make(h, True), make(kvh, True), make(kvh, True)
+    up = make(h)
+    qt, kt, vt = (x.detach().transpose(2, 3).contiguous() for x in (q, k, v))
+
+    def kernel(i):
+        l = i % LAYERS
+        fk.flash_attention_bhsd(qt[l], kt[l], vt[l], causal=True)
+
+    def plain(i):
+        l = i % LAYERS
+        with torch.no_grad():
+            ref.flash_attention_chunked(q[l], k[l], v[l], causal=True,
+                                        chunk_kv=256)
+
+    def library(i):
+        l = i % LAYERS
+        F.scaled_dot_product_attention(qt[l], kt[l], vt[l], is_causal=True,
+                                       enable_gqa=True)
+
+    def both(attend):
+        def fn(i):
+            l = i % LAYERS
+            ql, kl, vl = q[l], k[l], v[l]
+            torch.autograd.grad(attend(ql, kl, vl), (ql, kl, vl), up[l])
+        return fn
+
+    fwd_bwd = {
+        "kernel": both(lambda q_, k_, v_: ops.flash_attention(q_, k_, v_)),
+        "plain": both(lambda q_, k_, v_: ref.flash_attention_chunked(
+            q_, k_, v_, causal=True, chunk_kv=256)),
+        "sdpa": both(lambda q_, k_, v_: F.scaled_dot_product_attention(
+            q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2),
+            is_causal=True, enable_gqa=True).transpose(1, 2)),
+    }
+    p1 = _time_ms(torch, plain, iters=32)
+    k1 = _time_ms(torch, kernel)
+    k2 = _time_ms(torch, kernel)
+    p2 = _time_ms(torch, plain, iters=32)
+    lib = _time_ms(torch, library)
+    # 8 calls: their ~100 autograd launches each stay inside the sleep
+    # kernel's ~0.1 s, so the host's enqueue time stays out
+    both_ms = {name: _time_ms(torch, fn, iters=8)
+               for name, fn in fwd_bwd.items()}
+    bound = _flash_bound(b, s, s, True, 2)
+    log(f"timing flash_attention_bhsd train (B {b}, S {s}, H {h}, KVH {kvh}, "
+        f"causal, bf16): kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f}"
+        f" ms, sdpa {lib:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]}); "
+        f"forward + backward: autograd Function {both_ms['kernel']:.4f} ms, "
+        f"plain autograd {both_ms['plain']:.4f} ms, sdpa "
+        f"{both_ms['sdpa']:.4f} ms")
+    return dict(ms=min(k1, k2), plain_ms=min(p1, p2), library_ms=lib,
+                bound_ms=bound[0], bound_by=bound[1],
+                fwd_bwd_ms=both_ms["kernel"],
+                plain_fwd_bwd_ms=both_ms["plain"],
+                library_fwd_bwd_ms=both_ms["sdpa"])
+
+
+def _all_f64(torch):
+    """Inside, the plain path computes in f64 when given f64 tensors: its
+    f32 casts (``.float()``, f32 ``zeros``/``full``) keep f64. The run the
+    f32 runs' rounding is measured against."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        to_float, zeros, full = torch.Tensor.float, torch.zeros, torch.full
+
+        def keep64(dtype):
+            return torch.float64 if dtype == torch.float32 else dtype
+
+        torch.Tensor.float = (lambda t: t if t.dtype == torch.float64
+                              else to_float(t))
+        torch.zeros = lambda *a, dtype=None, **k: zeros(*a, dtype=keep64(dtype),
+                                                        **k)
+        torch.full = lambda *a, dtype=None, **k: full(*a, dtype=keep64(dtype),
+                                                      **k)
+        try:
+            yield
+        finally:
+            torch.Tensor.float, torch.zeros, torch.full = to_float, zeros, full
+
+    return ctx()
+
+
+def _trace_train(torch, cfg, steps):
+    """A torch.profiler window over ``steps`` full-width train steps (after
+    one warm step): device busy share, flash's share of it, the top ops."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import DataConfig, SyntheticCorpus
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+
+    model = build_model(cfg, device="cuda")
+    opt = AdamWConfig(lr=3e-3, warmup_steps=10, decay_steps=400,
+                      weight_decay=0.0, moment_dtype="float32")
+    state = init_train_state(model, 0, opt)
+    step = make_train_step(model, opt)
+    corpus = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                        global_batch=16))
+    batches = [{k: torch.as_tensor(v, device="cuda")
+                for k, v in corpus.batch_at(i).items()}
+               for i in range(steps + 1)]
+    state, m = step(state, batches[0])
+    float(m["loss"])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[1:]:
+            state, m = step(state, b)
+            float(m["loss"])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            acc = by_name.setdefault(e.name(), [0.0, 0])
+            acc[0] += e.duration_ns() / 1e6
+            acc[1] += 1
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    if busy_ms <= 0:
+        log("train trace: the profiler recorded no device time (not measured)")
+        return None
+    flash_ms = sum(ms for name, (ms, _) in by_name.items()
+                   if any(k in name for k in FLASH_TRACE_KEYS))
+    log(f"train trace: {steps} steps in {wall_ms:.1f} ms wall "
+        f"({wall_ms / steps:.2f} ms/step); device busy {busy_ms:.1f} ms = "
+        f"{100 * busy_ms / wall_ms:.1f}% (idle "
+        f"{100 - 100 * busy_ms / wall_ms:.1f}%); flash kernel {flash_ms:.2f} ms"
+        f" = {100 * flash_ms / busy_ms:.1f}% of busy; "
+        f"{sum(n for _, n in by_name.values())} device ops")
+    top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:8]
+    for name, (ms, n) in top:
+        log(f"train trace top: {ms:9.2f} ms x{n:6d}  {name[:90]}")
+    return busy_ms / wall_ms
+
+
+def _time_restore(torch, cfg, ckpt_dir):
+    """Seconds to restore the latest checkpoint under ``ckpt_dir`` (the
+    whole train state, integrity checked) onto the card, and its bytes."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    from repro_torch.train import AdamWConfig
+    from repro_torch.train.step import abstract_train_state
+
+    ck = CheckpointManager(ckpt_dir)
+    like = abstract_train_state(build_model(cfg, device="meta"),
+                                AdamWConfig(moment_dtype="float32"))
+    t0 = time.perf_counter()
+    state, _ = ck.restore(like)
+    state = tree_map(lambda x: x.to("cuda"), state)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    nbytes = sum(f.stat().st_size
+                 for f in ck._step_dir(ck.latest_step()).iterdir())
+    del state
+    return seconds, nbytes
+
+
+def _train_args(train, tmp, name, *extra):
+    return train.parse_args(["--arch", "smollm-360m", "--batch", "16",
+                             "--seq-len", "64", "--workdir", f"{tmp}/{name}",
+                             *extra])
+
+
+def run_train(torch, np, cfg, fk, pk, sk, card):
+    """Phase 29: the full-width trainer with --chaos, its trace, then the
+    2-layer f32 parity and chaos-replay runs. Returns the flash launches
+    of the full-width run."""
+    from repro_torch.launch import train
+
+    mib = 2 ** 20
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (fk, pk, sk):
+        mod.reset_launches()
+    with tempfile.TemporaryDirectory(prefix="train_") as tmp:
+        t0 = time.perf_counter()
+        arts, sched, stats = train.run(_train_args(
+            train, tmp, "full", "--steps", str(TRAIN_STEPS), "--ckpt-every",
+            "10", "--lr", str(TRAIN_LR), "--chaos"))
+        wall = time.perf_counter() - t0
+        launches = fk.LAUNCHES["flash_attention_bhsd"]
+        others = {**pk.LAUNCHES, **sk.LAUNCHES}
+        retries = [e for e in sched.events.history("step_retry_scheduled")
+                   if e["step"] == "train"]
+        gc.collect()
+        after = torch.cuda.memory_allocated()
+        restore = _time_restore(torch, cfg, arts["ckpt_dir"])
+    rep = arts["report"]
+    att = stats["attempts"]
+    last = att[-1]
+    step_s = sorted(last["step_s"][1:])
+    med = step_s[len(step_s) // 2]
+    log(f"train {rep['arch']} on {card}: {rep['steps']} steps (B 16 x S 64, "
+        f"bf16 parameters, f32 moments) in {wall:.1f} s with {len(retries)} "
+        f"retries; loss {rep['first_loss']:.4f} -> {rep['last_loss']:.4f}, "
+        f"eval {rep['eval_loss']:.4f}; attempts "
+        f"{[(a['attempt'], a['start_step'], len(a['step_s'])) for a in att]} "
+        f"(attempt, first step, steps run)")
+    log(f"train speed: {med:.4f} s/step (median of the last attempt's steps "
+        f"after its first; min {step_s[0]:.4f}, max {step_s[-1]:.4f}) = "
+        f"{16 * 64 / med:.0f} tokens/s")
+    saves = [(s, b) for a in att for s, b in zip(a["save_s"], a["save_bytes"])]
+    log(f"train checkpoints: saves (s, bytes) {[(round(s, 3), b) for s, b in saves]}"
+        f"; restores in the run (s, bytes) "
+        f"{[(round(a['restore_s'], 3), a['restore_bytes']) for a in att if a['restore_s'] is not None]}"
+        f"; the final checkpoint restored onto the card {restore[0]:.3f} s, "
+        f"{restore[1]} bytes")
+    log(f"train device memory: allocated at each attempt's start "
+        f"{[round(a['memory_start'] / mib, 1) for a in att]} MiB; after the "
+        f"run {after / mib:.1f} MiB (peak {torch.cuda.max_memory_allocated() / mib:.1f}"
+        f" MiB); flash launches {launches}, other kernels {others}")
+    if not rep["improved"]:
+        raise AssertionError(f"train: the loss did not improve: {rep}")
+    if len(retries) != 2:
+        raise AssertionError(f"train: {len(retries)} retries of the train "
+                             f"step, want 2")
+    if launches <= 0:
+        raise AssertionError("train: the flash kernel never launched")
+    gap = att[2]["memory_start"] - att[0]["memory_start"]
+    if gap > 64 * mib:
+        raise AssertionError(f"train: the third attempt started with "
+                             f"{gap / mib:.1f} MiB more than the first")
+    _trace_train(torch, cfg, TRACE_TRAIN_STEPS)
+    gc.collect()
+
+    # 2 layers, f32: the kernel against the plain version, chaos replay
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, num_layers=PARITY_LAYERS,
+                                dtype="float32")
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="train32_") as tmp:
+        common = ("--steps", str(PARITY_TRAIN_STEPS), "--ckpt-every",
+                  str(PARITY_CKPT_EVERY))
+        for name, extra in (("kernel", ()), ("kernel chaos", ("--chaos",)),
+                            ("plain", ("--attn-impl", "ref"))):
+            t0 = time.perf_counter()
+            a, sch, st = train.run(_train_args(train, tmp, name.replace(
+                " ", "_"), *common, *extra), cfg=cfg32)
+            kills = sum(e["step"] == "train" for e in
+                        sch.events.history("step_retry_scheduled"))
+            runs[name] = np.asarray(a["losses"], np.float64)
+            log(f"train f32 {PARITY_LAYERS} layers, {name}: "
+                f"{time.perf_counter() - t0:.1f} s, {kills} kills, attempts "
+                f"{[(x['attempt'], x['start_step'], len(x['step_s'])) for x in st['attempts']]}"
+                f", loss {runs[name][0]:.6f} -> {runs[name][-1]:.6f}")
+            if extra == ("--chaos",) and kills < 1:
+                raise AssertionError("train f32 chaos: no kill landed")
+        with _all_f64(torch):
+            a, _, _ = train.run(_train_args(
+                train, tmp, "plain64", *common, "--attn-impl", "ref"),
+                cfg=dataclasses.replace(cfg32, dtype="float64"))
+        runs["plain f64"] = np.asarray(a["losses"], np.float64)
+    if not np.array_equal(runs["kernel chaos"], runs["kernel"]):
+        bad = np.flatnonzero(runs["kernel chaos"] != runs["kernel"])
+        raise AssertionError(f"train f32: the chaos run's losses differ from "
+                             f"the uninterrupted run's at steps {bad[:10]}")
+    rel = lambda a, b: np.abs(a - b) / np.abs(b)  # noqa: E731
+    kp = rel(runs["kernel"], runs["plain"])
+    own = rel(runs["plain"], runs["plain f64"])
+    log(f"train f32 parity ({PARITY_TRAIN_STEPS} steps): chaos = "
+        f"uninterrupted exactly; kernel vs plain max {kp.max():.3e} (step "
+        f"{int(kp.argmax()) + 1}; first 5 {np.array2string(kp[:5], precision=2)})"
+        f"; plain f32 vs f64 max {own.max():.3e} (step {int(own.argmax()) + 1};"
+        f" first 5 {np.array2string(own[:5], precision=2)})")
+    if not kp.max() <= own.max():
+        raise AssertionError(f"train f32: kernel vs plain {kp.max():.3e} > "
+                             f"the plain path's own f32-vs-f64 gap "
+                             f"{own.max():.3e}")
+    return launches
+
+
 # the bf16 tensor-core kernels: library -> (C info entry, its page kinds)
 MMA_KERNELS = {"flash_attention": ("flash_attention_mma_info", (None,)),
                "paged_attention": ("paged_attention_prefill_mma_info",
@@ -3113,6 +3569,14 @@ def main() -> int:
     lap("fleet")
     check_put_tree(torch)
     lap("put_tree")
+    run_notebook(torch)
+    lap("notebook")
+    train_grad_err = check_flash_grads(torch, ops, ref, fk)
+    train_flash = time_flash_train(torch, F, ops, ref, fk)
+    lap("flash gradients and timing")
+    by_path["flash_attention_bhsd"]["train"] = run_train(
+        torch, np, cfg, fk, pk, sk, card)
+    lap("train")
     kernels = [dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=sum(by_path[name].values()),
                     launches_by_path=by_path[name],
@@ -3122,6 +3586,8 @@ def main() -> int:
         if k["name"] in int8_times:
             k["int8"] = dict(max_abs_err=int8_errs[k["name"]],
                              **int8_times[k["name"]])
+        if k["name"] == "flash_attention_bhsd":
+            k["train"] = dict(grad_max_err=train_grad_err, **train_flash)
         if k["name"] == "paged_prefill_attention_ckgd":
             k["verify"] = dict(max_abs_err=verify_errs["bf16"],
                                int8_max_abs_err=verify_errs["int8"],

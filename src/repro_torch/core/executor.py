@@ -62,6 +62,24 @@ class PodContext:
             raise PodKilled(self.kill.reason)
 
 
+def _without_frames(exc: BaseException) -> BaseException:
+    """``exc`` with its traceback dropped, and those of the exceptions it
+    chains to. A traceback holds the dead attempt's frames and every local
+    in them (a train step's model and train state on the card); the
+    scheduler keeps each step's pods to the end of the run, so a kept
+    traceback would keep those tensors alive while the next attempt runs.
+    The event log has the formatted trace."""
+    seen, todo = set(), [exc]
+    while todo:
+        e = todo.pop()
+        if e is None or id(e) in seen:
+            continue
+        seen.add(id(e))
+        e.__traceback__ = None
+        todo += [e.__cause__, e.__context__]
+    return exc
+
+
 class WorkerPod(threading.Thread):
     def __init__(
         self,
@@ -114,10 +132,10 @@ class WorkerPod(threading.Thread):
             self.ctx.check()
             self.outputs = out
         except PodKilled as e:
-            self.error = e
+            self.error = _without_frames(e)
         except BaseException as e:  # noqa: BLE001 — pod crash, report upward
-            self.error = e
             self.events.error(step.name, self.attempt, e)
+            self.error = _without_frames(e)
         finally:
             self.finished_ts = time.time()
 

@@ -128,28 +128,15 @@ class ArtifactStore:
         both packages give the same refs: a tensor is stored from the CPU
         and detached, a bf16 one as the 16-bit pattern JAX's numpy view
         writes (read back as ``V2``)."""
-        leaves: list = []
-        treedef = f"PyTreeDef({_flatten(tree, leaves)})"
+        leaves, treedef = tree_flatten(tree)
         refs = [self._put_leaf(v, tier=tier, name=f"{name}.{i}")
-                for i, v in enumerate(leaves)]
+                for i, (_, v) in enumerate(leaves)]
         meta = {"treedef": treedef, "leaves": refs}
         return self.put(meta, tier=tier, name=name)
 
     def _put_leaf(self, leaf: Any, tier: str, name: str) -> str:
-        import torch
-
-        if not isinstance(leaf, torch.Tensor):
-            return self.put(np.asarray(leaf), tier=tier, name=name)
-        t = leaf.detach().cpu()
-        if t.dtype != torch.bfloat16:
-            return self.put(t.contiguous().numpy(), tier=tier, name=name)
-        # JAX's bfloat16 numpy dtype saves as descr '<V2' (plain numpy's
-        # V2 would write '|V2'): write its header, then the raw bits
-        buf = io.BytesIO()
-        np.lib.format.write_array_header_1_0(buf, {
-            "descr": "<V2", "fortran_order": False, "shape": tuple(t.shape)})
-        buf.write(t.contiguous().view(torch.int16).numpy().tobytes())
-        return self._put_blob(buf.getvalue(), "ndarray", tier=tier, name=name)
+        return self._put_blob(npy_bytes(leaf), "ndarray", tier=tier,
+                              name=name)
 
     # ------------------------------------------------------------------
     def claim(self, name: str, tier: str = "shared", capacity_bytes: int = 1 << 34) -> VolumeClaim:
@@ -162,19 +149,63 @@ class ArtifactStore:
         shutil.rmtree(claim.path, ignore_errors=True)
 
 
-def _flatten(node: Any, leaves: list) -> str:
-    """Append ``node``'s leaves to ``leaves`` in ``jax.tree.flatten`` order
-    and return its structure as JAX prints it inside ``PyTreeDef(...)``."""
+def tree_flatten(tree: Any) -> tuple[list[tuple[str, Any]], str]:
+    """``tree``'s leaves in ``jax.tree.flatten`` order, each beside its key
+    path as ``jax.tree_util.keystr`` prints it (``['params']['embed']``,
+    ``[0]``), and its structure as JAX prints it (``PyTreeDef(...)``)."""
+    leaves: list = []
+    return leaves, f"PyTreeDef({_flatten(tree, leaves, '')})"
+
+
+def _flatten(node: Any, leaves: list, path: str) -> str:
+    """Append ``node``'s (key path, leaf) pairs to ``leaves`` in
+    ``jax.tree.flatten`` order and return its structure as JAX prints it
+    inside ``PyTreeDef(...)``."""
     if node is None:
         return "None"
     if isinstance(node, dict):
-        inner = ", ".join(f"{k!r}: {_flatten(node[k], leaves)}"
+        inner = ", ".join(f"{k!r}: {_flatten(node[k], leaves, f'{path}[{k!r}]')}"
                           for k in sorted(node))
         return "{" + inner + "}"
     if isinstance(node, (list, tuple)):
-        inner = ", ".join(_flatten(v, leaves) for v in node)
+        inner = ", ".join(_flatten(v, leaves, f"{path}[{i}]")
+                          for i, v in enumerate(node))
         if isinstance(node, list):
             return f"[{inner}]"
         return f"({inner},)" if len(node) == 1 else f"({inner})"
-    leaves.append(node)
+    leaves.append((path, node))
     return "*"
+
+
+def host_array(leaf: Any) -> np.ndarray:
+    """A leaf as the numpy array ``np.save`` writes: a tensor detached,
+    on the CPU and contiguous; a bf16 tensor as its 16-bit patterns
+    (int16; :func:`npy_bytes` gives it JAX's bf16 header)."""
+    import torch
+
+    if not isinstance(leaf, torch.Tensor):
+        return np.asarray(leaf)
+    t = leaf.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy()
+    return t.numpy()
+
+
+def npy_bytes(leaf: Any, bf16: bool | None = None) -> bytes:
+    """The ``.npy`` file JAX's ``np.save`` writes for the same values. A
+    bf16 tensor (or, with ``bf16=True``, an int16 array of bf16 patterns
+    from :func:`host_array`) gets JAX's bfloat16 header, descr ``'<V2'``
+    (plain numpy's V2 would write ``'|V2'``), then its raw bits."""
+    import torch
+
+    if bf16 is None:
+        bf16 = isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16
+    arr = host_array(leaf)
+    buf = io.BytesIO()
+    if not bf16:
+        np.save(buf, arr)
+        return buf.getvalue()
+    np.lib.format.write_array_header_1_0(buf, {
+        "descr": "<V2", "fortran_order": False, "shape": tuple(arr.shape)})
+    buf.write(np.ascontiguousarray(arr).tobytes())
+    return buf.getvalue()

@@ -13,6 +13,12 @@ device, dtype, shape and contiguity, launches on
 and adds one to :data:`LAUNCHES` per launch. It takes CUDA tensors only: the plain versions for the CPU live in
 :mod:`repro_torch.kernels.ref` and the choice between the two is
 :mod:`repro_torch.kernels.ops`'.
+
+The kernel is a forward only: its output has no ``grad_fn``. So the
+wrapper refuses inputs that require grad while grad mode is on, before
+any other check, instead of cutting the gradient silently; training goes
+through ``ops.flash_attention``, whose ``torch.autograd.Function`` runs
+this wrapper as its forward (where grad mode is off).
 """
 
 from __future__ import annotations
@@ -57,6 +63,12 @@ def flash_attention_bhsd(
 ) -> torch.Tensor:
     """Returns (B, H, Sq, D) in q's dtype. Any Sq and Skv (ragged tiles
     are masked in the kernel); causal needs Sq <= Skv."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention_bhsd is a forward kernel and gives no gradient: "
+            "call it under torch.no_grad() or on tensors that do not require "
+            "grad, or train through ops.flash_attention (its autograd "
+            "Function)")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"q must be (B, H, Sq, D) and k/v (B, KVH, Skv, D); "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "

@@ -18,6 +18,13 @@ pool),
   * "ref"  — the plain version on any device (tests, ``chip_smoke.py``'s
     kernel-against-plain comparison, ``--attn-impl/--ssd-impl ref``).
 
+Gradients: on a CUDA tensor with grad mode on, ``flash_attention`` runs
+the kernel inside :class:`FlashAttentionFunction`, whose backward
+recomputes the plain version under autograd and returns its
+vector-Jacobian product (the JAX package trains through its plain chunked
+version; it has no backward kernel to port). The other ops serve
+inference only.
+
 Contract: :mod:`repro_torch.kernels.ref` is the ground truth; on the card
 each kernel matches it within the bounds ``chip_smoke.py`` states (1e-3 in
 f32, as ``repro/kernels/ops.py`` states for the Pallas kernels).
@@ -84,6 +91,42 @@ def _grouped(q: torch.Tensor, kvh: int) -> torch.Tensor:
     return q.reshape(n, kvh, h // kvh, d)
 
 
+class FlashAttentionFunction(torch.autograd.Function):
+    """Attention with a given forward and the plain version's gradient.
+
+    ``apply(q, k, v, causal, scale, block_kv, forward)``: the output is
+    ``forward(q, k, v, causal, scale)`` ((B, Sq, H, D) layouts, run with
+    grad mode off: on the card, :func:`_flash_kernel`); backward recomputes
+    ``ref.flash_attention_chunked(q, k, v, causal, scale, block_kv)`` under
+    autograd from the saved inputs and returns its vector-Jacobian product
+    for q, k and v. Taking the forward as an argument lets a CPU test run
+    the Function with the plain version standing in for the kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, block_kv, forward):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, scale, block_kv)
+        return forward(q, k, v, causal, scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        causal, scale, block_kv = ctx.args
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = ref.flash_attention_chunked(q, k, v, causal=causal,
+                                              scale=scale, chunk_kv=block_kv)
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), grad_out)
+        return dq, dk, dv, None, None, None, None
+
+
+def _flash_kernel(q, k, v, causal, scale):
+    """The flash kernel on the op's (B, S, H, D) layouts."""
+    out = flash_attention_bhsd(
+        q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+        v.transpose(1, 2).contiguous(), causal=causal, scale=scale)
+    return out.transpose(1, 2)
+
+
 def flash_attention(
     q: torch.Tensor,  # (B, Sq, H, D)
     k: torch.Tensor,  # (B, Skv, KVH, D)
@@ -103,7 +146,12 @@ def flash_attention(
     same inputs on every path and both packages serve the same lengths.
     The kernel itself masks ragged tiles (call
     :func:`repro_torch.kernels.flash_attention.flash_attention_bhsd`
-    directly for those)."""
+    directly for those).
+
+    On a CUDA tensor, with grad mode on and q, k or v requiring grad, the
+    kernel runs inside :class:`FlashAttentionFunction` (gradients by the
+    plain version's autograd); on the CPU the plain version is
+    differentiable as it is."""
     skv = k.shape[1]
     chunk = min(block_kv, skv)
     if chunk and skv % chunk:
@@ -114,10 +162,10 @@ def flash_attention(
     if _use_plain(q, impl, "flash_attention"):
         return ref.flash_attention_chunked(q, k, v, causal=causal,
                                            scale=scale, chunk_kv=block_kv)
-    out = flash_attention_bhsd(
-        q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-        v.transpose(1, 2).contiguous(), causal=causal, scale=scale)
-    return out.transpose(1, 2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFunction.apply(q, k, v, causal, scale, block_kv,
+                                            _flash_kernel)
+    return _flash_kernel(q, k, v, causal, scale)
 
 
 def paged_attention(

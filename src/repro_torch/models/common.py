@@ -38,6 +38,36 @@ def flatten_tree(tree: dict, prefix: str = "") -> dict:
     return out
 
 
+def unflatten_tree(flat: dict) -> dict:
+    """{"layers.attn.wq": leaf, ...} -> the nested dict (the inverse of
+    :func:`flatten_tree`): a state dict as the JAX parameter tree."""
+    out: dict = {}
+    for name, val in flat.items():
+        *parents, leaf = name.split(".")
+        node = out
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = val
+    return out
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts of the same structure (the
+    train state's trees), key by key."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of nested dicts, in sorted-key (``jax.tree.leaves``)
+    order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
 # ---------------------------------------------------------------------------
 # numerics
 # ---------------------------------------------------------------------------

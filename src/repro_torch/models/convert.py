@@ -6,6 +6,12 @@ the port's state dict (CPU tensors, same dtypes), ready for
 ``DecoderLM.load_state_dict``, so both packages compute the same function.
 The stacked ``(L, ...)`` leaves keep their layout; only the nesting becomes
 dotted names (``layers.attn.wq``).
+
+``train_state_from_jax(cfg, state)`` carries a whole JAX train state
+``{"params", "opt": {"m", "v"}, "step"}`` (numpy leaves) across into the
+port's train-state tree (``train/step.py``): the parameters and both
+moment trees through the same name and shape checks, nested again like
+the JAX tree, and the step as an int32 scalar.
 """
 
 from __future__ import annotations
@@ -15,7 +21,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.api import build_model
-from repro_torch.models.common import flatten_tree
+from repro_torch.models.common import flatten_tree, unflatten_tree
 
 
 def _to_tensor(arr) -> torch.Tensor:
@@ -41,3 +47,13 @@ def params_from_jax(cfg: ModelConfig, params_np: dict) -> dict[str, torch.Tensor
             raise ValueError(f"{name}: shape {tuple(t.shape)} != {spec.shape}")
         state[name] = t
     return state
+
+
+def train_state_from_jax(cfg: ModelConfig, state_np: dict) -> dict:
+    """JAX train state (numpy leaves) -> the port's train state (CPU
+    tensors, same dtypes, the JAX tree's nesting)."""
+    tree = lambda t: unflatten_tree(params_from_jax(cfg, t))  # noqa: E731
+    return {"params": tree(state_np["params"]),
+            "opt": {k: tree(state_np["opt"][k]) for k in ("m", "v")},
+            "step": torch.tensor(int(np.asarray(state_np["step"])),
+                                 dtype=torch.int32)}

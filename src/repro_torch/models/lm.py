@@ -32,8 +32,17 @@ Python loop over the layers:
 Each returns f32 logits. Vocab is padded to a multiple of 256, as in the
 JAX package.
 
-Not ported yet: training (``loss_fn``, A.11) and the moe and vlm
-families (A.7).
+Training (dense family): ``loss_fn(params, batch)`` and
+``backbone_train(params, x)`` are functions of a parameter TREE (nested
+like the JAX one, ``params["layers"]["attn"]["wq"]``, e.g. the train
+state's, see ``train/step.py``), not of the module's own parameters, and
+run under autograd: the attention goes through ``kernels.ops`` (on the
+card the flash kernel's forward inside a ``torch.autograd.Function``), the
+loss is :func:`chunked_cross_entropy`, and ``cfg.remat_policy`` maps onto
+``torch.utils.checkpoint`` (:func:`scan_layers`).
+
+Not ported yet: training the ssm and hybrid families (ROADMAP A.11) and
+the moe and vlm families (A.7).
 """
 
 from __future__ import annotations
@@ -43,13 +52,15 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (ParamSpec, flatten_tree, resolve_device,
-                                       rms_norm, swiglu)
+                                       rms_norm, swiglu, tree_map)
 
 VOCAB_PAD_MULTIPLE = 256
 
@@ -57,6 +68,13 @@ _NOT_PORTED = {
     "moe": "ROADMAP A.7 (moe family)",
     "vlm": "ROADMAP A.7 (vlm path)",
     "audio": "ROADMAP A.11 (encoder-decoder)",
+}
+# families whose backbone_train is not ported yet
+_NOT_TRAINED = {
+    "ssm": "ROADMAP A.11 (ssm training: the SSD scan under autograd)",
+    "hybrid": "ROADMAP A.11 (hybrid training: the SSD scan under autograd)",
+    "moe": _NOT_PORTED["moe"],
+    "vlm": _NOT_PORTED["vlm"],
 }
 
 
@@ -74,6 +92,95 @@ def mlp_param_specs(cfg: ModelConfig, stacked: int | None = None) -> dict:
 def padded_vocab(cfg: ModelConfig) -> int:
     v = cfg.vocab_size
     return ((v + VOCAB_PAD_MULTIPLE - 1) // VOCAB_PAD_MULTIPLE) * VOCAB_PAD_MULTIPLE
+
+
+def chunked_cross_entropy(
+    x: torch.Tensor,        # (B, S, D) final hidden states
+    w_out: torch.Tensor,    # (D, Vp)
+    targets: torch.Tensor,  # (B, S) int
+    real_vocab: int,
+    chunk: int = 1024,
+) -> torch.Tensor:
+    """Mean next-token CE without keeping (B, S, Vp) logits for backward.
+
+    Walks sequence chunks; each chunk runs under ``torch.utils.checkpoint``
+    (the JAX package's ``jax.checkpoint``), so backward recomputes its
+    logits instead of saving them. The logits are f32 products of the
+    operands' values (bf16 operands into f32 logits, as the JAX einsum's
+    ``preferred_element_type=f32``); padded-vocab columns are set to -1e30.
+    """
+    b, s, d = x.shape
+    vp = w_out.shape[-1]
+    chunk = min(chunk, s)
+    assert s % chunk == 0, (s, chunk)
+    vocab_mask = (torch.arange(vp, device=x.device) < real_vocab
+                  if real_vocab != vp else None)
+
+    def one(x_chunk, t_chunk):
+        logits = x_chunk.float() @ w_out.float()
+        if vocab_mask is not None:
+            logits = torch.where(vocab_mask, logits,
+                                 torch.full_like(logits, -1e30))
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = logits.gather(-1, t_chunk.long()[..., None])[..., 0]
+        return (lse - tgt).sum()
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(0, s, chunk):
+        total = total + checkpoint(one, x[:, c:c + chunk],
+                                   targets[:, c:c + chunk],
+                                   use_reentrant=False)
+    return total / (b * s)
+
+
+def _remat(fn, policy: str):
+    """``fn`` under ``cfg.remat_policy``. ``"none"``: as it is. Every
+    policy that saves less than everything runs ``fn`` under
+    ``torch.utils.checkpoint`` (its inputs saved, the rest recomputed in
+    backward): ``"nothing"`` (the JAX default) and ``"full"`` exactly so;
+    ``"dots"`` and ``"names"``, which in JAX also keep the matmul outputs
+    or the tagged block outputs, recompute those too, since the port has
+    no selective policy: more compute, less memory, the same values. The
+    loss and gradients do not depend on the policy."""
+    if policy == "none":
+        return fn
+    if policy in ("nothing", "full", "dots", "names"):
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    raise ValueError(f"unknown remat policy {policy!r}")
+
+
+def scan_layers(body, x: torch.Tensor, layers: list, policy: str):
+    """Run ``x = body(x, layer)`` over the layer stack under ``policy``.
+
+    ``"groupG"`` (e.g. ``"group8"``, ``"group8names"``): sqrt-L
+    checkpointing as in the JAX package: blocks of G layers (G lowered to a
+    divisor of L), each block checkpointed as a unit so only the block
+    inputs are kept, and each layer inside checkpointed as well so the
+    block's backward holds one layer's internals at a time. Any other
+    policy: each layer through :func:`_remat`."""
+    if policy.startswith("group"):
+        spec = policy[len("group"):]
+        inner_policy = "names" if spec.endswith("names") else "nothing"
+        spec = spec.removesuffix("names")
+        g = int(spec or 8)
+        n_layers = len(layers)
+        if n_layers % g != 0:
+            g = next(d for d in range(g, 0, -1) if n_layers % d == 0)
+        inner = _remat(body, inner_policy)
+
+        def group_body(x, group):
+            for pl in group:
+                x = inner(x, pl)
+            return x
+
+        outer = _remat(group_body, "nothing")
+        for i in range(0, n_layers, g):
+            x = outer(x, layers[i:i + g])
+        return x
+    step = _remat(body, policy)
+    for pl in layers:
+        x = step(x, pl)
+    return x
 
 
 def _register(module: nn.Module, specs: dict, default_dtype: str,
@@ -273,6 +380,50 @@ class DecoderLM(nn.Module):
             x = x.index_select(1, row.reshape(1).long())
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return self._unembed(x)[:, 0]
+
+    # ------------------------------------------------------------------
+    # training (dense family), on a parameter tree
+    # ------------------------------------------------------------------
+    def embed_inputs(self, params: dict, batch: dict) -> torch.Tensor:
+        return F.embedding(batch["tokens"].long(), params["embed"])
+
+    def backbone_train(self, params: dict, x: torch.Tensor):
+        """x (B, S, D) embedded tokens -> (hidden states (B, S, D), aux
+        loss f32 scalar) through every layer of ``params["layers"]``, each
+        layer's parameters that layer's slice of the stacked leaves, under
+        ``cfg.remat_policy``."""
+        cfg = self.cfg
+        if cfg.family in _NOT_TRAINED:
+            raise NotImplementedError(
+                f"backbone_train: family {cfg.family!r} is not ported yet: "
+                f"{_NOT_TRAINED[cfg.family]}")
+        positions = torch.arange(x.shape[1], device=x.device)
+        # each stacked (L, ...) leaf as its L slices: one unbind, whose
+        # backward stacks the L gradients in one op
+        per_layer = tree_map(lambda a: a.unbind(0), params["layers"])
+        layers = [tree_map(lambda t, l=l: t[l], per_layer)
+                  for l in range(cfg.num_layers)]
+
+        def body(x, pl):
+            return self._block(pl, x, lambda p, h: attn.self_attention(
+                p, h, cfg, positions=positions, attn_impl=self.attn_impl))
+
+        x = scan_layers(body, x, layers, cfg.remat_policy)
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def loss_fn(self, params: dict, batch: dict):
+        """Training forward + chunked CE: ``(loss, {"ce", "aux"})``, f32
+        scalars. batch: ``{"tokens", "targets"}`` (B, S) int on the
+        parameters' device."""
+        cfg = self.cfg
+        x = self.embed_inputs(params, batch)
+        x, aux = self.backbone_train(params, x)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        w_out = (params["embed"].t() if cfg.tie_embeddings
+                 else params["unembed"])
+        ce = chunked_cross_entropy(x, w_out, batch["targets"],
+                                   cfg.vocab_size)
+        return ce, {"ce": ce, "aux": aux}
 
     # ------------------------------------------------------------------
     # dense cache (lockstep engine, whole-prompt prefill)

@@ -5,9 +5,11 @@ time against a carried cache, or a whole sequence from a zero state.
 The port of ``repro/models/ssm.py`` at tensor-parallel degree 1 (its
 ``psum_tp``/``pmean_tp`` are identities there). The depthwise conv stays
 split into x / B / C streams as in the JAX package. ``mamba_block`` is the
-whole-sequence forward (the lockstep engine's prefill; training waits for
-ROADMAP A.11). The projections are plain matmuls; the SSD recurrence goes through
-``ops.ssd_scan`` / ``ops.ssd_decode_step`` (the CUDA kernels on the card).
+whole-sequence forward (the lockstep engine's prefill; training the ssm and
+hybrid families, with the SSD scan under autograd, waits for ROADMAP A.11:
+only the dense family trains so far). The projections are plain matmuls;
+the SSD recurrence goes through ``ops.ssd_scan`` / ``ops.ssd_decode_step``
+(the CUDA kernels on the card).
 """
 
 from __future__ import annotations

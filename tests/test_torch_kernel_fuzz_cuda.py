@@ -31,6 +31,16 @@ bounds). Every bf16 case whose P and N the tensor-core kernel takes must
 go through it (``LAUNCHES_BY_PATH``), the rest through the CUDA-core
 template.
 
+The flash kernel runs the JAX package's flash sweep (batch 1-2, Sq 16-192,
+Skv >= Sq up to two blocks further, GQA 1-2, causal and not) with head
+dims mapped into {64, 80, 128}, f32 and bf16, against
+``ref.flash_attention_ref``; its gradient arm trains through
+``ops.flash_attention`` on the same cases (the kernel's forward inside
+``FlashAttentionFunction``, one launch, none in backward) with a loss whose
+upstream gradient depends on the output, against the plain version's own
+autograd: q, k and v gradients within the same bounds, taken relative to
+each gradient's largest magnitude (at least 1).
+
 Marked ``cuda``; no JAX here, so this runs on a machine with only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernel_fuzz_cuda.py
@@ -51,6 +61,99 @@ PAGE_MAP = {4: 8, 8: 8, 16: 16}
 
 def _cdiv(a, b):
     return -(-a // b)
+
+
+FLASH_D_MAP = {16: 64, 32: 80, 64: 128}
+
+
+# ---------------------------------------------------------------------------
+# flash: (b, sq, skv, h, kvh, d, causal, block), the JAX sweep
+# ---------------------------------------------------------------------------
+
+def _flash_sweep():
+    cases = []
+    rng = np.random.default_rng(0xF1A54)
+    for _ in range(10):
+        bq = int(rng.choice([16, 32, 64]))
+        nq = int(rng.integers(1, 4))
+        nk = nq + int(rng.integers(0, 3))  # Skv >= Sq (prefill continuation)
+        kvh = int(rng.choice([1, 2, 4]))
+        cases.append((
+            int(rng.integers(1, 3)), bq * nq, bq * nk,
+            kvh * int(rng.choice([1, 2])), kvh,
+            FLASH_D_MAP[int(rng.choice([16, 32, 64]))],
+            bool(rng.integers(0, 2)), bq,
+        ))
+    return cases
+
+
+def _flash_case(params, dtype):
+    b, sq, skv, h, kvh, d, causal, _ = params
+    rng = np.random.default_rng(sum(params))
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .cuda().to(getattr(torch, dtype))
+               for shape in ((b, sq, h, d), (b, skv, kvh, d), (b, skv, kvh, d)))
+    return q, k, v
+
+
+_FLASH_IDS = lambda p: "b{}q{}k{}h{}g{}d{}{}blk{}".format(  # noqa: E731
+    *p[:6], "c" if p[6] else "f", p[7])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("params", _flash_sweep(), ids=_FLASH_IDS)
+def test_flash_kernel_fuzz(params, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+
+    causal = params[6]
+    q, k, v = _flash_case(params, dtype)
+    got = flash_attention_bhsd(q.transpose(1, 2).contiguous(),
+                               k.transpose(1, 2).contiguous(),
+                               v.transpose(1, 2).contiguous(), causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    _check(got.transpose(1, 2), want, torch.zeros_like(want, dtype=torch.bool),
+           TOLS[dtype], f"flash {dtype} {params}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("params", _flash_sweep(), ids=_FLASH_IDS)
+def test_flash_gradient_fuzz(params, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import flash_attention as fk
+
+    skv, causal = params[2], params[6]
+    base = _flash_case(params, dtype)
+    w = torch.randn(base[0].shape, generator=torch.Generator(
+        device="cuda").manual_seed(sum(params)), device="cuda")
+
+    def grads(attend):
+        q, k, v = (t.detach().clone().requires_grad_() for t in base)
+        out = attend(q, k, v)
+        loss = (0.5 * out.float().square() + w * out.float()).sum()
+        return out, torch.autograd.grad(loss, (q, k, v))
+
+    fk.reset_launches()
+    out, got = grads(lambda q, k, v: ops.flash_attention(
+        q, k, v, causal=causal, block_kv=skv))
+    assert type(out.grad_fn).__name__ == "FlashAttentionFunctionBackward"
+    assert fk.LAUNCHES["flash_attention_bhsd"] == 1  # forward only
+    _, want = grads(lambda q, k, v: ref.flash_attention_chunked(
+        q, k, v, causal=causal, chunk_kv=skv))
+    torch.cuda.synchronize()
+    for name, g, r in zip("qkv", got, want):
+        # relative to the gradient's scale (at least 1): a dv row sums the
+        # upstream gradient over every query attending its key, and a bf16
+        # gradient of 4-8 has 2^-5 ulps
+        err = ((g.float() - r.float()).abs().max()
+               / r.float().abs().max().clamp_min(1.0)).item()
+        assert err <= TOLS[dtype], (
+            f"flash d{name} {dtype} {params}: max err {err:.3e} of the "
+            f"gradient's scale")
 
 
 # ---------------------------------------------------------------------------

@@ -113,8 +113,10 @@ Phases (any failure exits non-zero):
    shapes (decode: 8 slots, 2 of them idle; scan: one 64-token chunk of
    one sequence), cycling over 48 layers' states, and the scan at S 512
    and at zamba2's widths.
-11. mamba2  — full-width mamba2-1.3b (bf16, seeded random weights, 48
-   layers) served by ``SSMEngine(max_slots=8, prefill_chunk=64,
+11. mamba2  — mamba2-1.3b at full width (bf16, seeded random weights),
+   depth cut to SSM_ENGINE_LAYERS (24) of its 48 layers to keep the
+   script in its limit (phases 12 and 15 run all 48), served by
+   ``SSMEngine(max_slots=8, prefill_chunk=64,
    max_len=512)``: 8 requests of 64-400 prompt tokens, 24 new tokens each,
    greedy and seeded top-p alternating. Every request must finish by
    length, both SSD launch counts (reset just before this run) must be
@@ -129,9 +131,10 @@ Phases (any failure exits non-zero):
    through the kernels equal those through the plain versions
    (``ssd_impl="ref"``), and a run with one snapshot preemption and one
    discard preemption gives the same streams as the undisturbed run.
-13. zamba2  — full-width zamba2-2.7b (bf16, seeded random weights, all 54
-   Mamba2 layers in 9 groups, each led by the one shared attention + MLP
-   block, 32 heads of D 80) served by ``SSMEngine(max_slots=8,
+13. zamba2  — zamba2-2.7b at full width (bf16, seeded random weights,
+   32 heads of D 80), depth cut to SSM_ENGINE_LAYERS (24) of its 54 Mamba2
+   layers: 4 groups, each led by the one shared attention + MLP block
+   (phase 15 runs all 54), served by ``SSMEngine(max_slots=8,
    prefill_chunk=64, max_len=512, page_size=16)``: 8 requests of 64-400
    prompt tokens, 24 new each, greedy and seeded top-p alternating; then 8
    more over a pool of Z_TIGHT_PAGES pages, on which decode-time page
@@ -163,7 +166,9 @@ Phases (any failure exits non-zero):
    those through ``SSMEngine``.
 16. ssm serve driver — ``python -m repro_torch.launch.serve --arch
    zamba2-2.7b`` and ``--engine lockstep --arch mamba2-1.3b`` at full
-   width: 8/8 served, ``engine=ssm`` and ``engine=lockstep``.
+   width (each serving-driver phase runs the driver's ``main`` in this
+   process, ``serve_cli``): 8/8 served, ``engine=ssm`` and
+   ``engine=lockstep``.
 
 17. int8 timing — the int8 variant of the three paged kernels (checked in
    phase 3), their plain versions and SDPA on K/V dequantized and gathered
@@ -171,13 +176,15 @@ Phases (any failure exits non-zero):
    zamba2-2.7b widths; the bound counts int8
    K/V plus a 4-byte scale per (position, kv head).
 18. int8 engine — phase 4's trace through ``ContinuousBatchingEngine(...,
-   kv_quant="int8")`` on full-width smollm-360m, in turns with bf16 pages
+   kv_quant="int8")`` on smollm-360m at full width, depth cut to
+   VARIANT_LAYERS (16) of its 32 layers (here and in phase 19), in turns
+   with bf16 pages
    (bf16, int8, int8, bf16): every request finishes by length, the prefix
    index hits and each paged kernel runs (path ``chunked_int8`` in
    ``launches_by_path``, the first int8 turn). Prints tok/s, TTFT, ITL
    per turn and a profiler window of each page type (checked as phase
    4's).
-19. tier restart — full-width smollm-360m, once with bf16 pages (path
+19. tier restart — smollm-360m (16 layers), once with bf16 pages (path
    ``tiered``) and once with int8 pages (path ``tiered_int8``), a pool of
    128 pages with ``host_pages`` and ``persist_dir`` in a temporary
    directory: phase 4's trace must reclaim and spill parked pages; after
@@ -264,10 +271,11 @@ Phases (any failure exits non-zero):
    the autograd Function, the plain version's autograd and SDPA's (the
    kernels line's flash ``train`` entry).
 29. train — ``launch.train`` (``repro_torch.launch.train.run``) at full
-   width: smollm-360m, 32 layers, bf16 parameters, f32 moments, B 16 x S
-   64, TRAIN_STEPS steps at ``--lr`` TRAIN_LR, a checkpoint every 10,
-   ``--chaos`` (the train pod killed twice): the loss must improve, the train step must be retried
-   twice, the flash kernel must launch (path ``train`` in
+   width as TRAIN_RUNS gives it: smollm-360m, 32 layers, bf16 parameters,
+   f32 moments, B 16 x S 64, 60 steps at ``--lr`` 1e-2, a checkpoint
+   every 20, ``--chaos`` (the train pod killed twice): the loss must
+   improve and the eval loss lie below the first step's, the train step
+   must be retried twice, the flash kernel must launch (path ``train`` in
    ``launches_by_path``: the counts reset just before the run and read
    just after), and the third attempt must start within 64 MiB of the
    first attempt's device memory (the killed attempts' model and train
@@ -275,14 +283,55 @@ Phases (any failure exits non-zero):
    Prints s/step and tokens/s, checkpoint save and restore seconds and
    bytes, device memory at each attempt's start and after the run, and a
    torch.profiler window over TRACE_TRAIN_STEPS train steps (device busy
-   share, flash's share of it, the top device ops). Then 2 layers in f32
-   (TF32 off), PARITY_TRAIN_STEPS steps: through the kernel, again with
-   ``--chaos``, through the plain version (``--attn-impl ref``) and through
-   the plain version in f64 (every f32 cast of the plain path kept at
-   f64): the chaos run's losses must equal the uninterrupted run's
-   exactly (after at least one kill), and the largest per-step gap
-   between the kernel and the plain version may not exceed the plain
-   version's own largest f32-vs-f64 gap.
+   share, the flash and SSD kernels' shares of it, the top device ops).
+   Then PARITY_LAYERS layers in f32 (TF32 off), 60 steps: through the
+   kernel, again with ``--chaos`` (a checkpoint every 20 steps), through
+   the plain version (``--attn-impl ref``) and through the plain version
+   in f64 (every f32 cast of the plain path kept at f64): the chaos run's
+   losses must equal the uninterrupted run's exactly (after at least one
+   kill), and the largest per-step gap between the kernel and the plain
+   version may not exceed the plain version's own largest f32-vs-f64
+   gap.
+
+30. ssd gradients — ``ops.ssd_scan`` under autograd on the card (the scan
+   kernel's forward inside ``SSDScanFunction``, the plain scan's
+   recompute for backward) against the plain version's own autograd,
+   with a loss whose upstream gradient depends on y and on the final
+   state: at mamba2's (H 64, P 64, N 128) and zamba2's (H 80, N 64) SSD
+   widths, B 4 x S 256 (four of the kernel's 64-token sub-chunks), bf16
+   and f32; the x, dt, A, Bm and Cm gradients within 5e-2 (bf16) and
+   1e-3 (f32) of the gradient's largest magnitude (at least 1). Both SSD
+   wrappers must refuse inputs that require grad. Then times the kernel
+   at that shape (mamba2 widths, cycling over 48 layers' inputs) against
+   its plain version and its bound, and forward + backward through the
+   Function against the plain autograd (the kernels line's SSD ``train``
+   entry).
+31. ssm/hybrid train — phase 29's run for mamba2-1.3b (48 layers, B 4 x
+   S 256, ``--chaos``; the SSD scan on path ``train``, every scan on the
+   tensor-core kernel) and zamba2-2.7b (54 layers, 9 occurrences of the
+   shared block, the same shape, no chaos, one checkpoint at the end;
+   flash and the scan on ``train zamba2``), then each at PARITY_LAYERS in
+   f32 as phase 29's, 30 steps, a checkpoint every 10 in the chaos run
+   (plain: ``--ssd-impl ref``, and ``--attn-impl ref`` for zamba2, whose
+   one group keeps the shared block before PARITY_LAYERS Mamba layers),
+   with the kernel-vs-plain gap held within twice the plain path's own
+   f32-vs-f64 gap: the triangle bound for a kernel that rounds no worse
+   than the plain version (|k - p| <= |k - f64| + |p - f64|), since each
+   f32 path's rounding is amplified alike by the training (PERF.md,
+   section 6).
+32. whisper — whisper-tiny at full width (4 + 4 layers, d_model 384, 6 /
+   6 heads of D 64, vocab 51865, bf16): phase 29's run (B 16 x S 64,
+   frames S 64, ``--chaos``; flash on ``train whisper``); the lockstep
+   engine (8 requests of 64-256 tokens, 16 new, greedy and seeded top-p
+   alternating; 12 flash launches a prefilled batch on ``lockstep
+   whisper``; tok/s, TTFT, ITL); the same engine in f32 with TF32 off
+   through the kernel and through the plain version, whose greedy streams
+   must be equal (or, where the plain path's own f32 and f64 streams part
+   too, the one-prefill logit gap must stay within the plain path's
+   f32-vs-f64 gap); ``python -m repro_torch.launch.serve --arch
+   whisper-tiny --engine lockstep`` (``engine=lockstep``) and without
+   ``--engine`` (``UnsupportedConfigError``); and the flash kernel at
+   whisper's widths, causal and not, at every (B, S) the phase gave it.
 
 Kernel and plain times are device time per call: the calls are enqueued
 behind a sleep kernel and timed with CUDA events, so the host's per-call
@@ -297,7 +346,9 @@ before its path). The three paged kernels also carry ``int8``: the int8
 variant's max abs error, times and bound; the mixed kernel's ``ms`` is the
 hinted call's and ``generic_ms`` the call without the hint; the chunk
 kernel carries ``verify``: phase 22's errors (bf16, int8 and f32 pools)
-and the C 5 call's times and bound; flash carries ``train``: phase 28's
+and the C 5 call's times and bound; the SSD scan carries ``train``:
+phase 30's largest bf16 gradient gap and its times there (forward, and
+forward + backward); flash carries ``train``: phase 28's
 largest bf16 gradient gap at the training shape and the times there
 (forward, and forward + backward). Flash's ``train`` path counts its
 launches in phase 29's full-width run (each layer's forward, again in
@@ -310,7 +361,6 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
-import os
 import re
 import subprocess
 import sys
@@ -355,15 +405,35 @@ SPEC_REQUESTS, WITNESS_REQUESTS = 8, 2
 WITNESS_DEPTHS = (LAYERS, 16, 8, 4, PARITY_LAYERS)
 # the draft model's catch-up chunk (DraftModelProposer's default)
 DRAFT_CHUNK = 32
-# phase 29: the full-width trainer's steps, the profiled steps, and the
-# 2-layer f32 runs' steps and checkpoint interval (attempts that outlive
-# --chaos's 1 s kill timer, and restore from a checkpoint)
-TRAIN_STEPS, TRACE_TRAIN_STEPS = 60, 5
-# the full-width run's learning rate (tools/train_lr_sweep.py): from the
-# driver's default 3e-3 a 32-layer smollm does not leave its ln(vocab)
-# plateau within the run, from 3e-2 it diverges
-TRAIN_LR = 1e-2
-PARITY_TRAIN_STEPS, PARITY_CKPT_EVERY = 60, 20
+# phases 29, 31, 32: the full-width training runs: B x S, steps, the
+# learning rate, the checkpoint interval, --chaos (two kills), and the
+# PARITY_LAYERS f32 runs (run_train_parity): their steps, the chaos run's
+# checkpoint interval (attempts that outlive --chaos's 1 s kill timer, and
+# restore from a checkpoint) and the factor on the plain path's own
+# f32-vs-f64 gap that the kernel-vs-plain gap must stay within. The rates
+# are tools/train_lr_sweep.py's: the one at which each model leaves its
+# ln(vocab) plateau within the run without diverging (a 32-layer smollm
+# stays on it from the driver's default 3e-3 and diverges from 3e-2;
+# mamba2 diverges from 1e-2, zamba2 from 1e-2 and stays on it at 3e-3;
+# PERF.md has each sweep)
+TRAIN_RUNS = {
+    arch: dict(arch=arch, batch=b, seq=s, steps=n, lr=lr, ckpt_every=c,
+               chaos=chaos, parity=parity)
+    for arch, b, s, n, lr, c, chaos, parity in (
+        ("smollm-360m", 16, 64, 60, 1e-2, 20, True, (60, 20, 1.0)),
+        ("mamba2-1.3b", 4, 256, 16, 3e-3, 16, True, (20, 10, 2.0)),
+        ("zamba2-2.7b", 4, 256, 12, 6e-3, 12, False, (20, 10, 2.0)),
+        ("whisper-tiny", 16, 64, 60, 1e-2, 20, True, None))}
+# the profiled steps of each full-width run
+TRACE_TRAIN_STEPS = 3
+# depth cuts of earlier paths, to keep the script inside its time limit:
+# the smollm variants of phases 18-19 (int8 pages, the tiers) and the SSM
+# engine runs of phases 11 and 13 (their parity phases keep their depths)
+VARIANT_LAYERS, SSM_ENGINE_LAYERS = 16, 24
+# phase 30: the SSD scan under autograd at the trainer's (B, S)
+SSD_TRAIN_SHAPE = (4, 256)
+# phase 32: whisper's f32 parity streams
+W_PARITY_REQUESTS = 5
 # the chaos runs' engines: slots and max_len (16-entry block tables)
 FLEET_SLOTS, FLEET_MAX_LEN = 4, 256
 # mamba2-1.3b: SSD widths, layers, and the engine's shape
@@ -414,6 +484,30 @@ FLASH_WIDTHS = {"smollm D64": (FLASH_H, KVH, D), "llama3 D128": (32, 8, 128),
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def serve_cli(*argv) -> str:
+    """``python -m repro_torch.launch.serve *argv``, as a user runs it, but
+    in this process (a new interpreter would pay the import and the
+    card's start-up again, ~8 s a run). Returns its standard output;
+    raises what it raises."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+
+    out, saved = io.StringIO(), sys.argv
+    sys.argv = ["repro_torch.launch.serve", *argv]
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = serve.main()
+    finally:
+        sys.argv = saved
+    if rc != 0:
+        raise AssertionError(f"serve {' '.join(argv)} returned {rc}: "
+                             f"{out.getvalue()[-2000:]}")
+    gc.collect()
+    return out.getvalue()
 
 
 def card_line() -> str:
@@ -1473,32 +1567,24 @@ def run_serve_tiers(card):
     ``python -m repro_torch.launch.serve --kv-quant int8 --host-pages 8
     --persist-dir DIR`` twice on one directory. Both serve every request;
     only the second reports persisted hits (``tier_hits=.../pvN``)."""
-    env = dict(os.environ, PYTHONPATH=str(SRC))
     with tempfile.TemporaryDirectory(prefix="serve_tiers_") as tmp:
         for n in (1, 2):
             t0 = time.perf_counter()
-            run = subprocess.run(
-                [sys.executable, "-m", "repro_torch.launch.serve",
-                 "--requests", "12", "--max-new", "8", "--shared-prefix",
-                 "32", "--kv-quant", "int8", "--host-pages", "8",
-                 "--persist-dir", f"{tmp}/kv", "--workdir", f"{tmp}/run{n}"],
-                capture_output=True, text=True, env=env, timeout=300,
-                cwd=ROOT)
-            if run.returncode != 0:
-                raise AssertionError(f"serve run {n} exited {run.returncode}:"
-                                     f" {run.stderr[-2000:]}")
-            hits = re.search(r"tier_hits=dev\d+/host\d+/pv(\d+);",
-                             run.stdout)
-            if "served 12/12" not in run.stdout or not hits:
-                raise AssertionError(f"serve run {n}: {run.stdout[-2000:]}")
+            out = serve_cli(
+                "--requests", "12", "--max-new", "8", "--shared-prefix",
+                "32", "--kv-quant", "int8", "--host-pages", "8",
+                "--persist-dir", f"{tmp}/kv", "--workdir", f"{tmp}/run{n}")
+            hits = re.search(r"tier_hits=dev\d+/host\d+/pv(\d+);", out)
+            if "served 12/12" not in out or not hits:
+                raise AssertionError(f"serve run {n}: {out[-2000:]}")
             if (int(hits.group(1)) > 0) != (n == 2):
                 raise AssertionError(f"serve run {n}: persisted hits "
                                      f"{hits.group(1)}")
-            served = next(line for line in run.stdout.splitlines()
+            served = next(line for line in out.splitlines()
                           if line.startswith("served"))
             log(f"serve driver run {n} on {card} (--kv-quant int8 "
                 f"--host-pages 8 --persist-dir, {time.perf_counter() - t0:.1f}"
-                f" s with start-up): {served}; tier_hits=...pv{hits.group(1)}")
+                f" s): {served}; tier_hits=...pv{hits.group(1)}")
 
 
 # ---------------------------------------------------------------------------
@@ -1852,7 +1938,7 @@ def run_mamba_engine(torch, np, cfg, serving, models, sk, card):
              f"decode_steps {st['decode_steps']}, prefill_chunks "
              f"{st['prefill_chunks']}, preemptions {st['preemptions']}; "
              f"kernel launches {launches} (scan paths {paths}) over "
-             f"{M_LAYERS} layers per "
+             f"{cfg.num_layers} layers per "
              f"dispatch; peak device memory "
              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log("utilization: " + engine.utilization.format())
@@ -2223,28 +2309,19 @@ def run_lockstep_ssm_parity(torch, np, cfgs, depths, serving, models):
 def run_serve_ssm(card):
     """The serving driver at full width on the recurrent families: zamba2
     through the SSM engine, mamba2 through lockstep."""
-    env = dict(os.environ, PYTHONPATH=str(SRC))
     with tempfile.TemporaryDirectory(prefix="serve_ssm_") as tmp:
         for args, kind in ((["--arch", "zamba2-2.7b"], "ssm"),
                            (["--engine", "lockstep", "--arch",
                              "mamba2-1.3b"], "lockstep")):
             t0 = time.perf_counter()
-            run = subprocess.run(
-                [sys.executable, "-m", "repro_torch.launch.serve", *args,
-                 "--requests", "8", "--max-new", "8", "--workdir",
-                 f"{tmp}/{kind}"],
-                capture_output=True, text=True, env=env, timeout=300,
-                cwd=ROOT)
-            if run.returncode != 0:
-                raise AssertionError(f"serve {args} exited "
-                                     f"{run.returncode}: {run.stderr[-2000:]}")
-            if ("served 8/8" not in run.stdout
-                    or f"engine={kind}" not in run.stdout):
-                raise AssertionError(f"serve {args}: {run.stdout[-2000:]}")
-            served = next(line for line in run.stdout.splitlines()
+            out = serve_cli(*args, "--requests", "8", "--max-new", "8",
+                            "--workdir", f"{tmp}/{kind}")
+            if "served 8/8" not in out or f"engine={kind}" not in out:
+                raise AssertionError(f"serve {args}: {out[-2000:]}")
+            served = next(line for line in out.splitlines()
                           if line.startswith("served"))
             log(f"serve driver {' '.join(args)} on {card} "
-                f"({time.perf_counter() - t0:.1f} s with start-up): {served}")
+                f"({time.perf_counter() - t0:.1f} s): {served}")
 
 
 # ---------------------------------------------------------------------------
@@ -2795,21 +2872,16 @@ def run_fleet(torch, np, cfg, serving, models, pk, card):
     the chaos runs, every engine collected and the cuBLAS workspaces
     cleared, must not exceed what it was before them: the killed workers'
     pools come back. Returns the bf16 fleet run's kernel launches."""
-    env = dict(os.environ, PYTHONPATH=str(SRC))
     with tempfile.TemporaryDirectory(prefix="serve_fleet_") as tmp:
         t0 = time.perf_counter()
-        run = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.serve", "--fleet",
-             "2", "--requests", "12", "--max-new", "8", "--workdir",
-             f"{tmp}/run"],
-            capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
-        if run.returncode != 0 or "fleet served 12/12" not in run.stdout:
-            raise AssertionError(f"serve --fleet 2 exited {run.returncode}: "
-                                 f"{run.stdout[-1500:]} {run.stderr[-1500:]}")
-        served = next(line for line in run.stdout.splitlines()
+        out = serve_cli("--fleet", "2", "--requests", "12", "--max-new", "8",
+                        "--workdir", f"{tmp}/run")
+        if "fleet served 12/12" not in out:
+            raise AssertionError(f"serve --fleet 2: {out[-1500:]}")
+        served = next(line for line in out.splitlines()
                       if line.startswith("fleet served"))
         log(f"serve driver --fleet 2 on {card} ({time.perf_counter() - t0:.1f}"
-            f" s with start-up): {served}")
+            f" s): {served}")
     raw0, mem0 = _settled_memory(torch)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3074,36 +3146,10 @@ def time_flash_train(torch, F, ops, ref, fk):
                 library_fwd_bwd_ms=both_ms["sdpa"])
 
 
-def _all_f64(torch):
-    """Inside, the plain path computes in f64 when given f64 tensors: its
-    f32 casts (``.float()``, f32 ``zeros``/``full``) keep f64. The run the
-    f32 runs' rounding is measured against."""
-    import contextlib
-
-    @contextlib.contextmanager
-    def ctx():
-        to_float, zeros, full = torch.Tensor.float, torch.zeros, torch.full
-
-        def keep64(dtype):
-            return torch.float64 if dtype == torch.float32 else dtype
-
-        torch.Tensor.float = (lambda t: t if t.dtype == torch.float64
-                              else to_float(t))
-        torch.zeros = lambda *a, dtype=None, **k: zeros(*a, dtype=keep64(dtype),
-                                                        **k)
-        torch.full = lambda *a, dtype=None, **k: full(*a, dtype=keep64(dtype),
-                                                      **k)
-        try:
-            yield
-        finally:
-            torch.Tensor.float, torch.zeros, torch.full = to_float, zeros, full
-
-    return ctx()
-
-
-def _trace_train(torch, cfg, steps):
-    """A torch.profiler window over ``steps`` full-width train steps (after
-    one warm step): device busy share, flash's share of it, the top ops."""
+def _trace_train(torch, cfg, run, steps):
+    """A torch.profiler window over ``steps`` full-width train steps of
+    ``run`` (a TRAIN_RUNS entry; after one warm step): device busy share,
+    the flash and SSD kernels' shares of it, the top ops."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3112,15 +3158,18 @@ def _trace_train(torch, cfg, steps):
     from repro_torch.train import AdamWConfig, init_train_state, make_train_step
 
     model = build_model(cfg, device="cuda")
-    opt = AdamWConfig(lr=3e-3, warmup_steps=10, decay_steps=400,
+    opt = AdamWConfig(lr=run["lr"], warmup_steps=10, decay_steps=400,
                       weight_decay=0.0, moment_dtype="float32")
     state = init_train_state(model, 0, opt)
     step = make_train_step(model, opt)
-    corpus = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
-                                        global_batch=16))
-    batches = [{k: torch.as_tensor(v, device="cuda")
-                for k, v in corpus.batch_at(i).items()}
-               for i in range(steps + 1)]
+    corpus = SyntheticCorpus(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=run["seq"],
+        global_batch=run["batch"], frames=cfg.is_encoder_decoder,
+        d_model=cfg.d_model, dtype=cfg.dtype))
+    dt = getattr(torch, cfg.dtype)
+    batches = [{k: torch.as_tensor(v, device="cuda").to(
+        dt if k == "frames" else torch.int32)
+        for k, v in corpus.batch_at(i).items()} for i in range(steps + 1)]
     state, m = step(state, batches[0])
     float(m["loss"])
     with profile(activities=[ProfilerActivity.CPU,
@@ -3130,6 +3179,7 @@ def _trace_train(torch, cfg, steps):
             state, m = step(state, b)
             float(m["loss"])
         wall_ms = (time.perf_counter() - t0) * 1e3
+    del state, model
     by_name = {}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == DeviceType.CUDA:
@@ -3138,16 +3188,20 @@ def _trace_train(torch, cfg, steps):
             acc[1] += 1
     busy_ms = sum(ms for ms, _ in by_name.values())
     if busy_ms <= 0:
-        log("train trace: the profiler recorded no device time (not measured)")
+        log(f"train trace {cfg.name}: the profiler recorded no device time "
+            f"(not measured)")
         return None
-    flash_ms = sum(ms for name, (ms, _) in by_name.items()
-                   if any(k in name for k in FLASH_TRACE_KEYS))
-    log(f"train trace: {steps} steps in {wall_ms:.1f} ms wall "
+    shares = {label: sum(ms for name, (ms, _) in by_name.items()
+                         if any(k in name for k in keys))
+              for label, keys in (("flash", FLASH_TRACE_KEYS),
+                                  ("ssd", SSD_TRACE_KEYS))}
+    log(f"train trace {cfg.name}: {steps} steps in {wall_ms:.1f} ms wall "
         f"({wall_ms / steps:.2f} ms/step); device busy {busy_ms:.1f} ms = "
         f"{100 * busy_ms / wall_ms:.1f}% (idle "
-        f"{100 - 100 * busy_ms / wall_ms:.1f}%); flash kernel {flash_ms:.2f} ms"
-        f" = {100 * flash_ms / busy_ms:.1f}% of busy; "
-        f"{sum(n for _, n in by_name.values())} device ops")
+        f"{100 - 100 * busy_ms / wall_ms:.1f}%); "
+        + "; ".join(f"{k} kernels {ms:.2f} ms = {100 * ms / busy_ms:.1f}% of "
+                    f"busy" for k, ms in shares.items())
+        + f"; {sum(n for _, n in by_name.values())} device ops")
     top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:8]
     for name, (ms, n) in top:
         log(f"train trace top: {ms:9.2f} ms x{n:6d}  {name[:90]}")
@@ -3177,18 +3231,23 @@ def _time_restore(torch, cfg, ckpt_dir):
     return seconds, nbytes
 
 
-def _train_args(train, tmp, name, *extra):
-    return train.parse_args(["--arch", "smollm-360m", "--batch", "16",
-                             "--seq-len", "64", "--workdir", f"{tmp}/{name}",
-                             *extra])
+def _train_args(train, tmp, name, run, *extra):
+    return train.parse_args([
+        "--arch", run["arch"], "--batch", str(run["batch"]), "--seq-len",
+        str(run["seq"]), "--workdir", f"{tmp}/{name}", *extra])
 
 
-def run_train(torch, np, cfg, fk, pk, sk, card):
-    """Phase 29: the full-width trainer with --chaos, its trace, then the
-    2-layer f32 parity and chaos-replay runs. Returns the flash launches
-    of the full-width run."""
+def run_train(torch, cfg, fk, pk, sk, card, must):
+    """Phases 29, 31, 32: ``launch.train`` at full width as TRAIN_RUNS
+    gives it for ``cfg`` (bf16 parameters, f32 moments), its stats and a
+    profiler window. The loss must improve and the eval loss lie below the
+    first step's; with ``--chaos`` the train step must be retried twice
+    and the third attempt start within 64 MiB of the first's device
+    memory; every kernel in ``must`` must launch. Returns the launches of
+    every kernel (counts reset just before the run, read just after)."""
     from repro_torch.launch import train
 
+    run = TRAIN_RUNS[cfg.name]
     mib = 2 ** 20
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
@@ -3197,11 +3256,12 @@ def run_train(torch, np, cfg, fk, pk, sk, card):
     with tempfile.TemporaryDirectory(prefix="train_") as tmp:
         t0 = time.perf_counter()
         arts, sched, stats = train.run(_train_args(
-            train, tmp, "full", "--steps", str(TRAIN_STEPS), "--ckpt-every",
-            "10", "--lr", str(TRAIN_LR), "--chaos"))
+            train, tmp, "full", run, "--steps", str(run["steps"]),
+            "--ckpt-every", str(run["ckpt_every"]), "--lr", str(run["lr"]),
+            *(("--chaos",) if run["chaos"] else ())))
         wall = time.perf_counter() - t0
-        launches = fk.LAUNCHES["flash_attention_bhsd"]
-        others = {**pk.LAUNCHES, **sk.LAUNCHES}
+        launches = _path_launches(pk, sk, fk)
+        scan_paths = dict(sk.LAUNCHES_BY_PATH)
         retries = [e for e in sched.events.history("step_retry_scheduled")
                    if e["step"] == "train"]
         gc.collect()
@@ -3209,87 +3269,376 @@ def run_train(torch, np, cfg, fk, pk, sk, card):
         restore = _time_restore(torch, cfg, arts["ckpt_dir"])
     rep = arts["report"]
     att = stats["attempts"]
-    last = att[-1]
-    step_s = sorted(last["step_s"][1:])
+    step_s = sorted(t for a in att for t in a["step_s"][1:])
     med = step_s[len(step_s) // 2]
-    log(f"train {rep['arch']} on {card}: {rep['steps']} steps (B 16 x S 64, "
-        f"bf16 parameters, f32 moments) in {wall:.1f} s with {len(retries)} "
-        f"retries; loss {rep['first_loss']:.4f} -> {rep['last_loss']:.4f}, "
-        f"eval {rep['eval_loss']:.4f}; attempts "
+    tokens = run["batch"] * run["seq"]
+    log(f"train {rep['arch']} on {card}: {rep['steps']} steps (B "
+        f"{run['batch']} x S {run['seq']}, bf16 parameters, f32 moments, lr "
+        f"{run['lr']:g}) in {wall:.1f} s with {len(retries)} retries; loss "
+        f"{rep['first_loss']:.4f} -> {rep['last_loss']:.4f}, eval "
+        f"{rep['eval_loss']:.4f}; attempts "
         f"{[(a['attempt'], a['start_step'], len(a['step_s'])) for a in att]} "
         f"(attempt, first step, steps run)")
-    log(f"train speed: {med:.4f} s/step (median of the last attempt's steps "
-        f"after its first; min {step_s[0]:.4f}, max {step_s[-1]:.4f}) = "
-        f"{16 * 64 / med:.0f} tokens/s")
+    log(f"train {rep['arch']} speed: {med:.4f} s/step (median of the "
+        f"attempts' steps after each one's first; min {step_s[0]:.4f}, max "
+        f"{step_s[-1]:.4f}) = {tokens / med:.0f} tokens/s")
     saves = [(s, b) for a in att for s, b in zip(a["save_s"], a["save_bytes"])]
-    log(f"train checkpoints: saves (s, bytes) {[(round(s, 3), b) for s, b in saves]}"
-        f"; restores in the run (s, bytes) "
-        f"{[(round(a['restore_s'], 3), a['restore_bytes']) for a in att if a['restore_s'] is not None]}"
+    log(f"train {rep['arch']} checkpoints: saves (s, bytes) "
+        f"{[(round(s, 3), b) for s, b in saves]}; restores in the run (s, "
+        f"bytes) {[(round(a['restore_s'], 3), a['restore_bytes']) for a in att if a['restore_s'] is not None]}"
         f"; the final checkpoint restored onto the card {restore[0]:.3f} s, "
         f"{restore[1]} bytes")
-    log(f"train device memory: allocated at each attempt's start "
-        f"{[round(a['memory_start'] / mib, 1) for a in att]} MiB; after the "
-        f"run {after / mib:.1f} MiB (peak {torch.cuda.max_memory_allocated() / mib:.1f}"
-        f" MiB); flash launches {launches}, other kernels {others}")
-    if not rep["improved"]:
-        raise AssertionError(f"train: the loss did not improve: {rep}")
-    if len(retries) != 2:
-        raise AssertionError(f"train: {len(retries)} retries of the train "
-                             f"step, want 2")
-    if launches <= 0:
-        raise AssertionError("train: the flash kernel never launched")
-    gap = att[2]["memory_start"] - att[0]["memory_start"]
-    if gap > 64 * mib:
-        raise AssertionError(f"train: the third attempt started with "
-                             f"{gap / mib:.1f} MiB more than the first")
-    _trace_train(torch, cfg, TRACE_TRAIN_STEPS)
+    log(f"train {rep['arch']} device memory: allocated at each attempt's "
+        f"start {[round(a['memory_start'] / mib, 1) for a in att]} MiB; after "
+        f"the run {after / mib:.1f} MiB (peak "
+        f"{torch.cuda.max_memory_allocated() / mib:.1f} MiB); launches "
+        f"{launches}, scan paths {scan_paths}")
+    if not (rep["improved"] and rep["eval_loss"] < rep["first_loss"]):
+        raise AssertionError(f"train {rep['arch']}: the loss did not "
+                             f"improve: {rep}")
+    if len(retries) != (2 if run["chaos"] else 0):
+        raise AssertionError(f"train {rep['arch']}: {len(retries)} retries "
+                             f"of the train step (chaos {run['chaos']})")
+    missing = [k for k in must if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"train {rep['arch']}: {missing} never launched")
+    if scan_paths["cuda_core"]:
+        raise AssertionError(f"train {rep['arch']}: a bf16 scan left the "
+                             f"tensor-core kernel: {scan_paths}")
+    if run["chaos"]:
+        gap = att[2]["memory_start"] - att[0]["memory_start"]
+        if gap > 64 * mib:
+            raise AssertionError(f"train {rep['arch']}: the third attempt "
+                                 f"started with {gap / mib:.1f} MiB more "
+                                 f"than the first")
+    _trace_train(torch, cfg, run, TRACE_TRAIN_STEPS)
     gc.collect()
+    return launches
 
-    # 2 layers, f32: the kernel against the plain version, chaos replay
+
+def run_train_parity(torch, np, cfg, plain):
+    """The trainer at PARITY_LAYERS in f32, TF32 off, at TRAIN_RUNS' shape
+    for ``cfg`` and its ``parity`` (steps, chaos checkpoint interval,
+    bound): through the kernels, again with ``--chaos`` (so the later
+    attempts restore), through the plain versions (``plain``: the
+    ``--attn-impl``/``--ssd-impl ref`` flags) and through them in f64 (the
+    plain path's f32 casts kept at f64). The chaos run's losses must equal
+    the uninterrupted run's exactly (after at least one kill), and the
+    largest per-step gap between the kernels and the plain versions may
+    not exceed ``bound`` times the plain versions' own largest f32-vs-f64
+    gap. A hybrid config keeps one group: attn_every is cut with the
+    depth."""
+    from repro_torch.launch import train
+    from repro_torch.models.common import all_f64
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg32 = dataclasses.replace(cfg, num_layers=PARITY_LAYERS,
-                                dtype="float32")
+    run = TRAIN_RUNS[cfg.name]
+    n_steps, ckpt_every, bound = run["parity"]
+    cut = dict(num_layers=PARITY_LAYERS, dtype="float32")
+    if cfg.attn_every:
+        cut["attn_every"] = PARITY_LAYERS
+    cfg32 = dataclasses.replace(cfg, **cut)
+    steps = str(n_steps)
     runs = {}
     with tempfile.TemporaryDirectory(prefix="train32_") as tmp:
-        common = ("--steps", str(PARITY_TRAIN_STEPS), "--ckpt-every",
-                  str(PARITY_CKPT_EVERY))
-        for name, extra in (("kernel", ()), ("kernel chaos", ("--chaos",)),
-                            ("plain", ("--attn-impl", "ref"))):
+        for name, extra in (
+                ("kernel", ("--ckpt-every", steps)),
+                ("kernel chaos", ("--ckpt-every", str(ckpt_every),
+                                  "--chaos")),
+                ("plain", ("--ckpt-every", steps, *plain))):
             t0 = time.perf_counter()
-            a, sch, st = train.run(_train_args(train, tmp, name.replace(
-                " ", "_"), *common, *extra), cfg=cfg32)
+            a, sch, st = train.run(_train_args(
+                train, tmp, name.replace(" ", "_"), run, "--steps", steps,
+                *extra), cfg=cfg32)
             kills = sum(e["step"] == "train" for e in
                         sch.events.history("step_retry_scheduled"))
             runs[name] = np.asarray(a["losses"], np.float64)
-            log(f"train f32 {PARITY_LAYERS} layers, {name}: "
+            log(f"train {cfg.name} f32 {PARITY_LAYERS} layers, {name}: "
                 f"{time.perf_counter() - t0:.1f} s, {kills} kills, attempts "
                 f"{[(x['attempt'], x['start_step'], len(x['step_s'])) for x in st['attempts']]}"
                 f", loss {runs[name][0]:.6f} -> {runs[name][-1]:.6f}")
-            if extra == ("--chaos",) and kills < 1:
-                raise AssertionError("train f32 chaos: no kill landed")
-        with _all_f64(torch):
+            if "--chaos" in extra and kills < 1:
+                raise AssertionError(f"train {cfg.name} f32 chaos: no kill "
+                                     f"landed")
+        with all_f64():
             a, _, _ = train.run(_train_args(
-                train, tmp, "plain64", *common, "--attn-impl", "ref"),
-                cfg=dataclasses.replace(cfg32, dtype="float64"))
+                train, tmp, "plain64", run, "--steps", steps, "--ckpt-every",
+                steps, *plain), cfg=dataclasses.replace(cfg32,
+                                                        dtype="float64"))
         runs["plain f64"] = np.asarray(a["losses"], np.float64)
     if not np.array_equal(runs["kernel chaos"], runs["kernel"]):
         bad = np.flatnonzero(runs["kernel chaos"] != runs["kernel"])
-        raise AssertionError(f"train f32: the chaos run's losses differ from "
-                             f"the uninterrupted run's at steps {bad[:10]}")
+        raise AssertionError(f"train {cfg.name} f32: the chaos run's losses "
+                             f"differ from the uninterrupted run's at steps "
+                             f"{bad[:10]}")
     rel = lambda a, b: np.abs(a - b) / np.abs(b)  # noqa: E731
     kp = rel(runs["kernel"], runs["plain"])
     own = rel(runs["plain"], runs["plain f64"])
-    log(f"train f32 parity ({PARITY_TRAIN_STEPS} steps): chaos = "
+    log(f"train {cfg.name} f32 parity ({n_steps} steps): chaos = "
         f"uninterrupted exactly; kernel vs plain max {kp.max():.3e} (step "
         f"{int(kp.argmax()) + 1}; first 5 {np.array2string(kp[:5], precision=2)})"
         f"; plain f32 vs f64 max {own.max():.3e} (step {int(own.argmax()) + 1};"
-        f" first 5 {np.array2string(own[:5], precision=2)})")
-    if not kp.max() <= own.max():
-        raise AssertionError(f"train f32: kernel vs plain {kp.max():.3e} > "
-                             f"the plain path's own f32-vs-f64 gap "
-                             f"{own.max():.3e}")
-    return launches
+        f" first 5 {np.array2string(own[:5], precision=2)}); bound {bound:g}"
+        f" x the latter")
+    if not kp.max() <= bound * own.max():
+        raise AssertionError(f"train {cfg.name} f32: kernel vs plain "
+                             f"{kp.max():.3e} > {bound:g} x the plain path's "
+                             f"own f32-vs-f64 gap {own.max():.3e}")
+
+
+# ---------------------------------------------------------------------------
+# phases 30-32: the SSD scan under autograd, ssm/hybrid and whisper
+# ---------------------------------------------------------------------------
+
+
+def check_ssd_grads(torch, ops, sk):
+    """Phase 30: ``ops.ssd_scan`` under autograd on the card (the scan
+    kernel's forward inside ``SSDScanFunction``) against the plain
+    version's own autograd, with a loss whose upstream gradient depends on
+    y and on the final state, at mamba2's and zamba2's SSD widths, B 4 x S
+    256, bf16 and f32: the x, dt, A, Bm and Cm gradients within the SSD
+    bounds of each gradient's largest magnitude (at least 1). Then both
+    wrappers must refuse inputs that require grad. Returns the largest
+    bf16 gap at mamba2's widths."""
+    b, s = SSD_TRAIN_SHAPE
+    worst = {}
+    for dtype, tol in ((torch.bfloat16, SSD_BF16_TOL),
+                       (torch.float32, SSD_F32_TOL)):
+        for wname, (h, n) in (("mamba2", (SSD_H, SSD_N)),
+                              ("zamba2", ZAMBA_SSD)):
+            g = torch.Generator(device="cuda").manual_seed(45)
+            base = _ssd_inputs(torch, g, b, s, dtype, h=h, n=n)
+            wy = torch.randn(b, s, h, SSD_P, generator=g, device="cuda")
+            ws = torch.randn(b, h, SSD_P, n, generator=g, device="cuda")
+
+            def grads(impl):
+                inputs = [t.detach().clone().requires_grad_() for t in base]
+                y, fs = ops.ssd_scan(*inputs, impl=impl)
+                loss = ((0.5 * y.float().square() + wy * y.float()).sum()
+                        + (ws * fs).sum())
+                return y, torch.autograd.grad(loss, inputs)
+
+            n0 = sk.LAUNCHES["ssd_scan_bshp"]
+            y, got = grads("auto")
+            if (type(y.grad_fn).__name__ != "SSDScanFunctionBackward"
+                    or sk.LAUNCHES["ssd_scan_bshp"] != n0 + 1):
+                raise AssertionError(f"ssd grads [{wname}]: the forward did "
+                                     f"not run the kernel inside the Function")
+            _, want = grads("ref")
+            torch.cuda.synchronize()
+            errs = [((a.float() - r.float()).abs().max()
+                     / r.float().abs().max().clamp_min(1.0)).item()
+                    for a, r in zip(got, want)]
+            label = f"{str(dtype).removeprefix('torch.')} {wname}"
+            worst[label] = max(errs)
+            if not max(errs) <= tol:
+                raise AssertionError(f"ssd grads [{label}]: dx/ddt/dA/dB/dC "
+                                     f"gaps {errs} > {tol}")
+    x, dt, A, Bm, Cm = (t.detach().clone().requires_grad_() for t in base)
+    state = torch.zeros(b, ZAMBA_SSD[0], SSD_P, ZAMBA_SSD[1], device="cuda")
+    for name, call in (
+            ("ssd_scan_bshp", lambda: sk.ssd_scan_bshp(x, dt, A, Bm, Cm)),
+            ("ssd_decode_step_bh", lambda: sk.ssd_decode_step_bh(
+                state, x[:, 0].contiguous(), dt[:, 0].contiguous(), A,
+                Bm[:, 0].contiguous(), Cm[:, 0].contiguous()))):
+        try:
+            call()
+        except RuntimeError as e:
+            if "gives no gradient" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{name} took inputs that require grad")
+    log("ssd gradient check (the scan kernel's forward in the autograd "
+        f"Function vs the plain version's autograd, B {b} x S {s}; max |gap| "
+        "over max(1, max |grad|)): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f" (bounds bf16 {SSD_BF16_TOL}, f32 {SSD_F32_TOL}); both SSD "
+        f"wrappers refuse inputs that require grad")
+    return worst["bfloat16 mamba2"]
+
+
+def time_ssd_train(torch, ops, sk):
+    """The scan at the trainer's shape (B 4 x S 256 from zero, mamba2
+    widths, bf16), cycling over 48 layers' inputs: the forward (kernel,
+    plain version) against its bound, and forward + backward
+    (``ops.ssd_scan``'s autograd Function, the plain version's autograd).
+    No single PyTorch call computes the scan. Returns the kernels line's
+    ``train`` entry."""
+    b, s = SSD_TRAIN_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(46)
+    x, dt, A, Bm, Cm = _ssd_inputs(torch, g, b, s, torch.bfloat16, M_LAYERS)
+    for t in (x, dt, Bm, Cm):
+        t.requires_grad_()
+    up = torch.randn(x.shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    def forward(impl):
+        def fn(i):
+            l = i % M_LAYERS
+            with torch.no_grad():
+                ops.ssd_scan(x[l], dt[l], A, Bm[l], Cm[l], impl=impl)
+        return fn
+
+    def both(impl):
+        def fn(i):
+            l = i % M_LAYERS
+            ins = (x[l], dt[l], Bm[l], Cm[l])
+            y, _ = ops.ssd_scan(*ins[:2], A, *ins[2:], impl=impl)
+            torch.autograd.grad(y, ins, up[l])
+        return fn
+
+    p1 = _time_ms(torch, forward("ref"), iters=16)
+    k1 = _time_ms(torch, forward("auto"))
+    k2 = _time_ms(torch, forward("auto"))
+    p2 = _time_ms(torch, forward("ref"), iters=16)
+    fb = {impl: _time_ms(torch, both(impl), iters=8) for impl in ("auto",
+                                                                 "ref")}
+    bound = _ssd_bound(b, s, 2, False, read_state=False)
+    log(f"timing ssd_scan_bshp train (B {b}, S {s}, H {SSD_H}, N {SSD_N}, "
+        f"from zero, bf16): kernel {k1:.4f}/{k2:.4f} ms, plain "
+        f"{p1:.4f}/{p2:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]}); "
+        f"forward + backward: autograd Function {fb['auto']:.4f} ms, plain "
+        f"autograd {fb['ref']:.4f} ms; no library call")
+    return dict(ms=min(k1, k2), plain_ms=min(p1, p2), library_ms=None,
+                bound_ms=bound[0], bound_by=bound[1], fwd_bwd_ms=fb["auto"],
+                plain_fwd_bwd_ms=fb["ref"])
+
+
+def _whisper_streams(torch, np, serving, models, cfg, impl, dtype):
+    """Greedy lockstep streams of W_PARITY_REQUESTS prompts and the logits
+    of one prefill of the first two, at ``dtype`` with weights of seed 1,
+    attention ``impl``."""
+    c = dataclasses.replace(cfg, dtype=dtype)
+    model = models.build_model(c, device="cuda", attn_impl=impl)
+    params = model.init(seed=1)
+    rng = np.random.default_rng(48)
+    prompts = [rng.integers(1, cfg.vocab_size, int(rng.integers(64, 129)))
+               .tolist() for _ in range(W_PARITY_REQUESTS)]
+    plen = len(prompts[0])
+    toks = torch.tensor([prompts[0], prompts[0][::-1]], device="cuda")
+    _, logits = model.prefill({"tokens": toks, "frames": torch.zeros(
+        2, plen, cfg.d_model, device="cuda", dtype=getattr(torch, dtype))},
+        LOCK_MAX_LEN)
+    engine = serving.GenerationEngine(c, params, max_len=LOCK_MAX_LEN,
+                                      max_batch=LOCK_BATCH, attn_impl=impl,
+                                      device="cuda")
+    reqs = [serving.Request(f"w{i}", p, sampling=serving.SamplingParams(
+        max_new_tokens=16)) for i, p in enumerate(prompts)]
+    handles, _ = _drive(torch, engine, reqs)
+    return [list(h.tokens) for h in handles], logits[:, :cfg.vocab_size]
+
+
+def run_whisper(torch, np, cfg, serving, models, fk, ref, card):
+    """Phase 32: whisper-tiny at full width through the lockstep engine
+    (bf16: tok/s, TTFT, flash launches = 12 a prefilled batch), its f32
+    parity (greedy streams through the kernel equal the plain version's,
+    or, where f32 rounding alone flips an argmax, the one-prefill logit
+    gap within the plain path's own f32-vs-f64 gap), the serving driver
+    with and without ``--engine lockstep``, and the flash kernel at
+    whisper's widths at every (B, S) the phase and the trainer gave it.
+    Returns ({path: flash launches}, the bf16 flash check's max error)."""
+    from repro_torch.models.common import all_f64
+
+    params = models.build_model(cfg, device="cuda").init(seed=0)
+    kw = dict(max_len=LOCK_MAX_LEN, max_batch=LOCK_BATCH, device="cuda")
+    rng = np.random.default_rng(47)
+    _drive(torch, serving.GenerationEngine(cfg, params, **kw),
+           _random_requests(serving, 2, rng, 2, lo=64, hi=256, max_new=4,
+                            uid="w", vocab=cfg.vocab_size, seed0=4000))
+    engine = serving.GenerationEngine(cfg, params, **kw)
+    prefills = _record_prefills(engine.model)
+    reqs = _random_requests(serving, 8, rng, 2, lo=64, hi=256, max_new=16,
+                            uid="w", vocab=cfg.vocab_size, seed0=4000)
+    fk.reset_launches()
+    t0 = time.perf_counter()
+    handles, steps = _drive(torch, engine, reqs)
+    wall = time.perf_counter() - t0
+    launches = fk.LAUNCHES["flash_attention_bhsd"]
+    results = [h.result() for h in handles]
+    _check_served(np, cfg, results, 16)
+    per_batch = 3 * cfg.num_layers  # encoder self, decoder self and cross
+    if not (prefills and launches == per_batch * len(prefills)):
+        raise AssertionError(f"whisper lockstep: flash launches {launches} "
+                             f"!= {per_batch} x {len(prefills)} batches")
+    _log_run("lockstep", cfg, card, reqs, results, wall, steps,
+             f"{len(prefills)} prefilled batches (B, S) {prefills}; flash "
+             f"launches {launches} = {per_batch} x {len(prefills)}")
+    del engine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    streams, logits = {}, {}
+    for name, impl, dtype in (("kernel", "auto", "float32"),
+                              ("plain", "ref", "float32")):
+        streams[name], logits[name] = _whisper_streams(
+            torch, np, serving, models, cfg, impl, dtype)
+    with all_f64():
+        streams["f64"], logits["f64"] = _whisper_streams(
+            torch, np, serving, models, cfg, "ref", "float64")
+    kp = (logits["kernel"] - logits["plain"]).abs().max().item()
+    own = (logits["plain"].double() - logits["f64"]).abs().max().item()
+    diffs = _first_diffs(streams["kernel"], streams["plain"])
+    own_diffs = _first_diffs(streams["plain"], streams["f64"])
+    log(f"whisper parity: f32, TF32 off, {cfg.num_layers} + "
+        f"{cfg.num_layers} layers, {W_PARITY_REQUESTS} greedy streams of 16: "
+        f"first differing token kernel vs plain {diffs}, plain f32 vs f64 "
+        f"{own_diffs}; one prefill: max |logit kernel - plain| {kp:.3e}, "
+        f"plain f32 - f64 {own:.3e}")
+    if any(d is not None for d in diffs) and not (
+            any(d is not None for d in own_diffs) and kp <= own):
+        raise AssertionError(f"whisper f32: kernel streams differ from the "
+                             f"plain ones {diffs} (plain f32 vs f64 "
+                             f"{own_diffs}; logit gaps {kp:.3e} vs {own:.3e})")
+
+    with tempfile.TemporaryDirectory(prefix="serve_whisper_") as tmp:
+        t0 = time.perf_counter()
+        out = serve_cli("--arch", cfg.name, "--engine", "lockstep",
+                        "--requests", "8", "--max-new", "8", "--workdir",
+                        f"{tmp}/lockstep")
+        if "served 8/8" not in out or "engine=lockstep" not in out:
+            raise AssertionError(f"serve {cfg.name} --engine lockstep: "
+                                 f"{out[-1500:]}")
+        served = next(line for line in out.splitlines()
+                      if line.startswith("served"))
+        log(f"serve driver --arch {cfg.name} --engine lockstep on {card} "
+            f"({time.perf_counter() - t0:.1f} s): {served}")
+        try:
+            serve_cli("--arch", cfg.name, "--workdir", f"{tmp}/paged")
+        except serving.UnsupportedConfigError as e:
+            log(f"serve driver --arch {cfg.name} (the paged default): "
+                f"UnsupportedConfigError: {str(e)[:160]}")
+        else:
+            raise AssertionError(f"serve {cfg.name} (paged default) did not "
+                                 f"refuse")
+
+    # the flash kernel at whisper's widths: every (B, S) of the lockstep
+    # prefills (encoder and cross attention not causal, decoder causal;
+    # S frames = S tokens) and of the trainer, both ways
+    h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    run = TRAIN_RUNS[cfg.name]
+    shapes = sorted(set(prefills) | {(run["batch"], run["seq"])})
+    worst = {}
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        g = torch.Generator(device="cuda").manual_seed(49)
+        label = str(dtype).removeprefix("torch.")
+        worst[label] = 0.0
+        for b, s in shapes:
+            for causal in (True, False):
+                q, k, v = (torch.randn(b, n, s, d, generator=g,
+                                       device="cuda").to(dtype)
+                           for n in (h, kvh, kvh))
+                err = (fk.flash_attention_bhsd(q, k, v, causal=causal).float()
+                       - _flash_plain(ref, q, k, v, causal).float()
+                       ).abs().max().item()
+                if not err <= tol:
+                    raise AssertionError(f"flash [whisper {label} B={b} S={s}"
+                                         f" causal={causal}]: {err} > {tol}")
+                worst[label] = max(worst[label], err)
+    log(f"flash kernel check at whisper's widths (H {h}, KVH {kvh}, D {d}; "
+        f"causal and not; (B, S) {shapes}): max abs err bf16 "
+        f"{worst['bfloat16']:.3e}, f32 {worst['float32']:.3e} (bounds "
+        f"{BF16_TOL}, {F32_TOL})")
+    return {"lockstep whisper": launches}, worst["bfloat16"]
 
 
 # the bf16 tensor-core kernels: library -> (C info entry, its page kinds)
@@ -3501,15 +3850,17 @@ def main() -> int:
     times.update(time_ssd_kernels(torch, ops, sk))
     lap("ssd timing")
     mcfg = get_arch("mamba2-1.3b")
-    for name, n in run_mamba_engine(torch, np, mcfg, serving, models, sk,
-                                    card).items():
+    for name, n in run_mamba_engine(
+            torch, np, dataclasses.replace(mcfg, num_layers=SSM_ENGINE_LAYERS),
+            serving, models, sk, card).items():
         by_path[name]["mamba2"] = n
     lap("mamba2 engine")
     run_mamba_parity(torch, np, mcfg, serving, models)
     lap("mamba2 parity")
     zcfg = get_arch("zamba2-2.7b")
-    for path, counts in run_zamba_engine(torch, np, zcfg, serving, models,
-                                         pk, sk, card).items():
+    for path, counts in run_zamba_engine(
+            torch, np, dataclasses.replace(zcfg, num_layers=SSM_ENGINE_LAYERS),
+            serving, models, pk, sk, card).items():
         for name, n in counts.items():
             by_path[name][path] = n
     lap("zamba2 engine")
@@ -3538,13 +3889,14 @@ def main() -> int:
         if wname != MAIN_WIDTH:
             time_kernels(torch, F, ops, ref, quant=True, wname=wname)
     lap("int8 timing")
-    for name, n in run_int8_engine(torch, np, cfg, serving, models, pk,
+    variant = dataclasses.replace(cfg, num_layers=VARIANT_LAYERS)
+    for name, n in run_int8_engine(torch, np, variant, serving, models, pk,
                                    card).items():
         by_path[name]["chunked_int8"] = n
     lap("int8 engine")
     for quant, path in (("none", "tiered"), ("int8", "tiered_int8")):
-        for name, n in run_tier_restart(torch, np, cfg, serving, models, pk,
-                                        card, quant).items():
+        for name, n in run_tier_restart(torch, np, variant, serving, models,
+                                        pk, card, quant).items():
             by_path[name][path] = n
     lap("tier restarts")
     run_tier_int8_parity(torch, np, cfg, serving, models)
@@ -3575,8 +3927,32 @@ def main() -> int:
     train_flash = time_flash_train(torch, F, ops, ref, fk)
     lap("flash gradients and timing")
     by_path["flash_attention_bhsd"]["train"] = run_train(
-        torch, np, cfg, fk, pk, sk, card)
+        torch, cfg, fk, pk, sk, card, ("flash_attention_bhsd",))[
+        "flash_attention_bhsd"]
+    run_train_parity(torch, np, cfg, ("--attn-impl", "ref"))
     lap("train")
+    ssd_grad_err = check_ssd_grads(torch, ops, sk)
+    train_ssd = time_ssd_train(torch, ops, sk)
+    lap("ssd gradients and timing")
+    by_path["ssd_scan_bshp"]["train"] = run_train(
+        torch, mcfg, fk, pk, sk, card, ("ssd_scan_bshp",))["ssd_scan_bshp"]
+    both = ("flash_attention_bhsd", "ssd_scan_bshp")
+    for name, n in run_train(torch, zcfg, fk, pk, sk, card, both).items():
+        if name in both:
+            by_path[name]["train zamba2"] = n
+    run_train_parity(torch, np, mcfg, ("--ssd-impl", "ref"))
+    run_train_parity(torch, np, zcfg, ("--ssd-impl", "ref", "--attn-impl",
+                                       "ref"))
+    lap("ssm/hybrid train")
+    wcfg = get_arch("whisper-tiny")
+    flash = "flash_attention_bhsd"
+    by_path[flash]["train whisper"] = run_train(
+        torch, wcfg, fk, pk, sk, card, (flash,))[flash]
+    paths, whisper_err = run_whisper(torch, np, wcfg, serving, models, fk,
+                                     ref, card)
+    by_path[flash].update(paths)
+    errs[flash] = max(errs[flash], whisper_err)
+    lap("whisper")
     kernels = [dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=sum(by_path[name].values()),
                     launches_by_path=by_path[name],
@@ -3588,6 +3964,8 @@ def main() -> int:
                              **int8_times[k["name"]])
         if k["name"] == "flash_attention_bhsd":
             k["train"] = dict(grad_max_err=train_grad_err, **train_flash)
+        if k["name"] == "ssd_scan_bshp":
+            k["train"] = dict(grad_max_err=ssd_grad_err, **train_ssd)
         if k["name"] == "paged_prefill_attention_ckgd":
             k["verify"] = dict(max_abs_err=verify_errs["bf16"],
                                int8_max_abs_err=verify_errs["int8"],

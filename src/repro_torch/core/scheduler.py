@@ -123,6 +123,15 @@ class WorkflowScheduler:
         return {r: artifacts[r] for r in step.reads}
 
     # ------------------------------------------------------------------
+    def join(self, timeout_s: float | None = None) -> None:
+        """Wait for every pod of the run to end. :meth:`run` returns once
+        each step has a winner; a replica it superseded stops only at its
+        next heartbeat, and until then still holds (and uses) its device
+        memory."""
+        for st in self._state.values():
+            for pod in st.pods:
+                pod.join(timeout_s)
+
     def run(self, external_inputs: dict | None = None, timeout_s: float = 120.0) -> dict:
         artifacts: dict = dict(external_inputs or {})
         for name, step in self.graph.steps.items():

@@ -62,7 +62,10 @@ class SyntheticCorpus:
                 (b, cfg.vision_tokens, cfg.d_model)
             ).astype(cfg.dtype)
         if cfg.frames:
-            batch["frames"] = rng.standard_normal((b, s, cfg.d_model)).astype(cfg.dtype)
+            # numpy has no bf16: such frames come in f32, and the trainer
+            # casts them on the device
+            dt = "float32" if cfg.dtype == "bfloat16" else cfg.dtype
+            batch["frames"] = rng.standard_normal((b, s, cfg.d_model)).astype(dt)
         return batch
 
 

@@ -19,11 +19,11 @@ pool),
     kernel-against-plain comparison, ``--attn-impl/--ssd-impl ref``).
 
 Gradients: on a CUDA tensor with grad mode on, ``flash_attention`` runs
-the kernel inside :class:`FlashAttentionFunction`, whose backward
-recomputes the plain version under autograd and returns its
-vector-Jacobian product (the JAX package trains through its plain chunked
-version; it has no backward kernel to port). The other ops serve
-inference only.
+the kernel inside :class:`FlashAttentionFunction` and ``ssd_scan`` inside
+:class:`SSDScanFunction`; each one's backward recomputes the plain
+version under autograd and returns its vector-Jacobian product (the JAX
+package trains through its plain chunked versions; it has no backward
+kernel to port). The other ops serve inference only.
 
 Contract: :mod:`repro_torch.kernels.ref` is the ground truth; on the card
 each kernel matches it within the bounds ``chip_smoke.py`` states (1e-3 in
@@ -264,6 +264,74 @@ def paged_mixed_attention(
 # ---------------------------------------------------------------------------
 
 
+def _ssd_plain(x, dt, A, Bm, Cm, init_state, chunk):
+    """The plain scan as the JAX op runs it on the CPU: the tail padded with
+    dt = 0 positions to a multiple of ``min(chunk, S)``, then
+    ``ref.ssd_chunked``; differentiable as it is."""
+    s = x.shape[1]
+    chunk_eff = min(chunk, s)
+    pad = (chunk_eff - s % chunk_eff) % chunk_eff
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
+    y, fs = ref.ssd_chunked(x, dt, A, Bm, Cm, init_state, chunk=chunk_eff)
+    return (y[:, :s] if pad else y), fs
+
+
+def _ssd_kernel(x, dt, A, Bm, Cm, init_state, chunk):
+    """The scan kernel on the op's inputs (it walks its own 64-token
+    sub-chunks and ignores ``chunk``)."""
+    if init_state is not None:
+        init_state = init_state.float().contiguous()
+    return ssd_scan_bshp(
+        x.contiguous(), dt.float().contiguous(), A.float().contiguous(),
+        Bm.to(x.dtype).contiguous(), Cm.to(x.dtype).contiguous(), init_state)
+
+
+class SSDScanFunction(torch.autograd.Function):
+    """The SSD scan with a given forward and the plain version's gradient.
+
+    ``apply(x, dt, A, Bm, Cm, init_state, chunk, forward)``: the outputs
+    are ``forward(x, dt, A, Bm, Cm, init_state, chunk)`` (y and the final
+    state, run with grad mode off: on the card, :func:`_ssd_kernel`);
+    backward recomputes the plain scan (:func:`_ssd_plain`: the padding to
+    ``min(chunk, S)`` and ``ref.ssd_chunked``) under autograd from the
+    saved inputs and returns its vector-Jacobian product for both outputs
+    for x, dt, A, Bm, Cm and ``init_state`` (None when it is None), each
+    in its own dtype. An output without an upstream gradient counts as
+    zeros and is left out of the recompute's backward (training drops the
+    final state). Taking the forward as an argument lets a CPU test run
+    the Function with the plain version standing in for the kernel."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, init_state, chunk, forward):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, init_state)
+        ctx.chunk = chunk
+        return forward(x, dt, A, Bm, Cm, init_state, chunk)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_state):
+        saved = ctx.saved_tensors
+        wanted = [i for i, t in enumerate(saved)
+                  if t is not None and ctx.needs_input_grad[i]]
+        inputs = [t if t is None else t.detach().requires_grad_(i in wanted)
+                  for i, t in enumerate(saved)]
+        with torch.enable_grad():
+            outs = [(o, g) for o, g in zip(_ssd_plain(*inputs, ctx.chunk),
+                                           (grad_y, grad_state))
+                    if g is not None]
+            grads = torch.autograd.grad(
+                [o for o, _ in outs], [inputs[i] for i in wanted],
+                [g for _, g in outs], allow_unused=True)
+        out = [None] * len(saved)
+        for i, g in zip(wanted, grads):
+            out[i] = torch.zeros_like(inputs[i]) if g is None else g
+        return (*out, None, None)
+
+
 def ssd_scan(
     x: torch.Tensor,   # (B, S, H, P)
     dt: torch.Tensor,  # (B, S, H)
@@ -288,23 +356,20 @@ def ssd_scan(
     one the same way, and loads ``init_state`` as its carried state. bf16
     with P and N multiples of 16 and N <= 256 runs on tensor cores (bf16
     operands, f32 sums, the carried state f32 throughout); other shapes
-    and f32 run the CUDA-core kernel in f32 (``kernels/ssd_scan.py``)."""
+    and f32 run the CUDA-core kernel in f32 (``kernels/ssd_scan.py``).
+
+    On a CUDA tensor, with grad mode on and any input requiring grad, the
+    kernel runs inside :class:`SSDScanFunction` (gradients by the plain
+    version's autograd); on the CPU the plain version is differentiable
+    as it is."""
     if _use_plain(x, impl, "ssd_scan"):
-        s = x.shape[1]
-        chunk_eff = min(chunk, s)
-        pad = (chunk_eff - s % chunk_eff) % chunk_eff
-        if pad:
-            x = F.pad(x, (0, 0, 0, 0, 0, pad))
-            dt = F.pad(dt, (0, 0, 0, pad))
-            Bm = F.pad(Bm, (0, 0, 0, pad))
-            Cm = F.pad(Cm, (0, 0, 0, pad))
-        y, fs = ref.ssd_chunked(x, dt, A, Bm, Cm, init_state, chunk=chunk_eff)
-        return (y[:, :s] if pad else y), fs
-    if init_state is not None:
-        init_state = init_state.float().contiguous()
-    return ssd_scan_bshp(
-        x.contiguous(), dt.float().contiguous(), A.float().contiguous(),
-        Bm.to(x.dtype).contiguous(), Cm.to(x.dtype).contiguous(), init_state)
+        return _ssd_plain(x, dt, A, Bm, Cm, init_state, chunk)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, A, Bm, Cm, init_state)):
+        return SSDScanFunction.apply(x, dt, A, Bm, Cm, init_state, chunk,
+                                     _ssd_kernel)
+    return _ssd_kernel(x, dt, A, Bm, Cm, init_state, chunk)
 
 
 def ssd_decode_step(

@@ -14,6 +14,12 @@ Two kernels, each replacing a Pallas TPU kernel of the JAX package:
   (``ssd_decode_step_bh``), advancing the state in place, gated per slot
   by an optional ``active`` vector.
 
+Both kernels are forwards only: their outputs have no ``grad_fn``. So
+each wrapper refuses inputs that require grad while grad mode is on,
+before any other check, instead of cutting the gradient silently;
+training goes through ``ops.ssd_scan``, whose ``torch.autograd.Function``
+runs the scan wrapper as its forward (where grad mode is off).
+
 Each wrapper checks device, dtype, shape and contiguity, launches on
 ``torch.cuda.current_stream()``, raises when the launch reports an error,
 and adds one to its entry of :data:`LAUNCHES` per launch (the scan also
@@ -93,6 +99,15 @@ def _check(device, tensors: dict, shapes: dict, dtypes: dict) -> None:
             raise TypeError(f"{name} must be {dtypes[name]}, got {t.dtype}")
 
 
+def _refuse_grad(name: str, *tensors) -> None:
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is a forward kernel and gives no gradient: call it "
+            f"under torch.no_grad() or on tensors that do not require grad, "
+            f"or train through ops.ssd_scan (its autograd Function)")
+
+
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} launch failed: error {err}")
@@ -112,6 +127,7 @@ def ssd_scan_bshp(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan. Returns (y (B, S, H, P) in x's dtype, final state
     (B, H, P, N) f32)."""
+    _refuse_grad("ssd_scan_bshp", x, dt, A, Bm, Cm, init_state)
     if x.dim() != 4 or Bm.dim() != 3:
         raise ValueError(f"x must be (B, S, H, P) and Bm (B, S, N); got "
                          f"{tuple(x.shape)}, {tuple(Bm.shape)}")
@@ -175,6 +191,7 @@ def ssd_decode_step_bh(
     """One-token SSD recurrence, advancing ``state`` in place. Returns
     (y (B, H, P) in x's dtype, ``state``). Rows whose ``active`` entry is 0
     keep their old state (their y still comes from the advanced state)."""
+    _refuse_grad("ssd_decode_step_bh", state, x_t, dt_t, A, B_t, C_t)
     if state.dim() != 4:
         raise ValueError(f"state must be (B, H, P, N); got "
                          f"{tuple(state.shape)}")

@@ -6,7 +6,7 @@ each drive one engine — :class:`repro_torch.serving.ContinuousBatchingEngine`
 for the dense family (``--prefill-chunk 0``: whole-prompt prefill),
 :class:`repro_torch.serving.SSMEngine` for the ssm (mamba2) and hybrid
 (zamba2) families, :class:`repro_torch.serving.GenerationEngine` for
-``--engine lockstep`` (dense, ssm and hybrid) —
+``--engine lockstep`` (dense, ssm, hybrid and the encoder-decoder) —
 through the engine protocol: pull up to
 ``engine.capacity()`` messages,
 parse them with the shared boundary parser, ``submit()``, and publish each
@@ -28,6 +28,8 @@ attention and SSD versions on the CPU, for tests and reduced configs):
       --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --engine lockstep \\
       --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \\
+      --engine lockstep --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
       --shared-prefix 32 --kv-quant int8 --host-pages 8 \\
       --persist-dir "$TMPDIR/kv"
@@ -54,9 +56,11 @@ the read-only weights and each build their own engine and page pool on
 ``--role worker --worker-name NAME`` runs one fleet worker loop against an
 existing ``--workdir`` bus, whose supervisor runs elsewhere.
 
-The moe and vlm families (ROADMAP A.7) and encoder-decoder configs (A.11)
-raise with a message naming their ROADMAP item; the JAX package's mesh
-flag has no counterpart yet (ROADMAP A.10).
+The moe and vlm families (ROADMAP A.7) raise with a message naming their
+ROADMAP item; an encoder-decoder config (whisper-tiny) without ``--engine
+lockstep`` raises ``UnsupportedConfigError`` (no continuous-batching
+engine serves it), as in the JAX driver. The JAX package's mesh flag has
+no counterpart yet (ROADMAP A.10).
 """
 
 from __future__ import annotations
@@ -169,12 +173,21 @@ def main() -> int:
     if args.reduced:
         cfg = reduced(cfg)
     ssm_ok = cfg.family in ("ssm", "hybrid")
-    if cfg.is_encoder_decoder or not (ssm_ok or cfg.family == "dense"):
+    if not (cfg.is_encoder_decoder or ssm_ok or cfg.family == "dense"):
         raise UnsupportedConfigError(
             f"{cfg.name} (family={cfg.family!r}): the port serves the dense "
             f"(paged, lockstep), ssm and hybrid (SSM engine, lockstep) "
-            f"families; moe/vlm wait for ROADMAP A.7, encoder-decoder for "
-            f"A.11")
+            f"families and the encoder-decoder (lockstep); moe/vlm wait for "
+            f"ROADMAP A.7")
+    if args.engine == "paged" and cfg.is_encoder_decoder:
+        # no silent lockstep downgrade: the caller asked for continuous
+        # batching, and neither the page-pool nor the recurrent-state
+        # engine can serve this config
+        raise UnsupportedConfigError(
+            f"no continuous-batching engine supports {cfg.name} "
+            f"(family={cfg.family!r}, encoder_decoder="
+            f"{cfg.is_encoder_decoder}); pass --engine lockstep to serve "
+            f"it with the micro-batching baseline")
     use_ssm = args.engine == "paged" and ssm_ok
     use_paged = args.engine == "paged" and not ssm_ok
     workdir = Path(args.workdir)

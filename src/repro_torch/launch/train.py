@@ -9,13 +9,21 @@ chaos injection. The train step checkpoints every ``--ckpt-every`` steps and
 resumes from the latest checkpoint after a pod death; the data pipeline
 replays deterministically from the restored step.
 
-The model trains on ``--device`` (``cuda`` by default: attention through
-the flash kernel's forward inside its autograd Function; ``--attn-impl
-ref`` forces the plain version there too; ``--device cpu`` runs the plain
-versions on the CPU, for tests and reduced configs):
+Every family the port has trains here: dense, ssm (mamba2), hybrid
+(zamba2) and the encoder-decoder (whisper, on the pipeline's ``frames``);
+moe and vlm wait for ROADMAP A.7. The model trains on ``--device``
+(``cuda`` by default: attention through the flash kernel's forward and
+the SSD scan through the scan kernel's, each inside its autograd
+Function; ``--attn-impl ref`` / ``--ssd-impl ref`` force the plain
+versions there too; ``--device cpu`` runs the plain versions on the CPU,
+for tests and reduced configs):
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
       --reduced --device cpu --steps 60 --chaos
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \\
+      --reduced --device cpu --steps 20
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-tiny \\
+      --reduced --device cpu --steps 20
 
 Each train attempt records its device memory at its start, its step
 seconds and its checkpoint save and restore seconds and bytes into the
@@ -26,11 +34,18 @@ line).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import threading
 import time
 from pathlib import Path
 
 import torch
+
+# seconds between the beats a pod sends while it saves or restores a
+# checkpoint: well inside the scheduler's liveness window (30 s), which a
+# full-width checkpoint outlasts (zamba2-2.7b's 24 GB take ~50 s to save)
+KEEPALIVE_S = 5.0
 
 
 def _allocated(device: torch.device) -> int | None:
@@ -43,6 +58,27 @@ def _allocated(device: torch.device) -> int | None:
 
 def _dir_bytes(path: Path) -> int:
     return sum(f.stat().st_size for f in path.iterdir() if f.is_file())
+
+
+@contextlib.contextmanager
+def _keepalive(ctx, progress: int):
+    """Heartbeats from a side thread every KEEPALIVE_S while the block
+    runs, so a long checkpoint save or restore does not read as a dead pod
+    to the liveness probe. The side thread only beats; a kill still lands
+    at the pod's own next ``ctx.beat``."""
+    stop = threading.Event()
+
+    def beat():
+        while not stop.wait(KEEPALIVE_S):
+            ctx.heartbeat.beat(progress=progress, info="checkpoint")
+
+    side = threading.Thread(target=beat, daemon=True)
+    side.start()
+    try:
+        yield
+    finally:
+        stop.set()
+        side.join()
 
 
 def build_workflow(args, workdir: Path, cfg=None, stats: dict | None = None):
@@ -63,7 +99,9 @@ def build_workflow(args, workdir: Path, cfg=None, stats: dict | None = None):
         if args.reduced:
             cfg = reduced(cfg)
     device = resolve_device(args.device)
-    attn_impl = getattr(args, "attn_impl", "auto")
+    impls = dict(attn_impl=getattr(args, "attn_impl", "auto"),
+                 ssd_impl=getattr(args, "ssd_impl", "auto"))
+    model_dtype = getattr(torch, cfg.dtype)
     opt_cfg = AdamWConfig(
         lr=args.lr, warmup_steps=10, decay_steps=max(args.steps * 4, 100),
         weight_decay=0.0, moment_dtype="float32",
@@ -71,7 +109,12 @@ def build_workflow(args, workdir: Path, cfg=None, stats: dict | None = None):
     attempts = (stats if stats is not None else {}).setdefault("attempts", [])
 
     def on_device(batch: dict) -> dict:
-        return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+        """The batch on the device; ``frames`` in the model's dtype (the
+        pipeline makes bf16 models' frames in f32: numpy has no bf16)."""
+        out = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+        if "frames" in out:
+            out["frames"] = out["frames"].to(model_dtype)
+        return out
 
     def restore_into(model, ckpt, like, step=None):
         """Restore ``like``'s leaves to the device; the parameters become
@@ -98,16 +141,18 @@ def build_workflow(args, workdir: Path, cfg=None, stats: dict | None = None):
         attempts.append(rec)
         dc = inputs["data_config"]
         corpus = SyntheticCorpus(dc)
-        model = build_model(cfg, device=device, attn_impl=attn_impl)
+        model = build_model(cfg, device=device, **impls)
         step_fn = make_train_step(model, opt_cfg, ga=args.ga)
         ckpt = CheckpointManager(ctx.claim_path or workdir / "ckpt", keep=2)
 
         start = ckpt.latest_step()
         if start is not None:
             t0 = time.perf_counter()
-            state, meta = restore_into(
-                model, ckpt, abstract_train_state(model, opt_cfg), step=start)
-            _allocated(device)  # the copies to the card have landed
+            with _keepalive(ctx, start):
+                state, meta = restore_into(
+                    model, ckpt, abstract_train_state(model, opt_cfg),
+                    step=start)
+                _allocated(device)  # the copies to the card have landed
             rec.update(restore_s=time.perf_counter() - t0,
                        restore_bytes=_dir_bytes(ckpt._step_dir(start)),
                        start_step=start)
@@ -127,7 +172,8 @@ def build_workflow(args, workdir: Path, cfg=None, stats: dict | None = None):
             ctx.beat(progress=i + 1, loss=losses[-1])  # liveness + kill point
             if (i + 1) % args.ckpt_every == 0 or i + 1 == args.steps:
                 t0 = time.perf_counter()
-                ckpt.save(i + 1, state, meta={"losses": losses}, sync=True)
+                with _keepalive(ctx, i + 1):
+                    ckpt.save(i + 1, state, meta={"losses": losses}, sync=True)
                 rec["save_s"].append(time.perf_counter() - t0)
                 rec["save_bytes"].append(_dir_bytes(ckpt._step_dir(i + 1)))
         return {"losses": losses, "final_step": args.steps,
@@ -136,15 +182,18 @@ def build_workflow(args, workdir: Path, cfg=None, stats: dict | None = None):
     def evaluate(inputs, ctx):
         dc = inputs["data_config"]
         corpus = SyntheticCorpus(dc)
-        model = build_model(cfg, device=device, attn_impl=attn_impl)
+        model = build_model(cfg, device=device, **impls)
         ckpt = CheckpointManager(inputs["ckpt_dir"])
         # only the parameters: the moments are not needed to evaluate
         like = {"params": abstract_train_state(model, opt_cfg)["params"]}
-        state, _ = restore_into(model, ckpt, like)
+        with _keepalive(ctx, 0):
+            state, _ = restore_into(model, ckpt, like)
         eval_fn = make_eval_step(model)
         tot = 0.0
         n_eval = 4
         for i in range(n_eval):
+            # a replica the other one superseded stops here
+            ctx.beat(progress=i)
             batch = on_device(corpus.batch_at(10_000 + i))
             tot += float(eval_fn(state["params"], batch)["loss"])
         return {"eval_loss": tot / n_eval}
@@ -204,6 +253,8 @@ def parse_args(argv=None):
                          "a card; 'cpu' runs the plain attention version)")
     ap.add_argument("--attn-impl", default="auto", choices=("auto", "ref"),
                     help="'ref': the plain attention version on any device")
+    ap.add_argument("--ssd-impl", default="auto", choices=("auto", "ref"),
+                    help="'ref': the plain SSD scan on any device")
     return ap.parse_args(argv)
 
 
@@ -237,6 +288,7 @@ def run(args, cfg=None):
         device=args.device,
     )
     arts = sched.run(timeout_s=3600)
+    sched.join()  # the superseded evaluate replica ends with the run
     return arts, sched, stats
 
 

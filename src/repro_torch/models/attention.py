@@ -14,7 +14,13 @@ for CPU tensors):
   it has no Pallas kernel there either);
 * page pool (continuous batching): the three paged entry points write the
   rows' new K/V into this layer's page pool IN PLACE, then attend through
-  the paged kernels.
+  the paged kernels;
+* encoder-decoder cross attention (no rope, not causal):
+  ``cross_attention_kv`` projects the encoder states once,
+  ``cross_attention`` attends a whole decoder sequence through the flash
+  kernel, ``decode_cross_attention`` one token over the zero-padded K/V of
+  the serving cache with ``decode_attention_raw``, masked past the
+  encoder's length.
 
 An int8 pool (``k_scale``/``v_scale`` beside ``k``/``v``) quantizes the
 new rows on the way in, one f32 scale per (row, kv head), and the paged
@@ -65,12 +71,7 @@ def attn_param_specs(cfg: ModelConfig, stacked: int | None = None) -> dict:
 def _project_qkv(p, x, cfg: ModelConfig, positions: torch.Tensor | None,
                  rope: bool):
     """x (B,S,D) -> q (B,S,H,Dh), k/v (B,S,KVH,Dh), rope-rotated."""
-    b, s, d = x.shape
-
-    def proj(w):
-        return (x @ w.reshape(d, -1)).reshape(b, s, w.shape[1], w.shape[2])
-
-    q, k, v = proj(p["wq"]), proj(p["wk"]), proj(p["wv"])
+    q, k, v = (_heads(x, p[w]) for w in ("wq", "wk", "wv"))
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -80,6 +81,12 @@ def _project_qkv(p, x, cfg: ModelConfig, positions: torch.Tensor | None,
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     return q, k, v
+
+
+def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B,S,D) through w (D,H,Dh) -> (B,S,H,Dh)."""
+    b, s, d = x.shape
+    return (x @ w.reshape(d, -1)).reshape(b, s, w.shape[1], w.shape[2])
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
@@ -302,3 +309,47 @@ def mixed_step_attention_paged(
         num_decode=num_decode,
     ).to(x.dtype)  # (R, H, Dh)
     return _out_proj(out, p["wo"])[:, None, :]
+
+
+def cross_attention(
+    p: dict,
+    x: torch.Tensor,  # (B, Sq, D) decoder states
+    kv: tuple[torch.Tensor, torch.Tensor],  # encoder K/V, (B, Senc, KVH, Dh)
+    cfg: ModelConfig,
+    *,
+    attn_impl: str = "auto",
+) -> torch.Tensor:
+    """Encoder-decoder cross attention over precomputed encoder K/V: no
+    rope, not causal, through the flash kernel on the card (under autograd
+    its Function). Returns (B, Sq, D)."""
+    k, v = kv
+    out = ops.flash_attention(_heads(x, p["wq"]), k, v, causal=False,
+                              impl=attn_impl)
+    return _out_proj(out, p["wo"])
+
+
+def cross_attention_kv(p: dict, enc: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention K/V from the encoder states (B, Senc, D): each
+    (B, Senc, KVH, Dh)."""
+    return _heads(enc, p["wk"]), _heads(enc, p["wv"])
+
+
+def decode_cross_attention(
+    p: dict,
+    x: torch.Tensor,  # (B, 1, D)
+    kv: tuple[torch.Tensor, torch.Tensor],  # (B, Smax, KVH, Dh), zero-padded
+    cfg: ModelConfig,
+    enc_len: torch.Tensor | None = None,  # int scalar: the encoder's length
+) -> torch.Tensor:
+    """One-token cross attention over the encoder K/V of the serving cache,
+    which is zero-padded to ``max_len``: positions ``>= enc_len`` are
+    masked (attending the padding would change the softmax and part from
+    the prefill's result); None attends every position. Returns
+    (B, 1, D)."""
+    k, v = kv
+    n = (torch.tensor(k.shape[1], dtype=torch.int32, device=x.device)
+         if enc_len is None else enc_len)
+    out = decode_attention_raw(_heads(x, p["wq"]), k, v, n,
+                               cfg.head_dim ** -0.5)
+    return _out_proj(out.to(x.dtype), p["wo"])

@@ -7,6 +7,7 @@ so a JAX parameter tree and the port's state line up name for name.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import torch
@@ -217,6 +218,30 @@ def pick_tokens(logits, temps, top_ks, top_ps, seeds, idx, vocab: int,
     if greedy_only:
         return logits[..., :vocab].argmax(dim=-1).to(torch.int32)
     return sample_tokens(logits, temps, top_ks, top_ps, seeds, idx, vocab)
+
+
+@contextlib.contextmanager
+def all_f64():
+    """Inside, the plain path computes in f64 when given f64 tensors and
+    weights: its f32 casts (``.float()``, f32 ``zeros``/``full``) keep f64.
+    The run an f32 run's rounding is measured against (tests and
+    ``chip_smoke.py``); it patches ``torch`` while it is open, so nothing
+    else may run meanwhile."""
+    to_float, zeros, full = torch.Tensor.float, torch.zeros, torch.full
+
+    def keep64(dtype):
+        return torch.float64 if dtype == torch.float32 else dtype
+
+    torch.Tensor.float = (lambda t: t if t.dtype == torch.float64
+                          else to_float(t))
+    torch.zeros = lambda *a, dtype=None, **k: zeros(*a, dtype=keep64(dtype),
+                                                    **k)
+    torch.full = lambda *a, dtype=None, **k: full(*a, dtype=keep64(dtype),
+                                                  **k)
+    try:
+        yield
+    finally:
+        torch.Tensor.float, torch.zeros, torch.full = to_float, zeros, full
 
 
 def resolve_device(device) -> torch.device:

@@ -1,11 +1,11 @@
 """Carry a JAX parameter tree across into the port.
 
-``params_from_jax(cfg, tree)`` takes the JAX ``DecoderLM`` parameters as
-numpy arrays — ``jax.tree.map(np.asarray, model.init(key))`` — and returns
-the port's state dict (CPU tensors, same dtypes), ready for
-``DecoderLM.load_state_dict``, so both packages compute the same function.
-The stacked ``(L, ...)`` leaves keep their layout; only the nesting becomes
-dotted names (``layers.attn.wq``).
+``params_from_jax(cfg, tree)`` takes the JAX ``DecoderLM`` or ``EncDecLM``
+parameters as numpy arrays — ``jax.tree.map(np.asarray, model.init(key))``
+— and returns the port's state dict (CPU tensors, same dtypes), ready for
+the port model's ``load_state_dict``, so both packages compute the same
+function. The stacked ``(L, ...)`` leaves keep their layout; only the
+nesting becomes dotted names (``layers.attn.wq``, ``decoder.xattn.wq``).
 
 ``train_state_from_jax(cfg, state)`` carries a whole JAX train state
 ``{"params", "opt": {"m", "v"}, "step"}`` (numpy leaves) across into the
@@ -32,8 +32,8 @@ def _to_tensor(arr) -> torch.Tensor:
 
 
 def params_from_jax(cfg: ModelConfig, params_np: dict) -> dict[str, torch.Tensor]:
-    """JAX ``DecoderLM`` parameter tree (numpy leaves) -> the port's state
-    dict. Raises when the names or shapes differ from the port's specs."""
+    """JAX ``DecoderLM`` or ``EncDecLM`` parameter tree (numpy leaves) ->
+    the port's state dict. Raises when the names or shapes differ from the port's specs."""
     specs = flatten_tree(build_model(cfg, device="meta").param_specs())
     flat = flatten_tree(params_np)
     if set(flat) != set(specs):

@@ -32,17 +32,22 @@ Python loop over the layers:
 Each returns f32 logits. Vocab is padded to a multiple of 256, as in the
 JAX package.
 
-Training (dense family): ``loss_fn(params, batch)`` and
-``backbone_train(params, x)`` are functions of a parameter TREE (nested
-like the JAX one, ``params["layers"]["attn"]["wq"]``, e.g. the train
-state's, see ``train/step.py``), not of the module's own parameters, and
-run under autograd: the attention goes through ``kernels.ops`` (on the
-card the flash kernel's forward inside a ``torch.autograd.Function``), the
-loss is :func:`chunked_cross_entropy`, and ``cfg.remat_policy`` maps onto
-``torch.utils.checkpoint`` (:func:`scan_layers`).
+Training (dense, ssm and hybrid families): ``loss_fn(params, batch)``
+and ``backbone_train(params, x)`` are functions of a parameter TREE
+(nested like the JAX one, ``params["layers"]["attn"]["wq"]``, e.g. the
+train state's, see ``train/step.py``), not of the module's own
+parameters, and run under autograd: attention and the SSD scan go through
+``kernels.ops`` (on the card the flash and scan kernels' forwards, each
+inside a ``torch.autograd.Function``), the loss is
+:func:`chunked_cross_entropy`, and ``cfg.remat_policy`` maps onto
+``torch.utils.checkpoint`` (:func:`scan_layers`; the hybrid stack's unit
+is one group, the shared block and its ``attn_every`` Mamba layers, as in
+the JAX package).
 
-Not ported yet: training the ssm and hybrid families (ROADMAP A.11) and
-the moe and vlm families (A.7).
+:class:`LMBase` holds what this model and the encoder-decoder
+(``models/encdec.py``) share: the parameters declared by
+``param_specs()``, seeded init, loading, per-layer views and the f32
+unembedding. Not ported yet: the moe and vlm families (ROADMAP A.7).
 """
 
 from __future__ import annotations
@@ -67,14 +72,6 @@ VOCAB_PAD_MULTIPLE = 256
 _NOT_PORTED = {
     "moe": "ROADMAP A.7 (moe family)",
     "vlm": "ROADMAP A.7 (vlm path)",
-    "audio": "ROADMAP A.11 (encoder-decoder)",
-}
-# families whose backbone_train is not ported yet
-_NOT_TRAINED = {
-    "ssm": "ROADMAP A.11 (ssm training: the SSD scan under autograd)",
-    "hybrid": "ROADMAP A.11 (hybrid training: the SSD scan under autograd)",
-    "moe": _NOT_PORTED["moe"],
-    "vlm": _NOT_PORTED["vlm"],
 }
 
 
@@ -183,6 +180,13 @@ def scan_layers(body, x: torch.Tensor, layers: list, policy: str):
     return x
 
 
+def unstack(tree: dict, n: int) -> list[dict]:
+    """A tree of stacked ``(n, ...)`` leaves as n trees of one slice each:
+    one unbind a leaf, whose backward stacks the n gradients in one op."""
+    per_layer = tree_map(lambda a: a.unbind(0), tree)
+    return [tree_map(lambda t, l=l: t[l], per_layer) for l in range(n)]
+
+
 def _register(module: nn.Module, specs: dict, default_dtype: str,
               device: torch.device) -> None:
     for key, val in specs.items():
@@ -197,61 +201,26 @@ def _register(module: nn.Module, specs: dict, default_dtype: str,
             module.add_module(key, child)
 
 
-class DecoderLM(nn.Module):
-    """Dense, ssm or hybrid decoder-only LM; the port's counterpart of
-    ``repro``'s ``DecoderLM`` for the dense-cache, paged and
-    recurrent-state serving paths."""
+class LMBase(nn.Module):
+    """A model whose parameters ``param_specs()`` declares, registered on
+    an explicit device (frozen: training works on a parameter tree, see
+    ``train/step.py``), with seeded init, loading, per-layer views of the
+    stacked parameters, and the f32 unembedding of the final states
+    through ``unembed`` (or the tied ``embed`` where there is none)."""
 
-    def __init__(self, cfg: ModelConfig, *, device="cuda",
-                 attn_impl: str = "auto", ssd_impl: str = "auto"):
+    def __init__(self, cfg: ModelConfig, device, attn_impl: str,
+                 ssd_impl: str):
         super().__init__()
-        assert not cfg.is_encoder_decoder
-        if cfg.family not in ("dense", "ssm", "hybrid"):
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet: "
-                f"{_NOT_PORTED.get(cfg.family, 'ROADMAP A')}")
         self.cfg = cfg
         self.attn_impl = attn_impl
         self.ssd_impl = ssd_impl
         self.device = resolve_device(device)
         _register(self, self.param_specs(), cfg.dtype, self.device)
-        self._layer_views: list[dict] | None = None
-        self._shared_view: dict | None = None
+        self._view_cache: dict = {}
         self._unembed_cache: tuple | None = None
 
-    # ------------------------------------------------------------------
-    # params
-    # ------------------------------------------------------------------
     def param_specs(self) -> dict:
-        cfg = self.cfg
-        L, D = cfg.num_layers, cfg.d_model
-        vp = padded_vocab(cfg)
-        specs: dict[str, Any] = {
-            "embed": ParamSpec((vp, D), ("vocab", None), init="embed", scale=0.02),
-            "final_norm": ParamSpec((D,), (None,), init="ones"),
-        }
-        if not cfg.tie_embeddings:
-            specs["unembed"] = ParamSpec((D, vp), (None, "vocab"))
-        if cfg.family in ("ssm", "hybrid"):
-            specs["layers"] = {
-                "ln": ParamSpec((L, D), ("stack", None), init="ones"),
-                "mamba": ssm_mod.mamba_param_specs(cfg, stacked=L),
-            }
-            if cfg.family == "hybrid":
-                specs["shared"] = {
-                    "ln1": ParamSpec((D,), (None,), init="ones"),
-                    "attn": attn.attn_param_specs(cfg),
-                    "ln2": ParamSpec((D,), (None,), init="ones"),
-                    "mlp": mlp_param_specs(cfg),
-                }
-            return specs
-        specs["layers"] = {
-            "ln1": ParamSpec((L, D), ("stack", None), init="ones"),
-            "attn": attn.attn_param_specs(cfg, stacked=L),
-            "ln2": ParamSpec((L, D), ("stack", None), init="ones"),
-            "mlp": mlp_param_specs(cfg, stacked=L),
-        }
-        return specs
+        raise NotImplementedError
 
     @torch.no_grad()
     def init(self, seed: int = 0) -> dict[str, torch.Tensor]:
@@ -290,16 +259,105 @@ class DecoderLM(nn.Module):
         share = all(k in own and v.device == own[k].device
                     and v.dtype == own[k].dtype for k, v in params.items())
         self.load_state_dict(params, assign=share)
-        self._layer_views = self._shared_view = None
+        self._view_cache = {}
+
+    def _per_layer(self, name: str) -> list[dict]:
+        """Per-layer views of the stacked parameters under ``name``, nested
+        like the JAX tree (kept until the next :meth:`load_params`)."""
+        views = self._view_cache.get(name)
+        if views is None:
+            mod = self.get_submodule(name)
+            views = self._view_cache[name] = [
+                _views(mod, lambda p, l=l: p[l])
+                for l in range(self.cfg.num_layers)]
+        return views
+
+    def _unembed(self, x: torch.Tensor) -> torch.Tensor:
+        """(N, S, D) -> (N, S, Vp) f32 logits. The product runs in f32 on
+        the weight's values (bf16 operands into f32 logits, like the JAX
+        unembed's ``preferred_element_type=f32``): a bf16 matmul would round
+        the logits. The f32 copy of a bf16 weight is made once and kept
+        until the weight changes."""
+        tied = not hasattr(self, "unembed")
+        w = self.embed if tied else self.unembed
+        key = (w.data_ptr(), w._version)
+        if self._unembed_cache is None or self._unembed_cache[0] != key:
+            wf = w.detach().float()
+            self._unembed_cache = (key, wf.t() if tied else wf)
+        return x.float() @ self._unembed_cache[1]
+
+    def _as_scalar(self, v) -> torch.Tensor:
+        return torch.as_tensor(v, dtype=torch.int32, device=self.device)
+
+    def _logits_at(self, x: torch.Tensor, logits_index) -> torch.Tensor:
+        """(B, S, D) -> (B, Vp) f32 logits of one position: the last when
+        ``logits_index`` is None, else that index (an int or an int scalar
+        tensor; negative wraps and out-of-range clamps, like the JAX
+        ``dynamic_slice``)."""
+        s = x.shape[1]
+        if logits_index is None:
+            x = x[:, -1:]
+        else:
+            row = self._as_scalar(logits_index)
+            row = torch.where(row < 0, row + s, row).clamp(0, s - 1)
+            x = x.index_select(1, row.reshape(1).long())
+        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        return self._unembed(x)[:, 0]
+
+
+class DecoderLM(LMBase):
+    """Dense, ssm or hybrid decoder-only LM; the port's counterpart of
+    ``repro``'s ``DecoderLM`` for the dense-cache, paged and
+    recurrent-state serving paths, and for training."""
+
+    def __init__(self, cfg: ModelConfig, *, device="cuda",
+                 attn_impl: str = "auto", ssd_impl: str = "auto"):
+        assert not cfg.is_encoder_decoder
+        if cfg.family not in ("dense", "ssm", "hybrid"):
+            raise NotImplementedError(
+                f"family {cfg.family!r} is not ported yet: "
+                f"{_NOT_PORTED.get(cfg.family, 'ROADMAP A')}")
+        super().__init__(cfg, device, attn_impl, ssd_impl)
+
+    # ------------------------------------------------------------------
+    # params
+    # ------------------------------------------------------------------
+    def param_specs(self) -> dict:
+        cfg = self.cfg
+        L, D = cfg.num_layers, cfg.d_model
+        vp = padded_vocab(cfg)
+        specs: dict[str, Any] = {
+            "embed": ParamSpec((vp, D), ("vocab", None), init="embed", scale=0.02),
+            "final_norm": ParamSpec((D,), (None,), init="ones"),
+        }
+        if not cfg.tie_embeddings:
+            specs["unembed"] = ParamSpec((D, vp), (None, "vocab"))
+        if cfg.family in ("ssm", "hybrid"):
+            specs["layers"] = {
+                "ln": ParamSpec((L, D), ("stack", None), init="ones"),
+                "mamba": ssm_mod.mamba_param_specs(cfg, stacked=L),
+            }
+            if cfg.family == "hybrid":
+                specs["shared"] = {
+                    "ln1": ParamSpec((D,), (None,), init="ones"),
+                    "attn": attn.attn_param_specs(cfg),
+                    "ln2": ParamSpec((D,), (None,), init="ones"),
+                    "mlp": mlp_param_specs(cfg),
+                }
+            return specs
+        specs["layers"] = {
+            "ln1": ParamSpec((L, D), ("stack", None), init="ones"),
+            "attn": attn.attn_param_specs(cfg, stacked=L),
+            "ln2": ParamSpec((L, D), ("stack", None), init="ones"),
+            "mlp": mlp_param_specs(cfg, stacked=L),
+        }
+        return specs
 
     def _layers(self) -> list[dict]:
         """Per-layer views of the stacked parameters, nested like the JAX
         tree (``{"ln1", "attn": {...}, "ln2", "mlp": {...}}``, or
         ``{"ln", "mamba": {...}}`` for ssm and hybrid)."""
-        if self._layer_views is None:
-            self._layer_views = [_views(self.layers, lambda p, l=l: p[l])
-                                 for l in range(self.cfg.num_layers)]
-        return self._layer_views
+        return self._per_layer("layers")
 
     def _stack(self):
         """The layer stack in order, one ``(kind, i, params)`` per block:
@@ -313,26 +371,15 @@ class DecoderLM(nn.Module):
             kind = "attn" if cfg.family == "dense" else "mamba"
             yield from ((kind, l, pl) for l, pl in enumerate(layers))
             return
-        if self._shared_view is None:
-            self._shared_view = _views(self.shared, lambda p: p)
+        shared = self._view_cache.get("shared")
+        if shared is None:
+            shared = self._view_cache["shared"] = _views(self.shared,
+                                                         lambda p: p)
         every = cfg.attn_every
         for g in range(cfg.num_layers // every):
-            yield "attn", g, self._shared_view
+            yield "attn", g, shared
             for l in range(g * every, (g + 1) * every):
                 yield "mamba", l, layers[l]
-
-    def _unembed(self, x: torch.Tensor) -> torch.Tensor:
-        """(N, S, D) -> (N, S, Vp) f32 logits. The product runs in f32 on
-        the weight's values (bf16 operands into f32 logits, like the JAX
-        unembed's ``preferred_element_type=f32``): a bf16 matmul would round
-        the logits. The f32 copy of a bf16 weight is made once and kept
-        until the weight changes."""
-        w = self.embed if self.cfg.tie_embeddings else self.unembed
-        key = (w.data_ptr(), w._version)
-        if self._unembed_cache is None or self._unembed_cache[0] != key:
-            wf = w.detach().float()
-            self._unembed_cache = (key, wf.t() if self.cfg.tie_embeddings else wf)
-        return x.float() @ self._unembed_cache[1]
 
     def _block(self, pl: dict, x: torch.Tensor, attend) -> torch.Tensor:
         cfg = self.cfg
@@ -340,9 +387,6 @@ class DecoderLM(nn.Module):
         h = rms_norm(x, pl["ln2"], cfg.norm_eps)
         mlp = pl["mlp"]
         return x + swiglu(h, mlp["w_gate"], mlp["w_up"], mlp["w_down"])
-
-    def _as_scalar(self, v) -> torch.Tensor:
-        return torch.as_tensor(v, dtype=torch.int32, device=self.device)
 
     def _mamba(self, pl: dict, x: torch.Tensor, step):
         """One Mamba layer: ``x + step(mamba params, rms_norm(x))``;
@@ -366,50 +410,56 @@ class DecoderLM(nn.Module):
                         else torch.where(keep, new[k], cl[k]))
         return x
 
-    def _logits_at(self, x: torch.Tensor, logits_index) -> torch.Tensor:
-        """(B, S, D) -> (B, Vp) f32 logits of one position: the last when
-        ``logits_index`` is None, else that index (an int or an int scalar
-        tensor; negative wraps and out-of-range clamps, like the JAX
-        ``dynamic_slice``)."""
-        s = x.shape[1]
-        if logits_index is None:
-            x = x[:, -1:]
-        else:
-            row = self._as_scalar(logits_index)
-            row = torch.where(row < 0, row + s, row).clamp(0, s - 1)
-            x = x.index_select(1, row.reshape(1).long())
-        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
-        return self._unembed(x)[:, 0]
-
     # ------------------------------------------------------------------
-    # training (dense family), on a parameter tree
+    # training, on a parameter tree
     # ------------------------------------------------------------------
     def embed_inputs(self, params: dict, batch: dict) -> torch.Tensor:
         return F.embedding(batch["tokens"].long(), params["embed"])
 
     def backbone_train(self, params: dict, x: torch.Tensor):
         """x (B, S, D) embedded tokens -> (hidden states (B, S, D), aux
-        loss f32 scalar) through every layer of ``params["layers"]``, each
+        loss f32 scalar) through the stack of ``params["layers"]``, each
         layer's parameters that layer's slice of the stacked leaves, under
-        ``cfg.remat_policy``."""
+        ``cfg.remat_policy``: dense, attention + MLP blocks; ssm,
+        ``x + mamba_block(rms_norm(x))`` a layer; hybrid, ``L //
+        attn_every`` groups, each the shared block (``params["shared"]``,
+        the same weights every time) then ``attn_every`` Mamba layers, a
+        group the remat unit (a ``group*`` policy is ``"nothing"`` there,
+        as in the JAX package)."""
         cfg = self.cfg
-        if cfg.family in _NOT_TRAINED:
+        if cfg.family in _NOT_PORTED:
             raise NotImplementedError(
                 f"backbone_train: family {cfg.family!r} is not ported yet: "
-                f"{_NOT_TRAINED[cfg.family]}")
+                f"{_NOT_PORTED[cfg.family]}")
         positions = torch.arange(x.shape[1], device=x.device)
-        # each stacked (L, ...) leaf as its L slices: one unbind, whose
-        # backward stacks the L gradients in one op
-        per_layer = tree_map(lambda a: a.unbind(0), params["layers"])
-        layers = [tree_map(lambda t, l=l: t[l], per_layer)
-                  for l in range(cfg.num_layers)]
+        layers = unstack(params["layers"], cfg.num_layers)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
-        def body(x, pl):
+        def block(x, pl):
             return self._block(pl, x, lambda p, h: attn.self_attention(
                 p, h, cfg, positions=positions, attn_impl=self.attn_impl))
 
-        x = scan_layers(body, x, layers, cfg.remat_policy)
-        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        def mamba(x, pl):
+            return self._mamba(pl, x, lambda p, h: (ssm_mod.mamba_block(
+                p, h, cfg, ssd_impl=self.ssd_impl), None))[0]
+
+        if cfg.family != "hybrid":
+            body = block if cfg.family == "dense" else mamba
+            return scan_layers(body, x, layers, cfg.remat_policy), aux
+
+        def group(x, group_layers):
+            x = block(x, params["shared"])
+            for pl in group_layers:
+                x = mamba(x, pl)
+            return x
+
+        policy = cfg.remat_policy
+        step = _remat(group, "nothing" if policy.startswith("group")
+                      else policy)
+        every = cfg.attn_every
+        for g in range(cfg.num_layers // every):
+            x = step(x, layers[g * every:(g + 1) * every])
+        return x, aux
 
     def loss_fn(self, params: dict, batch: dict):
         """Training forward + chunked CE: ``(loss, {"ce", "aux"})``, f32

@@ -5,11 +5,14 @@ time against a carried cache, or a whole sequence from a zero state.
 The port of ``repro/models/ssm.py`` at tensor-parallel degree 1 (its
 ``psum_tp``/``pmean_tp`` are identities there). The depthwise conv stays
 split into x / B / C streams as in the JAX package. ``mamba_block`` is the
-whole-sequence forward (the lockstep engine's prefill; training the ssm and
-hybrid families, with the SSD scan under autograd, waits for ROADMAP A.11:
-only the dense family trains so far). The projections are plain matmuls;
-the SSD recurrence goes through ``ops.ssd_scan`` / ``ops.ssd_decode_step``
-(the CUDA kernels on the card).
+whole-sequence forward: the lockstep engine's prefill, and the training
+forward of the ssm and hybrid families, where it runs under autograd (no
+in-place writes; on the card the scan kernel's forward inside
+``ops.SSDScanFunction``, the plain scan's recompute for backward). The
+projections are plain matmuls; the SSD recurrence goes through
+``ops.ssd_scan`` / ``ops.ssd_decode_step`` (the CUDA kernels on the card).
+Only the serving step ``mamba_decode`` writes in place (it advances the
+SSD state where it lies), on purpose.
 """
 
 from __future__ import annotations

@@ -7,11 +7,12 @@ Both implement the :class:`repro_torch.serving.api.EngineCore` protocol —
 
 ``GenerationEngine`` is the lockstep baseline: one ``step()`` forms a
 left-padded micro-batch and prefills it (``DecoderLM.prefill``: attention
-through the flash kernel, Mamba layers through the SSD scan on the card),
-each further call runs one decode step over the whole batch on a dense
-cache (K/V, or recurrent state, or both for the hybrid family), and the
-batch retires when every row has finished (rows that stop early are
-masked, not evicted).
+through the flash kernel, Mamba layers through the SSD scan on the card;
+``EncDecLM.prefill`` for the encoder-decoder, on zero frames), each
+further call runs one decode step over the whole batch on a dense cache
+(K/V, or recurrent state, or both for the hybrid family; self and cross
+K/V for the encoder-decoder), and the batch retires when every row has
+finished (rows that stop early are masked, not evicted).
 
 ``ContinuousBatchingEngine`` is the hot path, built from two layers:
 
@@ -90,8 +91,9 @@ class GenerationEngine(EngineBase):
     / stop / cancel) and are masked until the slowest row retires the batch
     — the classic lockstep cost the continuous batcher removes.
 
-    Serves the dense, ssm and hybrid families. ``params`` is the model's
-    state dict; ``device`` is where the model, the dense cache and every
+    Serves the dense, ssm and hybrid families and the encoder-decoder
+    (whisper: the encoder reads zero frames of the padded prompt's length,
+    as the JAX engine's). ``params`` is the model's state dict; ``device`` is where the model, the dense cache and every
     step live (``"cuda"`` unless the caller asks for ``"cpu"``).
     ``attn_impl``/``ssd_impl`` ``"ref"`` run the plain attention / SSD
     versions on the card too.
@@ -102,11 +104,8 @@ class GenerationEngine(EngineBase):
                  admission: AdmissionPolicy | None = None,
                  attn_impl: str | None = None, ssd_impl: str | None = None,
                  device="cuda"):
-        if cfg.is_encoder_decoder:
-            raise NotImplementedError(
-                f"{cfg.name}: the encoder-decoder lockstep path is not "
-                f"ported yet (ROADMAP A.11)")
-        if cfg.family not in ("dense", "ssm", "hybrid"):
+        if not cfg.is_encoder_decoder and cfg.family not in (
+                "dense", "ssm", "hybrid"):
             raise NotImplementedError(
                 f"{cfg.name} (family {cfg.family!r}): the moe and vlm "
                 f"families are not ported yet (ROADMAP A.7)")
@@ -205,8 +204,12 @@ class GenerationEngine(EngineBase):
         toks = np.zeros((b, plen), np.int32)
         for i, r in enumerate(reqs):
             toks[i, plen - len(r.prompt):] = r.prompt  # left-pad
-        cache, logits = self.model.prefill(
-            {"tokens": torch.from_numpy(toks).to(self.device)}, self.max_len)
+        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        if self.cfg.is_encoder_decoder:
+            batch["frames"] = torch.zeros(
+                (b, plen, self.cfg.d_model), device=self.device,
+                dtype=getattr(torch, self.cfg.dtype))
+        cache, logits = self.model.prefill(batch, self.max_len)
         rows = [_Row(r, self._handles[r.uid]) for r in reqs]
         sp = [r.sampling for r in reqs]
 

@@ -31,6 +31,16 @@ bounds). Every bf16 case whose P and N the tensor-core kernel takes must
 go through it (``LAUNCHES_BY_PATH``), the rest through the CUDA-core
 template.
 
+The SSD scan's gradient arm trains through ``ops.ssd_scan`` on the same
+sweep (the kernel's forward inside ``SSDScanFunction``, one launch, none
+in backward), from zero and from an ``init_state``, with a loss whose
+upstream gradient depends on y and on the final state, against the plain
+version's own autograd: the x, dt, A, Bm, Cm (and state) gradients within
+the SSD bounds of each gradient's largest magnitude (at least 1). The SSD
+decode step runs the JAX package's decode sweep (batch 1-4, heads 1-8, P
+8-64, N 16-32), f32 and bf16, ungated and with idle slots, in place,
+against ``ref.ssd_decode_step``; idle slots keep their state bit for bit.
+
 The flash kernel runs the JAX package's flash sweep (batch 1-2, Sq 16-192,
 Skv >= Sq up to two blocks further, GQA 1-2, causal and not) with head
 dims mapped into {64, 80, 128}, f32 and bf16, against
@@ -517,3 +527,109 @@ def test_ssd_scan_kernel_fuzz(params, dtype, init):
     mma = sk.scan_rows(dt_, p, n) > 0
     assert mma == (dtype == "bfloat16" and p % 16 == 0), params
     assert path == {"mma": int(mma), "cuda_core": int(not mma)}, path
+
+
+def _ssd_case(params, dtype, init):
+    """The sweep case's inputs on the card: x, Bm, Cm in ``dtype``."""
+    b, s, h, p, n, _ = params
+    rng = np.random.default_rng(sum(params) ^ (0x1517 if init else 0))
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = (0.1 + 0.9 * rng.random((b, s, h))).astype(np.float32)
+    A = (-1.0 * rng.random((h,)) - 0.1).astype(np.float32)
+    Bm = (rng.standard_normal((b, s, n)) / np.sqrt(n)).astype(np.float32)
+    Cm = (rng.standard_normal((b, s, n)) / np.sqrt(n)).astype(np.float32)
+    h0 = rng.standard_normal((b, h, p, n)).astype(np.float32)
+    x, dt, A, Bm, Cm, h0 = (torch.from_numpy(a).cuda()
+                            for a in (x, dt, A, Bm, Cm, h0))
+    dt_ = getattr(torch, dtype)
+    return x.to(dt_), dt, A, Bm.to(dt_), Cm.to(dt_), (h0 if init else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("init", [False, True], ids=["fresh", "init"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("params", _ssd_sweep(),
+                         ids=lambda p: "b{}s{}h{}p{}n{}c{}".format(*p))
+def test_ssd_scan_gradient_fuzz(params, dtype, init):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    chunk = params[5]
+    base = _ssd_case(params, dtype, init)
+    g = torch.Generator(device="cuda").manual_seed(sum(params))
+    wy = torch.randn(base[0].shape, generator=g, device="cuda")
+    ws = torch.randn(base[0].shape[0], *base[0].shape[2:], params[4],
+                     generator=g, device="cuda")
+
+    def grads(scan):
+        inputs = [t if t is None else t.detach().clone().requires_grad_()
+                  for t in base]
+        y, fs = scan(*inputs)
+        loss = (0.5 * y.float().square() + wy * y.float()).sum() \
+            + (ws * fs).sum()
+        return y, torch.autograd.grad(
+            loss, [t for t in inputs if t is not None])
+
+    sk.reset_launches()
+    y, got = grads(lambda *a: ops.ssd_scan(*a[:5], init_state=a[5],
+                                           chunk=chunk))
+    assert type(y.grad_fn).__name__ == "SSDScanFunctionBackward"
+    assert sk.LAUNCHES["ssd_scan_bshp"] == 1  # forward only
+    _, want = grads(lambda *a: ops.ssd_scan(*a[:5], init_state=a[5],
+                                            chunk=chunk, impl="ref"))
+    torch.cuda.synchronize()
+    tol = SSD_TOLS[dtype]
+    for name, a, r in zip(("x", "dt", "A", "Bm", "Cm", "init_state"), got,
+                          want):
+        assert a.dtype == r.dtype, name
+        err = ((a.float() - r.float()).abs().max()
+               / r.float().abs().max().clamp_min(1.0)).item()
+        assert err <= tol, (
+            f"ssd d{name} {dtype} {params}: max err {err:.3e} of the "
+            f"gradient's scale")
+
+
+def _ssd_decode_sweep():
+    """tests/test_kernel_fuzz.py's SSD decode sweep: (b, h, p, n)."""
+    rng = np.random.default_rng(0xDECD)
+    return [(int(rng.integers(1, 5)), int(rng.choice([1, 2, 4, 8])),
+             int(rng.choice([8, 16, 64])), int(rng.choice([16, 32])))
+            for _ in range(6)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gated", [False, True], ids=["all", "idle"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("params", _ssd_decode_sweep(),
+                         ids=lambda p: "b{}h{}p{}n{}".format(*p))
+def test_ssd_decode_kernel_fuzz(params, dtype, gated):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    b, h, p, n = params
+    rng = np.random.default_rng(sum(params))
+    state = rng.standard_normal((b, h, p, n)).astype(np.float32)
+    x_t = rng.standard_normal((b, h, p)).astype(np.float32)
+    dt_t = (0.1 + 0.9 * rng.random((b, h))).astype(np.float32)
+    A = (-1.0 * rng.random((h,)) - 0.1).astype(np.float32)
+    B_t = (rng.standard_normal((b, n)) / np.sqrt(n)).astype(np.float32)
+    C_t = (rng.standard_normal((b, n)) / np.sqrt(n)).astype(np.float32)
+    state, x_t, dt_t, A, B_t, C_t = (torch.from_numpy(a).cuda() for a in (
+        state, x_t, dt_t, A, B_t, C_t))
+    dt_ = getattr(torch, dtype)
+    x_t, B_t, C_t = x_t.to(dt_), B_t.to(dt_), C_t.to(dt_)
+    active = (torch.arange(b, device="cuda", dtype=torch.int32) % 2
+              if gated else None)
+    yr, sr = ops.ssd_decode_step(state.clone(), x_t, dt_t, A, B_t, C_t,
+                                 active=active, impl="ref")
+    before = state.clone()
+    sk.reset_launches()
+    y, s_out = ops.ssd_decode_step(state, x_t, dt_t, A, B_t, C_t,
+                                   active=active)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["ssd_decode_step_bh"] == 1
+    assert s_out.data_ptr() == state.data_ptr()
+    tol = SSD_TOLS[dtype]
+    torch.testing.assert_close(y.float(), yr.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(state, sr, atol=tol, rtol=tol)
+    if gated:
+        idle = active == 0
+        assert torch.equal(state[idle], before[idle])

@@ -334,3 +334,37 @@ def test_ssd_kernels_on_card(dtype):
     assert torch.equal(state[idle], before[idle])
     torch.testing.assert_close(state, sr, atol=tol, rtol=tol)
     torch.testing.assert_close(y.float(), yr.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_wrappers_refuse_inputs_that_require_grad():
+    """The SSD kernels are forwards only: under grad mode both wrappers
+    refuse CUDA inputs that require grad (training goes through
+    ``ops.ssd_scan``'s autograd Function); under ``torch.no_grad()`` the
+    same call launches."""
+    from repro_torch.kernels import ssd_scan as sk
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    b, s, h, p, n = 1, 64, 2, 16, 16
+    x = torch.randn(b, s, h, p, generator=g, device="cuda",
+                    requires_grad=True)
+    dt = torch.rand(b, s, h, generator=g, device="cuda")
+    A = -torch.rand(h, generator=g, device="cuda") - 0.1
+    Bm, Cm = (torch.randn(b, s, n, generator=g, device="cuda")
+              for _ in range(2))
+    with pytest.raises(RuntimeError, match="gives no gradient"):
+        sk.ssd_scan_bshp(x, dt, A, Bm, Cm)
+    with torch.no_grad():
+        y, fs = sk.ssd_scan_bshp(x, dt, A, Bm, Cm)
+    assert y.grad_fn is None and fs.shape == (b, h, p, n)
+    state = torch.zeros(b, h, p, n, device="cuda")
+    x_t = x[:, 0].detach().clone().requires_grad_()
+    args = (state, x_t, dt[:, 0].contiguous(), A, Bm[:, 0].contiguous(),
+            Cm[:, 0].contiguous())
+    with pytest.raises(RuntimeError, match="gives no gradient"):
+        sk.ssd_decode_step_bh(*args)
+    with torch.no_grad():
+        y_t, _ = sk.ssd_decode_step_bh(*args)
+    assert y_t.shape == (b, h, p)

@@ -176,8 +176,9 @@ def test_paged_engine_matches_lockstep(weights, prefill_chunk):
 def test_lockstep_engine_defaults_to_cuda_and_refuses_other_families(weights):
     """The lockstep engine runs on ``cuda`` unless asked (and raises the
     port's typed error without a card); the ssm and hybrid families'
-    dense-cache paths are ported and build; the families still unported
-    are refused by name (moe: A.7, encoder-decoder: A.11)."""
+    dense-cache paths are ported and build; the encoder-decoder (whisper,
+    ROADMAP A.11) serves a request; the family still unported is refused
+    by name (moe: A.7)."""
     from repro_torch.models import build_model
 
     _, _, cfg, state = weights
@@ -192,5 +193,12 @@ def test_lockstep_engine_defaults_to_cuda_and_refuses_other_families(weights):
         assert eng.model.cfg.family == rcfg.family
     with pytest.raises(NotImplementedError, match="A.7"):
         GenerationEngine(reduced(ARCHS["dbrx-132b"]), {}, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.11"):
-        GenerationEngine(reduced(ARCHS["whisper-tiny"]), {}, device="cpu")
+    wcfg = reduced(ARCHS["whisper-tiny"])
+    eng = GenerationEngine(wcfg, build_model(wcfg, device="cpu").init(seed=0),
+                           max_len=16, device="cpu")
+    handle = eng.submit(Request("w0", [5, 6, 7],
+                                sampling=SamplingParams(max_new_tokens=3)))
+    while not eng.idle:
+        eng.step()
+    assert handle.finish_reason == FinishReason.LENGTH
+    assert len(handle.tokens) == 3

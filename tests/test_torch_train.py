@@ -27,11 +27,11 @@
 * The flash autograd Function: ``gradcheck`` in f64 (under
   ``_all_f64``) with the plain forward standing in for the kernel; the
   bare kernel wrapper refuses inputs that require grad; ``remat_policy``
-  changes neither the loss nor the gradients; the families whose
-  training waits refuse by ROADMAP item.
+  changes neither the loss nor the gradients; the ssm and hybrid
+  families train (``tests/test_torch_ssm_train.py`` holds them against
+  JAX) and the families whose training waits refuse by ROADMAP item.
 """
 
-import contextlib
 import dataclasses
 import json
 
@@ -50,7 +50,9 @@ from repro_torch.data import DataConfig, PrefetchLoader, SyntheticCorpus  # noqa
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_bhsd  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.models.common import flatten_tree, tree_leaves, tree_map  # noqa: E402
+from repro_torch.models.common import all_f64 as _all_f64  # noqa: E402
+from repro_torch.models.common import (flatten_tree, tree_leaves, tree_map,  # noqa: E402
+                                       unflatten_tree)
 from repro_torch.models.convert import train_state_from_jax  # noqa: E402
 from repro_torch.train import AdamWConfig, init_train_state, make_train_step  # noqa: E402
 from repro_torch.train.optimizer import global_norm, make_optimizer  # noqa: E402
@@ -318,25 +320,6 @@ def jax_side():
 
 def carried(jstate):
     return train_state_from_jax(CFG, jax.tree.map(np.asarray, jstate))
-
-
-@contextlib.contextmanager
-def _all_f64():
-    """Inside, the port's plain path computes in f64 when given f64
-    tensors: its f32 casts (``.float()``, f32 ``zeros``/``full``) keep
-    f64. The oracle the f32 runs of both packages are measured against."""
-    to_float, zeros, full = torch.Tensor.float, torch.zeros, torch.full
-
-    def keep64(dtype):
-        return torch.float64 if dtype == torch.float32 else dtype
-
-    torch.Tensor.float = lambda t: t if t.dtype == torch.float64 else to_float(t)
-    torch.zeros = lambda *a, dtype=None, **k: zeros(*a, dtype=keep64(dtype), **k)
-    torch.full = lambda *a, dtype=None, **k: full(*a, dtype=keep64(dtype), **k)
-    try:
-        yield
-    finally:
-        torch.Tensor.float, torch.zeros, torch.full = to_float, zeros, full
 
 
 def _f64(tree):
@@ -632,11 +615,25 @@ def test_train_state_is_the_model():
 @pytest.mark.parametrize("family,item", [("ssm", "A.11"), ("hybrid", "A.11"),
                                          ("moe", "A.7"), ("vlm", "A.7")])
 def test_unported_families_refuse_to_train(family, item):
-    """ssm and hybrid training (the SSD scan under autograd) waits for
-    ROADMAP A.11, the moe and vlm families for A.7: backbone_train names
-    the item."""
+    """ssm and hybrid training (ROADMAP A.11, the SSD scan under autograd)
+    is ported: one step of each trains and gives a finite gradient to
+    every leaf. The moe and vlm families wait for A.7: backbone_train
+    names the item."""
     arch = {"ssm": "mamba2-1.3b", "hybrid": "zamba2-2.7b"}.get(family,
                                                                "smollm-360m")
+    if item == "A.11":
+        cfg = reduced(ARCHS[arch])
+        model = build_model(cfg, device="cpu")
+        params = unflatten_tree(model.init(seed=0))
+        batch = tensors(SyntheticCorpus(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=32, global_batch=2,
+            seed=1)).batch_at(0))
+        loss, _, grads = _loss_and_grads(model, params, batch)
+        assert torch.isfinite(loss)
+        assert flatten_tree(grads).keys() == flatten_tree(params).keys()
+        assert all(torch.isfinite(g).all() and g.abs().sum() > 0
+                   for g in flatten_tree(grads).values())
+        return
     model = build_model(reduced(ARCHS[arch]), device="meta")
     model.cfg = dataclasses.replace(model.cfg, family=family)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):

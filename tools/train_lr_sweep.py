@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
 """How the full-width trainer's loss moves with the learning rate, on the card.
 
-    python3 tools/train_lr_sweep.py [--steps 60] [--lr 3e-3 1e-2 3e-2]
+    python3 tools/train_lr_sweep.py [--arch smollm-360m] [--batch 16]
+        [--seq-len 64] [--steps 60] [--lr 3e-3 1e-2 3e-2]
 
-Runs ``repro_torch.launch.train`` (smollm-360m at full width: 32 layers,
-bf16 parameters, f32 moments, B 16 x S 64, the driver's schedule: 10
-warm-up steps, cosine over 4x the steps) once per learning rate, without
-chaos and with one checkpoint at the end, each in a temporary directory
-that is removed after it. Prints the card's name and power limit, then per
-rate: the loss every 5 steps, the last loss, the eval loss, whether the
-driver's ``improved`` holds, and the median step seconds. This is what
-chose ``chip_smoke.py``'s ``TRAIN_LR``: a 32-layer model with a 49152-token
-vocabulary starts on the ln(vocab) plateau, and the rate decides whether
-it leaves it within the run.
+Runs ``repro_torch.launch.train`` (``--arch`` at full width, bf16
+parameters, f32 moments, B ``--batch`` x S ``--seq-len``, the driver's
+schedule: 10 warm-up steps, cosine over 4x the steps) once per learning
+rate, without chaos and with one checkpoint at the end, each in a
+temporary directory that is removed after it. Prints the card's name and
+power limit, then per rate: the loss every 5 steps, the last loss, the
+eval loss, whether the driver's ``improved`` holds, and the median step
+seconds. This is what chose ``chip_smoke.py``'s learning rates (the
+``lr`` of each full-width run in ``TRAIN_RUNS``): a model with a vocabulary
+of 32k-52k tokens starts on the ln(vocab) plateau, and the rate decides
+whether it leaves it within the run.
 """
 
 from __future__ import annotations
@@ -28,6 +30,9 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--seq-len", type=int, default=64)
     ap.add_argument("--steps", type=int, default=60)
     ap.add_argument("--lr", type=float, nargs="+", default=[3e-3, 1e-2, 3e-2])
     args = ap.parse_args()
@@ -47,14 +52,17 @@ def main() -> int:
     for lr in args.lr:
         with tempfile.TemporaryDirectory(prefix="lr_sweep_") as tmp:
             arts, _, stats = train.run(train.parse_args([
-                "--steps", str(args.steps), "--ckpt-every", str(args.steps),
-                "--lr", str(lr), "--workdir", tmp]))
+                "--arch", args.arch, "--batch", str(args.batch),
+                "--seq-len", str(args.seq_len), "--steps", str(args.steps),
+                "--ckpt-every", str(args.steps), "--lr", str(lr),
+                "--workdir", tmp]))
         losses, rep = arts["losses"], arts["report"]
         step_s = sorted(stats["attempts"][-1]["step_s"])
-        print(f"lr {lr:g}: loss every 5 steps "
-              f"{[round(x, 3) for x in losses[::5]]}, last {losses[-1]:.4f}, "
-              f"eval {rep['eval_loss']:.4f}, improved {rep['improved']}; "
-              f"median {step_s[len(step_s) // 2]:.4f} s/step", flush=True)
+        print(f"{args.arch} B {args.batch} x S {args.seq_len}, lr {lr:g}: "
+              f"loss every 5 steps {[round(x, 3) for x in losses[::5]]}, "
+              f"last {losses[-1]:.4f}, eval {rep['eval_loss']:.4f}, improved "
+              f"{rep['improved']}; median {step_s[len(step_s) // 2]:.4f} "
+              f"s/step", flush=True)
     return 0
 
 

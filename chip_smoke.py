@@ -114,7 +114,7 @@ Phases (any failure exits non-zero):
    one sequence), cycling over 48 layers' states, and the scan at S 512
    and at zamba2's widths.
 11. mamba2  — mamba2-1.3b at full width (bf16, seeded random weights),
-   depth cut to SSM_ENGINE_LAYERS (24) of its 48 layers to keep the
+   depth cut to SSM_ENGINE_LAYERS (12) of its 48 layers to keep the
    script in its limit (phases 12 and 15 run all 48), served by
    ``SSMEngine(max_slots=8, prefill_chunk=64,
    max_len=512)``: 8 requests of 64-400 prompt tokens, 24 new tokens each,
@@ -132,8 +132,8 @@ Phases (any failure exits non-zero):
    (``ssd_impl="ref"``), and a run with one snapshot preemption and one
    discard preemption gives the same streams as the undisturbed run.
 13. zamba2  — zamba2-2.7b at full width (bf16, seeded random weights,
-   32 heads of D 80), depth cut to SSM_ENGINE_LAYERS (24) of its 54 Mamba2
-   layers: 4 groups, each led by the one shared attention + MLP block
+   32 heads of D 80), depth cut to SSM_ENGINE_LAYERS (12) of its 54 Mamba2
+   layers: 2 groups, each led by the one shared attention + MLP block
    (phase 15 runs all 54), served by ``SSMEngine(max_slots=8,
    prefill_chunk=64, max_len=512, page_size=16)``: 8 requests of 64-400
    prompt tokens, 24 new each, greedy and seeded top-p alternating; then 8
@@ -177,14 +177,14 @@ Phases (any failure exits non-zero):
    K/V plus a 4-byte scale per (position, kv head).
 18. int8 engine — phase 4's trace through ``ContinuousBatchingEngine(...,
    kv_quant="int8")`` on smollm-360m at full width, depth cut to
-   VARIANT_LAYERS (16) of its 32 layers (here and in phase 19), in turns
+   VARIANT_LAYERS (4) of its 32 layers (here and in phase 19), in turns
    with bf16 pages
    (bf16, int8, int8, bf16): every request finishes by length, the prefix
    index hits and each paged kernel runs (path ``chunked_int8`` in
    ``launches_by_path``, the first int8 turn). Prints tok/s, TTFT, ITL
    per turn and a profiler window of each page type (checked as phase
    4's).
-19. tier restart — smollm-360m (16 layers), once with bf16 pages (path
+19. tier restart — smollm-360m (VARIANT_LAYERS), once with bf16 pages (path
    ``tiered``) and once with int8 pages (path ``tiered_int8``), a pool of
    128 pages with ``host_pages`` and ``persist_dir`` in a temporary
    directory: phase 4's trace must reclaim and spill parked pages; after
@@ -217,7 +217,7 @@ Phases (any failure exits non-zero):
    table, the hinted mixed step with num_decode 4 over 16-entry tables;
    then the C 5 call (SPEC_K 4 drafts + 1) timed against its plain
    version, SDPA and its bound.
-23. spec engine — the first SPEC_REQUESTS (8) of phase 4's requests on
+23. spec engine — the first SPEC_REQUESTS (4) of phase 4's requests on
    full-width smollm-360m (bf16) with speculation off, ``ngram`` and a
    2-layer smollm draft on its own seeded weights (the reduced config's
    256-token vocabulary cannot draft for a 49152-token target), SPEC_K 4:
@@ -306,10 +306,11 @@ Phases (any failure exits non-zero):
    its plain version and its bound, and forward + backward through the
    Function against the plain autograd (the kernels line's SSD ``train``
    entry).
-31. ssm/hybrid train — phase 29's run for mamba2-1.3b (48 layers, B 4 x
-   S 256, ``--chaos``; the SSD scan on path ``train``, every scan on the
-   tensor-core kernel) and zamba2-2.7b (54 layers, 9 occurrences of the
-   shared block, the same shape, no chaos, one checkpoint at the end;
+31. ssm/hybrid train — phase 29's run for mamba2-1.3b (12 of its 48
+   layers, to keep the script in its limit; B 4 x S 256, ``--chaos``;
+   the SSD scan on path ``train``, every scan on the tensor-core kernel)
+   and zamba2-2.7b (12 of its 54 layers: 2 occurrences of the shared
+   block, the same shape, no chaos, one checkpoint at the end;
    flash and the scan on ``train zamba2``), then each at PARITY_LAYERS in
    f32 as phase 29's, 30 steps, a checkpoint every 10 in the chaos run
    (plain: ``--ssd-impl ref``, and ``--attn-impl ref`` for zamba2, whose
@@ -332,6 +333,58 @@ Phases (any failure exits non-zero):
    whisper-tiny --engine lockstep`` (``engine=lockstep``) and without
    ``--engine`` (``UnsupportedConfigError``); and the flash kernel at
    whisper's widths, causal and not, at every (B, S) the phase gave it.
+
+33. dbrx — dbrx-132b at full width (d_model 6144, 48 / 8 heads of D 128,
+   16 experts of d_ff 10752, top 4, bf16, seeded random weights), depth
+   cut to MOE_LAYERS (4) of its 40 layers (28.5 GB; the whole model is
+   263 GB), through ``ContinuousBatchingEngine(max_slots=8, page_size=16,
+   prefill_chunk=64)`` in the fused step mode (paths ``dbrx fused``) and
+   the interleaved one (``dbrx interleaved``): 8 requests of 64-400 prompt
+   tokens, 24 new each, greedy and seeded top-p alternating; then through
+   ``GenerationEngine(max_batch=8)`` (``lockstep dbrx``; the same prompt
+   lengths, left-padded to a batch's longest, which attention past 256
+   positions pads to a multiple of 256: ``causal_flash``). Every request
+   finishes by length and every kernel of each path launches (counts
+   reset before each run). Prints
+   tok/s, TTFT, ITL, launches and the peak device memory a run, and a
+   profiler window of MV_TRACE_STEPS decode steps per engine: ms a step on
+   the host and on the device against the step's least time (every
+   weight but the embedding read once: every expert, as the reference's
+   dense decode reads them), the device busy share and the cuBLAS GEMMs'
+   share. Then ``python -m repro_torch.launch.serve --arch dbrx-132b
+   --layers 4`` (in this process, ``serve_cli``): 8/8 served on the paged
+   engine.
+34. internvl2 — internvl2-26b whole (48 layers, 39.7 GB, 256 stub vision
+   positions of zeros) through the paged engine, whose vlm prompts are
+   always prefilled whole (``internvl2 whole-prompt``: flash over 256 +
+   bucket, padded to a multiple of 256, then the paged decode kernel; 8
+   requests of 64-400 tokens), and at VLM_LOCK_LAYERS (24) through the
+   lockstep engine (``lockstep internvl2``: the same lengths); the
+   same prints and windows as phase 33. Engines hold the state dict they
+   are given without a copy (``build_model(params=...)``). Then the flash
+   kernel at their 48 / 8-head width against its plain version, at fixed
+   cases and at every (B, S) phases 33-34 gave it (bf16 2e-2, f32 1e-3).
+35. moe/vlm parity — both at PARITY_LAYERS, full width, f32, TF32 off:
+   greedy streams through the kernels equal those through the plain
+   versions on dbrx's paged engine in both step modes and its lockstep
+   engine, and on internvl2's whole-prompt and lockstep engines; the one-
+   prefill logit gap (dbrx: a 64-token chunk, the capacity dispatch;
+   internvl2: a 200-token prompt after its vision positions) of the
+   kernels to the plain versions within twice the plain path's own
+   f32-vs-f64 gap (the triangle bound), and, for dbrx, the router top-k
+   choices of that prefill that differ between kernels and plain versions.
+36. moe/vlm train — ``python -m repro_torch.launch.train`` (in this
+   process, ``launch.train.run`` with the depth cut, as phase 29 runs it:
+   bf16 parameters, f32 moments) at full width, TRAIN_RUNS' shapes, no
+   chaos, one checkpoint after the last step: internvl2 at 4 layers (2.7
+   B parameters, B 4 x S 64 after the 256 vision positions) and dbrx at 1
+   (4.5 B, B 2 x S 128; its 45 GB checkpoint outlasts the 30 s liveness
+   window, so the pod lives on its side-thread beats: no retry). Before
+   each, every leaf's first gradient finite and nonzero (the router's and
+   ``vision_proj``'s included). The loss must improve and the eval loss
+   lie below the first step's; flash launched (paths ``train internvl2``,
+   ``train dbrx``); s/step, tokens/s, saves, peak memory and a profiler
+   window of TRACE_TRAIN_STEPS steps.
 
 Kernel and plain times are device time per call: the calls are enqueued
 behind a sleep kernel and timed with CUDA events, so the host's per-call
@@ -397,15 +450,15 @@ PARITY_LAYERS = 2
 # speculative decoding: drafts a bundle, and the verify width timed
 SPEC_K = 4
 VERIFY_C = SPEC_K + 1
-# phase 23 serves the first 8 of phase 4's 16 requests; its oracle-draft
+# phase 23 serves the first 4 of phase 4's 16 requests; its oracle-draft
 # witness (k serial draft decodes a slot a step: 61 s over 8 requests at
 # 32 layers) serves the first WITNESS_REQUESTS greedy ones
-SPEC_REQUESTS, WITNESS_REQUESTS = 8, 2
+SPEC_REQUESTS, WITNESS_REQUESTS = 4, 2
 # the witness's depths: the plain versions run at the first and the last
 WITNESS_DEPTHS = (LAYERS, 16, 8, 4, PARITY_LAYERS)
 # the draft model's catch-up chunk (DraftModelProposer's default)
 DRAFT_CHUNK = 32
-# phases 29, 31, 32: the full-width training runs: B x S, steps, the
+# phases 29, 31, 32, 36: the full-width training runs: B x S, steps, the
 # learning rate, the checkpoint interval, --chaos (two kills), and the
 # PARITY_LAYERS f32 runs (run_train_parity): their steps, the chaos run's
 # checkpoint interval (attempts that outlive --chaos's 1 s kill timer, and
@@ -415,21 +468,32 @@ DRAFT_CHUNK = 32
 # ln(vocab) plateau within the run without diverging (a 32-layer smollm
 # stays on it from the driver's default 3e-3 and diverges from 3e-2;
 # mamba2 diverges from 1e-2, zamba2 from 1e-2 and stays on it at 3e-3;
-# PERF.md has each sweep)
+# PERF.md has each sweep). ``layers`` cuts a run's depth (None: the
+# config's): mamba2 and zamba2 train at 12 layers (the script's time
+# limit), internvl2-26b at 4 and dbrx-132b at 1 (one card's memory:
+# 2.7 B and 4.5 B parameters with their f32 moments; their 27 GB and
+# 45 GB checkpoints outlast the scheduler's 30 s liveness window, C.10).
+# ``timed`` times a restore of the final checkpoint onto the card (the
+# script's time limit leaves it to the smollm and whisper runs)
 TRAIN_RUNS = {
-    arch: dict(arch=arch, batch=b, seq=s, steps=n, lr=lr, ckpt_every=c,
-               chaos=chaos, parity=parity)
-    for arch, b, s, n, lr, c, chaos, parity in (
-        ("smollm-360m", 16, 64, 60, 1e-2, 20, True, (60, 20, 1.0)),
-        ("mamba2-1.3b", 4, 256, 16, 3e-3, 16, True, (20, 10, 2.0)),
-        ("zamba2-2.7b", 4, 256, 12, 6e-3, 12, False, (20, 10, 2.0)),
-        ("whisper-tiny", 16, 64, 60, 1e-2, 20, True, None))}
+    arch: dict(arch=arch, layers=layers, batch=b, seq=s, steps=n, lr=lr,
+               ckpt_every=c, chaos=chaos, parity=parity, timed=timed)
+    for arch, layers, b, s, n, lr, c, chaos, parity, timed in (
+        ("smollm-360m", None, 16, 64, 60, 1e-2, 20, True, (60, 20, 1.0),
+         True),
+        ("mamba2-1.3b", 12, 4, 256, 16, 3e-3, 16, True, (20, 10, 2.0),
+         False),
+        ("zamba2-2.7b", 12, 4, 256, 12, 6e-3, 12, False, (20, 10, 2.0),
+         False),
+        ("whisper-tiny", None, 16, 64, 60, 1e-2, 20, True, None, True),
+        ("internvl2-26b", 4, 4, 64, 30, 1e-2, 30, False, None, False),
+        ("dbrx-132b", 1, 2, 128, 30, 3e-3, 30, False, None, False))}
 # the profiled steps of each full-width run
 TRACE_TRAIN_STEPS = 3
 # depth cuts of earlier paths, to keep the script inside its time limit:
 # the smollm variants of phases 18-19 (int8 pages, the tiers) and the SSM
 # engine runs of phases 11 and 13 (their parity phases keep their depths)
-VARIANT_LAYERS, SSM_ENGINE_LAYERS = 16, 24
+VARIANT_LAYERS, SSM_ENGINE_LAYERS = 4, 12
 # phase 30: the SSD scan under autograd at the trainer's (B, S)
 SSD_TRAIN_SHAPE = (4, 256)
 # phase 32: whisper's f32 parity streams
@@ -453,7 +517,8 @@ HYBRID_KERNELS = ("paged_attention_bkgd", "paged_prefill_attention_ckgd",
 # (kv heads, group, head_dim, page) of the paged int8 / head-dim checks:
 # smollm-360m, llama3-8b (32 / 8 heads, D 128) and zamba2-2.7b (D 80)
 PAGED_WIDTHS = {"smollm D64": (KVH, G, D, PAGE),
-                "llama3 D128": (8, 4, 128, 8), "zamba2 D80": (32, 1, 80, 16)}
+                "llama3 D128": (8, 4, 128, 8), "zamba2 D80": (32, 1, 80, 16),
+                "dbrx D128": (8, 6, 128, PAGE)}
 MAIN_WIDTH = "smollm D64"  # the widths the engine phases run
 TIER_PAGES, TIER_HOST_PAGES = 128, 64
 # the 4-slot tier parity pool: reclaims and spills, preempts nothing
@@ -474,12 +539,25 @@ ZAMBA_BF16_CHECK = (("paged_decode_split_kernel", "paged_prefill_mma_kernel",
                      "ssd_scan_mma_kernel", "ssd_decode_kernel"),
                     ("ssd_scan_kernel", "paged_prefill_f32_kernel"))
 FLASH_TRACE_KEYS = ("flash_attention_kernel", "flash_attention_mma_kernel")
+# cuBLAS GEMM kernels, by name (the H100's are "nvjet_*" and "*gemm*")
+GEMM_TRACE_KEYS = ("nvjet", "gemm", "gemv")
 # smollm-360m's whole-prompt paths: q heads, the engines' shapes
 FLASH_H, LOCK_BATCH, LOCK_MAX_LEN, WHOLE_MAX_LEN = KVH * G, 8, 512, 1024
 # (q heads, kv heads, head_dim) of the flash checks and timings: smollm-360m
-# (the engines' widths), llama3-8b and zamba2-2.7b
+# (the engines' widths), llama3-8b, zamba2-2.7b, and dbrx-132b and
+# internvl2-26b (a group of 6)
 FLASH_WIDTHS = {"smollm D64": (FLASH_H, KVH, D), "llama3 D128": (32, 8, 128),
-                "zamba2 D80": (32, 32, 80)}
+                "zamba2 D80": (32, 32, 80), "dbrx D128": (48, 8, 128)}
+# phases 33-35: dbrx-132b serves at MOE_LAYERS of its 40 layers (28.5 GB in
+# bf16; the whole model is 263 GB); internvl2-26b serves whole (48 layers,
+# 39.7 GB) on the paged engine and at VLM_LOCK_LAYERS on the lockstep
+# engine (the script's time limit); phase 36 trains both as TRAIN_RUNS
+# gives. Their engines' max_len: dbrx's prompts of up to 400 tokens +
+# MV_NEW; internvl2's 256 vision positions + a 512-token bucket.
+# MV_REQUESTS requests a run, MV_TRACE_STEPS decode steps a profiler window
+MOE_LAYERS, VLM_LOCK_LAYERS = 4, 24
+MOE_MAX_LEN, VLM_MAX_LEN = 448, 768
+MV_REQUESTS, MV_NEW, MV_TRACE_STEPS = 8, 24, 8
 
 
 def log(msg: str) -> None:
@@ -1158,6 +1236,23 @@ def run_engine(torch, np, cfg, serving, models, pk, card):
     return launches
 
 
+def _device_times(prof):
+    """{device activity name: [ms, count]} of a torch.profiler window,
+    from the raw events (``key_averages()`` takes minutes over a window's
+    several hundred thousand events). The windows record the device
+    activities alone: the host's op events would add ~2 s of stop and
+    read per 100k device ops and change no device time (PERF.md)."""
+    from torch.autograd import DeviceType
+
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            acc = by_name.setdefault(e.name(), [0.0, 0])
+            acc[0] += e.duration_ns() / 1e6
+            acc[1] += 1
+    return by_name
+
+
 def _trace(torch, make_engine, reqs, kernel_keys, label, check=None):
     """Where a step's time goes: a torch.profiler window over a fresh
     engine serving ``reqs``. Device busy = the sum of the device activities
@@ -1169,22 +1264,15 @@ def _trace(torch, make_engine, reqs, kernel_keys, label, check=None):
     ``check``: (the kernels the window must show, the ones it must not),
     for a bf16 engine (PAGED_BF16_CHECK, SSD_BF16_CHECK,
     ZAMBA_BF16_CHECK)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     engine = make_engine()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         _, steps = _drive(torch, engine, reqs)
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    by_name = {}  # device activity name -> [ms, count]
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == DeviceType.CUDA:
-            acc = by_name.setdefault(e.name(), [0.0, 0])
-            acc[0] += e.duration_ns() / 1e6
-            acc[1] += 1
+    by_name = _device_times(prof)
     busy_ms = sum(ms for ms, _ in by_name.values())
     if busy_ms <= 0:
         log("trace: the profiler recorded no device time (not measured)")
@@ -3150,11 +3238,10 @@ def _trace_train(torch, cfg, run, steps):
     """A torch.profiler window over ``steps`` full-width train steps of
     ``run`` (a TRAIN_RUNS entry; after one warm step): device busy share,
     the flash and SSD kernels' shares of it, the top ops."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data import DataConfig, SyntheticCorpus
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, frontend_len
     from repro_torch.train import AdamWConfig, init_train_state, make_train_step
 
     model = build_model(cfg, device="cuda")
@@ -3165,27 +3252,22 @@ def _trace_train(torch, cfg, run, steps):
     corpus = SyntheticCorpus(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=run["seq"],
         global_batch=run["batch"], frames=cfg.is_encoder_decoder,
-        d_model=cfg.d_model, dtype=cfg.dtype))
+        vision_tokens=frontend_len(cfg), d_model=cfg.d_model,
+        dtype=cfg.dtype))
     dt = getattr(torch, cfg.dtype)
     batches = [{k: torch.as_tensor(v, device="cuda").to(
-        dt if k == "frames" else torch.int32)
+        dt if k in ("frames", "vision_embeds") else torch.int32)
         for k, v in corpus.batch_at(i).items()} for i in range(steps + 1)]
     state, m = step(state, batches[0])
     float(m["loss"])
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for b in batches[1:]:
             state, m = step(state, b)
             float(m["loss"])
         wall_ms = (time.perf_counter() - t0) * 1e3
     del state, model
-    by_name = {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == DeviceType.CUDA:
-            acc = by_name.setdefault(e.name(), [0.0, 0])
-            acc[0] += e.duration_ns() / 1e6
-            acc[1] += 1
+    by_name = _device_times(prof)
     busy_ms = sum(ms for ms, _ in by_name.values())
     if busy_ms <= 0:
         log(f"train trace {cfg.name}: the profiler recorded no device time "
@@ -3237,8 +3319,22 @@ def _train_args(train, tmp, name, run, *extra):
         str(run["seq"]), "--workdir", f"{tmp}/{name}", *extra])
 
 
+def _longest_beat_gap(bus, prefix):
+    """The longest time between two heartbeats of one pod whose name
+    starts with ``prefix`` (the scheduler's liveness probe kills a pod at
+    30 s), over the bus's health topic."""
+    last, worst = {}, 0.0
+    for m in bus.read("health"):
+        pod = m.value["pod"]
+        if pod.startswith(prefix):
+            if pod in last:
+                worst = max(worst, m.ts - last[pod])
+            last[pod] = m.ts
+    return worst
+
+
 def run_train(torch, cfg, fk, pk, sk, card, must):
-    """Phases 29, 31, 32: ``launch.train`` at full width as TRAIN_RUNS
+    """Phases 29, 31, 32, 36: ``launch.train`` at full width as TRAIN_RUNS
     gives it for ``cfg`` (bf16 parameters, f32 moments), its stats and a
     profiler window. The loss must improve and the eval loss lie below the
     first step's; with ``--chaos`` the train step must be retried twice
@@ -3248,6 +3344,8 @@ def run_train(torch, cfg, fk, pk, sk, card, must):
     from repro_torch.launch import train
 
     run = TRAIN_RUNS[cfg.name]
+    if run["layers"]:
+        cfg = dataclasses.replace(cfg, num_layers=run["layers"])
     mib = 2 ** 20
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
@@ -3258,22 +3356,32 @@ def run_train(torch, cfg, fk, pk, sk, card, must):
         arts, sched, stats = train.run(_train_args(
             train, tmp, "full", run, "--steps", str(run["steps"]),
             "--ckpt-every", str(run["ckpt_every"]), "--lr", str(run["lr"]),
-            *(("--chaos",) if run["chaos"] else ())))
+            *(("--chaos",) if run["chaos"] else ())), cfg=cfg)
         wall = time.perf_counter() - t0
         launches = _path_launches(pk, sk, fk)
         scan_paths = dict(sk.LAUNCHES_BY_PATH)
         retries = [e for e in sched.events.history("step_retry_scheduled")
                    if e["step"] == "train"]
+        errors = [(e["attempt"], e["error"][:200]) for e in
+                  sched.events.history("step_error") if e["step"] == "train"]
+        kills = [e["attempt"] for e in
+                 sched.events.history("pod_liveness_kill")
+                 if e["step"] == "train"]
+        gap = _longest_beat_gap(sched.bus, "train-a")
         gc.collect()
         after = torch.cuda.memory_allocated()
-        restore = _time_restore(torch, cfg, arts["ckpt_dir"])
+        restore = (_time_restore(torch, cfg, arts["ckpt_dir"])
+                   if run["timed"] else None)
     rep = arts["report"]
     att = stats["attempts"]
     step_s = sorted(t for a in att for t in a["step_s"][1:])
     med = step_s[len(step_s) // 2]
     tokens = run["batch"] * run["seq"]
-    log(f"train {rep['arch']} on {card}: {rep['steps']} steps (B "
-        f"{run['batch']} x S {run['seq']}, bf16 parameters, f32 moments, lr "
+    log(f"train {rep['arch']} on {card}: {rep['steps']} steps ("
+        f"{cfg.num_layers} layers, B {run['batch']} x S {run['seq']}"
+        + (f" after {cfg.num_frontend_tokens} vision positions"
+           if cfg.family == "vlm" else "") + ", bf16 "
+        f"parameters, f32 moments, lr "
         f"{run['lr']:g}) in {wall:.1f} s with {len(retries)} retries; loss "
         f"{rep['first_loss']:.4f} -> {rep['last_loss']:.4f}, eval "
         f"{rep['eval_loss']:.4f}; attempts "
@@ -3284,10 +3392,14 @@ def run_train(torch, cfg, fk, pk, sk, card, must):
         f"{step_s[-1]:.4f}) = {tokens / med:.0f} tokens/s")
     saves = [(s, b) for a in att for s, b in zip(a["save_s"], a["save_bytes"])]
     log(f"train {rep['arch']} checkpoints: saves (s, bytes) "
-        f"{[(round(s, 3), b) for s, b in saves]}; restores in the run (s, "
-        f"bytes) {[(round(a['restore_s'], 3), a['restore_bytes']) for a in att if a['restore_s'] is not None]}"
-        f"; the final checkpoint restored onto the card {restore[0]:.3f} s, "
-        f"{restore[1]} bytes")
+        f"{[(round(s, 3), b) for s, b in saves]} (the liveness window is "
+        f"30 s); restores in the run (s, bytes) "
+        f"{[(round(a['restore_s'], 3), a['restore_bytes']) for a in att if a['restore_s'] is not None]}"
+        + (f"; the final checkpoint restored onto the card {restore[0]:.3f} "
+           f"s, {restore[1]} bytes" if restore else "")
+        + f"; the longest gap between a train attempt's beats {gap:.3f} s")
+    log(f"train {rep['arch']} attempts' errors {errors}; liveness kills of "
+        f"attempts {kills}")
     log(f"train {rep['arch']} device memory: allocated at each attempt's "
         f"start {[round(a['memory_start'] / mib, 1) for a in att]} MiB; after "
         f"the run {after / mib:.1f} MiB (peak "
@@ -3298,7 +3410,9 @@ def run_train(torch, cfg, fk, pk, sk, card, must):
                              f"improve: {rep}")
     if len(retries) != (2 if run["chaos"] else 0):
         raise AssertionError(f"train {rep['arch']}: {len(retries)} retries "
-                             f"of the train step (chaos {run['chaos']})")
+                             f"of the train step (chaos {run['chaos']}); "
+                             f"errors {errors}, liveness kills {kills}, "
+                             f"longest beat gap {gap:.3f} s")
     missing = [k for k in must if launches[k] <= 0]
     if missing:
         raise AssertionError(f"train {rep['arch']}: {missing} never launched")
@@ -3641,6 +3755,510 @@ def run_whisper(torch, np, cfg, serving, models, fk, ref, card):
     return {"lockstep whisper": launches}, worst["bfloat16"]
 
 
+# ---------------------------------------------------------------------------
+# phases 33-36: the moe family (dbrx-132b) and the vlm path (internvl2-26b)
+# ---------------------------------------------------------------------------
+
+
+def _free(torch):
+    """Give the device memory of the phase before back to the allocator
+    and the driver: the next phase loads tens of GB."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _weight_bytes(model):
+    """Bytes of the weights one decode step reads: every parameter in its
+    own dtype but the embedding, of which it gathers one row a token."""
+    return sum(p.numel() * p.element_size()
+               for name, p in model.named_parameters() if name != "embed")
+
+
+def _mv_requests(serving, cfg, n, rng, *, lo, hi, new, uid):
+    """``_random_requests`` over cfg's vocabulary."""
+    return _random_requests(serving, n, rng, 2, lo=lo, hi=hi, max_new=new,
+                            uid=uid, vocab=cfg.vocab_size, seed0=5000)
+
+
+def _trace_decode(torch, engine, reqs, ready, label, bound_ms, bound_gb):
+    """A torch.profiler window over MV_TRACE_STEPS decode steps of
+    ``engine`` once ``ready(engine)`` (every prompt prefilled): ms per
+    step on the host and on the device against the step's least time
+    (``bound_ms``: ``bound_gb`` of weights read at the card's memory
+    rate), the device busy share and the top device ops. Returns the busy
+    share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for r in reqs:
+        engine.submit(r)
+    while not ready(engine):
+        engine.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(MV_TRACE_STEPS):
+            engine.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    _drive(torch, engine, [])
+    by_name = _device_times(prof)
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    if busy_ms <= 0:
+        log(f"decode trace {label}: the profiler recorded no device time "
+            f"(not measured)")
+        return None
+    n = MV_TRACE_STEPS
+    gemm_ms = sum(ms for name, (ms, _) in by_name.items()
+                  if any(k in name.lower() for k in GEMM_TRACE_KEYS))
+    log(f"decode trace {label}: {n} decode steps in {wall_ms:.1f} ms wall "
+        f"({wall_ms / n:.2f} ms/step); device busy {busy_ms:.1f} ms = "
+        f"{100 * busy_ms / wall_ms:.1f}% (idle "
+        f"{100 - 100 * busy_ms / wall_ms:.1f}%), {busy_ms / n:.2f} ms/step "
+        f"on the device against a bound of {bound_ms:.2f} ms ({bound_gb:.2f}"
+        f" GB of weights at {HBM_BYTES_PER_S / 1e12:.2f} TB/s): "
+        f"{100 * bound_ms * n / busy_ms:.1f}% of it; cuBLAS GEMM kernels "
+        f"{100 * gemm_ms / busy_ms:.1f}% of busy; "
+        f"{sum(c for _, c in by_name.values())} device ops")
+    top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:6]
+    for name, (ms, c) in top:
+        log(f"decode trace top: {ms:9.2f} ms x{c:6d}  {name[:90]}")
+    return busy_ms / wall_ms
+
+
+def _mv_run(torch, np, cfg, card, label, make_engine, reqs, must, pk, fk):
+    """One measured engine run of phases 33-34 (every kernel count reset
+    just before it, read just after): every request finishes by length,
+    each kernel in ``must`` launched. Logs tok/s, TTFT, ITL, the launches
+    and the peak device memory. Returns (launches, the (B, S) of the
+    flash calls of its prefills: vision positions included, past 256
+    padded to a multiple of 256 as ``causal_flash`` pads them)."""
+    from repro_torch.models import frontend_len
+
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    engine = make_engine()
+    prefills = _record_prefills(engine.model)
+    pk.reset_launches()
+    fk.reset_launches()
+    t0 = time.perf_counter()
+    handles, steps = _drive(torch, engine, reqs)
+    wall = time.perf_counter() - t0
+    launches = {**pk.LAUNCHES, **fk.LAUNCHES}
+    results = [h.result() for h in handles]
+    _check_served(np, cfg, results, MV_NEW)
+    missing = [k for k in must if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"{label}: {missing} never launched: {launches}")
+    nf = frontend_len(cfg)
+    shapes = [(b, nf + s + (-(nf + s) % 256 if nf + s > 256 else 0))
+              for b, s in prefills]
+    stats = getattr(engine, "stats", {})
+    _log_run(label, cfg, card, reqs, results, wall, steps,
+             f"{cfg.num_layers} layers; launches {launches}; prefills "
+             f"{stats.get('prefills', len(prefills))}, chunks "
+             f"{stats.get('prefill_chunks', 0)}; flash calls (B, S) "
+             f"{shapes}; peak device memory "
+             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches, shapes
+
+
+def run_moe_vlm_engines(torch, np, serving, models, get_arch, pk, fk, card):
+    """Phases 33-34: dbrx-132b at full width, MOE_LAYERS of its 40 layers,
+    through the paged engine in both step modes and the lockstep engine;
+    internvl2-26b whole through the paged engine (whole-prompt prefill
+    after 256 zero vision positions) and VLM_LOCK_LAYERS of it through the
+    lockstep engine; a decode window of each. Returns ({path: {kernel:
+    launches}}, the flash calls' (B, S))."""
+    paths, shapes = {}, []
+    lock_kernels = ("flash_attention_bhsd",)
+    for arch in ("dbrx-132b", "internvl2-26b"):
+        _free(torch)
+        full = get_arch(arch)
+        moe = full.family == "moe"
+        cfg = dataclasses.replace(full, num_layers=MOE_LAYERS if moe
+                                  else full.num_layers)
+        name = arch.split("-")[0]
+        before = torch.cuda.memory_allocated() / 2**30
+        t0 = time.perf_counter()
+        params = models.build_model(cfg, device="cuda").init(seed=0)
+        torch.cuda.synchronize()
+        log(f"{arch} ({before:.2f} GiB allocated before it): "
+            f"{cfg.num_layers} of {full.num_layers} layers at full "
+            f"width (d_model {cfg.d_model}, {cfg.num_heads} / "
+            f"{cfg.num_kv_heads} heads of D {cfg.head_dim}"
+            + (f", {cfg.num_experts} experts of d_ff {cfg.d_ff}, top "
+               f"{cfg.experts_per_token}" if moe else
+               f", d_ff {cfg.d_ff}, {cfg.num_frontend_tokens} vision "
+               f"positions") + f"), bf16: "
+            f"{sum(p.numel() for p in params.values()) / 1e9:.3f} B "
+            f"parameters, "
+            f"{sum(p.numel() * p.element_size() for p in params.values()) / 1e9:.2f}"
+            f" GB, seeded on the card in {time.perf_counter() - t0:.1f} s")
+        max_len = MOE_MAX_LEN if moe else VLM_MAX_LEN
+        kw = dict(max_len=max_len, max_slots=SLOTS, page_size=PAGE,
+                  device="cuda")
+        rng = np.random.default_rng(60 if moe else 61)
+        # paged: dbrx chunked, internvl2 whole-prompt (256 vision
+        # positions + a bucket of 64-512), 64-400 tokens each
+        paged = dict(kw, prefill_chunk=CHUNK)
+        lo = 64
+        warm = _mv_requests(serving, cfg, 2, rng, lo=lo, hi=lo + 8, new=4,
+                            uid="w")
+        _drive(torch, serving.ContinuousBatchingEngine(cfg, params, **paged),
+               warm)
+        reqs = _mv_requests(serving, cfg, MV_REQUESTS, rng, lo=lo, hi=400,
+                            new=MV_NEW, uid="p")
+        modes = ("fused", "interleaved") if moe else ("fused",)
+        for mode in modes:
+            path = f"{name} {mode}" if moe else f"{name} whole-prompt"
+            must = (("paged_attention_bkgd", "paged_prefill_attention_ckgd")
+                    + (("paged_mixed_attention_rkgd",) if mode == "fused"
+                       else ()) if moe
+                    else ("paged_attention_bkgd", "flash_attention_bhsd"))
+            paths[path], sh = _mv_run(
+                torch, np, cfg, card, path,
+                lambda m=mode: serving.ContinuousBatchingEngine(
+                    cfg, params, step_mode=m, **paged),
+                reqs, must, pk, fk)
+            shapes += sh
+        wbytes = _weight_bytes(models.build_model(cfg, device="meta"))
+        bound = wbytes / HBM_BYTES_PER_S * 1e3
+        win = _mv_requests(serving, cfg, SLOTS, np.random.default_rng(62),
+                           lo=lo, hi=lo + 60, new=MV_NEW, uid="d")
+        _trace_decode(
+            torch, serving.ContinuousBatchingEngine(cfg, params, **paged),
+            win, lambda e: e.stats["prefills"] >= len(win),
+            f"{name} paged ({cfg.num_layers} layers, {SLOTS} slots)", bound,
+            wbytes / 1e9)
+        # lockstep: the same prompt lengths, each batch left-padded to its
+        # longest
+        if not moe:
+            del params
+            _free(torch)
+            cfg = dataclasses.replace(full, num_layers=VLM_LOCK_LAYERS)
+            params = models.build_model(cfg, device="cuda").init(seed=0)
+        lock = dict(max_len=max_len, max_batch=LOCK_BATCH, device="cuda")
+        lreqs = _mv_requests(serving, cfg, MV_REQUESTS, rng, lo=lo, hi=400,
+                             new=MV_NEW, uid="l")
+        _drive(torch, serving.GenerationEngine(cfg, params, **lock),
+               _mv_requests(serving, cfg, 2, rng, lo=lo, hi=400, new=4,
+                            uid="w"))
+        path = f"lockstep {name}"
+        paths[path], sh = _mv_run(
+            torch, np, cfg, card, path,
+            lambda: serving.GenerationEngine(cfg, params, **lock), lreqs,
+            lock_kernels, pk, fk)
+        shapes += sh
+        wbytes = _weight_bytes(models.build_model(cfg, device="meta"))
+        _trace_decode(
+            torch, serving.GenerationEngine(cfg, params, **lock),
+            _mv_requests(serving, cfg, LOCK_BATCH, np.random.default_rng(63),
+                         lo=lo, hi=400, new=MV_NEW, uid="e"),
+            lambda e: e._bstate is not None,
+            f"{name} lockstep ({cfg.num_layers} layers, B {LOCK_BATCH})",
+            wbytes / HBM_BYTES_PER_S * 1e3, wbytes / 1e9)
+        del params
+    _free(torch)
+    # the serving driver, as a user runs dbrx-132b on one card
+    args = ("--arch", "dbrx-132b", "--layers", str(MOE_LAYERS))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="serve_moe_") as tmp:
+        out = serve_cli(*args, "--requests", "8", "--max-new", "8",
+                        "--workdir", tmp)
+    if "served 8/8" not in out or "engine=paged" not in out:
+        raise AssertionError(f"serve {args}: {out[-2000:]}")
+    log(f"serve driver {' '.join(args)} on {card} "
+        f"({time.perf_counter() - t0:.1f} s): "
+        + next(line for line in out.splitlines() if line.startswith("served")))
+    _free(torch)
+    return paths, sorted(set(shapes))
+
+
+def check_flash_group6(torch, fk, ref, engine_shapes):
+    """Flash at dbrx-132b's and internvl2-26b's widths (48 q over 8 kv
+    heads, D 128): fixed cases (causal Sq = Skv 1, 100, 272, 512; Sq 64 <
+    Skv 320; non-causal 37 x 300) and every (B, S) phases 33-34 gave the
+    kernel, bf16 within 2e-2 and f32 within 1e-3 of the plain version.
+    Returns the bf16 max abs error."""
+    h, kvh, d = FLASH_WIDTHS["dbrx D128"]
+    cases = [(2, s, s, True) for s in (1, 100, 272, 512)]
+    cases += [(2, 64, 320, True), (2, 37, 300, False)]
+    cases += [(b, s, s, True) for b, s in engine_shapes]
+    err = {}
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        g = torch.Generator(device="cuda").manual_seed(34)
+        worst = 0.0
+        for b, sq, skv, causal in cases:
+            q = torch.randn(b, h, sq, d, generator=g, device="cuda").to(dtype)
+            k, v = (torch.randn(b, kvh, skv, d, generator=g,
+                                device="cuda").to(dtype) for _ in range(2))
+            got = fk.flash_attention_bhsd(q, k, v, causal=causal)
+            want = _flash_plain(ref, q, k, v, causal)
+            torch.cuda.synchronize()
+            e = (got.float() - want.float()).abs().max().item()
+            if not e <= tol:
+                raise AssertionError(
+                    f"flash_attention_bhsd [dbrx D128 {dtype} B={b} Sq={sq} "
+                    f"Skv={skv} causal={causal}]: max abs err {e} > {tol}")
+            worst = max(worst, e)
+            del q, k, v, got, want
+        err[dtype] = worst
+        log(f"flash kernel check {str(dtype).removeprefix('torch.')} dbrx "
+            f"D128 (48 / 8 heads, G 6): {len(cases)} cases, engine (B, S) "
+            f"{engine_shapes}: max abs err {worst:.3e} (bound {tol})")
+    return err[torch.bfloat16]
+
+
+def _mv_prefill_logits(torch, np, model, impl, routes=None):
+    """One prefill's f64 logits through ``impl``: dbrx, one 64-token
+    chunk into an empty pool (``prefill_chunk``: the capacity dispatch);
+    internvl2, ``prefill`` of a 200-token prompt after 256 zero vision
+    positions (S 456, which ``causal_flash`` pads to 512). ``routes``
+    collects each layer's router top-k choices."""
+    from repro_torch.models import moe as moe_mod
+
+    cfg = model.cfg
+    model.attn_impl = impl
+    dt = model.embed.dtype
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        1, cfg.vocab_size, 256).astype(np.int32)).cuda()
+    route = moe_mod.route
+    if routes is not None:
+        def recording(p, x, c):
+            out = route(p, x, c)
+            routes.append(out[1])
+            return out
+        moe_mod.route = recording
+    try:
+        if cfg.family == "moe":
+            shape = (cfg.num_layers, 6, PAGE, cfg.num_kv_heads, cfg.head_dim)
+            pages = {k: torch.zeros(shape, dtype=dt, device="cuda")
+                     for k in ("k", "v")}
+            row = torch.tensor([1, 2, 3, 4], dtype=torch.int32, device="cuda")
+            i32 = dict(dtype=torch.int32, device="cuda")
+            logits = model.prefill_chunk(pages, row, toks[:CHUNK],
+                                         torch.tensor(0, **i32),
+                                         torch.tensor(CHUNK, **i32))
+        else:
+            vis = torch.zeros((1, cfg.num_frontend_tokens, cfg.d_model),
+                              dtype=dt, device="cuda")
+            _, logits = model.prefill({"tokens": toks[None, :200],
+                                       "vision_embeds": vis}, 456)
+            logits = logits[0]
+    finally:
+        moe_mod.route = route
+    return logits[:cfg.vocab_size].double()
+
+
+def _vlm_next_logits(torch, model, impl, row):
+    """The f64 logits of the token after ``row`` (a prompt and the tokens
+    generated after it; a lockstep row left-padded with 0 as its batch
+    pads it) through ``impl``: a dense prefill after zero vision
+    positions, the computation every engine's step makes for that row."""
+    cfg = model.cfg
+    model.attn_impl = impl
+    nf = cfg.num_frontend_tokens
+    toks = torch.tensor([row], dtype=torch.int32, device="cuda")
+    vis = torch.zeros((1, nf, cfg.d_model), dtype=model.embed.dtype,
+                      device="cuda")
+    _, logits = model.prefill({"tokens": toks, "vision_embeds": vis},
+                              nf + len(row))
+    return logits[0, :cfg.vocab_size].double()
+
+
+def _check_vlm_partings(torch, name, parted, m32, m64):
+    """Each greedy decision where internvl2's kernel and plain streams
+    part (label, the row before it, the kernel's and the plain pick),
+    recomputed by a dense prefill through the kernels and the plain
+    versions in f32 and the plain versions in f64: the two picks must be
+    a tie at f32's resolution (their f64 logits within the plain path's
+    own f32-vs-f64 gap at that row) and the kernel-vs-plain gap within
+    twice that gap (the triangle bound, ROADMAP "Parity on the card").
+    Anything else is a fault."""
+    from repro_torch.models.common import all_f64
+
+    for label, row, kpick, ppick in parted:
+        a = _vlm_next_logits(torch, m32, "auto", row)
+        b = _vlm_next_logits(torch, m32, "ref", row)
+        with all_f64():
+            c = _vlm_next_logits(torch, m64, "ref", row)
+        kp = (a - b).abs().max().item()
+        own = (b - c).abs().max().item()
+        tie = abs(c[kpick] - c[ppick]).item()
+        log(f"{name} parity {label}: the streams part after {len(row)} "
+            f"tokens: kernel {kpick}, plain {ppick}, f64 argmax "
+            f"{c.argmax().item()}; f64 logits of the two picks differ by "
+            f"{tie:.3e}; max |logit kernel - plain| {kp:.3e}, plain f32 - "
+            f"f64 {own:.3e}")
+        if not (tie <= own and kp <= 2 * own):
+            raise AssertionError(
+                f"{name} {label} f32: the kernel and plain streams part "
+                f"where the f64 logits of the two picks differ by {tie:.3e} "
+                f"(plain f32 - f64 {own:.3e}; kernel - plain {kp:.3e})")
+
+
+def run_moe_vlm_parity(torch, np, serving, models, get_arch):
+    """Phase 35: both families at PARITY_LAYERS, full width, f32, TF32
+    off. The one-prefill logit gap of the kernels to the plain versions
+    must stay within twice the plain path's own f32-vs-f64 gap (the
+    triangle bound, ROADMAP "Parity on the card"); the routers' top-k
+    choices of that prefill through kernels and plain versions are
+    counted (dbrx). The greedy streams of dbrx's paged engine in each step
+    mode and of its lockstep engine through the kernels equal those
+    through the plain versions; so do those of internvl2's whole-prompt
+    paged and lockstep engines, but where f32 rounding alone decides a
+    near-tie (``_check_vlm_partings``)."""
+    from repro_torch.models.common import all_f64
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for arch in ("dbrx-132b", "internvl2-26b"):
+        _free(torch)
+        full = get_arch(arch)
+        moe = full.family == "moe"
+        name = arch.split("-")[0]
+        cfg32 = dataclasses.replace(full, num_layers=PARITY_LAYERS,
+                                    dtype="float32")
+        model = models.build_model(cfg32, device="cuda")
+        params = model.init(seed=1)
+        routes = {"auto": [], "ref": []}
+        logits = {impl: _mv_prefill_logits(torch, np, model, impl,
+                                           routes[impl])
+                  for impl in ("auto", "ref")}
+        max_len = MOE_MAX_LEN if moe else VLM_MAX_LEN
+        kw = dict(max_len=max_len, device="cuda")
+        lo, hi = 64, 200 if moe else 256
+        engines = {}
+        if moe:
+            for mode in ("fused", "interleaved"):
+                engines[mode] = (
+                    lambda impl, m=mode: serving.ContinuousBatchingEngine(
+                        cfg32, params, max_slots=4, page_size=PAGE,
+                        prefill_chunk=CHUNK, step_mode=m, attn_impl=impl,
+                        **kw))
+        else:
+            engines["whole-prompt"] = (
+                lambda impl: serving.ContinuousBatchingEngine(
+                    cfg32, params, max_slots=4, page_size=PAGE,
+                    attn_impl=impl, **kw))
+        engines["lockstep"] = (
+            lambda impl: serving.GenerationEngine(
+                cfg32, params, max_batch=4, attn_impl=impl, **kw))
+        parted = []  # vlm: (label, row, kernel pick, plain pick)
+        for label, make in engines.items():
+            streams = {}
+            for impl in ("auto", "ref"):
+                reqs = [serving.Request(r.uid, r.prompt,
+                                        sampling=serving.SamplingParams(
+                                            max_new_tokens=12))
+                        for r in _mv_requests(serving, cfg32, 4,
+                                              np.random.default_rng(64),
+                                              lo=lo, hi=hi, new=12,
+                                              uid="q")]
+                # the handles, which hold their engine, die in the helper
+                streams[impl] = _ssm_streams(torch, make(impl), reqs)
+            diffs = _first_diffs(streams["auto"], streams["ref"])
+            if moe and any(d is not None for d in diffs):
+                raise AssertionError(
+                    f"{name} {label} f32: kernel vs plain streams differ at "
+                    f"{diffs}")
+            # lockstep rows are left-padded to the batch's longest prompt
+            plen = max(len(r.prompt) for r in reqs)
+            for r, d, k, p in zip(reqs, diffs, streams["auto"],
+                                  streams["ref"]):
+                if d is not None:
+                    pad = [0] * (plen - len(r.prompt)
+                                 if label == "lockstep" else 0)
+                    parted.append((label, pad + r.prompt + p[:d], k[d],
+                                   p[d]))
+            log(f"{name} parity {label}: {PARITY_LAYERS} layers, full width,"
+                f" f32: {len(streams['auto'])} greedy streams of 12 tokens "
+                f"through kernels and plain versions, first differing "
+                f"token {diffs}")
+        del engines
+        if moe:  # 31 GB in f32 at 2 layers: gone before its f64 copy
+            model = params = None
+        _free(torch)
+        with all_f64():
+            m64 = models.build_model(dataclasses.replace(
+                cfg32, dtype="float64"), device="cuda")
+            m64.init(seed=1)
+            logits["f64"] = _mv_prefill_logits(torch, np, m64, "ref")
+        _check_vlm_partings(torch, name, parted, model, m64)
+        del m64, model, params
+        a, b, c = logits["auto"], logits["ref"], logits["f64"]
+        kp = (a - b).abs().max().item()
+        own = (b - c).abs().max().item()
+        flips = ""
+        if moe:
+            differ = sum(int((x != y).any(-1).sum())
+                         for x, y in zip(routes["auto"], routes["ref"]))
+            total = sum(x.shape[0] * x.shape[1] for x in routes["auto"])
+            flips = (f"; router top-{cfg32.experts_per_token} choices that "
+                     f"differ between kernels and plain versions: {differ} "
+                     f"of {total} (token, layer) pairs")
+        top2 = c.topk(2).values
+        log(f"{name} parity: one prefill, max |logit kernel - plain| = "
+            f"{kp:.3e}, plain f32 - f64 = {own:.3e}, argmax "
+            f"{a.argmax().item()} / {b.argmax().item()} / "
+            f"{c.argmax().item()}, f64 top-2 margin "
+            f"{(top2[0] - top2[1]).item():.3e}{flips}")
+        if not kp <= 2 * own:
+            raise AssertionError(f"{name} f32: kernel vs plain logits "
+                                 f"{kp:.3e} > 2 x the plain path's own "
+                                 f"f32-vs-f64 gap {own:.3e}")
+    _free(torch)
+
+
+def run_moe_vlm_train(torch, np, get_arch, fk, pk, sk, card):
+    """Phase 36: ``launch.train`` (``run_train``) at full width on
+    internvl2-26b and dbrx-132b at the depths TRAIN_RUNS gives them, no
+    chaos, one checkpoint (after the last step, which the evaluation
+    restores). Before each run, every leaf's first gradient (the driver's
+    initial weights, the corpus's first batch) must be finite and nonzero,
+    the router's and ``vision_proj``'s included. Returns {path: flash
+    launches}."""
+    from repro_torch.data import DataConfig, SyntheticCorpus
+    from repro_torch.models import build_model, frontend_len
+    from repro_torch.models.common import flatten_tree
+    from repro_torch.train import AdamWConfig, init_train_state
+    from repro_torch.train.step import _loss_and_grads
+
+    flash = "flash_attention_bhsd"
+    out = {}
+    for arch in ("internvl2-26b", "dbrx-132b"):
+        _free(torch)
+        run = TRAIN_RUNS[arch]
+        cfg = get_arch(arch)
+        cut = dataclasses.replace(cfg, num_layers=run["layers"])
+        model = build_model(cut, device="cuda")
+        state = init_train_state(model, 0, AdamWConfig(
+            moment_dtype="float32"))
+        batch = SyntheticCorpus(DataConfig(
+            vocab_size=cut.vocab_size, seq_len=run["seq"],
+            global_batch=run["batch"], vision_tokens=frontend_len(cut),
+            d_model=cut.d_model, dtype=cut.dtype)).batch_at(0)
+        dt = getattr(torch, cut.dtype)
+        batch = {k: torch.as_tensor(v, device="cuda").to(
+            dt if k == "vision_embeds" else torch.int32)
+            for k, v in batch.items()}
+        _, _, grads = _loss_and_grads(model, state["params"], batch)
+        flat = flatten_tree(grads)
+        dead = [k for k, g in flat.items()
+                if not (torch.isfinite(g).all() and g.abs().sum() > 0)]
+        log(f"train {arch} first gradients: {len(flat)} leaves, "
+            f"{len(dead)} zero or non-finite")
+        if dead:
+            raise AssertionError(f"train {arch}: zero or non-finite "
+                                 f"gradients: {dead}")
+        del model, state, batch, grads, flat
+        _free(torch)
+        launches = run_train(torch, cfg, fk, pk, sk, card, (flash,))
+        out[f"train {arch.split('-')[0]}"] = launches[flash]
+    _free(torch)
+    return out
+
+
 # the bf16 tensor-core kernels: library -> (C info entry, its page kinds)
 MMA_KERNELS = {"flash_attention": ("flash_attention_mma_info", (None,)),
                "paged_attention": ("paged_attention_prefill_mma_info",
@@ -3818,8 +4436,10 @@ def main() -> int:
     for wname in PAGED_WIDTHS:
         for quant in (False, True):
             e = check_kernels(torch, ops, ref, wname, quant)
-            if wname == MAIN_WIDTH:
-                (int8_errs if quant else errs).update(e)
+            if wname in (MAIN_WIDTH, "dbrx D128"):  # the engines' widths
+                acc = int8_errs if quant else errs
+                for name, x in e.items():
+                    acc[name] = max(acc.get(name, 0.0), x)
     lap("paged kernel checks")
     times = time_kernels(torch, F, ops, ref)
     for wname in PAGED_WIDTHS:  # the redesigned kernels at the other widths
@@ -3953,6 +4573,22 @@ def main() -> int:
     by_path[flash].update(paths)
     errs[flash] = max(errs[flash], whisper_err)
     lap("whisper")
+    del paths
+    counts_by_path, mv_shapes = run_moe_vlm_engines(
+        torch, np, serving, models, get_arch, pk, fk, card)
+    for path, counts in counts_by_path.items():
+        for name, n in counts.items():
+            if n:
+                by_path[name][path] = n
+    lap("dbrx and internvl2 engines")
+    errs[flash] = max(errs[flash], check_flash_group6(torch, fk, ref,
+                                                      mv_shapes))
+    lap("flash check at the group-6 width")
+    run_moe_vlm_parity(torch, np, serving, models, get_arch)
+    lap("dbrx and internvl2 parity")
+    by_path[flash].update(run_moe_vlm_train(torch, np, get_arch, fk, pk, sk,
+                                            card))
+    lap("dbrx and internvl2 train")
     kernels = [dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=sum(by_path[name].values()),
                     launches_by_path=by_path[name],

@@ -23,7 +23,8 @@ Fault-tolerance properties (the paper's C6, adapted):
     background thread, so the train loop overlaps I/O with compute;
   * leaves are written and hashed, and read and verified, by a pool of
     threads, each leaf's sha256 taken over the bytes written (the JAX
-    package re-reads each file to hash it).
+    package re-reads each file to hash it); a sync save copies each leaf
+    to the host in the thread that writes it.
 
 Elastic restore onto another device mesh (``restore(shardings=...)``)
 needs tensor parallelism (ROADMAP A.10) and raises until then.
@@ -44,7 +45,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core.storage import host_array, npy_bytes, tree_flatten
+from repro_torch.core.storage import host_array, npy_parts, tree_flatten
 
 
 _IO_THREADS = 8
@@ -58,13 +59,37 @@ def _leaf_dtype(leaf: Any) -> str:
     return str(np.asarray(leaf).dtype)
 
 
+def _read_file(path: Path) -> np.ndarray:
+    """A file's bytes, read once into a buffer of our own."""
+    raw = np.empty(path.stat().st_size, np.uint8)
+    with open(path, "rb") as f:
+        if f.readinto(memoryview(raw)) != raw.size:
+            raise IOError(f"short read of {path}")
+    return raw
+
+
+def _npy_array(raw: np.ndarray) -> np.ndarray:
+    """The array of a ``.npy`` file's bytes, as a view over them:
+    ``np.load`` of the bytes would copy them again."""
+    head = io.BytesIO(raw[:1 << 16].tobytes())
+    major, _ = np.lib.format.read_magic(head)
+    read = (np.lib.format.read_array_header_1_0 if major == 1
+            else np.lib.format.read_array_header_2_0)
+    shape, fortran, dtype = read(head)
+    arr = raw[head.tell():].view(dtype)
+    if fortran:
+        return arr.reshape(shape[::-1]).transpose()
+    return arr.reshape(shape)
+
+
 def _from_npy(arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
-    """A loaded leaf as a CPU tensor of ``dtype``; bf16 files load as V2
-    (16-bit patterns)."""
+    """A loaded leaf (an array over a buffer of its own) as a CPU tensor
+    of ``dtype``, sharing that buffer; bf16 files load as V2 (16-bit
+    patterns)."""
     if arr.dtype.kind == "V":
-        t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
-        t = torch.from_numpy(arr.copy())
+        t = torch.from_numpy(arr)
     return t.to(dtype)
 
 
@@ -108,11 +133,14 @@ class CheckpointManager:
 
     def save(self, step: int, tree: Any, meta: dict | None = None, sync: bool = True):
         self.wait()
-        # snapshot to host memory first: the device->host copy that the
-        # async thread must not race with (the train step updates its
-        # state in place)
         leaves, structure = tree_flatten(tree)
-        host = [(k, host_array(v), _leaf_dtype(v)) for k, v in leaves]
+        # an async save snapshots to host memory first: the device->host
+        # copy that its thread must not race with (the train step updates
+        # its state in place). A sync save copies each leaf in the thread
+        # that writes it, so the host holds a few leaves at a time, not
+        # the whole state (45 GB for dbrx-132b at one layer)
+        host = [(k, v if sync else host_array(v), _leaf_dtype(v))
+                for k, v in leaves]
 
         def write():
             try:
@@ -134,20 +162,30 @@ class CheckpointManager:
             shutil.rmtree(tmp)
         tmp.mkdir(parents=True)
 
-        def one(i, keypath, arr, dtype):
+        def one(i, keypath, leaf, dtype):
             fname = f"leaf_{i:05d}.npy"
-            blob = npy_bytes(arr, bf16=dtype == "bfloat16")
-            (tmp / fname).write_bytes(blob)
+            arr = host_array(leaf)
+            head, data = npy_parts(arr, bf16=dtype == "bfloat16")
+            # header and data are hashed and written as they lie, never
+            # joined into one blob (a copy of every byte, made holding
+            # the GIL)
+            raw = memoryview(data.reshape(-1).view(np.uint8))
+            digest = hashlib.sha256(head)
+            digest.update(raw)
+            with open(tmp / fname, "wb") as f:
+                f.write(head)
+                f.write(raw)
             return {
                 "key": keypath,
                 "file": fname,
                 "shape": list(arr.shape),
                 "dtype": dtype,
-                "sha256": hashlib.sha256(blob).hexdigest(),
+                "sha256": digest.hexdigest(),
             }
 
-        # leaves are written and hashed in parallel (file I/O and hashlib
-        # release the GIL): a full-width train state is 3.6 GB
+        # leaves are copied to the host, written and hashed in parallel
+        # (the copy, file I/O and hashlib release the GIL): a full-width
+        # train state is 3.6-45 GB
         with ThreadPoolExecutor(_IO_THREADS) as pool:
             entries = list(pool.map(one, range(len(host)), *zip(*host)))
         manifest = {
@@ -203,12 +241,12 @@ class CheckpointManager:
 
         def one(key, ref):
             e = by_key[key]
-            raw = (d / e["file"]).read_bytes()
+            raw = _read_file(d / e["file"])
             if verify:
-                digest = hashlib.sha256(raw).hexdigest()
+                digest = hashlib.sha256(memoryview(raw)).hexdigest()
                 if digest != e["sha256"]:
                     raise IOError(f"integrity failure for {key} in {d}")
-            arr = np.load(io.BytesIO(raw))
+            arr = _npy_array(raw)
             want_shape = tuple(ref.shape)
             if tuple(arr.shape) != want_shape:
                 raise ValueError(f"{key}: ckpt {arr.shape} vs expected {want_shape}")

@@ -191,8 +191,10 @@ def host_array(leaf: Any) -> np.ndarray:
     return t.numpy()
 
 
-def npy_bytes(leaf: Any, bf16: bool | None = None) -> bytes:
-    """The ``.npy`` file JAX's ``np.save`` writes for the same values. A
+def npy_parts(leaf: Any, bf16: bool | None = None) -> tuple[bytes, np.ndarray]:
+    """The ``.npy`` file JAX's ``np.save`` writes for the same values, as
+    its header and an array whose raw bytes follow it, so that a writer
+    streams (and hashes) them without first joining them in memory. A
     bf16 tensor (or, with ``bf16=True``, an int16 array of bf16 patterns
     from :func:`host_array`) gets JAX's bfloat16 header, descr ``'<V2'``
     (plain numpy's V2 would write ``'|V2'``), then its raw bits."""
@@ -201,11 +203,16 @@ def npy_bytes(leaf: Any, bf16: bool | None = None) -> bytes:
     if bf16 is None:
         bf16 = isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16
     arr = host_array(leaf)
+    head = np.lib.format.header_data_from_array_1_0(arr)
+    if bf16:
+        head.update(descr="<V2", fortran_order=False)
     buf = io.BytesIO()
-    if not bf16:
-        np.save(buf, arr)
-        return buf.getvalue()
-    np.lib.format.write_array_header_1_0(buf, {
-        "descr": "<V2", "fortran_order": False, "shape": tuple(arr.shape)})
-    buf.write(np.ascontiguousarray(arr).tobytes())
-    return buf.getvalue()
+    np.lib.format.write_array_header_1_0(buf, head)
+    data = arr.T if head["fortran_order"] else arr
+    return buf.getvalue(), np.ascontiguousarray(data)
+
+
+def npy_bytes(leaf: Any, bf16: bool | None = None) -> bytes:
+    """The whole ``.npy`` file of :func:`npy_parts`."""
+    head, data = npy_parts(leaf, bf16)
+    return head + data.tobytes()

@@ -57,14 +57,14 @@ class SyntheticCorpus:
             nxt = self._succ[toks[:, t], choices[:, t]]
             toks[:, t + 1] = np.where(noise[:, t], rand[:, t], nxt)
         batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:].copy()}
+        # numpy has no bf16: a bf16 model's vision embeddings and frames
+        # come in f32, and the trainer casts them on the device
+        dt = "float32" if cfg.dtype == "bfloat16" else cfg.dtype
         if cfg.vision_tokens:
             batch["vision_embeds"] = rng.standard_normal(
                 (b, cfg.vision_tokens, cfg.d_model)
-            ).astype(cfg.dtype)
+            ).astype(dt)
         if cfg.frames:
-            # numpy has no bf16: such frames come in f32, and the trainer
-            # casts them on the device
-            dt = "float32" if cfg.dtype == "bfloat16" else cfg.dtype
             batch["frames"] = rng.standard_normal((b, s, cfg.d_model)).astype(dt)
         return batch
 

@@ -127,6 +127,10 @@ def _flash_kernel(q, k, v, causal, scale):
     return out.transpose(1, 2)
 
 
+# the K/V block of the flash op's length contract (its ``block_kv``)
+FLASH_BLOCK_KV = 256
+
+
 def flash_attention(
     q: torch.Tensor,  # (B, Sq, H, D)
     k: torch.Tensor,  # (B, Skv, KVH, D)
@@ -135,7 +139,7 @@ def flash_attention(
     causal: bool = True,
     scale: float | None = None,
     impl: str = "auto",
-    block_kv: int = 256,
+    block_kv: int = FLASH_BLOCK_KV,
 ) -> torch.Tensor:
     """Multi-head / grouped-query attention. Returns (B, Sq, H, D).
 

@@ -3,10 +3,11 @@ streaming deltas.
 
 Requests land on the ``requests`` topic (Kafka analogue). Worker threads
 each drive one engine — :class:`repro_torch.serving.ContinuousBatchingEngine`
-for the dense family (``--prefill-chunk 0``: whole-prompt prefill),
+for the dense, moe (dbrx-132b) and vlm (internvl2-26b) families
+(``--prefill-chunk 0``: whole-prompt prefill, which vlm always takes),
 :class:`repro_torch.serving.SSMEngine` for the ssm (mamba2) and hybrid
 (zamba2) families, :class:`repro_torch.serving.GenerationEngine` for
-``--engine lockstep`` (dense, ssm, hybrid and the encoder-decoder) —
+``--engine lockstep`` (every decoder family and the encoder-decoder) —
 through the engine protocol: pull up to
 ``engine.capacity()`` messages,
 parse them with the shared boundary parser, ``submit()``, and publish each
@@ -25,6 +26,10 @@ attention and SSD versions on the CPU, for tests and reduced configs):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
       --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
+      --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b \\
+      --reduced --device cpu --step-mode interleaved
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-26b \\
       --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --engine lockstep \\
       --reduced --device cpu
@@ -56,16 +61,20 @@ the read-only weights and each build their own engine and page pool on
 ``--role worker --worker-name NAME`` runs one fleet worker loop against an
 existing ``--workdir`` bus, whose supervisor runs elsewhere.
 
-The moe and vlm families (ROADMAP A.7) raise with a message naming their
-ROADMAP item; an encoder-decoder config (whisper-tiny) without ``--engine
-lockstep`` raises ``UnsupportedConfigError`` (no continuous-batching
-engine serves it), as in the JAX driver. The JAX package's mesh flag has
-no counterpart yet (ROADMAP A.10).
+``--layers N`` cuts the depth at full width (``--arch dbrx-132b --layers
+4`` serves a 28.5 GB model on one card). An encoder-decoder config
+(whisper-tiny) without ``--engine lockstep``
+raises ``UnsupportedConfigError`` (no continuous-batching engine serves
+it), as in the JAX driver. The engines' ``max_len`` is the JAX driver's
+plus a vlm's ``num_frontend_tokens``, so its requests fit after the
+vision positions. The JAX package's mesh flag has no counterpart yet
+(ROADMAP A.10).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import threading
 import time
 from pathlib import Path
@@ -74,10 +83,15 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-360m",
                     help="a config of repro_torch.configs: dense (e.g. "
-                         "smollm-360m: paged or lockstep), ssm (mamba2-1.3b) "
-                         "or hybrid (zamba2-2.7b): the SSM engine, or "
-                         "lockstep")
+                         "smollm-360m), moe (dbrx-132b) or vlm "
+                         "(internvl2-26b): paged or lockstep; ssm "
+                         "(mamba2-1.3b) or hybrid (zamba2-2.7b): the SSM "
+                         "engine, or lockstep")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=0, metavar="N",
+                    help="cut the model's depth to N layers at full width "
+                         "(dbrx-132b fits one card at 4 of its 40); 0 keeps "
+                         "the config's")
     ap.add_argument("--device", default="cuda",
                     help="where the model, page pool and steps live "
                          "('cuda' needs a card; 'cpu' runs the plain "
@@ -155,7 +169,7 @@ def main() -> int:
     from repro_torch.core.autoscaler import Autoscaler, AutoscalerConfig
     from repro_torch.core.events import EventLog
     from repro_torch.core.registry import ServiceRegistry
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, frontend_len
     from repro_torch.serving import (
         ContinuousBatchingEngine,
         DeadlineAdmission,
@@ -172,14 +186,12 @@ def main() -> int:
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    ssm_ok = cfg.family in ("ssm", "hybrid")
-    if not (cfg.is_encoder_decoder or ssm_ok or cfg.family == "dense"):
-        raise UnsupportedConfigError(
-            f"{cfg.name} (family={cfg.family!r}): the port serves the dense "
-            f"(paged, lockstep), ssm and hybrid (SSM engine, lockstep) "
-            f"families and the encoder-decoder (lockstep); moe/vlm wait for "
-            f"ROADMAP A.7")
-    if args.engine == "paged" and cfg.is_encoder_decoder:
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    ssm_ok = not cfg.is_encoder_decoder and cfg.family in ("ssm", "hybrid")
+    paged_ok = not cfg.is_encoder_decoder and cfg.family in ("dense", "moe",
+                                                             "vlm")
+    if args.engine == "paged" and not (paged_ok or ssm_ok):
         # no silent lockstep downgrade: the caller asked for continuous
         # batching, and neither the page-pool nor the recurrent-state
         # engine can serve this config
@@ -189,7 +201,7 @@ def main() -> int:
             f"{cfg.is_encoder_decoder}); pass --engine lockstep to serve "
             f"it with the micro-batching baseline")
     use_ssm = args.engine == "paged" and ssm_ok
-    use_paged = args.engine == "paged" and not ssm_ok
+    use_paged = args.engine == "paged" and paged_ok
     workdir = Path(args.workdir)
     workdir.mkdir(parents=True, exist_ok=True)
     bus = TopicBus(workdir / "bus")
@@ -198,7 +210,7 @@ def main() -> int:
 
     params = build_model(cfg, device=args.device).init(seed=0)
     shared = list(range(2, 2 + args.shared_prefix))
-    max_len = 64 + args.shared_prefix + args.max_new
+    max_len = 64 + args.shared_prefix + args.max_new + frontend_len(cfg)
 
     # ---- producer: enqueue requests (mixed sampling params, so the full
     # Request surface travels through the bus, not just uid/prompt) ----

@@ -9,9 +9,10 @@ chaos injection. The train step checkpoints every ``--ckpt-every`` steps and
 resumes from the latest checkpoint after a pod death; the data pipeline
 replays deterministically from the restored step.
 
-Every family the port has trains here: dense, ssm (mamba2), hybrid
-(zamba2) and the encoder-decoder (whisper, on the pipeline's ``frames``);
-moe and vlm wait for ROADMAP A.7. The model trains on ``--device``
+Every family trains here: dense, moe (dbrx, ``ce + 0.01 * aux``), vlm
+(internvl2, on the pipeline's ``vision_embeds``), ssm (mamba2), hybrid
+(zamba2) and the encoder-decoder (whisper, on the pipeline's ``frames``).
+The model trains on ``--device``
 (``cuda`` by default: attention through the flash kernel's forward and
 the SSD scan through the scan kernel's, each inside its autograd
 Function; ``--attn-impl ref`` / ``--ssd-impl ref`` force the plain
@@ -23,6 +24,10 @@ for tests and reduced configs):
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \\
       --reduced --device cpu --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-tiny \\
+      --reduced --device cpu --steps 20
+  PYTHONPATH=src python -m repro_torch.launch.train --arch dbrx-132b \\
+      --reduced --device cpu --steps 20
+  PYTHONPATH=src python -m repro_torch.launch.train --arch internvl2-26b \\
       --reduced --device cpu --steps 20
 
 Each train attempt records its device memory at its start, its step
@@ -42,9 +47,10 @@ from pathlib import Path
 
 import torch
 
-# seconds between the beats a pod sends while it saves or restores a
-# checkpoint: well inside the scheduler's liveness window (30 s), which a
-# full-width checkpoint outlasts (zamba2-2.7b's 24 GB take ~50 s to save)
+# seconds between the beats a pod sends while it builds its model, or
+# saves or restores a checkpoint: well inside the scheduler's liveness
+# window (30 s), which saving a full-width train state of tens of GB
+# can outlast
 KEEPALIVE_S = 5.0
 
 
@@ -63,9 +69,9 @@ def _dir_bytes(path: Path) -> int:
 @contextlib.contextmanager
 def _keepalive(ctx, progress: int):
     """Heartbeats from a side thread every KEEPALIVE_S while the block
-    runs, so a long checkpoint save or restore does not read as a dead pod
-    to the liveness probe. The side thread only beats; a kill still lands
-    at the pod's own next ``ctx.beat``."""
+    runs, so a long model build, checkpoint save or restore does not read
+    as a dead pod to the liveness probe. The side thread only beats; a
+    kill still lands at the pod's own next ``ctx.beat``."""
     stop = threading.Event()
 
     def beat():
@@ -89,7 +95,7 @@ def build_workflow(args, workdir: Path, cfg=None, stats: dict | None = None):
     from repro_torch.configs import get_arch, reduced
     from repro_torch.core.dag import Step, StepGraph
     from repro_torch.data import DataConfig, SyntheticCorpus
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, frontend_len
     from repro_torch.models.common import flatten_tree, resolve_device, tree_map
     from repro_torch.train import AdamWConfig, init_train_state, make_train_step
     from repro_torch.train.step import abstract_train_state, make_eval_step
@@ -109,11 +115,13 @@ def build_workflow(args, workdir: Path, cfg=None, stats: dict | None = None):
     attempts = (stats if stats is not None else {}).setdefault("attempts", [])
 
     def on_device(batch: dict) -> dict:
-        """The batch on the device; ``frames`` in the model's dtype (the
-        pipeline makes bf16 models' frames in f32: numpy has no bf16)."""
+        """The batch on the device; ``frames`` and ``vision_embeds`` in the
+        model's dtype (the pipeline makes bf16 models' in f32: numpy has no
+        bf16)."""
         out = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
-        if "frames" in out:
-            out["frames"] = out["frames"].to(model_dtype)
+        for k in ("frames", "vision_embeds"):
+            if k in out:
+                out[k] = out[k].to(model_dtype)
         return out
 
     def restore_into(model, ckpt, like, step=None):
@@ -129,7 +137,7 @@ def build_workflow(args, workdir: Path, cfg=None, stats: dict | None = None):
         dc = DataConfig(
             vocab_size=cfg.vocab_size, seq_len=args.seq_len,
             global_batch=args.batch, seed=args.seed,
-            vision_tokens=cfg.num_frontend_tokens if cfg.family == "vlm" else 0,
+            vision_tokens=frontend_len(cfg),
             frames=cfg.is_encoder_decoder, d_model=cfg.d_model, dtype=cfg.dtype,
         )
         return {"data_config": dc}
@@ -141,25 +149,28 @@ def build_workflow(args, workdir: Path, cfg=None, stats: dict | None = None):
         attempts.append(rec)
         dc = inputs["data_config"]
         corpus = SyntheticCorpus(dc)
-        model = build_model(cfg, device=device, **impls)
-        step_fn = make_train_step(model, opt_cfg, ga=args.ga)
         ckpt = CheckpointManager(ctx.claim_path or workdir / "ckpt", keep=2)
-
         start = ckpt.latest_step()
-        if start is not None:
-            t0 = time.perf_counter()
-            with _keepalive(ctx, start):
+        # the pod is live from its start: building a full-width model and
+        # its state (or restoring them) must not read as a dead pod
+        with _keepalive(ctx, start or 0):
+            model = build_model(cfg, device=device, **impls)
+            step_fn = make_train_step(model, opt_cfg, ga=args.ga)
+            if start is not None:
+                t0 = time.perf_counter()
                 state, meta = restore_into(
                     model, ckpt, abstract_train_state(model, opt_cfg),
                     step=start)
                 _allocated(device)  # the copies to the card have landed
-            rec.update(restore_s=time.perf_counter() - t0,
-                       restore_bytes=_dir_bytes(ckpt._step_dir(start)),
-                       start_step=start)
+                rec.update(restore_s=time.perf_counter() - t0,
+                           restore_bytes=_dir_bytes(ckpt._step_dir(start)),
+                           start_step=start)
+            else:
+                state = init_train_state(model, args.seed, opt_cfg)
+        if start is not None:
             losses = list(meta.get("losses", []))
             ctx.beat(progress=start, info="restored")
         else:
-            state = init_train_state(model, args.seed, opt_cfg)
             losses = []
             start = 0
 
@@ -182,11 +193,11 @@ def build_workflow(args, workdir: Path, cfg=None, stats: dict | None = None):
     def evaluate(inputs, ctx):
         dc = inputs["data_config"]
         corpus = SyntheticCorpus(dc)
-        model = build_model(cfg, device=device, **impls)
         ckpt = CheckpointManager(inputs["ckpt_dir"])
-        # only the parameters: the moments are not needed to evaluate
-        like = {"params": abstract_train_state(model, opt_cfg)["params"]}
         with _keepalive(ctx, 0):
+            model = build_model(cfg, device=device, **impls)
+            # only the parameters: the moments are not needed to evaluate
+            like = {"params": abstract_train_state(model, opt_cfg)["params"]}
             state, _ = restore_into(model, ckpt, like)
         eval_fn = make_eval_step(model)
         tot = 0.0

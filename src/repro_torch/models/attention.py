@@ -7,7 +7,7 @@ for CPU tensors):
 
 * whole sequence (prefill): ``self_attention`` and
   ``self_attention_with_cache_write`` (which also returns the K/V that seed
-  a cache), through the flash kernel;
+  a cache), through the flash kernel (``causal_flash``: at any length);
 * dense cache (lockstep decode): ``decode_self_attention`` writes the new
   K/V into the layer's ``(B, Smax, KVH, Dh)`` cache IN PLACE and attends
   with ``decode_attention_raw`` (plain f32 einsums, as in the JAX package:
@@ -94,6 +94,23 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return out.reshape(*out.shape[:-2], -1) @ wo.reshape(-1, wo.shape[-1])
 
 
+def causal_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 attn_impl: str) -> torch.Tensor:
+    """Causal self-attention through ``ops.flash_attention`` at any length.
+    The op keeps the JAX op's length contract (past ``FLASH_BLOCK_KV``
+    positions, a multiple of it), which a vlm prompt after its 256 vision
+    positions, or a lockstep batch padded to its longest prompt, rarely
+    meets; such a sequence is padded at its end with zero rows up to the
+    next multiple and the output cut back. Under the causal mask no real
+    row attends a pad row, so the output is the unpadded attention's."""
+    s, blk = q.shape[1], ops.FLASH_BLOCK_KV
+    pad = -s % blk if s > blk else 0
+    if pad:
+        q, k, v = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                   for t in (q, k, v))
+    return ops.flash_attention(q, k, v, causal=True, impl=attn_impl)[:, :s]
+
+
 def self_attention(
     p: dict,
     x: torch.Tensor,  # (B, S, D)
@@ -108,7 +125,8 @@ def self_attention(
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     q, k, v = _project_qkv(p, x, cfg, positions, rope)
-    out = ops.flash_attention(q, k, v, causal=causal, impl=attn_impl)
+    out = (causal_flash(q, k, v, attn_impl) if causal else
+           ops.flash_attention(q, k, v, causal=False, impl=attn_impl))
     return _out_proj(out, p["wo"])
 
 
@@ -128,7 +146,7 @@ def self_attention_with_cache_write(
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     q, k, v = _project_qkv(p, x, cfg, positions, rope)
-    out = ops.flash_attention(q, k, v, causal=True, impl=attn_impl)
+    out = causal_flash(q, k, v, attn_impl)
     return _out_proj(out, p["wo"]), (k, v)
 
 

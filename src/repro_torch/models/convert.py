@@ -5,7 +5,9 @@ parameters as numpy arrays — ``jax.tree.map(np.asarray, model.init(key))``
 — and returns the port's state dict (CPU tensors, same dtypes), ready for
 the port model's ``load_state_dict``, so both packages compute the same
 function. The stacked ``(L, ...)`` leaves keep their layout; only the
-nesting becomes dotted names (``layers.attn.wq``, ``decoder.xattn.wq``).
+nesting becomes dotted names (``layers.attn.wq``, ``decoder.xattn.wq``,
+the moe family's ``layers.moe.router`` and ``layers.moe.w_gate`` (L, E,
+D, F), the vlm family's unstacked ``vision_proj``).
 
 ``train_state_from_jax(cfg, state)`` carries a whole JAX train state
 ``{"params", "opt": {"m", "v"}, "step"}`` (numpy leaves) across into the

@@ -1,28 +1,34 @@
-"""Decoder-only LM, dense, ssm and hybrid families, with the serving entry
-points.
+"""Decoder-only LM, every decoder family (dense, moe, vlm, ssm, hybrid),
+with the serving entry points.
 
 One ``nn.Module`` holding the same stacked ``(L, ...)`` parameters as
 ``repro/models/lm.py`` (names ``embed``, ``final_norm``, ``layers.ln1``,
-``layers.attn.wq`` ... for dense, ``layers.ln``, ``layers.mamba.w_z`` ...
-for ssm and hybrid, plus the hybrid's unstacked ``shared.{ln1, attn, ln2,
-mlp}`` block), on an explicit device. The hybrid (Zamba2) stack is
+``layers.attn.wq`` ... for dense, ``layers.moe.{router, w_gate, w_up,
+w_down}`` in place of ``layers.mlp`` for moe, ``vision_proj`` beside the
+dense tree for vlm, ``layers.ln``, ``layers.mamba.w_z`` ... for ssm and
+hybrid, plus the hybrid's unstacked ``shared.{ln1, attn, ln2, mlp}``
+block), on an explicit device. The hybrid (Zamba2) stack is
 ``L // attn_every`` groups, each the shared attention + MLP block (the
 same weights every time, its own KV layer each time) followed by
-``attn_every`` Mamba2 layers. The entry points serve the engines, each a
-Python loop over the layers:
+``attn_every`` Mamba2 layers. The moe family's block is attention then
+``models/moe.py``'s ``moe_block``; the vlm family's is the dense one,
+after projected vision embeddings (``batch["vision_embeds"]``, the stub
+frontend's) are prepended to the token embeddings. The entry points serve
+the engines, each a Python loop over the layers:
 
-  * dense, ssm and hybrid, dense per-sequence cache (the lockstep engine,
-    and the whole-prompt admission of the paged engine): ``init_cache``,
-    ``prefill`` (a whole padded batch of prompts; attention through the
-    flash kernel, K/V padded to ``max_len``; Mamba layers through
-    ``mamba_block``, the scan from a zero state) and ``decode_step`` (one
-    token per row, the cache written in place);
-  * dense (paged KV pool, written in place):
-    ``decode_step_paged`` (one token per in-flight slot), ``prefill_chunk``
-    (one fixed-size prompt chunk of one sequence), ``mixed_step_paged``
-    (decode rows + one chunk in one pass), ``verify_step_paged`` (a
-    speculation bundle of one sequence through the chunk path, every row
-    unembedded);
+  * dense, moe, vlm, ssm and hybrid, dense per-sequence cache (the
+    lockstep engine, and the whole-prompt admission of the paged engine):
+    ``init_cache``, ``prefill`` (a whole padded batch of prompts, vision
+    positions first for vlm; attention through the flash kernel, K/V
+    padded to ``max_len``; Mamba layers through ``mamba_block``, the scan
+    from a zero state) and ``decode_step`` (one token per row, the cache
+    written in place);
+  * dense, moe and vlm (paged KV pool, written in place):
+    ``decode_step_paged`` (one token per in-flight slot), and for dense
+    and moe ``prefill_chunk`` (one fixed-size prompt chunk of one
+    sequence), ``mixed_step_paged`` (decode rows + one chunk in one pass),
+    ``verify_step_paged`` (a speculation bundle of one sequence through
+    the chunk path, every row unembedded);
   * ssm (per-slot recurrent state bank): ``decode_step_ssm`` (one token per
     slot, the bank advanced in place) and ``prefill_chunk_ssm`` (one chunk
     of one sequence from its carried state);
@@ -32,14 +38,15 @@ Python loop over the layers:
 Each returns f32 logits. Vocab is padded to a multiple of 256, as in the
 JAX package.
 
-Training (dense, ssm and hybrid families): ``loss_fn(params, batch)``
-and ``backbone_train(params, x)`` are functions of a parameter TREE
-(nested like the JAX one, ``params["layers"]["attn"]["wq"]``, e.g. the
-train state's, see ``train/step.py``), not of the module's own
-parameters, and run under autograd: attention and the SSD scan go through
-``kernels.ops`` (on the card the flash and scan kernels' forwards, each
-inside a ``torch.autograd.Function``), the loss is
-:func:`chunked_cross_entropy`, and ``cfg.remat_policy`` maps onto
+Training (every decoder family): ``loss_fn(params, batch)`` and
+``backbone_train(params, x)`` are functions of a parameter TREE (nested
+like the JAX one, ``params["layers"]["attn"]["wq"]``, e.g. the train
+state's, see ``train/step.py``), not of the module's own parameters, and
+run under autograd: attention and the SSD scan go through ``kernels.ops``
+(on the card the flash and scan kernels' forwards, each inside a
+``torch.autograd.Function``), the loss is :func:`chunked_cross_entropy`
+(plus 0.01 times the summed router aux loss for moe; the vision positions
+sliced off for vlm), and ``cfg.remat_policy`` maps onto
 ``torch.utils.checkpoint`` (:func:`scan_layers`; the hybrid stack's unit
 is one group, the shared block and its ``attn_every`` Mamba layers, as in
 the JAX package).
@@ -47,7 +54,7 @@ the JAX package).
 :class:`LMBase` holds what this model and the encoder-decoder
 (``models/encdec.py``) share: the parameters declared by
 ``param_specs()``, seeded init, loading, per-layer views and the f32
-unembedding. Not ported yet: the moe and vlm families (ROADMAP A.7).
+unembedding.
 """
 
 from __future__ import annotations
@@ -63,16 +70,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (ParamSpec, flatten_tree, resolve_device,
                                        rms_norm, swiglu, tree_map)
 
 VOCAB_PAD_MULTIPLE = 256
-
-_NOT_PORTED = {
-    "moe": "ROADMAP A.7 (moe family)",
-    "vlm": "ROADMAP A.7 (vlm path)",
-}
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
 
 
 def mlp_param_specs(cfg: ModelConfig, stacked: int | None = None) -> dict:
@@ -245,20 +249,21 @@ class LMBase(nn.Module):
                 scale = (spec.scale if spec.scale is not None
                          else 1.0 / np.sqrt(fan_in))
             gen.manual_seed((seed << 32) + zlib.crc32(name.encode()))
+            # scaled in place: one f32 temporary of the leaf, not two (a
+            # 48-layer internvl2-26b's MLP leaf is 19 GB in f32)
             p.copy_(torch.randn(spec.shape, generator=gen, device=self.device,
-                                dtype=torch.float32) * scale)
+                                dtype=torch.float32).mul_(scale))
         return self.state_dict()
 
     def load_params(self, params: dict) -> None:
-        """Load a state dict. When every tensor already lies on the model's
-        device in its parameter's dtype, the tensors become the parameters
-        themselves, not copies: engines built from one state dict (fleet
-        workers, a draft model on its target's weights) share the weights,
-        which serving only reads. Any other state dict is copied in."""
+        """Load a state dict: each tensor, moved to the model's device in
+        its parameter's dtype, becomes the parameter (``assign``). A tensor
+        already there in that dtype is not copied: engines built from one
+        state dict (fleet workers, a draft model on its target's weights)
+        share the weights, which serving only reads."""
         own = self.state_dict()
-        share = all(k in own and v.device == own[k].device
-                    and v.dtype == own[k].dtype for k, v in params.items())
-        self.load_state_dict(params, assign=share)
+        self.load_state_dict({k: v.to(self.device, own[k].dtype)
+                              for k, v in params.items()}, assign=True)
         self._view_cache = {}
 
     def _per_layer(self, name: str) -> list[dict]:
@@ -306,17 +311,15 @@ class LMBase(nn.Module):
 
 
 class DecoderLM(LMBase):
-    """Dense, ssm or hybrid decoder-only LM; the port's counterpart of
-    ``repro``'s ``DecoderLM`` for the dense-cache, paged and
+    """Dense, moe, vlm, ssm or hybrid decoder-only LM; the port's
+    counterpart of ``repro``'s ``DecoderLM`` for the dense-cache, paged and
     recurrent-state serving paths, and for training."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda",
                  attn_impl: str = "auto", ssd_impl: str = "auto"):
         assert not cfg.is_encoder_decoder
-        if cfg.family not in ("dense", "ssm", "hybrid"):
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet: "
-                f"{_NOT_PORTED.get(cfg.family, 'ROADMAP A')}")
+        if cfg.family not in FAMILIES:
+            raise ValueError(f"unknown decoder family {cfg.family!r}")
         super().__init__(cfg, device, attn_impl, ssd_impl)
 
     # ------------------------------------------------------------------
@@ -332,6 +335,8 @@ class DecoderLM(LMBase):
         }
         if not cfg.tie_embeddings:
             specs["unembed"] = ParamSpec((D, vp), (None, "vocab"))
+        if cfg.family == "vlm":
+            specs["vision_proj"] = ParamSpec((D, D), ("embed", None))
         if cfg.family in ("ssm", "hybrid"):
             specs["layers"] = {
                 "ln": ParamSpec((L, D), ("stack", None), init="ones"),
@@ -349,26 +354,38 @@ class DecoderLM(LMBase):
             "ln1": ParamSpec((L, D), ("stack", None), init="ones"),
             "attn": attn.attn_param_specs(cfg, stacked=L),
             "ln2": ParamSpec((L, D), ("stack", None), init="ones"),
-            "mlp": mlp_param_specs(cfg, stacked=L),
         }
+        if cfg.family == "moe":
+            specs["layers"]["moe"] = moe_mod.moe_param_specs(cfg, stacked=L)
+        else:
+            specs["layers"]["mlp"] = mlp_param_specs(cfg, stacked=L)
         return specs
+
+    def _own_params(self) -> dict:
+        """The module's embedding parameters as :meth:`embed_inputs` takes
+        them."""
+        own = {"embed": self.embed}
+        if self.cfg.family == "vlm":
+            own["vision_proj"] = self.vision_proj
+        return own
 
     def _layers(self) -> list[dict]:
         """Per-layer views of the stacked parameters, nested like the JAX
-        tree (``{"ln1", "attn": {...}, "ln2", "mlp": {...}}``, or
-        ``{"ln", "mamba": {...}}`` for ssm and hybrid)."""
+        tree (``{"ln1", "attn": {...}, "ln2", "mlp": {...}}``, ``"moe"``
+        in place of ``"mlp"`` for moe, or ``{"ln", "mamba": {...}}`` for
+        ssm and hybrid)."""
         return self._per_layer("layers")
 
     def _stack(self):
         """The layer stack in order, one ``(kind, i, params)`` per block:
-        ``("attn", KV layer i, attention + MLP block)`` or ``("mamba",
-        layer i, Mamba layer)``. dense: attention layer l; ssm: Mamba layer
-        l; hybrid: for each of the ``L // attn_every`` groups g, the shared
+        ``("attn", KV layer i, attention + MLP/MoE block)`` or ``("mamba",
+        layer i, Mamba layer)``. dense, moe, vlm: attention layer l; ssm:
+        Mamba layer l; hybrid: for each of the ``L // attn_every`` groups g, the shared
         block (``{"ln1", "attn", "ln2", "mlp"}``, the same weights every
         time) on KV layer g, then Mamba layers ``g * attn_every`` onward."""
         cfg, layers = self.cfg, self._layers()
         if cfg.family != "hybrid":
-            kind = "attn" if cfg.family == "dense" else "mamba"
+            kind = "mamba" if cfg.family == "ssm" else "attn"
             yield from ((kind, l, pl) for l, pl in enumerate(layers))
             return
         shared = self._view_cache.get("shared")
@@ -382,11 +399,19 @@ class DecoderLM(LMBase):
                 yield "mamba", l, layers[l]
 
     def _block(self, pl: dict, x: torch.Tensor, attend) -> torch.Tensor:
+        return self._block_aux(pl, x, attend)[0]
+
+    def _block_aux(self, pl: dict, x: torch.Tensor, attend):
+        """One attention block: ``(x + attention + MLP or MoE, the MoE's
+        aux loss or None)``."""
         cfg = self.cfg
         x = x + attend(pl["attn"], rms_norm(x, pl["ln1"], cfg.norm_eps))
         h = rms_norm(x, pl["ln2"], cfg.norm_eps)
+        if "moe" in pl:
+            h, aux = moe_mod.moe_block(pl["moe"], h, cfg)
+            return x + h, aux
         mlp = pl["mlp"]
-        return x + swiglu(h, mlp["w_gate"], mlp["w_up"], mlp["w_down"])
+        return x + swiglu(h, mlp["w_gate"], mlp["w_up"], mlp["w_down"]), None
 
     def _mamba(self, pl: dict, x: torch.Tensor, step):
         """One Mamba layer: ``x + step(mamba params, rms_norm(x))``;
@@ -414,41 +439,52 @@ class DecoderLM(LMBase):
     # training, on a parameter tree
     # ------------------------------------------------------------------
     def embed_inputs(self, params: dict, batch: dict) -> torch.Tensor:
-        return F.embedding(batch["tokens"].long(), params["embed"])
+        """(B, S) tokens -> (B, S, D) embeddings; vlm: the vision
+        embeddings (B, F, D), cast to the parameters' dtype and projected
+        by ``vision_proj``, prepended -> (B, F + S, D)."""
+        x = F.embedding(batch["tokens"].long(), params["embed"])
+        if self.cfg.family == "vlm":
+            vis = batch["vision_embeds"].to(x.dtype)
+            vis = torch.einsum("bfd,de->bfe", vis, params["vision_proj"])
+            x = torch.cat([vis, x], dim=1)
+        return x
 
     def backbone_train(self, params: dict, x: torch.Tensor):
         """x (B, S, D) embedded tokens -> (hidden states (B, S, D), aux
         loss f32 scalar) through the stack of ``params["layers"]``, each
         layer's parameters that layer's slice of the stacked leaves, under
-        ``cfg.remat_policy``: dense, attention + MLP blocks; ssm,
+        ``cfg.remat_policy``: dense and vlm, attention + MLP blocks; moe,
+        attention + MoE blocks (the aux loss summed over the layers); ssm,
         ``x + mamba_block(rms_norm(x))`` a layer; hybrid, ``L //
         attn_every`` groups, each the shared block (``params["shared"]``,
         the same weights every time) then ``attn_every`` Mamba layers, a
         group the remat unit (a ``group*`` policy is ``"nothing"`` there,
         as in the JAX package)."""
         cfg = self.cfg
-        if cfg.family in _NOT_PORTED:
-            raise NotImplementedError(
-                f"backbone_train: family {cfg.family!r} is not ported yet: "
-                f"{_NOT_PORTED[cfg.family]}")
         positions = torch.arange(x.shape[1], device=x.device)
         layers = unstack(params["layers"], cfg.num_layers)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
-        def block(x, pl):
-            return self._block(pl, x, lambda p, h: attn.self_attention(
-                p, h, cfg, positions=positions, attn_impl=self.attn_impl))
+        def attend(p, h):
+            return attn.self_attention(p, h, cfg, positions=positions,
+                                       attn_impl=self.attn_impl)
+
+        def block(carry, pl):
+            x, aux = carry
+            x, a = self._block_aux(pl, x, attend)
+            return x, aux if a is None else aux + a
 
         def mamba(x, pl):
             return self._mamba(pl, x, lambda p, h: (ssm_mod.mamba_block(
                 p, h, cfg, ssd_impl=self.ssd_impl), None))[0]
 
+        if cfg.family == "ssm":
+            return scan_layers(mamba, x, layers, cfg.remat_policy), aux
         if cfg.family != "hybrid":
-            body = block if cfg.family == "dense" else mamba
-            return scan_layers(body, x, layers, cfg.remat_policy), aux
+            return scan_layers(block, (x, aux), layers, cfg.remat_policy)
 
         def group(x, group_layers):
-            x = block(x, params["shared"])
+            x = self._block(params["shared"], x, attend)
             for pl in group_layers:
                 x = mamba(x, pl)
             return x
@@ -463,17 +499,22 @@ class DecoderLM(LMBase):
 
     def loss_fn(self, params: dict, batch: dict):
         """Training forward + chunked CE: ``(loss, {"ce", "aux"})``, f32
-        scalars. batch: ``{"tokens", "targets"}`` (B, S) int on the
-        parameters' device."""
+        scalars; the loss is ``ce + 0.01 * aux`` for moe, ``ce`` otherwise.
+        batch: ``{"tokens", "targets"}`` (B, S) int on the parameters'
+        device, and for vlm ``"vision_embeds"`` (B, F, D), whose F
+        positions are dropped before the loss."""
         cfg = self.cfg
         x = self.embed_inputs(params, batch)
         x, aux = self.backbone_train(params, x)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        if cfg.family == "vlm":
+            x = x[:, batch["vision_embeds"].shape[1]:]
         w_out = (params["embed"].t() if cfg.tie_embeddings
                  else params["unembed"])
         ce = chunked_cross_entropy(x, w_out, batch["targets"],
                                    cfg.vocab_size)
-        return ce, {"ce": ce, "aux": aux}
+        loss = ce + 0.01 * aux if cfg.family == "moe" else ce
+        return loss, {"ce": ce, "aux": aux}
 
     # ------------------------------------------------------------------
     # dense cache (lockstep engine, whole-prompt prefill)
@@ -482,7 +523,8 @@ class DecoderLM(LMBase):
         """Shapes and dtypes of the dense cache, ``pos`` an int32 scalar
         (positions written so far, shared by every row) in each:
 
-        * dense: k/v (L, B, max_len, KVH, Dh) in the model's dtype;
+        * dense, moe, vlm: k/v (L, B, max_len, KVH, Dh) in the model's
+          dtype;
         * ssm: ``mamba``, the ``init_mamba_cache`` tree stacked over L
           (f32 SSD state (L, B, H, P, N), conv tails in the model's dtype);
         * hybrid: ``mamba`` as ssm, plus ``shared_k``/``shared_v`` (g, B,
@@ -490,7 +532,7 @@ class DecoderLM(LMBase):
         cfg = self.cfg
         dt = getattr(torch, cfg.dtype)
         pos = ((), torch.int32)
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe", "vlm"):
             kv = ((cfg.num_layers, batch, max_len, cfg.num_kv_heads,
                    cfg.head_dim), dt)
             return {"k": kv, "v": kv, "pos": pos}
@@ -536,7 +578,9 @@ class DecoderLM(LMBase):
         batch: ``{"tokens": (B, S) int}`` on the model's device, all rows at
         positions ``0..S-1`` (the lockstep engine left-pads with token 0
         and masks nothing: real tokens attend the pads, and the pads run
-        through the Mamba recurrence, as in the JAX package). The cache is
+        through the Mamba recurrence, as in the JAX package); vlm also
+        ``"vision_embeds"`` (B, F, D), projected and prepended, so the
+        sequence is F + S long and S below counts it. The cache is
         :meth:`init_cache`'s: K/V written at ``[:S]`` and zero past it (S
         <= max_len), the Mamba layers' state and conv tails after position
         S, ``pos`` = S. Returns logits (B, Vp) f32 of position
@@ -545,13 +589,12 @@ class DecoderLM(LMBase):
         last position when None.
         """
         cfg = self.cfg
-        tokens = batch["tokens"]
-        b, s = tokens.shape
+        x = self.embed_inputs(self._own_params(), batch)  # (B,S,D)
+        b, s = x.shape[:2]
         if s > max_len:
             raise ValueError(f"prompt length {s} exceeds max_len {max_len}")
         cache = self.init_cache(b, max_len)
         positions = torch.arange(s, device=self.device)
-        x = self.embed[tokens.long()]  # (B,S,D)
 
         for kind, i, pl in self._stack():
             if kind == "attn":

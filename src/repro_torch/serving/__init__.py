@@ -8,9 +8,11 @@ unchanged). ``ContinuousBatchingEngine`` is the ported hot path — continuous
 admission, chunked prefill fused with decode, copy-on-write prefix sharing
 with parked prefix pages (``repro_torch.serving.kv_tiers``), or
 whole-prompt prefill through the flash kernel — running its paged
-attention through the hand-written CUDA kernels on the card.
-``GenerationEngine`` is the lockstep baseline over a dense cache (dense,
-ssm and hybrid families; its attention prefill through the flash kernel).
+attention through the hand-written CUDA kernels on the card, for the
+dense, moe and vlm families (vlm prompts, which carry vision embeddings,
+always take the whole-prompt prefill). ``GenerationEngine`` is the
+lockstep baseline over a dense cache (every decoder family and the
+encoder-decoder; its attention prefill through the flash kernel).
 ``SSMEngine`` serves the ssm (mamba2) and hybrid (zamba2) families over a
 :class:`SlotStateBank` of per-slot recurrent state (the hybrid's shared
 attention over a paged pool beside it), through the SSD and paged kernels
@@ -20,8 +22,6 @@ Speculative decoding (``serving.speculative``: the ngram and draft-model
 proposers) rides the paged engine's chunk path; ``serving.fleet`` runs
 engines as supervised workers over the bus, with heartbeats, crash replay
 and autoscaling.
-
-Still to port (ROADMAP A): the moe and vlm families.
 """
 
 from repro_torch.serving.api import (

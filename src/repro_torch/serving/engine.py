@@ -7,8 +7,9 @@ Both implement the :class:`repro_torch.serving.api.EngineCore` protocol —
 
 ``GenerationEngine`` is the lockstep baseline: one ``step()`` forms a
 left-padded micro-batch and prefills it (``DecoderLM.prefill``: attention
-through the flash kernel, Mamba layers through the SSD scan on the card;
-``EncDecLM.prefill`` for the encoder-decoder, on zero frames), each
+through the flash kernel, Mamba layers through the SSD scan on the card,
+a vlm batch after zero vision embeddings; ``EncDecLM.prefill`` for the
+encoder-decoder, on zero frames), each
 further call runs one decode step over the whole batch on a dense cache
 (K/V, or recurrent state, or both for the hybrid family; self and cross
 K/V for the encoder-decoder), and the batch retires when every row has
@@ -28,9 +29,11 @@ Sampling (per-request temperature / top-k / top-p / seed) is keyed off
 ``(seed, token_index)`` with JAX's own bit stream, so a request's tokens
 equal the JAX engine's and survive preemption byte-for-byte.
 
-Ported: both step modes (``fused``, ``interleaved``), chunked prefill,
-whole-prompt prefill (``prefill_chunk=None`` or 0: one flash-kernel prefill
-per admission, prefix sharing off), copy-on-write prefix sharing with the
+It serves the dense, moe and vlm families. Ported: both step modes
+(``fused``, ``interleaved``), chunked prefill, whole-prompt prefill
+(``prefill_chunk=None`` or 0, and always for vlm, whose prompts carry
+vision embeddings: one flash-kernel prefill per admission, prefix sharing
+off), copy-on-write prefix sharing with the
 tiered KV cache (parked pages, a host-RAM tier ``host_pages`` and a
 persisted ``ArtifactStore`` tier ``persist_dir`` that outlives the
 process), int8 pages (``kv_quant="int8"``, dequantized inside the paged
@@ -49,7 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.storage import ArtifactStore
-from repro_torch.models import build_model
+from repro_torch.models import build_model, frontend_len
 from repro_torch.models.common import pick_tokens, resolve_device
 from repro_torch.serving.api import (
     AdmissionPolicy,
@@ -91,10 +94,12 @@ class GenerationEngine(EngineBase):
     / stop / cancel) and are masked until the slowest row retires the batch
     — the classic lockstep cost the continuous batcher removes.
 
-    Serves the dense, ssm and hybrid families and the encoder-decoder
-    (whisper: the encoder reads zero frames of the padded prompt's length,
-    as the JAX engine's). ``params`` is the model's state dict; ``device`` is where the model, the dense cache and every
-    step live (``"cuda"`` unless the caller asks for ``"cpu"``).
+    Serves every decoder family (dense, moe, vlm: the prompt after zero
+    vision embeddings, which ``max_len`` must also hold; ssm, hybrid) and
+    the encoder-decoder (whisper: the encoder reads zero frames of the
+    padded prompt's length), as the JAX engine does. ``params`` is the
+    model's state dict; ``device`` is where the model, the dense cache and
+    every step live (``"cuda"`` unless the caller asks for ``"cpu"``).
     ``attn_impl``/``ssd_impl`` ``"ref"`` run the plain attention / SSD
     versions on the card too.
     """
@@ -104,17 +109,11 @@ class GenerationEngine(EngineBase):
                  admission: AdmissionPolicy | None = None,
                  attn_impl: str | None = None, ssd_impl: str | None = None,
                  device="cuda"):
-        if not cfg.is_encoder_decoder and cfg.family not in (
-                "dense", "ssm", "hybrid"):
-            raise NotImplementedError(
-                f"{cfg.name} (family {cfg.family!r}): the moe and vlm "
-                f"families are not ported yet (ROADMAP A.7)")
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.model = build_model(cfg, device=self.device,
+        self.model = build_model(cfg, params=params, device=self.device,
                                  attn_impl=attn_impl or "auto",
                                  ssd_impl=ssd_impl or "auto")
-        self.model.load_params(params)
         self.params = self.model.state_dict()
         self.max_len = max_len
         self.max_batch = max_batch
@@ -205,6 +204,11 @@ class GenerationEngine(EngineBase):
         for i, r in enumerate(reqs):
             toks[i, plen - len(r.prompt):] = r.prompt  # left-pad
         batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        nf = frontend_len(self.cfg)
+        if nf:
+            batch["vision_embeds"] = torch.zeros(
+                (b, nf, self.cfg.d_model),
+                device=self.device, dtype=getattr(torch, self.cfg.dtype))
         if self.cfg.is_encoder_decoder:
             batch["frames"] = torch.zeros(
                 (b, plen, self.cfg.d_model), device=self.device,
@@ -240,7 +244,7 @@ class GenerationEngine(EngineBase):
 
 
 class ContinuousBatchingEngine(EngineBase):
-    """Paged-KV continuous batcher for the dense decoder.
+    """Paged-KV continuous batcher for the dense, moe and vlm decoders.
 
     Protocol adapter over the scheduler/executor split: the
     :class:`Scheduler` decides (host-only), the :class:`ModelExecutor`
@@ -259,7 +263,11 @@ class ContinuousBatchingEngine(EngineBase):
     ``speculative`` (``"off"``, ``"ngram"`` or ``"draft"``, with
     ``spec_k`` drafts a bundle; ``draft_config``/``draft_params`` name the
     draft model) turns on speculative decoding; streams are byte-identical
-    to ``"off"``.
+    to ``"off"`` for dense. For moe they may part, in both packages: a
+    verify bundle is a chunk, which takes the capacity dispatch and can
+    drop a token that a one-row decode step runs through every expert (the
+    same holds between the two step modes). vlm has no chunk path: its
+    prompts are prefilled whole and it refuses speculation.
     ``params`` is the model's state dict (``DecoderLM.init`` or
     :func:`repro_torch.models.params_from_jax`); ``device`` is where the
     model, the page pool and every step live (``"cuda"`` unless the caller
@@ -299,10 +307,7 @@ class ContinuousBatchingEngine(EngineBase):
                 f"family {cfg.family!r}: continuous batching needs a paged "
                 f"KV path; serve it with SSMEngine (recurrent state) or "
                 f"GenerationEngine (lockstep)")
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"family {cfg.family!r}: only the dense paged path is ported "
-                f"(moe/vlm: ROADMAP A.7)")
+        assert cfg.family in ("dense", "moe", "vlm"), cfg.family
         if kv_quant not in ("none", "int8"):
             raise ValueError(
                 f"kv_quant must be 'none' or 'int8', got {kv_quant!r}")
@@ -317,13 +322,16 @@ class ContinuousBatchingEngine(EngineBase):
         if token_budget is not None and token_budget < 1:
             raise ValueError(f"token_budget must be >= 1, got {token_budget}")
         self.cfg = cfg
+        self.nf = frontend_len(cfg)
         self.device = resolve_device(device)
         self.max_len = max_len
         self.max_slots = max_slots
         self.max_preemptions = max_preemptions
         # whole-prompt prefill (prefill_chunk=None) runs one dispatch per
-        # admission and has no chunk cursor to share prefixes at
-        self._chunked = prefill_chunk is not None
+        # admission and has no chunk cursor to share prefixes at; vlm
+        # prompts carry vision embeds: no token chunking, no prefix trie
+        self._chunked = (prefill_chunk is not None
+                         and cfg.family in ("dense", "moe"))
         self.prefill_chunk = prefill_chunk
         self.prefix_sharing = prefix_sharing and self._chunked
         self.step_mode = step_mode
@@ -357,6 +365,7 @@ class ContinuousBatchingEngine(EngineBase):
             prefill_chunk=prefill_chunk,
             chunked=self._chunked,
             prefix_sharing=self.prefix_sharing,
+            extra_ctx=self.nf,
             token_budget=token_budget,
         )
         self.executor = ModelExecutor(
@@ -378,6 +387,10 @@ class ContinuousBatchingEngine(EngineBase):
         self.spec_k = spec_k
         self.spec = None
         if speculative != "off":
+            if cfg.family not in ("dense", "moe"):
+                raise ValueError(
+                    f"speculative decoding needs the paged chunk path; "
+                    f"family {cfg.family!r} has none")
             if step_mode != "fused":
                 raise ValueError(
                     "speculative decoding requires step_mode='fused'")
@@ -397,8 +410,9 @@ class ContinuousBatchingEngine(EngineBase):
     # EngineBase hooks
     # ------------------------------------------------------------------
     def _validate(self, request: Request) -> None:
-        validate_request(request, max_len=self.max_len)
-        worst = cdiv(len(request.prompt) + request.sampling.max_new_tokens,
+        validate_request(request, max_len=self.max_len, extra_ctx=self.nf)
+        ctx = self.nf + len(request.prompt)
+        worst = cdiv(ctx + request.sampling.max_new_tokens,
                      self.cache.page_size)
         if worst > self.cache.num_pages - 1:
             raise ValueError(

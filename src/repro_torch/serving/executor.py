@@ -14,12 +14,19 @@ and ``verify`` scores one speculation bundle (the last committed token + k
 drafts of one sequence) in one more dispatch: ``verify_step_paged`` -> the
 prefill kernel, every row sampled with its own ``(seed, index)`` key.
 
-Without chunking (``prefill_chunk=None``), ``prefill_whole`` prefills each
-admitted prompt in one executor call instead: ``DecoderLM.prefill`` over the
-prompt padded to a power-of-two bucket (through the flash kernel), the
-dense K/V scattered into the sequence's pages (quantized, scales alongside,
-for an int8 pool: ``write_prefill_pages`` takes the whole pool dict), and
-the first token sampled.
+Without chunking (``prefill_chunk=None``, and always for vlm),
+``prefill_whole`` prefills each admitted prompt in one executor call
+instead: ``DecoderLM.prefill`` over the prompt padded to a power-of-two
+bucket (through the flash kernel; a vlm prompt after its
+``num_frontend_tokens`` zero vision embeddings, which count toward the
+context), the dense K/V scattered into the sequence's pages (quantized,
+scales alongside, for an int8 pool: ``write_prefill_pages`` takes the
+whole pool dict), and the first token sampled.
+
+The dense, moe and vlm families run here; moe's decode and fused mixed
+rows take the reference's dense all-experts path and its chunks and verify
+bundles the capacity dispatch (``models/moe.py``), so its streams in the
+two step modes may part where a chunk drops a token, as JAX's do.
 
 The decode batch lives on the device PACKED into one int32 tensor ``di``
 (S, MP+6) and one f32 tensor ``df`` (S, 2), refreshed only when the
@@ -36,7 +43,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.models import build_model
+from repro_torch.models import build_model, frontend_len
 from repro_torch.models.common import pick_tokens
 from repro_torch.serving.kv_cache import write_prefill_pages
 from repro_torch.serving.scheduler import (DecodeInputs, PrefillChunk,
@@ -58,13 +65,14 @@ class ModelExecutor:
                 "tensor-parallel serving is not ported yet (ROADMAP A.10); "
                 "the executor runs at tp=1")
         self.cfg = cfg
-        self.model = build_model(cfg, device=device,
+        self.model = build_model(cfg, params=params, device=device,
                                  attn_impl=attn_impl or "auto")
-        self.model.load_params(params)
         self.device = self.model.device
         self.params = self.model.state_dict()
         self.cache = cache
         self.max_len = max_len
+        # vlm: the vision positions ahead of every prompt
+        self.nf = frontend_len(cfg)
         self.tp = 1
         # device mirrors of the last decode batch (see module docstring)
         self._greedy_only = True
@@ -278,18 +286,20 @@ class ModelExecutor:
     # ------------------------------------------------------------------
     def _bucket(self, plen: int) -> int:
         """The prompt's padded length: the next power of two from 16,
-        capped at ``max_len`` (so prompts over max_len / 2 all share the
-        max_len bucket)."""
+        capped at ``max_len`` less the vision positions (so prompts over
+        half of that all share the top bucket)."""
         b = 16
         while b < plen:
             b *= 2
-        return min(b, max(self.max_len, 1))
+        return min(b, max(self.max_len - self.nf, 1))
 
     def prefill_whole(self, request, seed: int, slot: int) -> int:
         """Prefill a whole prompt into its pages and return the first
         token: prefill, page scatter and first-token sample in one call,
-        with the logits taken at the last real position."""
+        with the logits taken at the last real position. A vlm prompt
+        follows ``nf`` zero vision embeddings, its K/V with theirs."""
         plen = len(request.prompt)
+        ctx = self.nf + plen
         bucket = self._bucket(plen)
         sp = request.sampling
         row = self.cache.block_tables[slot]
@@ -301,11 +311,15 @@ class ModelExecutor:
         ci[mp + bucket:] = (sp.top_k, seed)
         ci = self._to_device(ci)
         cf = self._to_device(np.array([sp.temperature, sp.top_p], np.float32))
-        cache, logits = self.model.prefill(
-            {"tokens": ci[None, mp:mp + bucket]}, bucket,
-            logits_index=plen - 1)
+        batch = {"tokens": ci[None, mp:mp + bucket]}
+        if self.nf:
+            batch["vision_embeds"] = torch.zeros(
+                (1, self.nf, self.cfg.d_model), device=self.device,
+                dtype=getattr(torch, self.cfg.dtype))
+        cache, logits = self.model.prefill(batch, self.nf + bucket,
+                                           logits_index=ctx - 1)
         write_prefill_pages(self.cache.pages, cache["k"][:, 0],
-                            cache["v"][:, 0], ci[:mp], plen)
+                            cache["v"][:, 0], ci[:mp], ctx)
         tok = pick_tokens(
             logits, cf[0:1], ci[mp + bucket:mp + bucket + 1], cf[1:2],
             ci[mp + bucket + 1:],

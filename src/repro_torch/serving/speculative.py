@@ -138,12 +138,10 @@ class DraftModelProposer:
                  chunk: int = 32, attn_impl: str | None = None,
                  device="cuda"):
         self.cfg = cfg
-        self.model = build_model(cfg, device=device,
+        self.model = build_model(cfg, params=params, device=device,
                                  attn_impl=attn_impl or "auto")
         if params is None:
             params = self.model.init(seed=seed)
-        else:
-            self.model.load_params(params)
         self.device = self.model.device
         self.params = self.model.state_dict()
         self.max_len = max_len

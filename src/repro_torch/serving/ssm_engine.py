@@ -124,10 +124,9 @@ class SSMExecutor:
                  cache: PagedKVCache | None = None, *, device="cuda",
                  attn_impl: str | None = None, ssd_impl: str | None = None):
         self.cfg = cfg
-        self.model = build_model(cfg, device=device,
+        self.model = build_model(cfg, params=params, device=device,
                                  attn_impl=attn_impl or "auto",
                                  ssd_impl=ssd_impl or "auto")
-        self.model.load_params(params)
         self.device = self.model.device
         self.params = self.model.state_dict()
         self.bank = bank

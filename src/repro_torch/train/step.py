@@ -92,16 +92,19 @@ def make_train_step(
 
             grads = tree_map(lambda p: torch.zeros(p.shape, dtype=adt,
                                                    device=p.device), params)
-            loss_sum = torch.zeros((), dtype=torch.float32,
-                                   device=state["step"].device)
+            zero = torch.zeros((), dtype=torch.float32,
+                               device=state["step"].device)
+            sums = {"loss": zero, "ce": zero, "aux": zero}
             for i in range(ga):
                 mb = {k: split(v, i) for k, v in batch.items()}
-                loss, _, g = _loss_and_grads(model, params, mb)
+                loss, m, g = _loss_and_grads(model, params, mb)
                 grads = tree_map(lambda a, gi: a + gi.to(adt), grads, g)
-                loss_sum = loss_sum + loss
+                sums = {k: v + (loss if k == "loss" else m[k])
+                        for k, v in sums.items()}
             grads = tree_map(lambda g: g / ga, grads)
-            loss = loss_sum / ga
-            metrics = {"ce": loss, "aux": torch.zeros_like(loss)}
+            loss = sums["loss"] / ga
+            # the microbatches' mean ce and aux (the moe router's loss)
+            metrics = {k: sums[k] / ga for k in ("ce", "aux")}
 
         _, _, opt_metrics = opt_update(grads, state["opt"], params,
                                        state["step"])

@@ -7,7 +7,10 @@ The sweeps are those of the JAX package's ``tests/test_kernel_fuzz.py``
 decode rows, dead rows, one chunk of rows sharing a table), with head dims
 mapped into the kernels' {64, 80, 128} and pages into {8, 16}, plus wide
 tables (44-88 entries) that the split decode kernel cuts into several
-splits. Each case runs f32 and bf16 q over a pool of q's dtype and over an
+splits, and fixed cases at dbrx-132b's and internvl2-26b's widths (48 q
+over 8 kv heads: a group of 6, which the kernels' group-8 instances take
+with two rows idle; D 128, page 16) in the decode, chunk, mixed and flash
+sweeps. Each case runs f32 and bf16 q over a pool of q's dtype and over an
 int8 pool with f32 scales; mixed runs both with and without the engine's
 ``num_decode`` hint (where the case has decode rows and a chunk), and
 again with a dead suffix of chunk rows. Bounds: f32 1e-3, bf16 2e-2 (f32
@@ -94,7 +97,9 @@ def _flash_sweep():
             FLASH_D_MAP[int(rng.choice([16, 32, 64]))],
             bool(rng.integers(0, 2)), bq,
         ))
-    return cases
+    # internvl2-26b / dbrx-132b: 48 q over 8 kv heads at D 128
+    return cases + [(1, 256, 512, 48, 8, 128, True, 256),
+                    (2, 96, 160, 48, 8, 128, False, 32)]
 
 
 def _flash_case(params, dtype):
@@ -191,6 +196,8 @@ def _decode_sweep():
     # the engines' widths at their table widths: several splits a row
     cases += [(8, 15, 5, 64, 16, 44, False), (8, 32, 8, 128, 8, 88, True),
               (4, 32, 32, 80, 16, 44, False), (2, 8, 1, 64, 8, 88, True)]
+    # dbrx-132b / internvl2-26b: group 6 at D 128
+    cases += [(8, 48, 8, 128, 16, 28, False), (3, 48, 8, 128, 16, 44, True)]
     return cases
 
 
@@ -284,6 +291,8 @@ def _mixed_sweep():
     # the engine's fused step: 8 decode rows (one idle) + a 64-row chunk
     cases += [(72, 15, 5, 64, 16, 44, 1, 64), (40, 32, 8, 128, 8, 88, 0, 32),
               (24, 32, 32, 80, 16, 44, 2, 16)]
+    # dbrx-132b's fused step: group 6 at D 128
+    cases += [(72, 48, 8, 128, 16, 28, 1, 64), (11, 48, 8, 128, 16, 44, 2, 3)]
     return cases
 
 
@@ -375,8 +384,12 @@ def _prefill_sweep():
         d = int(rng.choice([8, 16, 32]))
         cases.append((c, start, valid, kvh * group, kvh, d, page,
                       int(rng.integers(0, 3))))
-    return [(c, st, v, h, kvh, D_MAP[d], PAGE_MAP[p], x)
-            for c, st, v, h, kvh, d, p, x in cases]
+    cases = [(c, st, v, h, kvh, D_MAP[d], PAGE_MAP[p], x)
+             for c, st, v, h, kvh, d, p, x in cases]
+    # dbrx-132b's chunks and verify bundles: group 6 at D 128
+    return cases + [(64, 23, 41, 48, 8, 128, 16, 1),
+                    (64, 0, 64, 48, 8, 128, 16, 0),
+                    (5, 300, 4, 48, 8, 128, 16, 2)]
 
 
 def _prefill_case(params, seed, dtype, quant, forked=False):

@@ -1,8 +1,9 @@
 """The port's CUDA kernels (paged attention over pools of q's dtype and
 over int8 pools, flash attention, Mamba2 SSD) against their plain versions,
-on the card, at head dims 64, 80 and 128; bf16 flash and the bf16 chunked
-prefill at the shapes that reach their tensor-core kernels' one- and
-two-warp-group blocks.
+on the card, at head dims 64, 80 and 128 (and at dbrx-132b's and
+internvl2-26b's 48 q over 8 kv heads of D 128: a group of 6); bf16 flash
+and the bf16 chunked prefill at the shapes that reach their tensor-core
+kernels' one- and two-warp-group blocks.
 
 Marked ``cuda``: these skip without a GPU (the kernels have no CPU mode;
 the CPU suite holds the plain versions against JAX in
@@ -23,13 +24,14 @@ from repro_torch.kernels.flash_attention import flash_attention_bhsd  # noqa: E4
 @pytest.mark.cuda
 @pytest.mark.parametrize("quant", [False, True], ids=["pool", "int8"])
 @pytest.mark.parametrize("widths", [(5, 3, 64, 16), (8, 4, 128, 8),
-                                    (32, 1, 80, 16)],
-                         ids=["smollm", "llama3", "zamba2"])
+                                    (32, 1, 80, 16), (8, 6, 128, 16)],
+                         ids=["smollm", "llama3", "zamba2", "dbrx"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernels_on_card(dtype, widths, quant):
     """Each paged CUDA kernel against its plain version on the card at D
     64 / G 3 / page 16 (smollm, the main path), D 128 / G 4 / page 8
-    (llama3-8b) and D 80 / G 1 (zamba2-2.7b), over a pool of q's dtype or
+    (llama3-8b), D 80 / G 1 (zamba2-2.7b) and D 128 / G 6 / page 16
+    (dbrx-132b, internvl2-26b), over a pool of q's dtype or
     an int8 pool with f32 scales (whose plain version is
     ``dequantize_pages`` + the f32 versions): f32 within 1e-3, bf16 within
     2e-2 after f32 accumulation, dead rows bit-exact zeros. The mixed kernel
@@ -157,8 +159,10 @@ def test_flash_kernel_on_card(dtype):
         ops.flash_attention(q, k, k, impl="ref").float(), atol=tol, rtol=0)
 
 
-# (q heads, kv heads, head_dim): smollm-360m, zamba2-2.7b, llama3-8b
-FLASH_WIDTHS = {"D64": (15, 5, 64), "D80": (32, 32, 80), "D128": (32, 8, 128)}
+# (q heads, kv heads, head_dim): smollm-360m, zamba2-2.7b, llama3-8b,
+# dbrx-132b and internvl2-26b
+FLASH_WIDTHS = {"D64": (15, 5, 64), "D80": (32, 32, 80), "D128": (32, 8, 128),
+                "D128G6": (48, 8, 128)}
 
 
 @pytest.mark.cuda
@@ -171,7 +175,8 @@ FLASH_WIDTHS = {"D64": (15, 5, 64), "D80": (32, 32, 80), "D128": (32, 8, 128)}
 def test_flash_bf16_tensor_core_kernel(width, case):
     """The bf16 flash kernel (tensor cores, cp.async K/V tiles) against the
     plain version at the engine shapes (B 1 x S 512, B 8 x S 256), causal
-    Sq 64 < Skv 320, non-causal 37 x 300 and S 1, at D 64, 80 and 128:
+    Sq 64 < Skv 320, non-causal 37 x 300 and S 1, at D 64, 80 and 128
+    (at 128 also with 48 q over 8 kv heads):
     within 2e-2 after f32 accumulation. A q that is not 16-byte aligned is
     refused (the kernel's copies need it)."""
     if not torch.cuda.is_available():

@@ -177,8 +177,8 @@ def test_lockstep_engine_defaults_to_cuda_and_refuses_other_families(weights):
     """The lockstep engine runs on ``cuda`` unless asked (and raises the
     port's typed error without a card); the ssm and hybrid families'
     dense-cache paths are ported and build; the encoder-decoder (whisper,
-    ROADMAP A.11) serves a request; the family still unported is refused
-    by name (moe: A.7)."""
+    ROADMAP A.11) serves a request, and so do the moe and vlm families
+    (a vlm prompt after its zero vision embeddings)."""
     from repro_torch.models import build_model
 
     _, _, cfg, state = weights
@@ -191,8 +191,17 @@ def test_lockstep_engine_defaults_to_cuda_and_refuses_other_families(weights):
             rcfg, build_model(rcfg, device="cpu").init(seed=0), max_len=16,
             device="cpu")
         assert eng.model.cfg.family == rcfg.family
-    with pytest.raises(NotImplementedError, match="A.7"):
-        GenerationEngine(reduced(ARCHS["dbrx-132b"]), {}, device="cpu")
+    for arch in ("dbrx-132b", "internvl2-26b"):
+        rcfg = reduced(ARCHS[arch])
+        eng = GenerationEngine(
+            rcfg, build_model(rcfg, device="cpu").init(seed=0), max_len=16,
+            device="cpu")
+        handle = eng.submit(Request(arch, [5, 6, 7],
+                                    sampling=SamplingParams(max_new_tokens=3)))
+        while not eng.idle:
+            eng.step()
+        assert handle.finish_reason == FinishReason.LENGTH, arch
+        assert len(handle.tokens) == 3
     wcfg = reduced(ARCHS["whisper-tiny"])
     eng = GenerationEngine(wcfg, build_model(wcfg, device="cpu").init(seed=0),
                            max_len=16, device="cpu")

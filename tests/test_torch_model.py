@@ -263,16 +263,21 @@ def test_decode_step_matches_jax(models):
 
 
 def test_entry_points_refuse_cuda_without_a_card():
-    """The model defaults to ``cuda`` for every ported family (dense, ssm,
-    hybrid) and raises without a card; the hybrid family builds on the
-    CPU when asked; the moe family is still refused by its ROADMAP
-    label."""
+    """The model defaults to ``cuda`` for every family (dense, moe, vlm,
+    ssm, hybrid) and raises without a card; the hybrid, moe and vlm
+    families build on the CPU when asked, with their own parameters
+    (``shared``; ``layers.moe`` in place of ``layers.mlp``;
+    ``vision_proj``)."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    for arch in ("smollm-360m", "mamba2-1.3b", "zamba2-2.7b"):
+    for arch in ("smollm-360m", "mamba2-1.3b", "zamba2-2.7b", "dbrx-132b",
+                 "internvl2-26b"):
         with pytest.raises(RuntimeError, match="CUDA"):
             build_model(reduced(ARCHS[arch]))  # device defaults to cuda
     hybrid = build_model(reduced(ARCHS["zamba2-2.7b"]), device="cpu")
     assert hybrid.cfg.family == "hybrid" and hasattr(hybrid, "shared")
-    with pytest.raises(NotImplementedError, match="A.7"):
-        build_model(reduced(ARCHS["dbrx-132b"]), device="cpu")
+    moe = build_model(reduced(ARCHS["dbrx-132b"]), device="cpu")
+    assert hasattr(moe.layers, "moe") and not hasattr(moe.layers, "mlp")
+    assert moe.layers.moe.router.shape == (2, 64, 4)
+    vlm = build_model(reduced(ARCHS["internvl2-26b"]), device="cpu")
+    assert vlm.vision_proj.device.type == "cpu"

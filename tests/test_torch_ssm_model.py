@@ -114,7 +114,8 @@ def test_hybrid_family_is_not_ported_yet():
     stacked Mamba tree plus the unstacked shared block, and runs the
     recurrent-state entry points' hybrid forms
     (``tests/test_torch_hybrid_model.py`` holds them against JAX). The moe
-    family is still refused by its ROADMAP label."""
+    family builds too, its stack the dense one with ``moe`` in place of
+    ``mlp`` (``tests/test_torch_moe.py`` holds it against JAX)."""
     cfg = reduced(ARCHS["zamba2-2.7b"])
     model = build_model(cfg, device="cpu")
     specs = flatten_tree(model.param_specs())
@@ -126,5 +127,10 @@ def test_hybrid_family_is_not_ported_yet():
         "ln1", "attn", "ln2", "mlp"}
     assert callable(model.decode_step_hybrid)
     assert callable(model.prefill_chunk_hybrid)
-    with pytest.raises(NotImplementedError, match="A.7"):
-        build_model(reduced(ARCHS["dbrx-132b"]), device="cpu")
+    moe_specs = flatten_tree(
+        build_model(reduced(ARCHS["dbrx-132b"]), device="cpu").param_specs())
+    dense_specs = flatten_tree(
+        build_model(reduced(ARCHS["smollm-360m"]), device="cpu").param_specs())
+    assert {n.split(".")[1] for n in moe_specs if n.startswith("layers.")} == {
+        n.split(".")[1] for n in dense_specs
+        if n.startswith("layers.")} - {"mlp"} | {"moe"}

@@ -246,6 +246,56 @@ def test_async_save(tmp_path):
     assert ck.latest_step() == 1
 
 
+def test_sync_and_async_saves_write_the_same_files(tmp_path):
+    """A sync save copies each leaf to the host in its writer thread, an
+    async one snapshots first: the files and the manifest are the same."""
+    s = state_like()
+    s["params"]["h"] = torch.randn(5, 3).to(torch.bfloat16)
+    sync, later = CheckpointManager(tmp_path / "a"), CheckpointManager(tmp_path / "b")
+    sync.save(1, s)
+    later.save(1, s, sync=False)
+    later.wait()
+    mf = [json.loads((ck._step_dir(1) / "MANIFEST.json").read_text())
+          for ck in (sync, later)]
+    assert mf[0] == mf[1]
+    for e in mf[0]["leaves"]:
+        assert ((sync._step_dir(1) / e["file"]).read_bytes()
+                == (later._step_dir(1) / e["file"]).read_bytes())
+
+
+@pytest.mark.parametrize("case", ["f32", "fortran", "strided", "scalar",
+                                  "int64", "bool", "empty", "bf16"])
+def test_npy_file_equals_np_save(case):
+    """The header and data a checkpoint streams are the bytes ``np.save``
+    writes (bf16: JAX's ``'<V2'`` header over the 16-bit patterns)."""
+    import io
+
+    from repro_torch.core.storage import npy_bytes, npy_parts
+
+    rng = np.random.default_rng(3)
+    arr = {"f32": rng.standard_normal((3, 4)).astype(np.float32),
+           "fortran": np.asfortranarray(rng.standard_normal((3, 5))),
+           "strided": rng.standard_normal((2, 3, 4))[:, ::2],
+           "scalar": np.asarray(np.float32(2.5)),
+           "int64": np.arange(10),
+           "bool": np.array([True, False, True]),
+           "empty": np.zeros((0, 3), np.float32),
+           "bf16": None}[case]
+    want = io.BytesIO()
+    if arr is None:
+        leaf = torch.randn(4, 6).to(torch.bfloat16)
+        bits = leaf.view(torch.int16).numpy()
+        np.lib.format.write_array_header_1_0(want, {
+            "descr": "<V2", "fortran_order": False, "shape": bits.shape})
+        want.write(bits.tobytes())
+    else:
+        leaf = arr
+        np.save(want, arr)
+    head, data = npy_parts(leaf)
+    assert data.flags.c_contiguous
+    assert head + data.tobytes() == npy_bytes(leaf) == want.getvalue()
+
+
 def test_atomic_commit_crash_safety(tmp_path):
     """A .tmp dir from a crashed save must be invisible to restore."""
     ck = CheckpointManager(tmp_path)
@@ -616,25 +666,22 @@ def test_train_state_is_the_model():
                                          ("moe", "A.7"), ("vlm", "A.7")])
 def test_unported_families_refuse_to_train(family, item):
     """ssm and hybrid training (ROADMAP A.11, the SSD scan under autograd)
-    is ported: one step of each trains and gives a finite gradient to
-    every leaf. The moe and vlm families wait for A.7: backbone_train
-    names the item."""
-    arch = {"ssm": "mamba2-1.3b", "hybrid": "zamba2-2.7b"}.get(family,
-                                                               "smollm-360m")
-    if item == "A.11":
-        cfg = reduced(ARCHS[arch])
-        model = build_model(cfg, device="cpu")
-        params = unflatten_tree(model.init(seed=0))
-        batch = tensors(SyntheticCorpus(DataConfig(
-            vocab_size=cfg.vocab_size, seq_len=32, global_batch=2,
-            seed=1)).batch_at(0))
-        loss, _, grads = _loss_and_grads(model, params, batch)
-        assert torch.isfinite(loss)
-        assert flatten_tree(grads).keys() == flatten_tree(params).keys()
-        assert all(torch.isfinite(g).all() and g.abs().sum() > 0
-                   for g in flatten_tree(grads).values())
-        return
-    model = build_model(reduced(ARCHS[arch]), device="meta")
-    model.cfg = dataclasses.replace(model.cfg, family=family)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        model.backbone_train({}, torch.empty(1, 4, model.cfg.d_model))
+    and moe and vlm training (A.7) are ported: one step of each trains and
+    gives a finite gradient to every leaf (the moe router's and the vlm
+    ``vision_proj``'s included); moe reports its router's aux loss."""
+    arch = {"ssm": "mamba2-1.3b", "hybrid": "zamba2-2.7b", "moe": "dbrx-132b",
+            "vlm": "internvl2-26b"}[family]
+    cfg = reduced(ARCHS[arch])
+    model = build_model(cfg, device="cpu")
+    params = unflatten_tree(model.init(seed=0))
+    batch = tensors(SyntheticCorpus(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=32, global_batch=2, seed=1,
+        vision_tokens=cfg.num_frontend_tokens, d_model=cfg.d_model,
+        dtype=cfg.dtype)).batch_at(0))
+    assert ("vision_embeds" in batch) == (family == "vlm")
+    loss, metrics, grads = _loss_and_grads(model, params, batch)
+    assert torch.isfinite(loss)
+    assert (metrics["aux"] > 0) == (family == "moe")
+    assert flatten_tree(grads).keys() == flatten_tree(params).keys()
+    assert all(torch.isfinite(g).all() and g.abs().sum() > 0
+               for g in flatten_tree(grads).values())

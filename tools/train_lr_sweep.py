@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """How the full-width trainer's loss moves with the learning rate, on the card.
 
-    python3 tools/train_lr_sweep.py [--arch smollm-360m] [--batch 16]
-        [--seq-len 64] [--steps 60] [--lr 3e-3 1e-2 3e-2]
+    python3 tools/train_lr_sweep.py [--arch smollm-360m] [--layers N]
+        [--batch 16] [--seq-len 64] [--steps 60] [--lr 3e-3 1e-2 3e-2]
 
-Runs ``repro_torch.launch.train`` (``--arch`` at full width, bf16
+Runs ``repro_torch.launch.train`` (``--arch`` at full width, its depth
+cut to ``--layers`` where given, as ``chip_smoke.py``'s runs cut it; bf16
 parameters, f32 moments, B ``--batch`` x S ``--seq-len``, the driver's
 schedule: 10 warm-up steps, cosine over 4x the steps) once per learning
 rate, without chaos and with one checkpoint at the end, each in a
@@ -20,6 +21,7 @@ whether it leaves it within the run.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import subprocess
 import sys
 import tempfile
@@ -31,6 +33,8 @@ ROOT = Path(__file__).resolve().parents[1]
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to N layers (0: the config's)")
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--seq-len", type=int, default=64)
     ap.add_argument("--steps", type=int, default=60)
@@ -43,7 +47,12 @@ def main() -> int:
         print("train_lr_sweep: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_arch
     from repro_torch.launch import train
+
+    cfg = get_arch(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
 
     print(subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
@@ -55,10 +64,11 @@ def main() -> int:
                 "--arch", args.arch, "--batch", str(args.batch),
                 "--seq-len", str(args.seq_len), "--steps", str(args.steps),
                 "--ckpt-every", str(args.steps), "--lr", str(lr),
-                "--workdir", tmp]))
+                "--workdir", tmp]), cfg=cfg)
         losses, rep = arts["losses"], arts["report"]
         step_s = sorted(stats["attempts"][-1]["step_s"])
-        print(f"{args.arch} B {args.batch} x S {args.seq_len}, lr {lr:g}: "
+        print(f"{args.arch} ({cfg.num_layers} layers) B {args.batch} x S "
+              f"{args.seq_len}, lr {lr:g}: "
               f"loss every 5 steps {[round(x, 3) for x in losses[::5]]}, "
               f"last {losses[-1]:.4f}, eval {rep['eval_loss']:.4f}, improved "
               f"{rep['improved']}; median {step_s[len(step_s) // 2]:.4f} "

@@ -385,6 +385,22 @@ Phases (any failure exits non-zero):
    lie below the first step's; flash launched (paths ``train internvl2``,
    ``train dbrx``); s/step, tokens/s, saves, peak memory and a profiler
    window of TRACE_TRAIN_STEPS steps.
+37. tensor-parallel serving — a mesh of TP_RANKS (2) ranks sharing
+   cuda:0 (``make_serving_mesh(devices=...)``; gloo, NCCL taking one rank
+   per card; the follower spawned once for the phase): llama3-8b at full
+   width and TP_LAYERS (4) of its 32 layers (16 q over 4 kv heads of D
+   128 a rank; the untied vocab's logits gathered) through the paged
+   engine chunked in both step modes and whole-prompt (paths ``tp llama3
+   chunked fused``, ``... interleaved``, ``... whole-prompt``), after
+   the same 8 requests at tp 1 (the baseline); mamba2-1.3b at
+   TP_SSM_LAYERS (12) of 48 (32 SSD heads a rank) through ``SSMEngine``
+   (``tp mamba2``). Every request finished by length; each rank's pool
+   or bank at its local heads; every kernel of each path launched on both
+   ranks (``launches_by_path`` sums the ranks); tok/s (one card shared
+   by two gloo ranks: not tensor parallelism's speed), collectives and
+   broadcast bytes a call, peak memory. Then, at PARITY_LAYERS in f32
+   with TF32 off, greedy streams at tp 2 through the kernels equal tp 1's
+   and tp 2's through the plain versions, for both models.
 
 Kernel and plain times are device time per call: the calls are enqueued
 behind a sleep kernel and timed with CUDA events, so the host's per-call
@@ -4260,6 +4276,237 @@ def run_moe_vlm_train(torch, np, get_arch, fk, pk, sk, card):
 
 
 # the bf16 tensor-core kernels: library -> (C info entry, its page kinds)
+# ---------------------------------------------------------------------------
+# phase 37: tensor-parallel serving, two ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+# TP_RANKS ranks on cuda:0 (gloo: NCCL takes one rank per card), llama3-8b
+# at TP_LAYERS of its 32 layers and mamba2-1.3b at TP_SSM_LAYERS of its 48,
+# full width; TP_REQUESTS requests of 64-400 tokens, TP_NEW new each
+TP_RANKS, TP_LAYERS, TP_SSM_LAYERS = 2, 4, 12
+TP_REQUESTS, TP_NEW, TP_MAX_LEN = 8, 24, 448
+# mamba2's tp run serves the first TP_SSM_REQUESTS of the same mix (the
+# phase's time: every gloo collective syncs the shared card)
+TP_SSM_REQUESTS = 4
+# the paged kernels each llama3 path must launch on every rank
+TP_PATHS = {
+    "chunked fused": (dict(prefill_chunk=CHUNK),
+                      ("paged_attention_bkgd", "paged_prefill_attention_ckgd",
+                       "paged_mixed_attention_rkgd")),
+    "chunked interleaved": (dict(prefill_chunk=CHUNK,
+                                 step_mode="interleaved"),
+                            ("paged_attention_bkgd",
+                             "paged_prefill_attention_ckgd")),
+    "whole-prompt": (dict(prefill_chunk=None),
+                     ("paged_attention_bkgd", "flash_attention_bhsd")),
+}
+
+
+def _tp_requests(np, serving, cfg, seed, n=TP_REQUESTS, new=TP_NEW,
+                 sampled=2, hi=400):
+    return _random_requests(serving, n, np.random.default_rng(seed), sampled,
+                            lo=64, hi=hi, max_new=new, uid="tp",
+                            vocab=cfg.vocab_size, seed0=3000)
+
+
+def _tp_run(torch, np, cfg, card, label, make_engine, reqs, must, pk, fk,
+            sk, heads):
+    """One tp engine run: streams finished by length, every rank's pool or
+    bank at its local heads (``heads(rank_info)``: {what: (got, want)}),
+    each kernel of ``must`` launched on every rank. Returns the kernels'
+    launches summed over the ranks."""
+    t_build = time.perf_counter()
+    engine = make_engine()
+    ex = engine.executor
+    c0 = dict(ex.mesh.comm.stats)
+    for mod in (pk, fk, sk):
+        mod.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    handles, steps = _drive(torch, engine, reqs)
+    wall = time.perf_counter() - t0
+    mine = _path_launches(pk, sk, fk)
+    calls, sent = ex.stats["calls"], ex.stats["broadcast_bytes"]
+    coll = {k: v - c0[k] for k, v in ex.mesh.comm.stats.items()}
+    infos = {0: ex.rank_info()}
+    engine.close()
+    infos.update(ex.follower_info)
+    counts = {0: mine, **ex.follower_launches}
+    results = [h.result() for h in handles]
+    _check_served(np, cfg, results, reqs[0].sampling.max_new_tokens)
+    for r, info in infos.items():
+        for what, (got, want) in heads(info).items():
+            if got != want:
+                raise AssertionError(f"{label}: rank {r} {what} {got}, not "
+                                     f"{want}")
+        bad = [k for k in must if not counts[r][k] > 0]
+        if bad:
+            raise AssertionError(f"{label}: {bad} not launched on rank {r}: "
+                                 f"{counts[r]}")
+    n_tok = sum(len(r.tokens) for r in results)
+    log(f"{label} on {card} (built and run in "
+        f"{time.perf_counter() - t_build:.1f} s), {TP_RANKS} ranks sharing "
+        f"one card over gloo "
+        f"(collectives staged through the host: not tensor parallelism's "
+        f"speed): {len(results)}/{len(reqs)} requests, {n_tok} tokens in "
+        f"{wall:.3f} s = {n_tok / wall:.1f} tok/s, {steps} steps, {calls} "
+        f"executor calls, {sent / max(calls, 1):.0f} broadcast bytes a call, "
+        f"{coll['collectives'] / max(calls, 1):.1f} collectives "
+        f"({coll['bytes'] / max(calls, 1) / 2**20:.3f} MiB) a call; peak "
+        f"device memory of rank 0's process "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches per "
+        f"rank {[{k: v for k, v in c.items() if v} for _, c in sorted(counts.items())]}"
+        f"; local heads {[heads(i) for _, i in sorted(infos.items())]}")
+    return {k: sum(c[k] for c in counts.values()) for k in mine}
+
+
+def _tp_baseline(torch, np, serving, cfg, params, kw, reqs, card):
+    """The same trace at tp 1 (the weights whole on the card, no
+    follower): what the gloo ranks' tok/s is held against."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serving.executor import serving_mesh_scope
+
+    with serving_mesh_scope(make_serving_mesh(1, devices=["cuda:0"])):
+        engine = serving.ContinuousBatchingEngine(cfg, params, **kw,
+                                                  prefill_chunk=CHUNK)
+    t0 = time.perf_counter()
+    handles, steps = _drive(torch, engine, reqs)
+    wall = time.perf_counter() - t0
+    results = [h.result() for h in handles]
+    _check_served(np, cfg, results, reqs[0].sampling.max_new_tokens)
+    n_tok = sum(len(r.tokens) for r in results)
+    log(f"tp llama3 chunked fused at tp 1 on {card} (the baseline): "
+        f"{n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} tok/s, "
+        f"{steps} steps")
+
+
+def _tp_streams(torch, engine, reqs):
+    handles, _ = _drive(torch, engine, reqs)
+    engine.close()
+    return [list(h.tokens) for h in handles]
+
+
+def run_tp(torch, np, serving, models, get_arch, pk, fk, sk, card):
+    """Phase 37: TP_RANKS ranks on the one card (a mesh of explicit
+    devices; gloo) serve llama3-8b (TP_LAYERS layers, full width: 16 q over
+    4 kv heads a rank, untied vocab gathered) through the paged engine in
+    both step modes and whole-prompt, and mamba2-1.3b (TP_SSM_LAYERS
+    layers: 32 SSD heads a rank) through the SSM engine, the llama3 trace
+    first at tp 1 (the baseline); then, at PARITY_LAYERS in f32 with TF32
+    off, tp-2 greedy streams through the kernels equal tp 1's and tp 2's
+    through the plain versions. Returns {path: {kernel: launches summed
+    over the ranks}}."""
+    from repro_torch.launch.mesh import describe_mesh, make_serving_mesh
+    from repro_torch.serving.executor import (place_serving_params,
+                                              serving_mesh_scope)
+
+    paths = {}
+    mesh = make_serving_mesh(TP_RANKS, devices=["cuda:0"] * TP_RANKS)
+    t0 = time.perf_counter()
+    try:
+        mesh.group  # spawn the follower, join the group
+        log(f"tp mesh {describe_mesh(mesh)} on {card}: backend "
+            f"{mesh.backend}, started in {time.perf_counter() - t0:.1f} s")
+        with serving_mesh_scope(mesh):
+            full = get_arch("llama3-8b")
+            cfg = dataclasses.replace(full, num_layers=TP_LAYERS)
+            params = models.build_model(cfg, device="cuda").init(seed=0)
+            kvh = cfg.eff_kv_heads // TP_RANKS
+            kw = dict(max_len=TP_MAX_LEN, max_slots=SLOTS, page_size=PAGE,
+                      device="cuda")
+            reqs = _tp_requests(np, serving, cfg, 70)
+            _tp_baseline(torch, np, serving, cfg, params, kw, reqs, card)
+            placed = place_serving_params(cfg, params, mesh)
+            del params
+
+            def heads(info):
+                return {"page kv heads": (info["pages"]["k"][3], kvh)}
+
+            for name, (ekw, must) in TP_PATHS.items():
+                label = f"tp llama3 {name}"
+                paths[label] = _tp_run(
+                    torch, np, cfg, card, label,
+                    lambda ekw=ekw: serving.ContinuousBatchingEngine(
+                        cfg, placed, **kw, **ekw),
+                    reqs, must, pk, fk, sk, heads)
+            del placed
+            _free(torch)
+            mfull = get_arch("mamba2-1.3b")
+            mcfg = dataclasses.replace(mfull, num_layers=TP_SSM_LAYERS)
+            params = models.build_model(mcfg, device="cuda").init(seed=0)
+            h_local = mcfg.ssm_heads // TP_RANKS
+
+            def bank_heads(info):
+                return {"bank ssd heads": (info["bank"]["ssm"][2], h_local)}
+
+            paths["tp mamba2"] = _tp_run(
+                torch, np, mcfg, card, "tp mamba2",
+                lambda: serving.SSMEngine(mcfg, params, max_len=M_MAX_LEN,
+                                          max_slots=SLOTS,
+                                          prefill_chunk=CHUNK,
+                                          device="cuda"),
+                _tp_requests(np, serving, mcfg, 71, n=TP_SSM_REQUESTS),
+                ("ssd_scan_bshp", "ssd_decode_step_bh"),
+                pk, fk, sk, bank_heads)
+            del params
+            _free(torch)
+            _tp_parity(torch, np, serving, models, cfg, mcfg, mesh)
+    finally:
+        mesh.close()
+    log(f"tp phase: {time.perf_counter() - t0:.1f} s; the mesh closed, "
+        f"its follower ended")
+    return paths
+
+
+def _tp_parity(torch, np, serving, models, cfg, mcfg, mesh):
+    """PARITY_LAYERS, f32, TF32 off: greedy streams at tp 2 through the
+    kernels = tp 1 through the kernels = tp 2 through the plain versions,
+    for llama3-8b (paged, fused) and mamba2-1.3b (SSM engine)."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serving.executor import (place_serving_params,
+                                              serving_mesh_scope)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    one = make_serving_mesh(1, devices=["cuda:0"])
+    t0 = time.perf_counter()
+    for name, c, make in (
+            ("llama3", cfg, lambda c, p, impl: serving.ContinuousBatchingEngine(
+                c, p, max_len=TP_MAX_LEN, max_slots=4, page_size=PAGE,
+                prefill_chunk=CHUNK, attn_impl=impl, device="cuda")),
+            ("mamba2", mcfg, lambda c, p, impl: serving.SSMEngine(
+                c, p, max_len=M_MAX_LEN, max_slots=4, prefill_chunk=CHUNK,
+                ssd_impl=impl, device="cuda"))):
+        c32 = dataclasses.replace(c, dtype="float32",
+                                  num_layers=PARITY_LAYERS)
+        params = models.build_model(c32, device="cuda").init(seed=1)
+        reqs = lambda: _tp_requests(np, serving, c32, 72, n=5, new=16,
+                                    sampled=0, hi=200)
+        streams = {}
+        with serving_mesh_scope(one):
+            streams["tp1 kernels"] = _tp_streams(
+                torch, make(c32, params, "auto"), reqs())
+        placed = place_serving_params(c32, params, mesh)
+        del params
+        for key, impl in (("tp2 kernels", "auto"), ("tp2 plain", "ref")):
+            with serving_mesh_scope(mesh):
+                streams[key] = _tp_streams(torch, make(c32, placed, impl),
+                                           reqs())
+        base = streams["tp2 kernels"]
+        del placed
+        bad = {k: _first_diffs(base, v) for k, v in streams.items()
+               if v != base}
+        if bad:
+            raise AssertionError(f"tp parity {name}: streams part from tp 2 "
+                                 f"through the kernels: {bad}")
+        log(f"[{time.perf_counter() - t0:.1f} s] tp parity {name}: "
+            f"{PARITY_LAYERS} layers, f32, TF32 off: "
+            f"{len(base)} greedy streams of 16 tokens equal at tp 2 through "
+            f"the kernels, tp 1 through the kernels and tp 2 through the "
+            f"plain versions")
+        _free(torch)
+
+
 MMA_KERNELS = {"flash_attention": ("flash_attention_mma_info", (None,)),
                "paged_attention": ("paged_attention_prefill_mma_info",
                                    (0, 1))}
@@ -4589,6 +4836,12 @@ def main() -> int:
     by_path[flash].update(run_moe_vlm_train(torch, np, get_arch, fk, pk, sk,
                                             card))
     lap("dbrx and internvl2 train")
+    for path, counts in run_tp(torch, np, serving, models, get_arch, pk, fk,
+                               sk, card).items():
+        for name, n in counts.items():
+            if n:
+                by_path[name][path] = n
+    lap("tensor-parallel serving")
     kernels = [dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=sum(by_path[name].values()),
                     launches_by_path=by_path[name],

@@ -26,8 +26,10 @@ Fault-tolerance properties (the paper's C6, adapted):
     package re-reads each file to hash it); a sync save copies each leaf
     to the host in the thread that writes it.
 
-Elastic restore onto another device mesh (``restore(shardings=...)``)
-needs tensor parallelism (ROADMAP A.10) and raises until then.
+Elastic restore onto another mesh (``restore(shardings=...)``): each
+leaf comes back as this rank's slice under its
+:class:`~repro_torch.parallel.Sharding`, on this rank's device — save on
+one mesh, restore on another (``core/elastic.py``).
 """
 
 from __future__ import annotations
@@ -222,11 +224,10 @@ class CheckpointManager:
         """Restore into the structure of ``like`` (a tree of nested dicts
         whose leaves have ``shape`` and ``dtype``: tensors, e.g. on the
         ``meta`` device). Returns (the tree of CPU tensors in ``like``'s
-        dtypes, the saved meta)."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=...) places leaves on a device mesh, which "
-                "the port does not have yet (ROADMAP A.10)")
+        dtypes, the saved meta). ``shardings``: a matching tree of
+        :class:`~repro_torch.parallel.Sharding` (``RescalePlan.
+        new_shardings``); each leaf then comes back as this rank's slice,
+        on this rank's device."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no committed checkpoint under {self.root}")
@@ -254,6 +255,9 @@ class CheckpointManager:
 
         with ThreadPoolExecutor(_IO_THREADS) as pool:
             out = dict(pool.map(one, *zip(*flat_like)))
+        if shardings is not None:
+            placed = dict(tree_flatten(shardings)[0])
+            out = {key: placed[key].shard(t) for key, t in out.items()}
         return _rebuild(like, out, ""), manifest["meta"]
 
 

@@ -12,16 +12,21 @@ or through a checkpoint boundary (node count actually changed):
 ``rolling_phases`` yields the paper-faithful phase sequence (cordon/drain ≤
 maxUnavailable slices -> reshard -> resume) that the trainer logs as events.
 
-The port has no sharded train state yet: ``RescalePlan`` needs the logical
-axes -> device-mesh shardings of tensor parallelism (ROADMAP A.10) and
-refuses to be built until then. ``rolling_phases`` is pure Python and
-ported as it is.
+In the port a mesh's ranks are processes (``parallel/group.py``) and a
+sharded leaf is each rank's slice of it: ``apply`` cuts this rank's slices
+out of a full state, or first gathers a state sharded over the old mesh
+(``old``: its shardings) over that mesh's group, and places each slice on
+this rank's device; ``restore(shardings=...)`` does the same from a
+checkpoint. ``rolling_phases`` is pure Python and ported as it is.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Iterator
+
+from repro_torch.models.common import tree_map
+from repro_torch.parallel import make_shardings
 
 
 @dataclass
@@ -30,10 +35,23 @@ class RescalePlan:
     new_mesh: Any
     rules: dict | None = None
 
-    def __post_init__(self):
-        raise NotImplementedError(
-            "RescalePlan reshards a train state over a device mesh, which "
-            "the port does not have yet (ROADMAP A.10: tensor parallelism)")
+    def new_shardings(self, state_shapes: Any = None):
+        """The tree of :class:`~repro_torch.parallel.Sharding` over the new
+        mesh (``state_shapes``: leaves with ``shape``, for the
+        divisibility-aware rule drop)."""
+        return make_shardings(
+            self.state_axes, self.new_mesh, rules=self.rules,
+            shapes_tree=state_shapes)
+
+    def apply(self, state: Any, old: Any = None) -> Any:
+        """This rank's slices of ``state`` on the new mesh, each on this
+        rank's device. ``state`` is the full state, or, with ``old`` (the
+        tree of shardings it is laid out by over the old mesh), this rank's
+        slices there, gathered over the old mesh first."""
+        if old is not None:
+            state = tree_map(lambda x, s: s.gather(x), state, old)
+        shardings = self.new_shardings(state)
+        return tree_map(lambda x, s: s.shard(x), state, shardings)
 
 
 def rolling_phases(

@@ -67,8 +67,21 @@ existing ``--workdir`` bus, whose supervisor runs elsewhere.
 raises ``UnsupportedConfigError`` (no continuous-batching engine serves
 it), as in the JAX driver. The engines' ``max_len`` is the JAX driver's
 plus a vlm's ``num_frontend_tokens``, so its requests fit after the
-vision positions. The JAX package's mesh flag has no counterpart yet
-(ROADMAP A.10).
+vision positions.
+
+The paged and SSM engines run on a ``("model",)`` mesh of ranks (tensor
+parallelism, ``serving/executor.py``): ``--mesh auto`` (default) picks the
+largest degree the model's head counts allow over the local cards (1 on
+one card, and on ``--device cpu``: nothing is spawned), ``--mesh N``
+forces N ranks (on ``--device cpu``, N CPU processes; on ``cuda``, the
+first N cards). Rank 0 is this process; the others are spawned once and
+serve every worker's steps, so at N > 1 the flat pool runs one worker,
+and ``--fleet``, the host and persisted KV tiers and ``--spec draft`` are
+refused (ROADMAP A.10b). The summary line names the mesh
+(``mesh=model=2``); lockstep prints ``mesh=n/a``:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+      --mesh 2 --requests 8
 """
 
 from __future__ import annotations
@@ -161,27 +174,21 @@ def main() -> int:
                          "topic drains")
     ap.add_argument("--worker-name", default="w0",
                     help="--role worker: this worker's pod name")
+    ap.add_argument("--mesh", default="auto",
+                    help="paged/SSM engine: tensor-parallel mesh size — "
+                         "'auto' picks the largest degree the model's head "
+                         "counts allow over the local cards (1 on one card "
+                         "or the CPU); N forces N ranks (CPU processes on "
+                         "--device cpu, the first N cards on cuda)")
     ap.add_argument("--workdir", default="experiments/serve_run_torch")
     args = ap.parse_args()
 
     from repro_torch.configs import get_arch, reduced
-    from repro_torch.core import TopicBus
-    from repro_torch.core.autoscaler import Autoscaler, AutoscalerConfig
-    from repro_torch.core.events import EventLog
-    from repro_torch.core.registry import ServiceRegistry
-    from repro_torch.models import build_model, frontend_len
-    from repro_torch.serving import (
-        ContinuousBatchingEngine,
-        DeadlineAdmission,
-        FIFOAdmission,
-        GenerationEngine,
-        PriorityAdmission,
-        SSMEngine,
-        UnsupportedConfigError,
-        format_latency,
-        request_from_message,
-    )
-    from repro_torch.serving.metrics import UtilizationMetrics
+    from repro_torch.launch.mesh import describe_mesh, make_serving_mesh
+    from repro_torch.serving import UnsupportedConfigError
+    from repro_torch.serving.executor import (resolve_serving_mesh,
+                                              set_default_serving_mesh,
+                                              validate_serving_mesh)
 
     cfg = get_arch(args.arch)
     if args.reduced:
@@ -202,6 +209,51 @@ def main() -> int:
             f"it with the micro-batching baseline")
     use_ssm = args.engine == "paged" and ssm_ok
     use_paged = args.engine == "paged" and paged_ok
+    # the mesh, validated ONCE here (a bad --mesh N fails fast) and set as
+    # the default every engine builds on
+    mesh, mesh_desc, tp = None, "n/a", 1
+    if use_paged or use_ssm:
+        if args.mesh == "auto":
+            mesh, _ = resolve_serving_mesh(cfg, args.device)
+        else:
+            n = int(args.mesh)
+            mesh = make_serving_mesh(
+                n, devices=[args.device] * n
+                if args.device.startswith("cpu") else None)
+        tp = validate_serving_mesh(cfg, mesh)
+        mesh_desc = describe_mesh(mesh)
+        if tp > 1 and args.fleet:
+            raise NotImplementedError(
+                "--fleet at tp > 1: fleet workers are threads that would "
+                "each drive one mesh's ranks (ROADMAP A.10b)")
+        set_default_serving_mesh(mesh)
+    try:
+        return _serve(args, cfg, tp, mesh_desc, use_ssm, use_paged)
+    finally:
+        if mesh is not None:
+            set_default_serving_mesh(None)
+            mesh.close()
+
+
+def _serve(args, cfg, tp: int, mesh_desc: str, use_ssm: bool,
+           use_paged: bool) -> int:
+    from repro_torch.core import TopicBus
+    from repro_torch.core.autoscaler import Autoscaler, AutoscalerConfig
+    from repro_torch.core.events import EventLog
+    from repro_torch.core.registry import ServiceRegistry
+    from repro_torch.models import build_model, frontend_len
+    from repro_torch.serving import (
+        ContinuousBatchingEngine,
+        DeadlineAdmission,
+        FIFOAdmission,
+        GenerationEngine,
+        PriorityAdmission,
+        SSMEngine,
+        format_latency,
+        request_from_message,
+    )
+    from repro_torch.serving.metrics import UtilizationMetrics
+
     workdir = Path(args.workdir)
     workdir.mkdir(parents=True, exist_ok=True)
     bus = TopicBus(workdir / "bus")
@@ -229,7 +281,9 @@ def main() -> int:
     group = "servers"
     scaler = Autoscaler(
         bus, "requests", group,
-        AutoscalerConfig(min_replicas=1, max_replicas=4,
+        # one worker at tp > 1: the mesh's followers take one engine's
+        # steps at a time
+        AutoscalerConfig(min_replicas=1, max_replicas=4 if tp == 1 else 1,
                          target_lag_per_replica=args.max_batch * 2),
         events=events,
     )
@@ -318,6 +372,7 @@ def main() -> int:
                     # the same --persist-dir revives them across restarts
                     cache.flush_tiers()
                     engine._record_tiers()  # fold the flush into the gauges
+                engine.close()
                 with lock:
                     utilization.merge(engine.utilization)
         except BaseException as e:  # re-raised by main() below
@@ -386,7 +441,7 @@ def main() -> int:
     print(f"served {len(done)}/{args.requests} requests in {wall:.1f}s "
           f"({len(done)*args.max_new/wall:.1f} tok/s), engine={kind}, "
           f"device={args.device}, admission={args.admission}, "
-          f"peak workers={len(threads)}")
+          f"mesh={mesh_desc}, peak workers={len(threads)}")
     summary = format_latency(latencies)
     if summary != "no_latency_data":
         print(summary)

@@ -41,6 +41,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops, ref
 from repro_torch.models.common import ParamSpec, apply_rope, rms_norm, rope_table
+from repro_torch.parallel.collectives import psum_tp
 
 NEG_INF = -1e30
 
@@ -127,7 +128,7 @@ def self_attention(
     q, k, v = _project_qkv(p, x, cfg, positions, rope)
     out = (causal_flash(q, k, v, attn_impl) if causal else
            ops.flash_attention(q, k, v, causal=False, impl=attn_impl))
-    return _out_proj(out, p["wo"])
+    return psum_tp(_out_proj(out, p["wo"]))
 
 
 def self_attention_with_cache_write(
@@ -147,7 +148,7 @@ def self_attention_with_cache_write(
         positions = torch.arange(x.shape[1], device=x.device)
     q, k, v = _project_qkv(p, x, cfg, positions, rope)
     out = causal_flash(q, k, v, attn_impl)
-    return _out_proj(out, p["wo"]), (k, v)
+    return psum_tp(_out_proj(out, p["wo"])), (k, v)
 
 
 def decode_attention_raw(
@@ -192,7 +193,7 @@ def decode_self_attention(
     kc.index_copy_(1, at, k.to(kc.dtype))
     vc.index_copy_(1, at, v.to(vc.dtype))
     out = decode_attention_raw(q, kc, vc, pos + 1, cfg.head_dim ** -0.5)
-    return _out_proj(out.to(x.dtype), p["wo"]), layer_cache
+    return psum_tp(_out_proj(out.to(x.dtype), p["wo"])), layer_cache
 
 
 def _paged_scatter(layer_pages: dict, k_rows: torch.Tensor,
@@ -257,7 +258,7 @@ def decode_self_attention_paged(
         lengths + 1, **_scales(layer_pages), scale=cfg.head_dim ** -0.5,
         impl=attn_impl,
     ).to(x.dtype)  # (S, H, Dh)
-    return _out_proj(out, p["wo"])[:, None, :]
+    return psum_tp(_out_proj(out, p["wo"]))[:, None, :]
 
 
 def prefill_chunk_attention_paged(
@@ -288,7 +289,7 @@ def prefill_chunk_attention_paged(
         q[0], layer_pages["k"], layer_pages["v"], block_table, start, valid,
         **_scales(layer_pages), scale=cfg.head_dim ** -0.5, impl=attn_impl,
     ).to(x.dtype)  # (C, H, Dh)
-    return _out_proj(out, p["wo"])[None]
+    return psum_tp(_out_proj(out, p["wo"]))[None]
 
 
 def mixed_step_attention_paged(
@@ -326,7 +327,7 @@ def mixed_step_attention_paged(
         **_scales(layer_pages), scale=cfg.head_dim ** -0.5, impl=attn_impl,
         num_decode=num_decode,
     ).to(x.dtype)  # (R, H, Dh)
-    return _out_proj(out, p["wo"])[:, None, :]
+    return psum_tp(_out_proj(out, p["wo"]))[:, None, :]
 
 
 def cross_attention(

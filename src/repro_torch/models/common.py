@@ -13,6 +13,8 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.collectives import psum_tp
+
 
 @dataclass(frozen=True)
 class ParamSpec:
@@ -110,11 +112,15 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 
 
 def swiglu(x, w_gate, w_up, w_down):
-    """SwiGLU MLP. x (..., D); weights (D,F), (D,F), (F,D)."""
+    """SwiGLU MLP. x (..., D); weights (D,F), (D,F), (F,D).
+
+    Inside a ``tensor_parallel`` context the weights are this rank's ff
+    slice and the down projection's partial sum is reduced here; outside
+    it ``psum_tp`` is the identity."""
     g = x @ w_gate
     u = x @ w_up
     h = F.silu(g.float()).to(x.dtype) * u
-    return h @ w_down
+    return psum_tp(h @ w_down)
 
 
 # ---------------------------------------------------------------------------

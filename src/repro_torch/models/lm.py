@@ -74,6 +74,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (ParamSpec, flatten_tree, resolve_device,
                                        rms_norm, swiglu, tree_map)
+from repro_torch.parallel.collectives import all_gather_logits
 
 VOCAB_PAD_MULTIPLE = 256
 FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
@@ -262,9 +263,35 @@ class LMBase(nn.Module):
         state dict (fleet workers, a draft model on its target's weights)
         share the weights, which serving only reads."""
         own = self.state_dict()
-        self.load_state_dict({k: v.to(self.device, own[k].dtype)
-                              for k, v in params.items()}, assign=True)
+        if all(tuple(v.shape) == tuple(own[k].shape)
+               for k, v in params.items() if k in own):
+            self.load_state_dict({k: v.to(self.device, own[k].dtype)
+                                  for k, v in params.items()}, assign=True)
+        else:
+            self._load_shards(params, own)
         self._view_cache = {}
+        self._unembed_cache = None
+
+    def _load_shards(self, params: dict, own: dict) -> None:
+        """Load a tensor-parallel rank's state dict: a leaf may be a slice of
+        its declared shape (each dim equal or an exact divisor of it, the
+        serving executor's ``Sharding.shard``), and becomes the parameter
+        at its own shape. The forward passes read head, ff and vocab counts
+        off the weights' shapes."""
+        missing, extra = set(own) - set(params), set(params) - set(own)
+        if missing or extra:
+            raise KeyError(f"state dict: missing {sorted(missing)}, "
+                           f"unexpected {sorted(extra)}")
+        for k, v in params.items():
+            full = tuple(own[k].shape)
+            if v.dim() != len(full) or any(
+                    f % d for d, f in zip(v.shape, full)):
+                raise ValueError(f"{k}: shape {tuple(v.shape)} is no shard "
+                                 f"of {full}")
+            mod_name, _, leaf = k.rpartition(".")
+            mod = self.get_submodule(mod_name) if mod_name else self
+            mod._parameters[leaf] = nn.Parameter(
+                v.to(self.device, own[k].dtype), requires_grad=False)
 
     def _per_layer(self, name: str) -> list[dict]:
         """Per-layer views of the stacked parameters under ``name``, nested
@@ -282,14 +309,20 @@ class LMBase(nn.Module):
         the weight's values (bf16 operands into f32 logits, like the JAX
         unembed's ``preferred_element_type=f32``): a bf16 matmul would round
         the logits. The f32 copy of a bf16 weight is made once and kept
-        until the weight changes."""
+        until the weight changes.
+
+        Every entry point unembeds here (the JAX package's ten unembedding
+        sites, ``all_gather_logits`` at each): under a serving executor's
+        ``tensor_parallel`` context with an untied, vocab-sharded
+        ``unembed`` the rank's column slice of the logits is gathered into
+        the full padded vocab; otherwise the gather is the identity."""
         tied = not hasattr(self, "unembed")
         w = self.embed if tied else self.unembed
         key = (w.data_ptr(), w._version)
         if self._unembed_cache is None or self._unembed_cache[0] != key:
             wf = w.detach().float()
             self._unembed_cache = (key, wf.t() if tied else wf)
-        return x.float() @ self._unembed_cache[1]
+        return all_gather_logits(x.float() @ self._unembed_cache[1])
 
     def _as_scalar(self, v) -> torch.Tensor:
         return torch.as_tensor(v, dtype=torch.int32, device=self.device)
@@ -528,20 +561,29 @@ class DecoderLM(LMBase):
         * ssm: ``mamba``, the ``init_mamba_cache`` tree stacked over L
           (f32 SSD state (L, B, H, P, N), conv tails in the model's dtype);
         * hybrid: ``mamba`` as ssm, plus ``shared_k``/``shared_v`` (g, B,
-          max_len, KVH, Dh), one layer per attention occurrence."""
+          max_len, KVH, Dh), one layer per attention occurrence.
+
+        The head counts (KVH, H) and ``d_inner`` are the weights': a
+        tensor-parallel rank's slices give its share of the cache."""
         cfg = self.cfg
         dt = getattr(torch, cfg.dtype)
         pos = ((), torch.int32)
         if cfg.family in ("dense", "moe", "vlm"):
-            kv = ((cfg.num_layers, batch, max_len, cfg.num_kv_heads,
-                   cfg.head_dim), dt)
+            kvh = self.layers.attn.wk.shape[-2]
+            kv = ((cfg.num_layers, batch, max_len, kvh, cfg.head_dim), dt)
             return {"k": kv, "v": kv, "pos": pos}
         mc = ssm_mod.init_mamba_cache(cfg, batch, dt, device="meta")
-        struct = {"mamba": {k: ((cfg.num_layers,) + tuple(v.shape), v.dtype)
-                            for k, v in mc.items()}}
+        mamba = self.layers.mamba
+        local = {"ssm": (batch, mamba.a_log.shape[-1], cfg.ssm_head_dim,
+                         cfg.ssm_state),
+                 "conv_x": (batch, cfg.conv_width - 1,
+                            mamba.conv_x.shape[-1])}
+        struct = {"mamba": {
+            k: ((cfg.num_layers,) + local.get(k, tuple(v.shape)), v.dtype)
+            for k, v in mc.items()}}
         if cfg.family == "hybrid":
             kv = ((cfg.num_layers // cfg.attn_every, batch, max_len,
-                   cfg.num_kv_heads, cfg.head_dim), dt)
+                   self.shared.attn.wk.shape[-2], cfg.head_dim), dt)
             struct.update(shared_k=kv, shared_v=kv)
         struct["pos"] = pos
         return struct

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import ParamSpec
+from repro_torch.parallel.collectives import psum_tp
 
 
 def moe_param_specs(cfg: ModelConfig, stacked: int | None = None) -> dict:
@@ -75,7 +76,7 @@ def _expert_ffn(p, x_exp: torch.Tensor) -> torch.Tensor:
     g = torch.einsum("becd,edf->becf", x_exp, p["w_gate"])
     u = torch.einsum("becd,edf->becf", x_exp, p["w_up"])
     h = F.silu(g.float()).to(x_exp.dtype) * u
-    return torch.einsum("becf,efd->becd", h, p["w_down"])
+    return psum_tp(torch.einsum("becf,efd->becd", h, p["w_down"]))
 
 
 MOE_SEQ_CHUNK = 4096  # dispatch-buffer bound: B x k x chunk x cf x D

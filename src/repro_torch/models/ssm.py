@@ -2,8 +2,11 @@
 scan -> gated norm -> out_proj, one decode token or one prefill chunk at a
 time against a carried cache, or a whole sequence from a zero state.
 
-The port of ``repro/models/ssm.py`` at tensor-parallel degree 1 (its
-``psum_tp``/``pmean_tp`` are identities there). The depthwise conv stays
+The port of ``repro/models/ssm.py``. Under a serving executor's
+``tensor_parallel`` context each rank holds its slice of the heads (``ff``
+and ``ssm_heads``; B/C and their conv taps whole): the gated norm's mean
+of squares goes through ``pmean_tp`` and the out projection's partial sum
+through ``psum_tp``, identities outside the context. The depthwise conv stays
 split into x / B / C streams as in the JAX package. ``mamba_block`` is the
 whole-sequence forward: the lockstep engine's prefill, and the training
 forward of the ssm and hybrid families, where it runs under autograd (no
@@ -23,6 +26,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.common import ParamSpec, resolve_device
+from repro_torch.parallel.collectives import pmean_tp, psum_tp
 
 
 def mamba_param_specs(cfg: ModelConfig, stacked: int | None = None) -> dict:
@@ -81,7 +85,7 @@ def _gated_norm(p, gated: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """RMS norm over d_inner in f32, returned in ``gated``'s dtype."""
     dt = gated.dtype
     g32 = gated.float()
-    var = g32.square().mean(dim=-1, keepdim=True)
+    var = pmean_tp(g32.square().mean(dim=-1, keepdim=True))
     g32 = g32 * torch.rsqrt(var + cfg.norm_eps)
     return (g32 * p["norm"].float()).to(dt)
 
@@ -112,7 +116,7 @@ def _post_ssd(p, y, xs_heads, z, cfg: ModelConfig):
     y = y.reshape(b, s, h * pdim)
     gated = y * F.silu(z.float())
     gated = _gated_norm(p, gated.to(z.dtype), cfg)
-    return gated @ p["w_out"]
+    return psum_tp(gated @ p["w_out"])
 
 
 def _a(p) -> torch.Tensor:

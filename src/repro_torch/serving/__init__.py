@@ -21,7 +21,10 @@ on the card.
 Speculative decoding (``serving.speculative``: the ngram and draft-model
 proposers) rides the paged engine's chunk path; ``serving.fleet`` runs
 engines as supervised workers over the bus, with heartbeats, crash replay
-and autoscaling.
+and autoscaling. ``serving.executor`` shards the paged and SSM engines
+over a ``("model",)`` mesh of ranks (``pick_tp``,
+``serving_mesh_scope``, ``set_default_serving_mesh``), as the JAX
+package's executor does; the engine signatures stay mesh-free.
 """
 
 from repro_torch.serving.api import (

@@ -545,6 +545,11 @@ class EngineBase:
     def step(self) -> list[StreamEvent]:
         raise NotImplementedError
 
+    def close(self) -> None:
+        """Release what the engine holds beyond its own process (a
+        tensor-parallel executor's followers); a no-op unless an engine
+        has such. The engine serves no more steps after it."""
+
     # -- shared internals ----------------------------------------------
     def _drain_events(self) -> list[StreamEvent]:
         out, self._events = self._events, []

@@ -64,7 +64,9 @@ from repro_torch.serving.api import (
     StreamEvent,
     validate_request,
 )
-from repro_torch.serving.executor import ModelExecutor
+from repro_torch.serving.executor import (ModelExecutor,
+                                         resolve_serving_mesh,
+                                         validate_serving_mesh)
 from repro_torch.serving.kv_cache import PagedKVCache, cdiv
 from repro_torch.serving.kv_tiers import KVTierManager
 from repro_torch.serving.metrics import UtilizationMetrics
@@ -272,6 +274,15 @@ class ContinuousBatchingEngine(EngineBase):
     :func:`repro_torch.models.params_from_jax`); ``device`` is where the
     model, the page pool and every step live (``"cuda"`` unless the caller
     asks for ``"cpu"``).
+
+    Tensor parallelism: the engine runs on the default serving mesh
+    (``executor.default_serving_mesh``: the one set by
+    ``serving_mesh_scope`` / ``set_default_serving_mesh``, else
+    ``pick_tp``'s over the local cards — one rank on one card or the CPU).
+    At tp > 1 the page pool holds this rank's ``KVH / tp`` heads, the
+    executor drives the followers, and :meth:`close` releases them; the
+    host and persisted KV tiers and the draft-model proposer are refused
+    there (ROADMAP A.10b).
     """
 
     def __init__(
@@ -324,6 +335,18 @@ class ContinuousBatchingEngine(EngineBase):
         self.cfg = cfg
         self.nf = frontend_len(cfg)
         self.device = resolve_device(device)
+        # the serving mesh, as the JAX engine builds it: the default one
+        # (serving_mesh_scope / set_default_serving_mesh) or pick_tp's
+        mesh, own_mesh = resolve_serving_mesh(cfg, self.device)
+        tp = validate_serving_mesh(cfg, mesh)
+        if tp > 1 and (host_pages or persist_dir is not None):
+            raise NotImplementedError(
+                "the host and persisted KV tiers at tp > 1: a spilled page "
+                "needs every rank's heads (ROADMAP A.10b)")
+        if tp > 1 and speculative == "draft":
+            raise NotImplementedError(
+                "the draft-model proposer at tp > 1 (ROADMAP A.10b); the "
+                "ngram proposer verifies through the sharded executor")
         self.max_len = max_len
         self.max_slots = max_slots
         self.max_preemptions = max_preemptions
@@ -349,7 +372,7 @@ class ContinuousBatchingEngine(EngineBase):
         )
         self.cache = PagedKVCache(
             num_layers=cfg.num_layers,
-            num_kv_heads=cfg.eff_kv_heads,
+            num_kv_heads=cfg.eff_kv_heads // tp,  # this rank's heads
             head_dim=cfg.head_dim,
             dtype=getattr(torch, cfg.dtype),
             max_slots=max_slots,
@@ -370,7 +393,7 @@ class ContinuousBatchingEngine(EngineBase):
         )
         self.executor = ModelExecutor(
             cfg, params, self.cache, max_len=max_len, device=self.device,
-            attn_impl=attn_impl,
+            attn_impl=attn_impl, mesh=mesh, own_mesh=own_mesh,
         )
         self.model = self.executor.model
         self.params = self.executor.params
@@ -405,6 +428,11 @@ class ContinuousBatchingEngine(EngineBase):
         self.stats.update({"decode_steps": 0, "prefills": 0,
                            "prefill_chunks": 0, "preemptions": 0,
                            "spec_bundles": 0})
+
+    def close(self) -> None:
+        """Release the executor on the mesh's followers (ending them when
+        the mesh is the engine's own)."""
+        self.executor.close()
 
     # ------------------------------------------------------------------
     # EngineBase hooks

@@ -235,6 +235,10 @@ class PagedKVCache:
         self._page_ck: dict[int, bytes] = {}
         self.stats = {"prefix_hits": 0, "prefix_tokens_reused": 0,
                       "cow_copies": 0}
+        # tensor parallelism: the device-side pool operations made here
+        # outside an executor call (copy-on-write page copies), queued for
+        # the other ranks' pools (the executor sets a list; None at tp 1)
+        self.replay: list | None = None
 
     # ------------------------------------------------------------------
     # prefix index
@@ -577,13 +581,18 @@ class PagedKVCache:
             old = pages[need]
             if self.pool.refcounts[old] > 1:  # shared: copy before the write
                 (new,) = self._alloc(1)
-                _copy_page(self.pages, old, new)
+                self._copy_page(old, new)
                 self.pool.decref(old)  # shared, so never frees here
                 pages[need] = new
                 self.block_tables[slot, need] = new
                 self.stats["cow_copies"] += 1
                 changed = True
         return changed
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        _copy_page(self.pages, src, dst)
+        if self.replay is not None:
+            self.replay.append(("copy_page", src, dst))
 
     def append(self, slot: int) -> None:
         """Record that the decode step wrote one token for this slot."""

@@ -32,7 +32,16 @@ the state bank in the SAME step; attention page exhaustion preempts
 youngest-first exactly like the paged engine, and snapshot preemption is
 refused (a hybrid slot's pages are released with it).
 
-The port of ``repro/serving/ssm_engine.py`` at tp=1.
+Tensor parallelism, as in the JAX engine: on a ``("model",)`` mesh of
+ranks each rank's bank holds its slice per ``STATE_SPECS`` (the SSD state
+on ``ssm_heads``, the x conv tail on its ``d_inner`` channels, the B/C
+conv tails whole), the hybrid's pool its ``KVH / tp`` heads, and the
+executor runs every step on every rank (``serving/executor.py``'s
+one-message call); the bank operations made outside a step (a snapshot
+preemption's park and restore) are queued for the followers, whose banks
+park and restore their own slices.
+
+The port of ``repro/serving/ssm_engine.py``.
 """
 
 from __future__ import annotations
@@ -46,6 +55,10 @@ from repro_torch.models import build_model
 from repro_torch.models.common import pick_tokens
 from repro_torch.models.lm import resolve_device
 from repro_torch.models.ssm import init_mamba_cache
+from repro_torch.parallel.axes import P, Sharding
+from repro_torch.serving.executor import (ShardedExecutor,
+                                         resolve_serving_mesh,
+                                         validate_serving_mesh)
 from repro_torch.serving.kv_cache import NULL_PAGE, PagedKVCache, cdiv
 from repro_torch.serving.api import (
     EngineBase,
@@ -57,7 +70,17 @@ from repro_torch.serving.api import (
 from repro_torch.serving.metrics import UtilizationMetrics
 from repro_torch.serving.scheduler import DecodeInputs, Sequence
 
-__all__ = ["SSMEngine", "SlotStateBank"]
+__all__ = ["SSMEngine", "SlotStateBank", "STATE_SPECS"]
+
+# Stacked-bank PartitionSpecs (the JAX engine's): the SSD state shards on
+# ssm_heads, the x conv tail on its d_inner channels, and the B/C conv
+# tails (state-dim N, replicated projections) stay whole.
+STATE_SPECS = {
+    "ssm": P(None, None, "model", None, None),     # (L, S, HN, PN, N)
+    "conv_x": P(None, None, None, "model"),        # (L, S, W-1, DIN)
+    "conv_b": P(),                                 # (L, S, W-1, N)
+    "conv_c": P(),
+}
 
 
 class SlotStateBank:
@@ -68,18 +91,26 @@ class SlotStateBank:
     The model's decode step advances the bank in place; a prefill chunk's
     result is written back into its slot. Host-side slot bookkeeping (which
     slot belongs to which request) lives in the engine; the bank only knows
-    shapes, snapshots and restores."""
+    shapes, snapshots and restores. On a mesh (``mesh``) it holds this
+    rank's slice of each leaf per :data:`STATE_SPECS`."""
 
     def __init__(self, cfg, max_slots: int, dtype: torch.dtype,
-                 device="cuda") -> None:
+                 device="cuda", mesh=None) -> None:
         device = resolve_device(device)
         mc = init_mamba_cache(cfg, max_slots, dtype, device="meta")
+        shape = {k: (cfg.num_layers,) + tuple(v.shape) for k, v in mc.items()}
+        if mesh is not None:
+            shape = {k: Sharding(mesh, STATE_SPECS[k]).shard_shape(v)
+                     for k, v in shape.items()}
         self.state: dict[str, torch.Tensor] = {
-            k: torch.zeros((cfg.num_layers,) + tuple(v.shape), dtype=v.dtype,
-                           device=device)
+            k: torch.zeros(shape[k], dtype=v.dtype, device=device)
             for k, v in mc.items()
         }
         self.max_slots = max_slots
+        # tensor parallelism: snapshots and restores for the other ranks'
+        # banks (the executor sets a list; None at tp 1)
+        self.replay: list | None = None
+        self._keys = 0
 
     def slot(self, slot: int) -> dict[str, torch.Tensor]:
         """Views of one slot's state, slot axis kept singleton
@@ -98,17 +129,37 @@ class SlotStateBank:
         """A host COPY of one slot's full state — (L, ...) leaves with the
         slot axis dropped. Never a view: on a CPU bank ``.cpu()`` would
         alias, and a parked snapshot must not change when the slot is
-        reused."""
-        return {k: v[:, slot].to("cpu", copy=True)
+        reused. At tp > 1 the other ranks park their own slices under the
+        snapshot's ``"rank_key"``."""
+        snap = {k: v[:, slot].to("cpu", copy=True)
                 for k, v in self.state.items()}
+        if self.replay is not None:
+            self._keys += 1
+            snap["rank_key"] = self._keys
+            self.replay.append(("snapshot", slot, self._keys))
+        return snap
 
     def restore(self, slot: int, snap: dict[str, torch.Tensor]) -> None:
         """Write a host snapshot back into a (newly allocated) slot."""
         for k, v in self.state.items():
             v[:, slot].copy_(snap[k])
+        if self.replay is not None:
+            self.replay.append(("restore", slot, snap["rank_key"]))
 
 
-class SSMExecutor:
+def _follower_ssm_executor(*, mesh, cfg, params, max_slots: int,
+                           cache_kw: dict | None, attn_impl, ssd_impl):
+    """A follower's :class:`SSMExecutor`: its bank slice, its hybrid pool
+    (``KVH / tp`` heads), its weight slices, on its device."""
+    dtype = getattr(torch, cfg.dtype)
+    bank = SlotStateBank(cfg, max_slots, dtype, device=mesh.device, mesh=mesh)
+    cache = (PagedKVCache(**cache_kw, device=mesh.device)
+             if cache_kw is not None else None)
+    return SSMExecutor(cfg, params, bank, cache, device=mesh.device,
+                       attn_impl=attn_impl, ssd_impl=ssd_impl, mesh=mesh)
+
+
+class SSMExecutor(ShardedExecutor):
     """Compute half of the SSM engine: the model on its device, the decode
     step + sampling over every slot (plus the shared attention pool's
     read/write in the hybrid case), the chunked-prefill step, and the
@@ -116,15 +167,22 @@ class SSMExecutor:
     packing: ``di`` (S, MP+6) int32 = [block-table row (MP = 0 for pure
     SSM) | lens, active, tokens, top_ks, seeds, idx], ``df`` (S, 2) f32 =
     [temps, top_ps]. ``lens`` drives attention in the hybrid case only but
-    is advanced uniformly, so both layouts share one packing."""
+    is advanced uniformly, so both layouts share one packing.
+
+    On a mesh, as :class:`~repro_torch.serving.executor.ModelExecutor`:
+    each public call is one message to the followers and the same step on
+    every rank, over this rank's weights, bank and pool slices."""
 
     _DI_COLS = 6
 
     def __init__(self, cfg, params, bank: SlotStateBank,
                  cache: PagedKVCache | None = None, *, device="cuda",
-                 attn_impl: str | None = None, ssd_impl: str | None = None):
+                 attn_impl: str | None = None, ssd_impl: str | None = None,
+                 mesh=None, own_mesh: bool = False):
         self.cfg = cfg
-        self.model = build_model(cfg, params=params, device=device,
+        self._init_mesh(cfg, device, mesh, own_mesh)
+        self.model = build_model(cfg, params=self._local_params(params),
+                                 device=device,
                                  attn_impl=attn_impl or "auto",
                                  ssd_impl=ssd_impl or "auto")
         self.device = self.model.device
@@ -134,6 +192,31 @@ class SSMExecutor:
         self._greedy_only = True
         self._di: torch.Tensor | None = None
         self._df: torch.Tensor | None = None
+        self._parked: dict[int, dict] = {}  # a follower's snapshots
+        if self.leader:
+            bank.replay = self._ops
+            cache_kw = None
+            if cache is not None:
+                cache.replay = self._ops
+                k = cache.pages["k"]
+                cache_kw = dict(
+                    num_layers=k.shape[0], num_kv_heads=k.shape[3],
+                    head_dim=k.shape[4], dtype=k.dtype,
+                    max_slots=cache.max_slots,
+                    max_context=cache.max_pages_per_seq * cache.page_size,
+                    page_size=cache.page_size, num_pages=cache.num_pages)
+            self._start_followers(params, _follower_ssm_executor, dict(
+                cfg=cfg, max_slots=bank.max_slots, cache_kw=cache_kw,
+                attn_impl=attn_impl, ssd_impl=ssd_impl))
+
+    def _replay(self, ops: list) -> None:
+        for op in ops:
+            if op[0] == "snapshot":
+                self._parked[op[2]] = self.bank.snapshot(op[1])
+            elif op[0] == "restore":
+                self.bank.restore(op[1], self._parked.pop(op[2]))
+            else:
+                super()._replay([op])
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         """A device copy of a host array (never an alias)."""
@@ -145,7 +228,6 @@ class SSMExecutor:
     def refresh(self, inputs: DecodeInputs) -> None:
         """Mirror a freshly assembled decode batch to the device (two
         transfers: packed int32 + packed f32)."""
-        self._greedy_only = inputs.greedy_only
         bt = inputs.block_tables
         s, mp = bt.shape
         di = np.empty((s, mp + self._DI_COLS), np.int32)
@@ -156,9 +238,14 @@ class SSMExecutor:
         di[:, mp + 3] = inputs.top_ks
         di[:, mp + 4] = inputs.seeds
         di[:, mp + 5] = inputs.idx
+        df = np.stack([inputs.temps, inputs.top_ps], axis=1).astype(np.float32)
+        self._run("_refresh", di, df, inputs.greedy_only)
+
+    def _refresh(self, di: np.ndarray, df: np.ndarray,
+                 greedy_only: bool) -> None:
+        self._greedy_only = greedy_only
         self._di = self._to_device(di)
-        self._df = self._to_device(
-            np.stack([inputs.temps, inputs.top_ps], axis=1).astype(np.float32))
+        self._df = self._to_device(df)
 
     def decode(self, inputs: DecodeInputs | None = None) -> np.ndarray:
         """Run one decode step; ``None`` reuses the device-advanced batch
@@ -166,6 +253,9 @@ class SSMExecutor:
         the host."""
         if inputs is not None:
             self.refresh(inputs)
+        return self._run("_decode")
+
+    def _decode(self) -> np.ndarray:
         di, df = self._di, self._df
         mp = di.shape[1] - self._DI_COLS
         lens, active = di[:, mp].contiguous(), di[:, mp + 1].contiguous()
@@ -207,8 +297,14 @@ class SSMExecutor:
         ci[:m] = row
         ci[m:m + c] = tokens
         ci[m + c:] = (sp.top_k, seq.handle.seed)
-        ci = self._to_device(ci)
-        cf = self._to_device(np.array([sp.temperature, sp.top_p], np.float32))
+        cf = np.array([sp.temperature, sp.top_p], np.float32)
+        return self._run("_chunk", slot, ci, cf, c, start, valid,
+                         sp.temperature <= 0)
+
+    def _chunk(self, slot: int, ci: np.ndarray, cf: np.ndarray, c: int,
+               start: int, valid: int, greedy: bool) -> int:
+        m = ci.shape[0] - c - 2
+        ci, cf = self._to_device(ci), self._to_device(cf)
         if start == 0:
             self.bank.zero(slot)
         if self.cache is None:
@@ -225,7 +321,7 @@ class SSMExecutor:
             logits[None], cf[0:1], ci[m + c:m + c + 1], cf[1:2],
             ci[m + c + 1:m + c + 2],
             torch.zeros((1,), dtype=torch.int32, device=self.device),
-            self.cfg.vocab_size, sp.temperature <= 0)
+            self.cfg.vocab_size, greedy)
         return int(tok[0])
 
 
@@ -272,21 +368,28 @@ class SSMEngine(EngineBase):
             raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
         self.prefill_chunk = prefill_chunk
         self.device = resolve_device(device)
+        # the serving mesh, as the JAX engine builds it (see
+        # ContinuousBatchingEngine); the bank and pool hold this rank's
+        # slices
+        mesh, own_mesh = resolve_serving_mesh(cfg, self.device)
+        tp = validate_serving_mesh(cfg, mesh)
         self.hybrid = cfg.family == "hybrid"
         if self.hybrid:
             self.cache = PagedKVCache(
                 num_layers=cfg.num_layers // cfg.attn_every,
-                num_kv_heads=cfg.eff_kv_heads, head_dim=cfg.head_dim,
+                num_kv_heads=cfg.eff_kv_heads // tp, head_dim=cfg.head_dim,
                 dtype=getattr(torch, cfg.dtype), max_slots=max_slots,
                 max_context=max_len, page_size=page_size,
                 num_pages=num_pages, device=self.device)
         else:
             self._free = list(range(max_slots - 1, -1, -1))  # pop() -> slot 0 first
         self.bank = SlotStateBank(cfg, max_slots, getattr(torch, cfg.dtype),
-                                  device=self.device)
+                                  device=self.device,
+                                  mesh=mesh if tp > 1 else None)
         self.executor = SSMExecutor(
             cfg, params, self.bank, self.cache if self.hybrid else None,
-            device=self.device, attn_impl=attn_impl, ssd_impl=ssd_impl)
+            device=self.device, attn_impl=attn_impl, ssd_impl=ssd_impl,
+            mesh=mesh, own_mesh=own_mesh)
         self.model = self.executor.model
         self.params = self.executor.params
         self.slots: dict[int, Sequence] = {}
@@ -300,6 +403,11 @@ class SSMEngine(EngineBase):
         self.stats.update({"decode_steps": 0, "prefills": 0,
                            "prefill_chunks": 0, "preemptions": 0,
                            "restores": 0})
+
+    def close(self) -> None:
+        """Release the executor on the mesh's followers (ending them when
+        the mesh is the engine's own)."""
+        self.executor.close()
 
     # ------------------------------------------------------------------
     # EngineBase hooks

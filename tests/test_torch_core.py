@@ -12,9 +12,10 @@
   package's steps, edges and ``to_dot()``, the rendered Deployment and
   PV/PVC YAML is byte-equal, and the scheduled pipeline's ``report``
   equals JAX's.
-* The refusals that wait for ROADMAP A.10 (``RescalePlan``), and the pod
-  repair of ROADMAP C.7: a killed or crashed attempt keeps none of its
-  tensors alive once its thread has ended.
+* ``RescalePlan`` (ROADMAP A.10: its shardings over a host mesh, and
+  ``apply`` cutting a state into this rank's slices), and the pod repair
+  of ROADMAP C.7: a killed or crashed attempt keeps none of its tensors
+  alive once its thread has ended.
 """
 
 import argparse
@@ -784,15 +785,31 @@ def test_pipeline_report_equals_jax(name, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# refusals (ROADMAP A.10) and the pod repair (ROADMAP C.7)
+# the elastic rescale (ROADMAP A.10) and the pod repair (ROADMAP C.7)
 # ---------------------------------------------------------------------------
 
 
-def test_rescale_plan_waits_for_tensor_parallelism():
-    from repro_torch.core.elastic import RescalePlan, rolling_phases
+def test_rescale_plan_reshards_onto_a_mesh():
+    """The plan's shardings follow the rules over the mesh's axes (``ff``
+    over ``model``, ``embed`` over an absent ``data``: whole); ``apply``
+    gives this rank (rank 0) its slice of each leaf, on its device."""
+    import torch
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        RescalePlan({"w": ("embed", "ff")}, new_mesh=None)
+    from repro_torch.core.elastic import RescalePlan, rolling_phases
+    from repro_torch.launch.mesh import make_host_mesh, make_serving_mesh
+    from repro_torch.parallel import PartitionSpec as P
+
+    state = {"w": torch.arange(12.0).reshape(3, 4), "b": torch.ones(4)}
+    axes = {"w": ("embed", "ff"), "b": (None,)}
+    plan = RescalePlan(axes, new_mesh=make_serving_mesh(2, devices=["cpu"] * 2))
+    sh = plan.new_shardings(state)
+    assert sh["w"].spec == P(None, "model") and sh["b"].spec == P(None)
+    got = plan.apply(state)  # rank 0 of two: no follower needed to cut
+    assert torch.equal(got["w"], state["w"][:, :2])
+    assert torch.equal(got["b"], state["b"])
+    assert not plan.new_mesh.started
+    host = RescalePlan(axes, new_mesh=make_host_mesh()).apply(state)
+    assert all(torch.equal(host[k], state[k]) for k in state)
     phases = list(rolling_phases(4, 2, max_unavailable=1))
     assert [p["phase"] for p in phases] == [
         "checkpoint_barrier", "drain", "drain", "reshard", "resume"]

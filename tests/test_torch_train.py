@@ -3,8 +3,8 @@
 
 * Ports of ``tests/test_train.py`` (learning, ga equivalence, exact
   resume, clipping, the AdamW arithmetic, the data pipeline) and of
-  ``tests/test_checkpoint.py``'s cases other than the elastic reshard
-  (which waits for ROADMAP A.10; ``restore(shardings=...)`` refuses).
+  ``tests/test_checkpoint.py``, the elastic reshard included
+  (``restore(shardings=...)`` onto a host mesh and onto two CPU ranks).
 * Cross-package, at ``tests/test_train.py``'s reduced f32 config with
   JAX's initial parameters carried across (``train_state_from_jax``):
   the step-1 loss within 1e-5 relative; the step-1 gradients, leaf by
@@ -210,7 +210,7 @@ def test_data_equals_jax_pipeline():
 
 
 # ---------------------------------------------------------------------------
-# tests/test_checkpoint.py (the elastic reshard waits for ROADMAP A.10)
+# tests/test_checkpoint.py
 # ---------------------------------------------------------------------------
 
 
@@ -340,12 +340,64 @@ def test_shape_mismatch_rejected(tmp_path):
         ck.restore(bad)
 
 
-def test_restore_onto_a_mesh_waits_for_tensor_parallelism(tmp_path):
+def test_restore_onto_a_mesh_gives_each_rank_its_slice(tmp_path):
+    """``restore(shardings=...)`` over a mesh of two CPU ranks, run on
+    this process as rank 0: each leaf is rank 0's slice (``ff`` split over
+    ``model``), the replicated leaves whole."""
+    from repro_torch.core.elastic import RescalePlan
+    from repro_torch.launch.mesh import make_serving_mesh
+
     ck = CheckpointManager(tmp_path)
     s = state_like()
     ck.save(1, s)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        ck.restore(abstract(s), shardings=tree_map(lambda x: None, s))
+    mesh = make_serving_mesh(2, devices=["cpu", "cpu"])
+    plan = RescalePlan(ELASTIC_AXES, mesh)
+    got, _ = ck.restore(abstract(s), shardings=plan.new_shardings(abstract(s)))
+    assert torch.equal(got["params"]["w"], s["params"]["w"][:, :2])
+    assert torch.equal(got["opt"]["m"]["w"], s["opt"]["m"]["w"][:, :2])
+    assert torch.equal(got["params"]["b"], s["params"]["b"])
+    assert torch.equal(got["step"], s["step"])
+    assert not mesh.started
+
+
+ELASTIC_AXES = {
+    "params": {"w": ("embed", "ff"), "b": (None,)},
+    "opt": {"m": {"w": ("embed", "ff"), "b": (None,)}},
+    "step": None,
+}
+
+
+def test_elastic_reshard_mesh_to_mesh(tmp_path):
+    """Save, then restore under other meshes — the elastic-rescale
+    primitive: a host mesh (one rank: every leaf whole), and two CPU ranks
+    (this process and a spawned one), whose slices of ``w`` laid side by
+    side are the saved tensor; ``apply`` back onto the host mesh gathers
+    them over the two ranks."""
+    from repro_torch.core.elastic import RescalePlan, rolling_phases
+    from repro_torch.launch.mesh import make_host_mesh, make_serving_mesh
+
+    ck = CheckpointManager(tmp_path)
+    s = state_like()
+    ck.save(5, s)
+    plan = RescalePlan(ELASTIC_AXES, make_host_mesh())
+    got, _ = ck.restore(abstract(s), shardings=plan.new_shardings(abstract(s)))
+    assert torch.equal(got["params"]["w"], s["params"]["w"])
+    with make_serving_mesh(2, devices=["cpu", "cpu"],
+                           init_dir=str(tmp_path)) as mesh:
+        two = RescalePlan(ELASTIC_AXES, mesh)
+        sh = two.new_shardings(abstract(s))
+        ranks = mesh.group.spmd(ck.restore, [(abstract(s), None, sh)] * 2)
+        w = [r["params"]["w"] for r, _ in ranks]
+        assert [tuple(x.shape) for x in w] == [(3, 2), (3, 2)]
+        assert torch.equal(torch.cat(w, dim=1), s["params"]["w"])
+        assert all(torch.equal(r["step"], s["step"]) for r, _ in ranks)
+        back = mesh.group.spmd(plan.apply, [(r, sh) for r, _ in ranks])
+        assert all(torch.equal(b["params"]["w"], s["params"]["w"])
+                   for b in back)
+    # rolling phases follow maxUnavailable
+    phases = list(rolling_phases(4, 2, max_unavailable=1))
+    assert [p["phase"] for p in phases] == [
+        "checkpoint_barrier", "drain", "drain", "reshard", "resume"]
 
 
 # ---------------------------------------------------------------------------

@@ -398,9 +398,21 @@ Phases (any failure exits non-zero):
    or bank at its local heads; every kernel of each path launched on both
    ranks (``launches_by_path`` sums the ranks); tok/s (one card shared
    by two gloo ranks: not tensor parallelism's speed), collectives and
-   broadcast bytes a call, peak memory. Then, at PARITY_LAYERS in f32
-   with TF32 off, greedy streams at tp 2 through the kernels equal tp 1's
-   and tp 2's through the plain versions, for both models.
+   broadcast bytes a call, peak memory. On the same mesh and llama3
+   weights, three more paths: ``tp llama3 tiers`` (host and persisted KV
+   tiers under pool pressure, every parked page flushed; a new engine on
+   the same store reloads pages from it, and every reloaded page, read
+   whole through the gathered page read, equals the store's bytes),
+   ``tp llama3 fleet`` (a FleetSupervisor of 2 workers on the mesh, one
+   killed: every request terminal, each (uid, index) once, the streams
+   that part from the unperturbed tp-2 engine's counted, and the follower
+   holds no executor after shutdown) and ``tp llama3 draft``
+   (speculation with the first TP_DRAFT_LAYERS layer as the draft, whole
+   on rank 0: bundles, accepted drafts, tok/s). Then, at PARITY_LAYERS in
+   f32 with TF32 off, greedy streams at tp 2 through the kernels equal
+   tp 1's and tp 2's through the plain versions, for both models, and,
+   for llama3, tp 2's with the draft proposer; there a fleet with a kill
+   gives every stream of the unperturbed tp-2 engine.
 
 Kernel and plain times are device time per call: the calls are enqueued
 behind a sleep kernel and timed with CUDA events, so the host's per-call
@@ -4302,6 +4314,18 @@ TP_PATHS = {
 }
 
 
+# the sub-runs on the same mesh and llama3 weights (ROADMAP A.10b): the
+# host and persisted KV tiers (a pool of TP_TIER_PAGES pages, TP_TIER_HOST
+# of them in host RAM, a TP_TIER_PREFIX-token prefix on half the
+# requests), then a restart on the store; a fleet of 2 workers, one killed
+# after TP_FLEET_KILL_STEPS engine steps, over TP_FLEET_REQUESTS requests;
+# speculation with the first TP_DRAFT_LAYERS layers as the draft model,
+# TP_SPEC_K drafts a bundle
+TP_TIER_PAGES, TP_TIER_HOST, TP_TIER_PREFIX = 96, 16, 128
+TP_FLEET_REQUESTS, TP_FLEET_NEW, TP_FLEET_KILL_STEPS = 6, 16, 2
+TP_DRAFT_LAYERS, TP_SPEC_K = 1, 4
+
+
 def _tp_requests(np, serving, cfg, seed, n=TP_REQUESTS, new=TP_NEW,
                  sampled=2, hi=400):
     return _random_requests(serving, n, np.random.default_rng(seed), sampled,
@@ -4310,11 +4334,13 @@ def _tp_requests(np, serving, cfg, seed, n=TP_REQUESTS, new=TP_NEW,
 
 
 def _tp_run(torch, np, cfg, card, label, make_engine, reqs, must, pk, fk,
-            sk, heads):
+            sk, heads, after=None):
     """One tp engine run: streams finished by length, every rank's pool or
     bank at its local heads (``heads(rank_info)``: {what: (got, want)}),
-    each kernel of ``must`` launched on every rank. Returns the kernels'
-    launches summed over the ranks."""
+    each kernel of ``must`` launched on every rank; ``after(engine,
+    results)``, when given, checks more before the engine closes and
+    returns a note for the log line. Returns the kernels' launches summed
+    over the ranks."""
     t_build = time.perf_counter()
     engine = make_engine()
     ex = engine.executor
@@ -4329,10 +4355,13 @@ def _tp_run(torch, np, cfg, card, label, make_engine, reqs, must, pk, fk,
     calls, sent = ex.stats["calls"], ex.stats["broadcast_bytes"]
     coll = {k: v - c0[k] for k, v in ex.mesh.comm.stats.items()}
     infos = {0: ex.rank_info()}
-    engine.close()
+    results = [h.result() for h in handles]
+    try:
+        note = after(engine, results) if after is not None else ""
+    finally:
+        engine.close()
     infos.update(ex.follower_info)
     counts = {0: mine, **ex.follower_launches}
-    results = [h.result() for h in handles]
     _check_served(np, cfg, results, reqs[0].sampling.max_new_tokens)
     for r, info in infos.items():
         for what, (got, want) in heads(info).items():
@@ -4356,7 +4385,8 @@ def _tp_run(torch, np, cfg, card, label, make_engine, reqs, must, pk, fk,
         f"device memory of rank 0's process "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches per "
         f"rank {[{k: v for k, v in c.items() if v} for _, c in sorted(counts.items())]}"
-        f"; local heads {[heads(i) for _, i in sorted(infos.items())]}")
+        f"; local heads {[heads(i) for _, i in sorted(infos.items())]}"
+        + (f"; {note}" if note else ""))
     return {k: sum(c[k] for c in counts.values()) for k in mine}
 
 
@@ -4386,16 +4416,215 @@ def _tp_streams(torch, engine, reqs):
     return [list(h.tokens) for h in handles]
 
 
+def _first_layers(params, n):
+    """A state dict cut to its first ``n`` layers (the draft model: the
+    same embedding, norm and unembedding, the vocab shared)."""
+    return {k: v[:n].clone() if k.startswith("layers.") else v
+            for k, v in params.items()}
+
+
+def _tp_tier_requests(np, serving, cfg):
+    """TP_REQUESTS requests of 64-200 new prompt tokens, every other one
+    after the same TP_TIER_PREFIX-token prefix; greedy and seeded top-p
+    alternating."""
+    rng = np.random.default_rng(74)
+    prefix = rng.integers(1, cfg.vocab_size, TP_TIER_PREFIX).tolist()
+    reqs = []
+    for i in range(TP_REQUESTS):
+        tail = rng.integers(1, cfg.vocab_size,
+                            int(rng.integers(64, 201))).tolist()
+        sp = (serving.SamplingParams(temperature=0.8, top_p=0.9,
+                                     max_new_tokens=TP_NEW, seed=3100 + i)
+              if i % 2 else
+              serving.SamplingParams(max_new_tokens=TP_NEW, seed=3100 + i))
+        reqs.append(serving.Request(f"tk{i}", (prefix if i % 2 == 0 else [])
+                                    + tail, sampling=sp))
+    return reqs
+
+
+def _tp_tiers(torch, np, serving, cfg, placed, kw, card, pk, fk, sk, heads):
+    """``tp llama3 tiers``: a fused tp-2 engine with host and persisted
+    tiers serves the shared-prefix trace and flushes every parked page;
+    a new tp-2 engine on the same store serves it again, reloading pages
+    from the store (``persist_hits`` >= 1), and every reloaded page, read
+    through the gathered page read (both ranks' heads), equals the store's
+    bytes. A spilled page is whole: every kv head, ``spill_bytes`` a
+    whole page's. Returns the two runs' launches summed over the ranks."""
+    from repro_torch.core.storage import ArtifactStore
+
+    must = ("paged_attention_bkgd", "paged_prefill_attention_ckgd",
+            "paged_mixed_attention_rkgd")
+    with tempfile.TemporaryDirectory(prefix="tp_kv_") as tmp:
+        ekw = dict(kw, prefill_chunk=CHUNK, num_pages=TP_TIER_PAGES,
+                   host_pages=TP_TIER_HOST, persist_dir=tmp)
+
+        def make():
+            engine = serving.ContinuousBatchingEngine(cfg, placed, **ekw)
+            engine._uploads = _UploadLog(engine.cache)
+            return engine
+
+        def tiers_note(t):
+            return ", ".join(f"{k} {t[k]}" for k in (
+                "spilled_pages", "spill_bytes", "host_hits", "persist_hits",
+                "prefetched_pages", "reclaimed_pages"))
+
+        def first(engine, results):
+            freed = engine.cache.flush_tiers()
+            t = engine.cache.tiers.counters
+            whole = engine.cache.page_nbytes * TP_RANKS  # every rank's heads
+            if not t["spilled_pages"] or t["spill_bytes"] != (
+                    t["spilled_pages"] * whole):
+                raise AssertionError(f"tp tiers: spilled {tiers_note(t)}, "
+                                     f"not whole pages of {whole} B")
+            index = engine.cache.tiers.persist_index
+            block = ArtifactStore(tmp).get(next(iter(index.values()))["k"])
+            if block.shape[2] != cfg.eff_kv_heads:
+                raise AssertionError(f"tp tiers: a persisted page of "
+                                     f"{block.shape}, not every kv head")
+            return (f"flushed {freed} pages, {len(index)} persisted pages "
+                    f"of {cfg.eff_kv_heads} kv heads; {tiers_note(t)}")
+
+        def restart(engine, results):
+            t = engine.cache.tiers.counters
+            if t["persist_hits"] < 1:
+                raise AssertionError(f"tp tiers restart: no page reloaded "
+                                     f"from the store ({tiers_note(t)})")
+            n = _check_reloaded(torch, np, engine, tmp, {"k", "v"})
+            return (f"{n} reloaded pages equal the store's bytes on both "
+                    f"ranks; {tiers_note(t)}")
+
+        runs = [_tp_run(torch, np, cfg, card, f"tp llama3 tiers {label}",
+                        make, _tp_tier_requests(np, serving, cfg), must, pk,
+                        fk, sk, heads, after)
+                for label, after in (("first run", first),
+                                     ("restart", restart))]
+    return {k: sum(r[k] for r in runs) for k in runs[0]}
+
+
+def _tp_fleet(torch, np, serving, cfg, placed, ekw, mesh, label, exact,
+              card, pk, fk, sk):
+    """A FleetSupervisor of 2 engine workers (threads on the one mesh), the
+    first to finish TP_FLEET_KILL_STEPS steps killed: every request
+    terminal, each (uid, index) once on ``responses`` with no mismatched
+    or gapped delta, the paged kernels launched on both ranks, and after
+    shutdown the follower holds no executor of any attempt. With ``exact``
+    (f32, TF32 off) every stream equals the unperturbed tp-2 engine's; in
+    bf16 the streams that part from it are counted (a worker batches other
+    requests than the oracle, and bf16 GEMMs round by batch shape).
+    Returns the fleet's launches summed over the ranks."""
+    from repro_torch.core import TopicBus
+    from repro_torch.core.faults import FaultInjector, WorkerKillRule
+
+    reqs = _tp_requests(np, serving, cfg, 73, n=TP_FLEET_REQUESTS,
+                        new=TP_FLEET_NEW)
+    payloads = [{"uid": r.uid, "prompt": list(r.prompt),
+                 "max_new_tokens": r.sampling.max_new_tokens,
+                 "temperature": r.sampling.temperature,
+                 "top_p": r.sampling.top_p, "seed": r.sampling.seed}
+                for r in reqs]
+    t0 = time.perf_counter()
+    oracle = dict(zip([r.uid for r in reqs], _tp_streams(
+        torch, serving.ContinuousBatchingEngine(cfg, placed, **ekw), reqs)))
+    t_oracle = time.perf_counter() - t0
+    group = mesh.group
+    held0, f0 = group.held(), group.launches()
+    for mod in (pk, fk, sk):
+        mod.reset_launches()
+    injector = FaultInjector(worker_rules=[WorkerKillRule(
+        after_steps=TP_FLEET_KILL_STEPS, times=1)])
+    with tempfile.TemporaryDirectory(prefix="tp_fleet_") as tmp:
+        sup = serving.FleetSupervisor(
+            TopicBus(Path(tmp) / "bus"),
+            lambda: serving.ContinuousBatchingEngine(cfg, placed, **ekw),
+            serving.FleetConfig(workers=2, min_replicas=1, max_replicas=2,
+                                beat_interval_s=0.01, max_restarts=3),
+            injector=injector)
+        t1 = time.perf_counter()
+        try:
+            for pl in payloads:
+                sup.submit(pl)
+            done = sup.run(expected=list(oracle), timeout_s=300)
+        finally:
+            sup.shutdown()
+        wall = time.perf_counter() - t1
+        if not done:
+            raise AssertionError("tp fleet: run timed out")
+        states = sup.results()
+        _check_responses(sup, states)
+    torch.cuda.synchronize()
+    mine = _path_launches(pk, sk, fk)
+    f1, held1 = group.launches(), group.held()
+    m = sup.metrics
+    diff = {u: _first_diffs([st.tokens], [oracle[u]])[0]
+            for u, st in states.items() if st.tokens != oracle[u]}
+    if (exact and diff) or m.mismatched_deltas or m.gapped_deltas:
+        raise AssertionError(f"{label}: streams part from the tp-2 engine's "
+                             f"at {diff}; mismatched deltas "
+                             f"{m.mismatched_deltas}, gapped "
+                             f"{m.gapped_deltas}; {m.format()}")
+    if injector.kills_armed() != 1 or m.crashes < 1:
+        raise AssertionError(f"{label}: the kill did not land; {m.format()}")
+    if held1 != held0:
+        raise AssertionError(f"{label}: the follower holds {held1} after "
+                             f"shutdown, {held0} before the fleet")
+    counts = {0: mine, **{r: {k: v - f0[r].get(k, 0) for k, v in c.items()}
+                          for r, c in f1.items()}}
+    must = ("paged_attention_bkgd", "paged_prefill_attention_ckgd",
+            "paged_mixed_attention_rkgd")
+    for r, c in counts.items():
+        bad = [k for k in must if not c.get(k, 0) > 0]
+        if bad:
+            raise AssertionError(f"{label}: {bad} not launched on rank {r}")
+    n_tok = sum(len(st.tokens) for st in states.values())
+    log(f"{label} on {card}: 2 workers (threads) on the 2-rank mesh, one "
+        f"killed after {TP_FLEET_KILL_STEPS} steps: {len(states)}/"
+        f"{len(payloads)} requests terminal, "
+        f"{len(payloads) - len(diff)} streams equal the unperturbed tp-2 "
+        f"engine's (parting at {diff}; oracle {t_oracle:.1f} s), each (uid, "
+        f"index) once, no mismatched delta; {n_tok} tokens "
+        f"in {wall:.3f} s; {m.format()}; recovery s "
+        f"{[round(r, 4) for r in m.recovery_s]}; follower objects after "
+        f"shutdown {held1}; launches per rank "
+        f"{[{k: v for k, v in c.items() if v} for _, c in sorted(counts.items())]}")
+    return {k: sum(c.get(k, 0) for c in counts.values()) for k in mine}
+
+
+def _tp_draft(torch, np, serving, cfg, placed, dcfg, dparams, kw, card, pk,
+              fk, sk, heads):
+    """``tp llama3 draft``: speculation at tp 2 with the draft model (the
+    target's first TP_DRAFT_LAYERS layers, whole on rank 0, outside every
+    executor call): bundles, accepted drafts and tok/s. Returns the
+    launches summed over the ranks (the draft's are rank 0's)."""
+    def spec(engine, results):
+        u = engine.utilization
+        if not engine.stats["spec_bundles"]:
+            raise AssertionError("tp draft: no bundle dispatched")
+        return (f"draft {dcfg.num_layers} layer(s) on rank 0: "
+                f"{engine.stats['spec_bundles']} bundles, "
+                f"{u.spec_proposed} drafted, {u.spec_accepted} accepted, "
+                f"{u.spec_rollbacks} rollbacks")
+
+    return _tp_run(
+        torch, np, cfg, card, "tp llama3 draft",
+        lambda: serving.ContinuousBatchingEngine(
+            cfg, placed, **kw, prefill_chunk=CHUNK, speculative="draft",
+            spec_k=TP_SPEC_K, draft_config=dcfg, draft_params=dparams),
+        _tp_requests(np, serving, cfg, 70), ("paged_prefill_attention_ckgd",),
+        pk, fk, sk, heads, spec)
+
+
 def run_tp(torch, np, serving, models, get_arch, pk, fk, sk, card):
     """Phase 37: TP_RANKS ranks on the one card (a mesh of explicit
     devices; gloo) serve llama3-8b (TP_LAYERS layers, full width: 16 q over
     4 kv heads a rank, untied vocab gathered) through the paged engine in
     both step modes and whole-prompt, and mamba2-1.3b (TP_SSM_LAYERS
     layers: 32 SSD heads a rank) through the SSM engine, the llama3 trace
-    first at tp 1 (the baseline); then, at PARITY_LAYERS in f32 with TF32
-    off, tp-2 greedy streams through the kernels equal tp 1's and tp 2's
-    through the plain versions. Returns {path: {kernel: launches summed
-    over the ranks}}."""
+    first at tp 1 (the baseline); on the same llama3 weights the KV tiers
+    with a restart, the fleet with a kill and the draft proposer; then, at
+    PARITY_LAYERS in f32 with TF32 off, tp-2 greedy streams through the
+    kernels equal tp 1's and tp 2's through the plain versions (and, for
+    llama3, with the draft). Returns {path: {kernel: launches summed over
+    the ranks}}."""
     from repro_torch.launch.mesh import describe_mesh, make_serving_mesh
     from repro_torch.serving.executor import (place_serving_params,
                                               serving_mesh_scope)
@@ -4417,6 +4646,8 @@ def run_tp(torch, np, serving, models, get_arch, pk, fk, sk, card):
             reqs = _tp_requests(np, serving, cfg, 70)
             _tp_baseline(torch, np, serving, cfg, params, kw, reqs, card)
             placed = place_serving_params(cfg, params, mesh)
+            dcfg = dataclasses.replace(cfg, num_layers=TP_DRAFT_LAYERS)
+            dparams = _first_layers(params, TP_DRAFT_LAYERS)
             del params
 
             def heads(info):
@@ -4429,7 +4660,20 @@ def run_tp(torch, np, serving, models, get_arch, pk, fk, sk, card):
                     lambda ekw=ekw: serving.ContinuousBatchingEngine(
                         cfg, placed, **kw, **ekw),
                     reqs, must, pk, fk, sk, heads)
-            del placed
+            t1 = time.perf_counter()
+            paths["tp llama3 tiers"] = _tp_tiers(
+                torch, np, serving, cfg, placed, kw, card, pk, fk, sk, heads)
+            t2 = time.perf_counter()
+            paths["tp llama3 fleet"] = _tp_fleet(
+                torch, np, serving, cfg, placed, dict(kw, prefill_chunk=CHUNK),
+                mesh, "tp llama3 fleet", False, card, pk, fk, sk)
+            t3 = time.perf_counter()
+            paths["tp llama3 draft"] = _tp_draft(
+                torch, np, serving, cfg, placed, dcfg, dparams, kw, card, pk,
+                fk, sk, heads)
+            log(f"tp llama3 sub-runs: tiers {t2 - t1:.1f} s, fleet "
+                f"{t3 - t2:.1f} s, draft {time.perf_counter() - t3:.1f} s")
+            del placed, dparams
             _free(torch)
             mfull = get_arch("mamba2-1.3b")
             mcfg = dataclasses.replace(mfull, num_layers=TP_SSM_LAYERS)
@@ -4450,7 +4694,8 @@ def run_tp(torch, np, serving, models, get_arch, pk, fk, sk, card):
                 pk, fk, sk, bank_heads)
             del params
             _free(torch)
-            _tp_parity(torch, np, serving, models, cfg, mcfg, mesh)
+            _tp_parity(torch, np, serving, models, cfg, mcfg, mesh, card, pk,
+                       fk, sk)
     finally:
         mesh.close()
     log(f"tp phase: {time.perf_counter() - t0:.1f} s; the mesh closed, "
@@ -4458,10 +4703,14 @@ def run_tp(torch, np, serving, models, get_arch, pk, fk, sk, card):
     return paths
 
 
-def _tp_parity(torch, np, serving, models, cfg, mcfg, mesh):
+def _tp_parity(torch, np, serving, models, cfg, mcfg, mesh, card, pk, fk,
+               sk):
     """PARITY_LAYERS, f32, TF32 off: greedy streams at tp 2 through the
     kernels = tp 1 through the kernels = tp 2 through the plain versions,
-    for llama3-8b (paged, fused) and mamba2-1.3b (SSM engine)."""
+    for llama3-8b (paged, fused) and mamba2-1.3b (SSM engine); for llama3
+    also = tp 2 with the draft proposer (the first TP_DRAFT_LAYERS layers
+    of the same weights), and a tp-2 fleet with a kill gives every stream
+    of the unperturbed tp-2 engine (``_tp_fleet``, exact)."""
     from repro_torch.launch.mesh import make_serving_mesh
     from repro_torch.serving.executor import (place_serving_params,
                                               serving_mesh_scope)
@@ -4471,9 +4720,10 @@ def _tp_parity(torch, np, serving, models, cfg, mcfg, mesh):
     one = make_serving_mesh(1, devices=["cuda:0"])
     t0 = time.perf_counter()
     for name, c, make in (
-            ("llama3", cfg, lambda c, p, impl: serving.ContinuousBatchingEngine(
-                c, p, max_len=TP_MAX_LEN, max_slots=4, page_size=PAGE,
-                prefill_chunk=CHUNK, attn_impl=impl, device="cuda")),
+            ("llama3", cfg, lambda c, p, impl, **x:
+             serving.ContinuousBatchingEngine(
+                 c, p, max_len=TP_MAX_LEN, max_slots=4, page_size=PAGE,
+                 prefill_chunk=CHUNK, attn_impl=impl, device="cuda", **x)),
             ("mamba2", mcfg, lambda c, p, impl: serving.SSMEngine(
                 c, p, max_len=M_MAX_LEN, max_slots=4, prefill_chunk=CHUNK,
                 ssd_impl=impl, device="cuda"))):
@@ -4487,11 +4737,36 @@ def _tp_parity(torch, np, serving, models, cfg, mcfg, mesh):
             streams["tp1 kernels"] = _tp_streams(
                 torch, make(c32, params, "auto"), reqs())
         placed = place_serving_params(c32, params, mesh)
+        draft = {}
+        if name == "llama3":
+            draft = dict(speculative="draft", spec_k=TP_SPEC_K,
+                         draft_config=dataclasses.replace(
+                             c32, num_layers=TP_DRAFT_LAYERS),
+                         draft_params=_first_layers(params, TP_DRAFT_LAYERS))
         del params
         for key, impl in (("tp2 kernels", "auto"), ("tp2 plain", "ref")):
             with serving_mesh_scope(mesh):
                 streams[key] = _tp_streams(torch, make(c32, placed, impl),
                                            reqs())
+        spec = ""
+        if draft:
+            with serving_mesh_scope(mesh):
+                engine = make(c32, placed, "auto", **draft)
+            streams["tp2 draft"] = _tp_streams(torch, engine, reqs())
+            u = engine.utilization
+            if not engine.stats["spec_bundles"]:
+                raise AssertionError("tp parity llama3: the draft never "
+                                     "drafted")
+            spec = (f"; with the draft proposer {engine.stats['spec_bundles']}"
+                    f" bundles, {u.spec_accepted}/{u.spec_proposed} drafts "
+                    f"accepted")
+            del engine, draft
+            with serving_mesh_scope(mesh):
+                _tp_fleet(torch, np, serving, c32, placed, dict(
+                    max_len=TP_MAX_LEN, max_slots=4, page_size=PAGE,
+                    prefill_chunk=CHUNK, device="cuda"), mesh,
+                    f"tp llama3 fleet f32 ({PARITY_LAYERS} layers)", True,
+                    card, pk, fk, sk)
         base = streams["tp2 kernels"]
         del placed
         bad = {k: _first_diffs(base, v) for k, v in streams.items()
@@ -4503,7 +4778,8 @@ def _tp_parity(torch, np, serving, models, cfg, mcfg, mesh):
             f"{PARITY_LAYERS} layers, f32, TF32 off: "
             f"{len(base)} greedy streams of 16 tokens equal at tp 2 through "
             f"the kernels, tp 1 through the kernels and tp 2 through the "
-            f"plain versions")
+            f"plain versions" + (" and tp 2 with the draft" if spec else "")
+            + spec)
         _free(torch)
 
 

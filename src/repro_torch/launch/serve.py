@@ -75,13 +75,19 @@ largest degree the model's head counts allow over the local cards (1 on
 one card, and on ``--device cpu``: nothing is spawned), ``--mesh N``
 forces N ranks (on ``--device cpu``, N CPU processes; on ``cuda``, the
 first N cards). Rank 0 is this process; the others are spawned once and
-serve every worker's steps, so at N > 1 the flat pool runs one worker,
-and ``--fleet``, the host and persisted KV tiers and ``--spec draft`` are
-refused (ROADMAP A.10b). The summary line names the mesh
+serve every worker's steps. The weights are cut into the ranks' slices
+once, and every worker's engine shares them. Workers (the flat pool's, up
+to 4, and ``--fleet``'s) are threads that share the one mesh: each
+engine's executor has its own id on the followers, and the group's lock
+takes their calls one at a time. The host and persisted KV tiers live on
+rank 0 and hold whole pages (every rank's heads), and ``--spec draft``'s
+model runs whole on rank 0. The summary line names the mesh
 (``mesh=model=2``); lockstep prints ``mesh=n/a``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
       --mesh 2 --requests 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+      --mesh 2 --fleet 2
 """
 
 from __future__ import annotations
@@ -211,7 +217,7 @@ def main() -> int:
     use_paged = args.engine == "paged" and paged_ok
     # the mesh, validated ONCE here (a bad --mesh N fails fast) and set as
     # the default every engine builds on
-    mesh, mesh_desc, tp = None, "n/a", 1
+    mesh, mesh_desc = None, "n/a"
     if use_paged or use_ssm:
         if args.mesh == "auto":
             mesh, _ = resolve_serving_mesh(cfg, args.device)
@@ -220,22 +226,18 @@ def main() -> int:
             mesh = make_serving_mesh(
                 n, devices=[args.device] * n
                 if args.device.startswith("cpu") else None)
-        tp = validate_serving_mesh(cfg, mesh)
+        validate_serving_mesh(cfg, mesh)
         mesh_desc = describe_mesh(mesh)
-        if tp > 1 and args.fleet:
-            raise NotImplementedError(
-                "--fleet at tp > 1: fleet workers are threads that would "
-                "each drive one mesh's ranks (ROADMAP A.10b)")
         set_default_serving_mesh(mesh)
     try:
-        return _serve(args, cfg, tp, mesh_desc, use_ssm, use_paged)
+        return _serve(args, cfg, mesh, mesh_desc, use_ssm, use_paged)
     finally:
         if mesh is not None:
             set_default_serving_mesh(None)
             mesh.close()
 
 
-def _serve(args, cfg, tp: int, mesh_desc: str, use_ssm: bool,
+def _serve(args, cfg, mesh, mesh_desc: str, use_ssm: bool,
            use_paged: bool) -> int:
     from repro_torch.core import TopicBus
     from repro_torch.core.autoscaler import Autoscaler, AutoscalerConfig
@@ -261,6 +263,11 @@ def _serve(args, cfg, tp: int, mesh_desc: str, use_ssm: bool,
     registry = ServiceRegistry(bus)
 
     params = build_model(cfg, device=args.device).init(seed=0)
+    if mesh is not None and mesh.size > 1:
+        # every rank's slices cut once: the workers' engines share them
+        from repro_torch.serving.executor import place_serving_params
+
+        params = place_serving_params(cfg, params, mesh)
     shared = list(range(2, 2 + args.shared_prefix))
     max_len = 64 + args.shared_prefix + args.max_new + frontend_len(cfg)
 
@@ -281,9 +288,7 @@ def _serve(args, cfg, tp: int, mesh_desc: str, use_ssm: bool,
     group = "servers"
     scaler = Autoscaler(
         bus, "requests", group,
-        # one worker at tp > 1: the mesh's followers take one engine's
-        # steps at a time
-        AutoscalerConfig(min_replicas=1, max_replicas=4 if tp == 1 else 1,
+        AutoscalerConfig(min_replicas=1, max_replicas=4,
                          target_lag_per_replica=args.max_batch * 2),
         events=events,
     )
@@ -335,7 +340,7 @@ def _serve(args, cfg, tp: int, mesh_desc: str, use_ssm: bool,
     if args.role == "worker":
         return _run_worker(args, bus, make_engine)
     if args.fleet:
-        return _run_fleet(args, bus, events, make_engine)
+        return _run_fleet(args, bus, events, make_engine, mesh_desc)
 
     done: dict[str, list[int]] = {}
     latencies: list = []  # Results, for TTFT/ITL percentiles
@@ -468,7 +473,7 @@ def _serve(args, cfg, tp: int, mesh_desc: str, use_ssm: bool,
     return 0
 
 
-def _run_fleet(args, bus, events, make_engine) -> int:
+def _run_fleet(args, bus, events, make_engine, mesh_desc: str) -> int:
     """Supervised-fleet driver: FleetSupervisor + N engine workers with
     probes, crash-replay recovery and autoscaling (``serving/fleet.py``)."""
     from repro_torch.serving.fleet import FleetConfig, FleetSupervisor
@@ -489,7 +494,7 @@ def _run_fleet(args, bus, events, make_engine) -> int:
     n_tokens = sum(len(s.tokens) for s in states.values())
     print(f"fleet served {len(states)}/{args.requests} requests in "
           f"{wall:.1f}s ({n_tokens / wall:.1f} tok/s), "
-          f"workers={args.fleet}+auto, "
+          f"workers={args.fleet}+auto, mesh={mesh_desc}, "
           f"supervision: {sup.metrics.format()}")
     autoscales = events.history("autoscale")
     print("autoscale events:", [(e["old"], e["new"]) for e in autoscales])

@@ -33,10 +33,12 @@ ranks join one process group:
 A follower runs :func:`_follower_main`: it builds the objects rank 0 asks
 for (``build``: a package factory called with this rank's mesh and
 kwargs, e.g. a serving executor over its weight shard), runs their steps
-(``call``), answers reads of their state (``query``), reports its kernel
-launch counts when one is dropped (``drop``), and runs single functions
-on every rank for tests and tools (:meth:`RankGroup.spmd`, the
-``shard_map`` of one call).
+(``call``), answers reads of their state (``query``; both first apply the
+pool operations rank 0 queued since its last message, in order), reports
+its kernel launches since it built an object when it is dropped
+(``drop``) or since it started (``launches``), lists what it holds
+(``held``), and runs single functions on every rank for tests and
+tools (:meth:`RankGroup.spmd`, the ``shard_map`` of one call).
 """
 
 from __future__ import annotations
@@ -62,6 +64,9 @@ _FOLLOWING: dict[str, tuple[int, "Comm"]] = {}
 # the process group's timeout: a collective or the rendezvous waits this
 # long for a rank before it fails
 TIMEOUT_S = 300.0
+# one start of a mesh's followers at a time: engines built in several
+# threads (fleet workers) may all be the first to use a mesh
+_STARTING = threading.Lock()
 
 
 def choose_backend(devices: Sequence[torch.device]) -> tuple[str, str]:
@@ -191,13 +196,14 @@ class Mesh:
         """Rank 0's handle on the followers, spawned on first use."""
         if self.id in _FOLLOWING:
             raise RuntimeError("only rank 0 drives a mesh's followers")
-        if self._group is None or self._group.closed:
-            if self.size > 1 and len(self.axis_names) > 1:
-                raise NotImplementedError(
-                    "a group of processes spans one mesh axis; "
-                    f"{self!r} has {len(self.axis_names)}")
-            self._group = RankGroup(self)
-        return self._group
+        with _STARTING:
+            if self._group is None or self._group.closed:
+                if self.size > 1 and len(self.axis_names) > 1:
+                    raise NotImplementedError(
+                        "a group of processes spans one mesh axis; "
+                        f"{self!r} has {len(self.axis_names)}")
+                self._group = RankGroup(self)
+            return self._group
 
     @property
     def comm(self) -> Comm | None:
@@ -344,8 +350,9 @@ class RankGroup:
 
     def drop(self, xid: str) -> dict[int, tuple[dict, Any]]:
         """Release ``xid`` on every follower; returns, per follower, its
-        kernel launch counts since it built ``xid`` and the object's
-        ``rank_info()`` (its shard shapes)."""
+        kernel launches since it built ``xid`` (those of any other object
+        stepped meanwhile included) and the object's ``rank_info()`` (its
+        shard shapes)."""
         if self.closed:
             return {}
         with self.lock:
@@ -353,11 +360,18 @@ class RankGroup:
             return {r: (reply[1], reply[2])
                     for r, reply in self.gather().items()}
 
-    def query(self, xid: str, method: str, *args) -> dict[int, Any]:
-        """``method(*args)`` of the object each follower built under
-        ``xid`` (no collective runs); {rank: result}."""
+    def launches(self) -> dict[int, dict[str, int]]:
+        """Each follower's kernel launches since it started, per kernel
+        (engines that share the mesh count together)."""
         with self.lock:
-            self.broadcast(("query", xid, method, args))
+            self.broadcast(("launches",))
+            return {r: reply[1] for r, reply in self.gather().items()}
+
+    def held(self) -> dict[int, list[str]]:
+        """The ids of the objects each follower still holds (built and not
+        yet dropped); {rank: sorted ids}."""
+        with self.lock:
+            self.broadcast(("held",))
             return {r: reply[1] for r, reply in self.gather().items()}
 
     def spmd(self, fn, args_by_rank: Sequence[tuple], *,
@@ -417,13 +431,6 @@ def launch_counts() -> dict[str, int]:
             **flash_attention.LAUNCHES}
 
 
-def _reset_launches() -> None:
-    from repro_torch.kernels import flash_attention, paged_attention, ssd_scan
-
-    for mod in (paged_attention, ssd_scan, flash_attention):
-        mod.reset_launches()
-
-
 def _follower_main(rank: int, mesh: Mesh, store: str, backend: str,
                    conn) -> None:
     """A follower's life: join the group, then serve rank 0's messages
@@ -441,6 +448,7 @@ def _follower_main(rank: int, mesh: Mesh, store: str, backend: str,
         comm = _make_comm(store, rank, mesh.size, backend)
         _FOLLOWING[mesh.id] = (rank, comm)
         objects: dict[str, Any] = {}
+        built_at: dict[str, dict[str, int]] = {}  # launch counts at build
         while True:
             try:
                 msg = conn.recv()
@@ -454,17 +462,24 @@ def _follower_main(rank: int, mesh: Mesh, store: str, backend: str,
                 (torch.backends.cuda.matmul.allow_tf32,
                  torch.backends.cudnn.allow_tf32) = flags
                 objects[xid] = factory(mesh=mesh, **kwargs)
-                _reset_launches()
+                built_at[xid] = launch_counts()
             elif kind == "call":
                 _, xid, ops, method, args = msg
                 objects[xid].run_call(ops, method, args)
             elif kind == "query":
-                _, xid, method, args = msg
-                conn.send(("result", getattr(objects[xid], method)(*args)))
+                _, xid, ops, method, args = msg
+                conn.send(("result", objects[xid].run_query(ops, method,
+                                                            args)))
+            elif kind == "held":
+                conn.send(("held", sorted(objects)))
             elif kind == "drop":
                 obj = objects.pop(msg[1], None)
                 info = obj.rank_info() if hasattr(obj, "rank_info") else None
-                conn.send(("dropped", launch_counts(), info))
+                base = built_at.pop(msg[1], {})
+                conn.send(("dropped", {k: v - base.get(k, 0) for k, v in
+                                       launch_counts().items()}, info))
+            elif kind == "launches":
+                conn.send(("launches", launch_counts()))
             elif kind == "spmd":
                 _, fn, args, vocab = msg
                 with tensor_parallel(comm, vocab_sharded=vocab):

@@ -280,9 +280,11 @@ class ContinuousBatchingEngine(EngineBase):
     ``serving_mesh_scope`` / ``set_default_serving_mesh``, else
     ``pick_tp``'s over the local cards — one rank on one card or the CPU).
     At tp > 1 the page pool holds this rank's ``KVH / tp`` heads, the
-    executor drives the followers, and :meth:`close` releases them; the
-    host and persisted KV tiers and the draft-model proposer are refused
-    there (ROADMAP A.10b).
+    executor drives the followers, and :meth:`close` releases them. The
+    KV tiers stay on rank 0 and hold whole pages (the executor gathers
+    every rank's heads on a spill and scatters them on a reload); the
+    draft model runs whole on rank 0, outside every executor call, so no
+    collective runs in it.
     """
 
     def __init__(
@@ -339,14 +341,6 @@ class ContinuousBatchingEngine(EngineBase):
         # (serving_mesh_scope / set_default_serving_mesh) or pick_tp's
         mesh, own_mesh = resolve_serving_mesh(cfg, self.device)
         tp = validate_serving_mesh(cfg, mesh)
-        if tp > 1 and (host_pages or persist_dir is not None):
-            raise NotImplementedError(
-                "the host and persisted KV tiers at tp > 1: a spilled page "
-                "needs every rank's heads (ROADMAP A.10b)")
-        if tp > 1 and speculative == "draft":
-            raise NotImplementedError(
-                "the draft-model proposer at tp > 1 (ROADMAP A.10b); the "
-                "ngram proposer verifies through the sharded executor")
         self.max_len = max_len
         self.max_slots = max_slots
         self.max_preemptions = max_preemptions

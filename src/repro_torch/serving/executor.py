@@ -55,7 +55,14 @@ Megatron-style:
   shard and samples from the same full logits with the same ``(seed,
   index)`` keys, so the packed ``di``/``df`` mirrors advance identically
   everywhere. Rank 0's tokens are the result: the scheduler never sees the
-  mesh.
+  mesh;
+* the KV tiers live on rank 0 only and see whole pages: a spill reads a
+  list of pages from every rank in one round trip (the followers first
+  apply the queued pool operations, so a page copied on write and spilled
+  before the next call reads fresh) and concatenates the ranks' heads; a
+  reload writes rank 0's heads at once and queues the whole page for the
+  followers (``write_page``), each of which takes its own heads before
+  the next call.
 
 The mesh is chosen as in the JAX package: the largest count of local cards
 that divides the model's effective kv heads, q heads, ff width (SSM heads
@@ -85,6 +92,7 @@ from repro_torch.parallel.axes import P, Sharding, logical_to_spec
 from repro_torch.parallel.collectives import tensor_parallel
 from repro_torch.parallel.group import Mesh
 from repro_torch.serving.kv_cache import (PagedKVCache, _copy_page,
+                                          _read_block, _write_page,
                                           write_prefill_pages)
 from repro_torch.serving.scheduler import (DecodeInputs, PrefillChunk,
                                           SpecBundle, StepPlan)
@@ -318,6 +326,15 @@ class ShardedExecutor:
         self.mesh.group.build(self._xid, factory, {
             r: dict(kwargs, params=shards[r]) for r in range(1, self.tp)})
 
+    def _send(self, kind: str, method: str, args: tuple) -> None:
+        """Under the group's lock: one message to every follower, carrying
+        the pool operations queued since the last one (in order) and
+        ``method(*args)``; its bytes count in ``broadcast_bytes``."""
+        ops = list(self._ops)
+        self._ops.clear()
+        self.stats["broadcast_bytes"] += self.mesh.group.broadcast(
+            (kind, self._xid, ops, method, args))
+
     def _run(self, method: str, *args):
         """One executor call on every rank: rank 0 sends ``(queued pool
         operations, method, args)`` to the followers in one message, then
@@ -330,11 +347,8 @@ class ShardedExecutor:
             return getattr(self, method)(*args)
         group = self.mesh.group
         with group.lock:
-            ops = list(self._ops)
-            self._ops.clear()
             self.stats["calls"] += 1
-            self.stats["broadcast_bytes"] += group.broadcast(
-                ("call", self._xid, ops, method, args))
+            self._send("call", method, args)
             try:
                 with tensor_parallel(group.comm,
                                      vocab_sharded=self.vocab_sharded):
@@ -350,15 +364,28 @@ class ShardedExecutor:
         with tensor_parallel(self.mesh.comm, vocab_sharded=self.vocab_sharded):
             getattr(self, method)(*args)
 
+    def run_query(self, ops: list, method: str, args: tuple):
+        """A follower's side of :meth:`on_every_rank`: replay rank 0's pool
+        operations in order, then ``method(*args)`` (no collective)."""
+        self._replay(ops)
+        return getattr(self, method)(*args)
+
     def on_every_rank(self, method: str, *args) -> list:
         """``method(*args)`` on this executor and on its counterpart on
-        every follower, results in rank order (state reads for tests and
-        tools, e.g. :meth:`rank_info`, :meth:`page_contents`)."""
-        mine = getattr(self, method)(*args)
+        every follower, results in rank order, in one round trip; the
+        followers first apply the queued pool operations. State reads: the
+        tiers' whole pages (:meth:`read_pages`), and for tests and tools
+        :meth:`rank_info` and :meth:`page_contents`."""
         if not self.leader:
-            return [mine]
-        theirs = self.mesh.group.query(self._xid, method, *args)
-        return [mine] + [theirs[r] for r in sorted(theirs)]
+            return [getattr(self, method)(*args)]
+        if self.closed:
+            raise RuntimeError("executor is closed")
+        mine = getattr(self, method)(*args)
+        group = self.mesh.group
+        with group.lock:
+            self._send("query", method, args)
+            theirs = group.gather()
+        return [mine] + [theirs[r][1] for r in sorted(theirs)]
 
     def page_contents(self, pages: list[int]) -> dict[str, torch.Tensor]:
         """Host copies of physical ``pages`` of this rank's pool (all
@@ -379,11 +406,46 @@ class ShardedExecutor:
                             for k, v in self.bank.state.items()}
         return info
 
+    # ------------------------------------------------------------------
+    # whole pages for the KV tiers (rank 0 owns them; tp > 1)
+    # ------------------------------------------------------------------
+    def read_pages(self, pages: list[int]) -> list[dict[str, np.ndarray]]:
+        """This rank's heads of physical ``pages``: host blocks of the
+        pool's own widths, (L, page, KVH / tp, Dh) and int8 scales (L,
+        page, KVH / tp)."""
+        return [{k: _read_block(arr, p) for k, arr in self.cache.pages.items()}
+                for p in pages]
+
+    def _gather_pages(self, pages: list[int]) -> list[dict[str, np.ndarray]]:
+        """Whole pages: every rank's :meth:`read_pages` in one round trip,
+        concatenated in rank order on the head axis (axis 2 of every
+        block), as a tp-1 pool would hold them."""
+        ranks = self.on_every_rank("read_pages", pages)
+        return [{k: np.concatenate([r[i][k] for r in ranks], axis=2)
+                 for k in ranks[0][i]} for i in range(len(pages))]
+
+    def write_page(self, page: int, arrays: dict[str, np.ndarray]) -> None:
+        """Write this rank's heads of a whole page (every rank's heads on
+        axis 2 of each block) into physical ``page``, bit for bit."""
+        rank = self.mesh.rank
+        for k, arr in self.cache.pages.items():
+            n = arr.shape[3]
+            _write_page(arr, page, arrays[k][:, :, rank * n:(rank + 1) * n])
+
+    def _scatter_page(self, page: int, arrays: dict[str, np.ndarray]) -> None:
+        """A reload: rank 0's heads now, the followers' when they replay
+        the queued ``write_page`` before the next call."""
+        self.write_page(page, arrays)
+        self._ops.append(("write_page", page, arrays))
+
     def _replay(self, ops: list) -> None:
         for op in ops:
-            if op[0] != "copy_page":
-                raise ValueError(f"unknown pool operation {op!r}")
-            _copy_page(self.cache.pages, op[1], op[2])
+            if op[0] == "copy_page":
+                _copy_page(self.cache.pages, op[1], op[2])
+            elif op[0] == "write_page":
+                self.write_page(op[1], op[2])
+            else:
+                raise ValueError(f"unknown pool operation {op[0]!r}")
 
     def close(self) -> None:
         """Release this executor on every follower (their launch counts land
@@ -451,6 +513,8 @@ class ModelExecutor(ShardedExecutor):
         self._df: torch.Tensor | None = None
         if self.leader:
             cache.replay = self._ops
+            cache.gather_pages = self._gather_pages
+            cache.scatter_page = self._scatter_page
             self._start_followers(params, _follower_executor, dict(
                 cfg=cfg, max_len=max_len, attn_impl=attn_impl,
                 cache_kw=dict(

@@ -181,6 +181,7 @@ class EngineWorker:
     # ------------------------------------------------------------------
     def _run(self) -> None:
         hb = HeartbeatWriter(self.bus, self.pod_id)
+        engine = None
         try:
             engine = self.engine_factory()
             hb.ready()
@@ -190,6 +191,21 @@ class EngineWorker:
             pass  # crash: silence — the supervisor must *detect* this
         except BaseException as e:  # noqa: BLE001 — a pod death is a pod death
             self.error = repr(e)
+        finally:
+            # every exit releases the engine: at tp > 1 its executor (page
+            # pool, weight slices) lives on every follower rank too
+            self._close(engine)
+
+    def _close(self, engine) -> None:
+        """Close ``engine`` (if built); a failing close is recorded, never
+        raised over the exit's own outcome."""
+        if engine is None:
+            return
+        try:
+            engine.close()
+        except BaseException as e:  # noqa: BLE001
+            if self.error is None:
+                self.error = f"close: {e!r}"
 
     def _loop(self, engine, hb: HeartbeatWriter) -> None:
         accepted: set[str] = set()

@@ -9,7 +9,9 @@ step sees ONE shape no matter how many sequences are in flight or how long
 each one is. The model writes K/V into these tensors in place. The host
 side is a refcounted free-list allocator (:class:`PagePool`) and per-slot
 bookkeeping (:class:`PagedKVCache`) that hands the engine ready-to-transfer
-block tables; it is the JAX package's, line for line.
+block tables; it is the JAX package's, line for line, but that
+``reclaim_parked`` reads every page it frees in one batch before it spills
+them (in the same order).
 
 Page 0 is reserved as the **null page**: unused block-table entries and idle
 decode slots point at it, so the kernels' gathers never go out of bounds.
@@ -49,7 +51,10 @@ Sharing model:
   past device residency asynchronously prefetches spilled pages back
   (:meth:`match_prefix` with ``prefetch=True``); the engine publishes the
   transfers one step later via :meth:`tick_tiers`. See the state-machine
-  diagram in ``kv_tiers.py``.
+  diagram in ``kv_tiers.py``. At tp > 1 the pool holds one rank's heads;
+  the executor's hooks (``gather_pages`` / ``scatter_page``) make a spill
+  read every rank's heads of the page and a reload write each rank its
+  own, so the tiers hold the same whole pages as at tp 1.
 
 Pages are registered into the prefix index by the engine *after* the prefill
 chunk that fills them has been dispatched (dispatch order = execution order
@@ -60,6 +65,7 @@ page before its contents exist.
 from __future__ import annotations
 
 import time
+from typing import Callable
 
 import numpy as np
 import torch
@@ -239,6 +245,12 @@ class PagedKVCache:
         # outside an executor call (copy-on-write page copies), queued for
         # the other ranks' pools (the executor sets a list; None at tp 1)
         self.replay: list | None = None
+        # ... and the tiers' view of whole pages (every rank's heads),
+        # installed by the executor at tp > 1: ``gather_pages(pages)`` reads
+        # a list of pages in one round trip, ``scatter_page(page, arrays)``
+        # writes one page back, each rank its own heads
+        self.gather_pages: Callable[[list[int]], list[dict]] | None = None
+        self.scatter_page: Callable[[int, dict], None] | None = None
 
     # ------------------------------------------------------------------
     # prefix index
@@ -419,8 +431,8 @@ class PagedKVCache:
             return 0
         tiers = self.tiers
         protect = set(protect)
-        freed = 0
-        while freed < n:
+        freed: list[tuple[int, bytes]] = []
+        while len(freed) < n:
             got = tiers.pop_lru(protect)
             if got is None:
                 break
@@ -433,16 +445,21 @@ class PagedKVCache:
                     if key[0] == parent_page:
                         assert child in tiers.parked, (child, key)
                         batch.append((child, tiers.unpark(child)))
-            t0 = time.perf_counter()
-            for page, ck in batch:
-                if tiers.wants_spill:
-                    tiers.spill(ck, self._read_page(page))
+            for page, _ in batch:
                 self._deregister(page)
                 self.pool.reclaim(page)
-                freed += 1
-            tiers.counters["spill_s"] += time.perf_counter() - t0
             tiers.counters["reclaimed_pages"] += len(batch)
-        return freed
+            freed.extend(batch)
+        # the spills, in the same order, from ONE read of every freed page
+        # (its contents stay until the next allocation): at tp > 1 that is
+        # one round trip to the other ranks, not one a page
+        if freed and tiers.wants_spill:
+            t0 = time.perf_counter()
+            blocks = self._read_pages([page for page, _ in freed])
+            for (_, ck), arrays in zip(freed, blocks):
+                tiers.spill(ck, arrays)
+            tiers.counters["spill_s"] += time.perf_counter() - t0
+        return len(freed)
 
     def tick_tiers(self) -> None:
         """Publish pending prefetches; the engine calls this once per step."""
@@ -461,14 +478,25 @@ class PagedKVCache:
     def parked_count(self) -> int:
         return 0 if self.tiers is None else len(self.tiers.parked)
 
+    def _read_pages(self, pages: list[int]) -> list[dict[str, np.ndarray]]:
+        """Physical pages' contents (all layers, every kv head) as host
+        arrays of the pool's own widths (:func:`_read_block`), so the
+        spilled and persisted bytes are the JAX package's; at tp > 1 every
+        rank's heads, in rank order on the head axis (``gather_pages``)."""
+        if self.gather_pages is not None:
+            return self.gather_pages(pages)
+        return [{key: _read_block(arr, page)
+                 for key, arr in self.pages.items()} for page in pages]
+
     def _read_page(self, page: int) -> dict[str, np.ndarray]:
-        """One physical page's contents (all layers) as host arrays of the
-        pool's own widths (:func:`_read_block`), so the spilled and
-        persisted bytes are the JAX package's."""
-        return {key: _read_block(arr, page) for key, arr in self.pages.items()}
+        return self._read_pages([page])[0]
 
     def _upload_page(self, page: int, arrays: dict[str, np.ndarray]) -> None:
-        """Write one spilled page back into the pool."""
+        """Write one spilled page back into the pool (at tp > 1, each rank
+        its own heads: ``scatter_page``)."""
+        if self.scatter_page is not None:
+            self.scatter_page(page, arrays)
+            return
         for key, arr in self.pages.items():
             _write_page(arr, page, arrays[key])
 
@@ -623,6 +651,24 @@ class PagedKVCache:
     def device_row(self, slot: int) -> torch.Tensor:
         """Device copy of one slot's block-table row (same aliasing rule)."""
         return torch.from_numpy(self.block_tables[slot].copy()).to(self.device)
+
+    @property
+    def k_pages(self) -> torch.Tensor:
+        return self.pages["k"]
+
+    @k_pages.setter
+    def k_pages(self, value: torch.Tensor) -> None:
+        # in place: the pool tensor is never swapped (the engine's steps
+        # and a follower's replayed operations hold it)
+        self.pages["k"].copy_(value)
+
+    @property
+    def v_pages(self) -> torch.Tensor:
+        return self.pages["v"]
+
+    @v_pages.setter
+    def v_pages(self, value: torch.Tensor) -> None:
+        self.pages["v"].copy_(value)
 
     @property
     def page_nbytes(self) -> int:

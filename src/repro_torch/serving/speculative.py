@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import build_model
+from repro_torch.serving.executor import RankShards
 from repro_torch.serving.kv_cache import PagedKVCache
 
 __all__ = [
@@ -131,12 +132,22 @@ class DraftModelProposer:
     ``params`` is the draft model's state dict; without it the draft's
     weights are drawn from a ``torch.Generator`` seeded with ``seed``
     (``DecoderLM.init``). ``device`` is the engine's.
+
+    At tp > 1 the draft stays whole on rank 0 (the reference builds it
+    unsharded too): ``params`` is the draft's own full state dict, never a
+    rank's slices, and :meth:`propose` runs in the engine's thread outside
+    every executor call, where no ``tensor_parallel`` context is active,
+    so the model's reductions are identities and no collective fires.
     """
 
     def __init__(self, cfg, params=None, *, max_slots: int = 8,
                  max_len: int = 256, page_size: int = 16, seed: int = 0,
                  chunk: int = 32, attn_impl: str | None = None,
                  device="cuda"):
+        if isinstance(params, RankShards) or (
+                params is not None and any(isinstance(k, int) for k in params)):
+            raise ValueError("the draft model runs whole: pass its own full "
+                             "state dict, not a rank's slices")
         self.cfg = cfg
         self.model = build_model(cfg, params=params, device=device,
                                  attn_impl=attn_impl or "auto")

@@ -21,10 +21,11 @@ killed. Reduced configs in f32:
   llama3 (untied: the logits gather) whole-prompt; ngram speculation;
   mamba2 (with a snapshot preemption) and zamba2 through ``SSMEngine``;
 * every entry point's logits at tp 2 within 1e-5 of tp 1 for the dense,
-  moe, ssm and hybrid families; the copy-on-write page copy replayed on
+  moe, ssm, hybrid and vlm families; the copy-on-write page copy replayed on
   the follower;
 * the serve driver's ``--mesh``; no child outlives ``close``; a dead
-  follower fails the next call with its rank; the ROADMAP A.10b refusals.
+  follower fails the next call with its rank; the ROADMAP A.10b
+  combinations (KV tiers, the draft proposer) serving at tp 2.
 """
 
 import json
@@ -426,7 +427,12 @@ def _entry_logits(arch, params, rank, tp):
     out = {}
     toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (2, 12))
                             .astype(np.int32))
-    cache, out["prefill"] = model.prefill({"tokens": toks}, 16)
+    batch = {"tokens": toks}
+    if cfg.family == "vlm":  # non-zero vision embeddings ahead of the text
+        batch["vision_embeds"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.num_frontend_tokens, cfg.d_model)).astype(np.float32))
+    cache, out["prefill"] = model.prefill(
+        batch, 16 + cfg.num_frontend_tokens)
     cache, out["decode_step"] = model.decode_step(cache, toks[:, -1:])
     kvl = (cfg.num_layers if cfg.family in ("dense", "moe")
            else cfg.num_layers // max(cfg.attn_every, 1))
@@ -441,7 +447,7 @@ def _entry_logits(arch, params, rank, tp):
                              .astype(np.int32))
     tok3 = torch.from_numpy(rng.integers(1, cfg.vocab_size, (3, 1))
                             .astype(np.int32))
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         out["decode_step_paged"] = model.decode_step_paged(
             pages(), torch.from_numpy(bt), torch.from_numpy(lengths), tok3)
         out["prefill_chunk"] = model.prefill_chunk(pages(), row, chunk,
@@ -489,8 +495,8 @@ def _entry_logits(arch, params, rank, tp):
 
 
 @pytest.mark.parametrize("arch", ["smollm-360m", "dbrx-132b", "mamba2-1.3b",
-                                  "zamba2-2.7b"],
-                         ids=["dense", "moe", "ssm", "hybrid"])
+                                  "zamba2-2.7b", "internvl2-26b"],
+                         ids=["dense", "moe", "ssm", "hybrid", "vlm"])
 def test_entry_point_logits_at_tp2_match_tp1(mesh2, arch):
     cfg = reduced(ARCHS[arch])
     params = build_model(cfg, device="cpu").init(seed=3)
@@ -595,19 +601,40 @@ def test_no_child_outlives_close_and_a_dead_follower_names_its_rank(smollm,
     assert not any(Path(tmp_path).iterdir())  # rendezvous files removed
 
 
-def test_a10b_refusals(smollm, mesh2, tmp_path):
-    """At tp > 1: the host and persisted KV tiers, the draft-model proposer
-    and ``--fleet`` raise, citing ROADMAP A.10b."""
+def test_a10b_combinations_serve(smollm, mesh2, tmp_path):
+    """At tp > 1 (ROADMAP A.10b, once refused): the host and persisted KV
+    tiers and the draft-model proposer (an oracle draft: the target's own
+    weights) serve the trace with tp 2's plain streams; the tiers keep
+    whole pages (every rank's heads) and the draft accepts. The combos
+    against JAX's 2-device engine, and the fleet, are in
+    ``test_torch_tp_combos.py``."""
     cfg, params = smollm
     kw = dict(max_len=64, max_slots=2, page_size=8, device="cpu")
+    reqs = _trace(256, n=3)
     with serving_mesh_scope(mesh2):
-        for extra in (dict(host_pages=4), dict(persist_dir=str(tmp_path)),
+        plain = ContinuousBatchingEngine(cfg, params, **kw)
+        want = _serve(plain, reqs)
+        plain.close()
+        for extra in (dict(host_pages=4, num_pages=9),
+                      dict(persist_dir=str(tmp_path / "kv")),
                       dict(speculative="draft", draft_config=cfg,
                            draft_params=params)):
-            with pytest.raises(NotImplementedError, match="ROADMAP A.10b"):
-                ContinuousBatchingEngine(cfg, params, **kw, **extra)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10b"):
-        _serve_cli(tmp_path, "--mesh", "2", "--fleet", "2")
+            eng = ContinuousBatchingEngine(cfg, params, **kw, **extra)
+            try:
+                assert eng.executor.tp == 2
+                assert _serve(eng, reqs) == want, extra
+                if eng.spec is not None:
+                    assert eng.utilization.spec_accepted > 0
+                else:
+                    eng.cache.flush_tiers()
+                    t = eng.cache.tiers
+                    assert t.counters["spilled_pages"] > 0
+                    block = (next(iter(t.host.values()))["k"]
+                             if t.host_pages else t.store.get(next(iter(
+                                 t.persist_index.values()))["k"]))
+                    assert block.shape[2] == cfg.eff_kv_heads
+            finally:
+                eng.close()
 
 
 @pytest.mark.parametrize("name,extra", [

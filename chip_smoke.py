@@ -271,8 +271,8 @@ Phases (any failure exits non-zero):
    the autograd Function, the plain version's autograd and SDPA's (the
    kernels line's flash ``train`` entry).
 29. train — ``launch.train`` (``repro_torch.launch.train.run``) at full
-   width as TRAIN_RUNS gives it: smollm-360m, 32 layers, bf16 parameters,
-   f32 moments, B 16 x S 64, 60 steps at ``--lr`` 1e-2, a checkpoint
+   width as TRAIN_RUNS gives it: smollm-360m, 16 of its 32 layers, bf16
+   parameters, f32 moments, B 16 x S 64, 60 steps at ``--lr`` 1e-2, a checkpoint
    every 20, ``--chaos`` (the train pod killed twice): the loss must
    improve and the eval loss lie below the first step's, the train step
    must be retried twice, the flash kernel must launch (path ``train`` in
@@ -388,12 +388,12 @@ Phases (any failure exits non-zero):
 37. tensor-parallel serving — a mesh of TP_RANKS (2) ranks sharing
    cuda:0 (``make_serving_mesh(devices=...)``; gloo, NCCL taking one rank
    per card; the follower spawned once for the phase): llama3-8b at full
-   width and TP_LAYERS (4) of its 32 layers (16 q over 4 kv heads of D
+   width and TP_LAYERS (2) of its 32 layers (16 q over 4 kv heads of D
    128 a rank; the untied vocab's logits gathered) through the paged
    engine chunked in both step modes and whole-prompt (paths ``tp llama3
    chunked fused``, ``... interleaved``, ``... whole-prompt``), after
    the same 8 requests at tp 1 (the baseline); mamba2-1.3b at
-   TP_SSM_LAYERS (12) of 48 (32 SSD heads a rank) through ``SSMEngine``
+   TP_SSM_LAYERS (6) of 48 (32 SSD heads a rank) through ``SSMEngine``
    (``tp mamba2``). Every request finished by length; each rank's pool
    or bank at its local heads; every kernel of each path launched on both
    ranks (``launches_by_path`` sums the ranks); tok/s (one card shared
@@ -413,6 +413,25 @@ Phases (any failure exits non-zero):
    tp 1's and tp 2's through the plain versions, for both models, and,
    for llama3, tp 2's with the draft proposer; there a fleet with a kill
    gives every stream of the unperturbed tp-2 engine.
+38. dry run against the card — the dry run's cost model
+   (``launch/builders.py``, ``analysis/``: the step counted on meta
+   tensors, beside the kernels' build) held against the card on
+   DRYRUN_CELLS, each at full width on a (data 1, model 1) mesh with the
+   batch cut to one card: smollm-360m ``train_4k`` at B 4 (ga 1, flash
+   inside its autograd Function), llama3-8b ``decode_32k`` at B 8 (the
+   lockstep ``decode_step``, 34 GB of cache) and mamba2-1.3b
+   ``prefill_32k`` at B 1 (the SSD scan kernel).
+   Prints the card's ``total_memory`` beside ``HW().hbm_per_chip``; per
+   cell the predicted resident bytes (the arguments the step reads + the
+   f32 unembedding a serving step keeps) and peak bytes beside the
+   measured ones (``memory_allocated`` after a warm step, and
+   ``max_memory_allocated`` over a step less what was allocated before
+   it; each within DRYRUN_MEM_TOL, 10%), the cuBLAS workspaces' share of
+   the resident bytes, the median of DRYRUN_STEPS steps, which must not
+   be under the roofline bound (``RooflineTerms.bound_s``: a lower
+   bound), the bound's share of the step and the MFU. Flash and the SSD
+   scan launch there (paths ``dryrun smollm train``, ``dryrun mamba2
+   prefill``).
 
 Kernel and plain times are device time per call: the calls are enqueued
 behind a sleep kernel and timed with CUDA events, so the host's per-call
@@ -446,6 +465,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -467,9 +487,15 @@ KERNELS = {
     "flash_attention_bhsd": (
         FLASH_SOURCE, "src/repro/kernels/flash_attention.py:87"),
 }
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
-BF16_FLOP_PER_S = 989e12       # dense bf16 tensor-core peak
-F32_FLOP_PER_S = 67e12         # f32 outside the tensor cores
+# the card's data-sheet rates: one place states them,
+# src/repro_torch/analysis/roofline.py (HW); outside a checkout this import
+# fails and the script exits non-zero
+sys.path.insert(0, str(SRC))
+from repro_torch.analysis.roofline import HW as _HW  # noqa: E402
+
+HBM_BYTES_PER_S = _HW().hbm_bw          # bytes/s
+BF16_FLOP_PER_S = _HW().peak_flops      # dense bf16
+F32_FLOP_PER_S = _HW().f32_flops        # f32, CUDA cores
 BF16_TOL, F32_TOL = 2e-2, 1e-3
 SLEEP_CYCLES = 200_000_000     # ~0.1 s at the H100's ~1.98 GHz boost clock
 KVH, G, D, PAGE, LAYERS = 5, 3, 64, 16, 32
@@ -497,8 +523,8 @@ DRAFT_CHUNK = 32
 # stays on it from the driver's default 3e-3 and diverges from 3e-2;
 # mamba2 diverges from 1e-2, zamba2 from 1e-2 and stays on it at 3e-3;
 # PERF.md has each sweep). ``layers`` cuts a run's depth (None: the
-# config's): mamba2 and zamba2 train at 12 layers (the script's time
-# limit), internvl2-26b at 4 and dbrx-132b at 1 (one card's memory:
+# config's): smollm trains at 16 layers (its rate swept at 32), mamba2 and
+# zamba2 at 12 (the script's time limit), internvl2-26b at 4 and dbrx-132b at 1 (one card's memory:
 # 2.7 B and 4.5 B parameters with their f32 moments; their 27 GB and
 # 45 GB checkpoints outlast the scheduler's 30 s liveness window, C.10).
 # ``timed`` times a restore of the final checkpoint onto the card (the
@@ -507,7 +533,7 @@ TRAIN_RUNS = {
     arch: dict(arch=arch, layers=layers, batch=b, seq=s, steps=n, lr=lr,
                ckpt_every=c, chaos=chaos, parity=parity, timed=timed)
     for arch, layers, b, s, n, lr, c, chaos, parity, timed in (
-        ("smollm-360m", None, 16, 64, 60, 1e-2, 20, True, (60, 20, 1.0),
+        ("smollm-360m", 16, 16, 64, 60, 1e-2, 20, True, (60, 20, 1.0),
          True),
         ("mamba2-1.3b", 12, 4, 256, 16, 3e-3, 16, True, (20, 10, 2.0),
          False),
@@ -584,6 +610,12 @@ FLASH_WIDTHS = {"smollm D64": (FLASH_H, KVH, D), "llama3 D128": (32, 8, 128),
 # MV_NEW; internvl2's 256 vision positions + a 512-token bucket.
 # MV_REQUESTS requests a run, MV_TRACE_STEPS decode steps a profiler window
 MOE_LAYERS, VLM_LOCK_LAYERS = 4, 24
+# phase 38: the dry run's cells held against the card, (arch, shape,
+# batch): full width on a (data 1, model 1) mesh, the batch cut to one
+# card; the memory check's tolerance and the timed steps
+DRYRUN_CELLS = (("smollm-360m", "train_4k", 4), ("llama3-8b", "decode_32k", 8),
+                ("mamba2-1.3b", "prefill_32k", 1))
+DRYRUN_MEM_TOL, DRYRUN_STEPS = 0.10, 3
 MOE_MAX_LEN, VLM_MAX_LEN = 448, 768
 MV_REQUESTS, MV_NEW, MV_TRACE_STEPS = 8, 24, 8
 
@@ -4295,7 +4327,7 @@ def run_moe_vlm_train(torch, np, get_arch, fk, pk, sk, card):
 # TP_RANKS ranks on cuda:0 (gloo: NCCL takes one rank per card), llama3-8b
 # at TP_LAYERS of its 32 layers and mamba2-1.3b at TP_SSM_LAYERS of its 48,
 # full width; TP_REQUESTS requests of 64-400 tokens, TP_NEW new each
-TP_RANKS, TP_LAYERS, TP_SSM_LAYERS = 2, 4, 12
+TP_RANKS, TP_LAYERS, TP_SSM_LAYERS = 2, 2, 6
 TP_REQUESTS, TP_NEW, TP_MAX_LEN = 8, 24, 448
 # mamba2's tp run serves the first TP_SSM_REQUESTS of the same mix (the
 # phase's time: every gloo collective syncs the shared card)
@@ -4788,6 +4820,168 @@ MMA_KERNELS = {"flash_attention": ("flash_attention_mma_info", (None,)),
                                    (0, 1))}
 
 
+def _dryrun_step(torch, cfg, shape, seed=38):
+    """The step a dry-run cell counts, on the card at full width: the
+    train step (ga 1, bf16 moments and accumulation, as ``lower_cell``),
+    the lockstep prefill or decode step. Returns the step as a callable
+    and what it holds (kept alive by the caller)."""
+    from repro_torch.models.api import build_model, cache_len
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b, s = shape.global_batch, shape.seq_len
+    model = build_model(cfg, device="cuda")
+
+    def tokens(rows, cols):
+        return torch.randint(0, cfg.vocab_size, (rows, cols), generator=g,
+                             device="cuda", dtype=torch.int32)
+
+    if shape.kind == "train":
+        opt = AdamWConfig(moment_dtype="bfloat16")
+        state = init_train_state(model, seed, opt)
+        step = make_train_step(model, opt, ga=1, accum_dtype="bfloat16")
+        batch = {"tokens": tokens(b, s), "targets": tokens(b, s)}
+        return (lambda: step(state, batch)), (model, state, batch)
+    model.init(seed)
+    if shape.kind == "prefill":  # the tokens: a prefill reads no targets
+        batch = {"tokens": tokens(b, s)}
+        clen = cache_len(cfg, s)
+        return (lambda: model.prefill(batch, clen)), (model, batch)
+    cache = model.init_cache(b, cache_len(cfg, s))
+    tok = tokens(b, 1)
+    return (lambda: model.decode_step(cache, tok)), (model, cache, tok)
+
+
+def count_dryrun_cells(np, get_arch):
+    """Phase 38's counts: each of DRYRUN_CELLS counted on meta tensors over
+    a (data 1, model 1) mesh (no card, no allocation; ``main`` runs this
+    in a thread beside the kernels' build). Returns one dict a cell: its
+    config, shape, label, count, argument and resident bytes, roofline
+    terms and counting seconds."""
+    from repro_torch.analysis.roofline import (HW, model_flops_per_chip,
+                                               roofline_terms)
+    from repro_torch.configs import get_shape
+    from repro_torch.launch import builders
+    from repro_torch.parallel import Mesh
+
+    mesh = Mesh(np.full((1, 1), "meta", dtype=object), ("data", "model"))
+    cells = []
+    for arch, shape_name, batch in DRYRUN_CELLS:
+        cfg = get_arch(arch)
+        shape = dataclasses.replace(get_shape(shape_name), global_batch=batch)
+        t0 = time.perf_counter()
+        plan = builders.lower_cell(cfg, shape, mesh, ga=1)
+        cost = builders.count_cell(plan, batch)
+        cells.append(dict(
+            cfg=cfg, shape=shape, batch=batch, cost=cost,
+            label=f"dryrun {arch.split('-')[0]} {shape.kind}",
+            args_b=builders.argument_bytes(
+                plan, builders.used_arguments(plan, cost)),
+            res_b=builders.resident_bytes(plan),
+            terms=roofline_terms(cost, HW(),
+                                 model_flops_per_chip(cfg, shape, 1)),
+            t_count=time.perf_counter() - t0))
+    return cells
+
+
+def run_dryrun(torch, np, cells, fk, sk, card):
+    """Phase 38: the dry run (``launch/builders.py``, ``analysis/``)
+    against the card, on each of DRYRUN_CELLS: the cell counted on meta
+    tensors (``cells``, from :func:`count_dryrun_cells`), then its step run
+    at full width on the card, one warm step and DRYRUN_STEPS timed ones
+    (host clock around the step and a synchronize). The resident state
+    (``memory_allocated`` once the step's arguments and the warm step's
+    leftovers are in place, less the phase's start) must match the
+    predicted argument + resident bytes, and the measured peak
+    (``max_memory_allocated`` over a step after ``reset_peak_memory_stats``,
+    less what was allocated just before it) the predicted peak, each
+    within DRYRUN_MEM_TOL; the median step must take at least the
+    roofline bound (a lower bound: a faster step means the count is
+    wrong). Prints both, the bound's share of the step and the MFU (the
+    analytic model FLOPs over the step time and the bf16 peak). Returns
+    {kernel: {path: launches}} of the timed steps."""
+    from repro_torch.analysis.roofline import HW
+
+    hw = HW()
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"dryrun: total_memory {total} B, HW().hbm_per_chip "
+        f"{hw.hbm_per_chip:.0f} B"
+        f"{'' if total == hw.hbm_per_chip else ' (differs)'}; {card}")
+    paths = {"flash_attention_bhsd": {}, "ssd_scan_bshp": {}}
+    for cell in cells:
+        cfg, shape, batch, cost = (cell["cfg"], cell["shape"], cell["batch"],
+                                   cell["cost"])
+        label, args_b, res_b, terms, t_count = (
+            cell["label"], cell["args_b"], cell["res_b"], cell["terms"],
+            cell["t_count"])
+        _free(torch)
+        base = _settled_memory(torch)[1]  # no cuBLAS workspace left
+        step, held = _dryrun_step(torch, cfg, shape)
+        gc.collect()
+        out = step()  # warm: the f32 unembedding, cuBLAS handles
+        del out
+        gc.collect()
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated() - base
+        fk.reset_launches()
+        sk.reset_launches()
+        times, peaks = [], []
+        for _ in range(DRYRUN_STEPS):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            out = step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            peaks.append(torch.cuda.max_memory_allocated() - before)
+            del out
+            gc.collect()
+        for name, counts in (("flash_attention_bhsd", fk.LAUNCHES),
+                             ("ssd_scan_bshp", sk.LAUNCHES)):
+            if counts[name]:
+                paths[name][label] = counts[name]
+        # cuBLAS's own part of the resident state: the workspaces made
+        # since the cell began, one per handle (the autograd engine's
+        # backward thread takes its own)
+        raw, bare = _settled_memory(torch)
+        del step, held
+        _free(torch)
+        med, peak = float(np.median(times)), float(np.median(peaks))
+        pred_res, pred_peak = args_b + res_b, cost.peak_bytes
+        log(f"{label}: B {batch} x S {shape.seq_len} (count {t_count:.1f} s,"
+            f" {cost.ops} ops, regions {cost.regions}): resident predicted "
+            f"{pred_res / 1e9:.3f} GB (arguments {args_b / 1e9:.3f} + f32 "
+            f"unembedding {res_b / 1e9:.3f}) measured {resident / 1e9:.3f} "
+            f"(of it cuBLAS workspaces {(raw - bare) / 1e9:.3f}); peak "
+            f"predicted {pred_peak / 1e9:.3f} GB measured "
+            f"{peak / 1e9:.3f} (steps {[round(p / 1e9, 3) for p in peaks]})")
+        log(f"{label}: step {med * 1e3:.1f} ms (steps "
+            f"{[round(t * 1e3, 1) for t in times]}); bound "
+            f"{terms.bound_s * 1e3:.2f} ms ({terms.dominant}: compute "
+            f"{terms.compute_s * 1e3:.2f}, memory {terms.memory_s * 1e3:.2f}"
+            f", unfused {terms.memory_xla_s * 1e3:.2f}); FLOPs "
+            f"{cost.flops:.4e}, kernelized bytes "
+            f"{cost.hbm_bytes_kernelized:.4e}; bound/step "
+            f"{terms.bound_s / med:.3f}; MFU "
+            f"{terms.model_flops / (med * hw.peak_flops):.4f}; {card}")
+        for what, pred, got in (("resident", pred_res, resident),
+                                ("peak", pred_peak, peak)):
+            if abs(got - pred) > DRYRUN_MEM_TOL * pred:
+                raise AssertionError(
+                    f"{label}: measured {what} {got} B is not within "
+                    f"{DRYRUN_MEM_TOL:.0%} of the predicted {pred:.0f} B")
+        if med < terms.bound_s:
+            raise AssertionError(
+                f"{label}: the step took {med * 1e3:.2f} ms, under the "
+                f"roofline bound {terms.bound_s * 1e3:.2f} ms: the count "
+                f"is wrong")
+    if not paths["flash_attention_bhsd"] or not paths["ssd_scan_bshp"]:
+        raise AssertionError(f"dryrun: a kernel did not launch: {paths}")
+    return paths
+
+
 def report_mma_kernels(build):
     """Phase 2's report on the bf16 tensor-core kernels, one instance per
     head dim, page kind and warp-group count: registers and spill stores as
@@ -4913,11 +5107,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
-    if not (SRC / "repro_torch").is_dir():
-        print(f"chip_smoke: {SRC / 'repro_torch'} not found: run from a "
-              f"checkout of the repository", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(SRC))
     from repro_torch import models, serving
     from repro_torch.configs import get_arch
     from repro_torch.kernels import build, ops, ref
@@ -4938,7 +5127,15 @@ def main() -> int:
         log(f"[{now - t0:.1f} s] {phase}: {now - last:.1f} s")
         last = now
 
+    # phase 38's counts need no card: they run beside the kernels' build
+    dryrun_cells: list = []
+    counter = threading.Thread(
+        target=lambda: dryrun_cells.extend(count_dryrun_cells(np, get_arch)))
+    counter.start()
     build.build()
+    counter.join()
+    if len(dryrun_cells) != len(DRYRUN_CELLS):
+        raise RuntimeError("phase 38's counts failed (traceback above)")
     log(f"build: {time.perf_counter() - t0:.1f} s "
         f"({', '.join(f'{n} {s:.1f} s' for n, s in build.build_seconds.items())})")
     for lib, ptxas in build.build_log.items():  # empty when already built
@@ -5118,6 +5315,10 @@ def main() -> int:
             if n:
                 by_path[name][path] = n
     lap("tensor-parallel serving")
+    for name, counts in run_dryrun(torch, np, dryrun_cells, fk, sk,
+                                   card).items():
+        by_path[name].update(counts)
+    lap("dry run against the card")
     kernels = [dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=sum(by_path[name].values()),
                     launches_by_path=by_path[name],

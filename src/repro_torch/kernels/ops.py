@@ -18,6 +18,12 @@ pool),
   * "ref"  — the plain version on any device (tests, ``chip_smoke.py``'s
     kernel-against-plain comparison, ``--attn-impl/--ssd-impl ref``).
 
+A ``meta`` tensor (the dry run's shape-only step, ``analysis/cost.py``)
+takes the kernel's route with "auto": the plain version stands in for the
+kernel through ``analysis.cost.kernel_region``, which counts it as the
+kernel (its inputs and outputs once), and training goes through the same
+autograd Functions as on the card.
+
 Gradients: on a CUDA tensor with grad mode on, ``flash_attention`` runs
 the kernel inside :class:`FlashAttentionFunction` and ``ssd_scan`` inside
 :class:`SSDScanFunction`; each one's backward recomputes the plain
@@ -41,6 +47,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.analysis.cost import kernel_region
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_bhsd
 from repro_torch.kernels.paged_attention import (
@@ -53,27 +60,38 @@ from repro_torch.kernels.ssd_scan import ssd_decode_step_bh, ssd_scan_bshp
 IMPLS = ("auto", "ref")
 
 
-def _use_plain(t: torch.Tensor, impl: str, op: str) -> bool:
+def _route(t: torch.Tensor, impl: str, op: str) -> str:
+    """"plain" (CPU tensors, or ``impl="ref"``), "kernel" (CUDA tensors)
+    or "meta" (meta tensors: the plain version as the kernel's stand-in)."""
     if impl not in IMPLS:
         raise ValueError(f"{op}: unknown impl {impl!r} (have {IMPLS})")
     if impl == "ref" or t.device.type == "cpu":
-        return True
-    if t.device.type != "cuda":
+        return "plain"
+    if t.device.type not in ("cuda", "meta"):
         raise ValueError(f"{op}: no kernel for device {t.device}")
-    return False
+    return "kernel" if t.device.type == "cuda" else "meta"
 
 
-def _use_ref(q: torch.Tensor, impl: str, k_pages: torch.Tensor, k_scale,
-             v_scale, op: str) -> bool:
-    """``_use_plain`` after checking the scales: both or neither, and
-    exactly when the pages are int8."""
+def _plain(route: str, kernel: str, fn, *args):
+    """``fn(*args)``, a plain version; on meta tensors standing in for the
+    hand-written ``kernel`` (``analysis.cost.kernel_region``: counted as
+    the kernel, its inputs whole)."""
+    if route == "meta":
+        return kernel_region(kernel, fn, *args)
+    return fn(*args)
+
+
+def _paged_route(q: torch.Tensor, impl: str, k_pages: torch.Tensor, k_scale,
+                 v_scale, op: str) -> str:
+    """``_route`` after checking the scales: both or neither, and exactly
+    when the pages are int8."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError(f"{op}: k_scale and v_scale come in pairs")
     if (k_scale is not None) != (k_pages.dtype == torch.int8):
         raise ValueError(
             f"{op}: scales go with int8 pages and only with them (pages "
             f"{k_pages.dtype}, scales {'given' if k_scale is not None else 'none'})")
-    return _use_plain(q, impl, op)
+    return _route(q, impl, op)
 
 
 def _dequantized(k_pages, v_pages, k_scale, v_scale):
@@ -119,9 +137,9 @@ class FlashAttentionFunction(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
-def _flash_kernel(q, k, v, causal, scale):
+def _flash_kernel(q, k, v, causal, scale, kernel=flash_attention_bhsd):
     """The flash kernel on the op's (B, S, H, D) layouts."""
-    out = flash_attention_bhsd(
+    out = kernel(
         q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
         v.transpose(1, 2).contiguous(), causal=causal, scale=scale)
     return out.transpose(1, 2)
@@ -129,6 +147,23 @@ def _flash_kernel(q, k, v, causal, scale):
 
 # the K/V block of the flash op's length contract (its ``block_kv``)
 FLASH_BLOCK_KV = 256
+
+
+def _flash_bhsd_plain(q, k, v, *, causal, scale):
+    """The plain version at the flash kernel's (B, H, S, D) layouts: the
+    whole score matrix (the chunked version's FLOPs in a few ops; a
+    kernel region counts neither's internal bytes)."""
+    return ref.flash_attention_ref(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=causal, scale=scale).transpose(1, 2)
+
+
+def _flash_stand_in(q, k, v, causal, scale):
+    """``_flash_kernel`` on meta tensors: its layout copies, and the plain
+    version in a kernel region for the kernel."""
+    return _flash_kernel(q, k, v, causal, scale, kernel=lambda *a, **kw:
+                         kernel_region("flash_attention_bhsd",
+                                       _flash_bhsd_plain, *a, **kw))
 
 
 def flash_attention(
@@ -163,13 +198,15 @@ def flash_attention(
             f"flash_attention: Skv={skv} is not a multiple of "
             f"min(block_kv={block_kv}, Skv): the reference scans K/V in "
             f"blocks of {chunk} and refuses this length")
-    if _use_plain(q, impl, "flash_attention"):
+    route = _route(q, impl, "flash_attention")
+    if route == "plain":
         return ref.flash_attention_chunked(q, k, v, causal=causal,
                                            scale=scale, chunk_kv=block_kv)
+    forward = _flash_kernel if route == "kernel" else _flash_stand_in
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttentionFunction.apply(q, k, v, causal, scale, block_kv,
-                                            _flash_kernel)
-    return _flash_kernel(q, k, v, causal, scale)
+                                            forward)
+    return forward(q, k, v, causal, scale)
 
 
 def paged_attention(
@@ -186,10 +223,14 @@ def paged_attention(
 ) -> torch.Tensor:
     """Single-token decode attention over a paged KV cache. Returns
     (B, H, D); idle slots (length 0) return zeros, never NaN."""
-    if _use_ref(q, impl, k_pages, k_scale, v_scale, "paged_attention"):
-        return ref.paged_attention_ref(
-            q, *_dequantized(k_pages, v_pages, k_scale, v_scale),
-            block_tables, lengths, scale=scale)
+    route = _paged_route(q, impl, k_pages, k_scale, v_scale,
+                         "paged_attention")
+    if route != "kernel":
+        return _plain(
+            route, "paged_attention_bkgd",
+            lambda q, kp, vp, ks, vs, bt, ln: ref.paged_attention_ref(
+                q, *_dequantized(kp, vp, ks, vs), bt, ln, scale=scale),
+            q, k_pages, v_pages, k_scale, v_scale, block_tables, lengths)
     out = paged_attention_bkgd(
         _grouped(q, k_pages.shape[2]), k_pages, v_pages, block_tables,
         lengths, k_scale=k_scale, v_scale=v_scale, scale=scale)
@@ -212,11 +253,16 @@ def paged_prefill_attention(
     """Chunked-prefill attention over a paged KV cache. Returns (C, H, D).
     The chunk's own K/V must already be in the pages; query i attends
     positions ``<= start + i``, padded queries (``i >= valid``) give zeros."""
-    if _use_ref(q, impl, k_pages, k_scale, v_scale,
-                "paged_prefill_attention"):
-        return ref.paged_prefill_attention_ref(
-            q, *_dequantized(k_pages, v_pages, k_scale, v_scale),
-            block_table, start, valid, scale=scale)
+    route = _paged_route(q, impl, k_pages, k_scale, v_scale,
+                         "paged_prefill_attention")
+    if route != "kernel":
+        return _plain(
+            route, "paged_prefill_attention_ckgd",
+            lambda q, kp, vp, ks, vs, bt, st, va:
+                ref.paged_prefill_attention_ref(
+                    q, *_dequantized(kp, vp, ks, vs), bt, st, va,
+                    scale=scale),
+            q, k_pages, v_pages, k_scale, v_scale, block_table, start, valid)
     out = paged_prefill_attention_ckgd(
         _grouped(q, k_pages.shape[2]), k_pages, v_pages, block_table,
         start, valid, k_scale=k_scale, v_scale=v_scale, scale=scale)
@@ -247,15 +293,22 @@ def paged_mixed_attention(
     kernel and the chunk rows through the tensor-core chunk kernel, which
     reads the chunk's pages once per kv head. Without it (or with f32 q)
     every row goes through the split decode kernel on its own table row."""
-    if _use_ref(q, impl, k_pages, k_scale, v_scale, "paged_mixed_attention"):
-        k_pages, v_pages = _dequantized(k_pages, v_pages, k_scale, v_scale)
-        r = q.shape[0]
-        if num_decode is None or not 0 < num_decode < r:
-            return ref.paged_mixed_attention_ref(
-                q, k_pages, v_pages, block_tables, last_pos, scale=scale)
-        return ref.paged_mixed_attention_split_ref(
-            q, k_pages, v_pages, block_tables, last_pos, num_decode,
-            scale=scale)
+    route = _paged_route(q, impl, k_pages, k_scale, v_scale,
+                         "paged_mixed_attention")
+    if route != "kernel":
+        def plain(q, k_pages, v_pages, k_scale, v_scale, block_tables,
+                  last_pos):
+            k_pages, v_pages = _dequantized(k_pages, v_pages, k_scale,
+                                            v_scale)
+            if num_decode is None or not 0 < num_decode < q.shape[0]:
+                return ref.paged_mixed_attention_ref(
+                    q, k_pages, v_pages, block_tables, last_pos, scale=scale)
+            return ref.paged_mixed_attention_split_ref(
+                q, k_pages, v_pages, block_tables, last_pos, num_decode,
+                scale=scale)
+
+        return _plain(route, "paged_mixed_attention_rkgd", plain, q, k_pages,
+                      v_pages, k_scale, v_scale, block_tables, last_pos)
     out = paged_mixed_attention_rkgd(
         _grouped(q, k_pages.shape[2]), k_pages, v_pages, block_tables,
         last_pos, k_scale=k_scale, v_scale=v_scale, scale=scale,
@@ -284,14 +337,21 @@ def _ssd_plain(x, dt, A, Bm, Cm, init_state, chunk):
     return (y[:, :s] if pad else y), fs
 
 
-def _ssd_kernel(x, dt, A, Bm, Cm, init_state, chunk):
+def _ssd_kernel(x, dt, A, Bm, Cm, init_state, chunk, kernel=ssd_scan_bshp):
     """The scan kernel on the op's inputs (it walks its own 64-token
     sub-chunks and ignores ``chunk``)."""
     if init_state is not None:
         init_state = init_state.float().contiguous()
-    return ssd_scan_bshp(
+    return kernel(
         x.contiguous(), dt.float().contiguous(), A.float().contiguous(),
         Bm.to(x.dtype).contiguous(), Cm.to(x.dtype).contiguous(), init_state)
+
+
+def _ssd_stand_in(x, dt, A, Bm, Cm, init_state, chunk):
+    """``_ssd_kernel`` on meta tensors: its casts and copies, and the plain
+    scan in a kernel region for the kernel."""
+    return _ssd_kernel(x, dt, A, Bm, Cm, init_state, chunk, kernel=lambda *a:
+                       kernel_region("ssd_scan_bshp", _ssd_plain, *a, chunk))
 
 
 class SSDScanFunction(torch.autograd.Function):
@@ -366,14 +426,16 @@ def ssd_scan(
     kernel runs inside :class:`SSDScanFunction` (gradients by the plain
     version's autograd); on the CPU the plain version is differentiable
     as it is."""
-    if _use_plain(x, impl, "ssd_scan"):
+    route = _route(x, impl, "ssd_scan")
+    if route == "plain":
         return _ssd_plain(x, dt, A, Bm, Cm, init_state, chunk)
+    forward = _ssd_kernel if route == "kernel" else _ssd_stand_in
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, dt, A, Bm, Cm, init_state)):
         return SSDScanFunction.apply(x, dt, A, Bm, Cm, init_state, chunk,
-                                     _ssd_kernel)
-    return _ssd_kernel(x, dt, A, Bm, Cm, init_state, chunk)
+                                     forward)
+    return forward(x, dt, A, Bm, Cm, init_state, chunk)
 
 
 def ssd_decode_step(
@@ -396,13 +458,18 @@ def ssd_decode_step(
     ``active`` (B,) int gates the state writeback per row: a row with 0
     keeps its old state untouched (its y still comes from the advanced
     state), as the JAX engine's ``_mask_state`` gates its bank."""
-    if _use_plain(state, impl, "ssd_decode_step"):
-        y, new = ref.ssd_decode_step(state, x_t, dt_t, A, B_t, C_t)
-        if active is not None:
-            keep = active.to(torch.bool).reshape(-1, 1, 1, 1)
-            new = torch.where(keep, new, state)
-        state.copy_(new)
-        return y, state
+    route = _route(state, impl, "ssd_decode_step")
+    if route != "kernel":
+        def plain(state, x_t, dt_t, A, B_t, C_t, active):
+            y, new = ref.ssd_decode_step(state, x_t, dt_t, A, B_t, C_t)
+            if active is not None:
+                keep = active.to(torch.bool).reshape(-1, 1, 1, 1)
+                new = torch.where(keep, new, state)
+            state.copy_(new)
+            return y, state
+
+        return _plain(route, "ssd_decode_step_bh", plain, state, x_t, dt_t,
+                      A, B_t, C_t, active)
     return ssd_decode_step_bh(
         state, x_t.contiguous(), dt_t.float().contiguous(),
         A.float().contiguous(), B_t.to(x_t.dtype).contiguous(),

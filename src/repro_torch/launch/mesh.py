@@ -2,13 +2,13 @@
 
 Functions, not module-level constants: importing this module starts
 nothing. A mesh of more than one rank spawns its followers only when
-first used (``parallel/group.py``). ``make_production_mesh`` (the 16x16
-and 2x16x16 pod meshes of the dry run) comes with ``launch/dryrun.py``
-(ROADMAP A.13).
+first used (``parallel/group.py``); the production meshes of the dry run
+are never used that way.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.parallel.group import Mesh
@@ -19,6 +19,18 @@ def _local_devices(kind: str) -> list[torch.device]:
         return [torch.device("cuda", i)
                 for i in range(torch.cuda.device_count())]
     return [torch.device(kind)]
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """Single pod: (data=16, model=16) = 256 ranks.
+    Multi-pod:  (pod=2, data=16, model=16) = 512 ranks.
+
+    Every rank's device is ``meta``: the dry run (``launch/dryrun.py``)
+    shards meta tensors over it (``Sharding.shard_shape``) and never
+    starts its ranks (``Mesh.group``)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return Mesh(np.full(shape, "meta", dtype=object), axes)
 
 
 def make_host_mesh() -> Mesh:

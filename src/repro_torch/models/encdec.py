@@ -160,10 +160,11 @@ class EncDecLM(LMBase):
         return {"k": kv, "v": kv, "xk": kv, "xv": kv, "pos": scalar,
                 "enc_len": scalar}
 
-    def init_cache(self, batch: int, max_len: int) -> dict:
-        return {k: torch.zeros(shape, dtype=dt, device=self.device)
-                for k, (shape, dt) in self.cache_struct(batch,
-                                                        max_len).items()}
+    def cache_axes(self) -> dict:
+        """The cache's logical axes, leaf for leaf (the JAX model's)."""
+        kv = ("stack", "cache_batch", "cache_seq", "kv_heads", "head_dim")
+        return {"k": kv, "v": kv, "xk": kv, "xv": kv, "pos": None,
+                "enc_len": None}
 
     @torch.no_grad()
     def prefill(self, batch: dict, max_len: int):

@@ -192,6 +192,14 @@ def unstack(tree: dict, n: int) -> list[dict]:
     return [tree_map(lambda t, l=l: t[l], per_layer) for l in range(n)]
 
 
+def _zeros(struct, device) -> dict:
+    """A tree of (shape, dtype) leaves as zero tensors on ``device``."""
+    if isinstance(struct, dict):
+        return {k: _zeros(v, device) for k, v in struct.items()}
+    shape, dt = struct
+    return torch.zeros(shape, dtype=dt, device=device)
+
+
 def _register(module: nn.Module, specs: dict, default_dtype: str,
               device: torch.device) -> None:
     for key, val in specs.items():
@@ -226,6 +234,29 @@ class LMBase(nn.Module):
 
     def param_specs(self) -> dict:
         raise NotImplementedError
+
+    def abstract(self) -> dict:
+        """The parameter tree as ``meta`` tensors of its shapes and dtypes
+        (no allocation; the JAX model's ``ShapeDtypeStruct`` tree)."""
+        return tree_map(lambda s: torch.empty(
+            s.shape, dtype=getattr(torch, s.dtype or self.cfg.dtype),
+            device="meta"), self.param_specs())
+
+    def axes(self) -> dict:
+        """The parameter tree's logical axes, leaf for leaf."""
+        return tree_map(lambda s: s.axes, self.param_specs())
+
+    def cache_struct(self, batch: int, max_len: int) -> dict:
+        raise NotImplementedError
+
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        """The dense cache of :meth:`cache_struct`, zeros on the model's
+        device."""
+        return _zeros(self.cache_struct(batch, max_len), self.device)
+
+    def abstract_cache(self, batch: int, max_len: int) -> dict:
+        """The dense cache as ``meta`` tensors (no allocation)."""
+        return _zeros(self.cache_struct(batch, max_len), "meta")
 
     @torch.no_grad()
     def init(self, seed: int = 0) -> dict[str, torch.Tensor]:
@@ -316,13 +347,19 @@ class LMBase(nn.Module):
         ``tensor_parallel`` context with an untied, vocab-sharded
         ``unembed`` the rank's column slice of the logits is gathered into
         the full padded vocab; otherwise the gather is the identity."""
+        return all_gather_logits(x.float() @ self.unembed_f32())
+
+    def unembed_f32(self) -> torch.Tensor:
+        """The (D, Vp) f32 copy of the unembedding that :meth:`_unembed`
+        multiplies by, made on first use and kept beside the weights (the
+        dry run counts it as resident state)."""
         tied = not hasattr(self, "unembed")
         w = self.embed if tied else self.unembed
         key = (w.data_ptr(), w._version)
         if self._unembed_cache is None or self._unembed_cache[0] != key:
             wf = w.detach().float()
             self._unembed_cache = (key, wf.t() if tied else wf)
-        return all_gather_logits(x.float() @ self._unembed_cache[1])
+        return self._unembed_cache[1]
 
     def _as_scalar(self, v) -> torch.Tensor:
         return torch.as_tensor(v, dtype=torch.int32, device=self.device)
@@ -588,14 +625,17 @@ class DecoderLM(LMBase):
         struct["pos"] = pos
         return struct
 
-    def init_cache(self, batch: int, max_len: int) -> dict:
-        def zeros(struct):
-            if isinstance(struct, dict):
-                return {k: zeros(v) for k, v in struct.items()}
-            shape, dt = struct
-            return torch.zeros(shape, dtype=dt, device=self.device)
-
-        return zeros(self.cache_struct(batch, max_len))
+    def cache_axes(self) -> dict:
+        """The dense cache's logical axes, leaf for leaf (the JAX
+        model's)."""
+        kv = ("stack", "cache_batch", "cache_seq", "kv_heads", "head_dim")
+        if self.cfg.family in ("dense", "moe", "vlm"):
+            return {"k": kv, "v": kv, "pos": None}
+        mam = {k: ("stack",) + tuple(v)
+               for k, v in ssm_mod.MAMBA_CACHE_AXES.items()}
+        if self.cfg.family == "ssm":
+            return {"mamba": mam, "pos": None}
+        return {"mamba": mam, "shared_k": kv, "shared_v": kv, "pos": None}
 
     def _kv_layer(self, cache: dict, i: int) -> dict:
         """Attention occurrence i's K/V in the dense cache (views)."""

@@ -190,6 +190,15 @@ def mamba_prefill_chunk(p, x, cache, cfg: ModelConfig, *, valid: int,
                  "conv_c": tails["c"]}
 
 
+# the logical axes of init_mamba_cache's leaves (the JAX package's)
+MAMBA_CACHE_AXES = {
+    "ssm": ("cache_batch", "ssm_heads", None, None),
+    "conv_x": ("cache_batch", None, "ff"),
+    "conv_b": ("cache_batch", None, None),
+    "conv_c": ("cache_batch", None, None),
+}
+
+
 def init_mamba_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,
                      device="cuda") -> dict[str, torch.Tensor]:
     """Zero cache for ``batch`` sequences on ``device``: f32 SSD state

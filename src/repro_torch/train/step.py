@@ -19,7 +19,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.models.common import (flatten_tree, tree_leaves, tree_map,
+from repro_torch.models.common import (tree_leaves, tree_map,
                                        unflatten_tree)
 from repro_torch.train.optimizer import AdamWConfig, make_optimizer
 
@@ -41,18 +41,18 @@ def init_train_state(model, seed: int, opt_cfg: AdamWConfig) -> dict:
 def abstract_train_state(model, opt_cfg: AdamWConfig) -> dict:
     """The train state's tree with ``meta``-device leaves of its shapes
     and dtypes (no allocation): the ``like`` of a checkpoint restore."""
-    specs = flatten_tree(model.param_specs())
-
-    def meta(shape, dtype):
-        return torch.empty(shape, dtype=dtype, device="meta")
-
-    params = unflatten_tree({k: meta(s.shape, getattr(torch, s.dtype or
-                                                      model.cfg.dtype))
-                             for k, s in specs.items()})
+    params = model.abstract()
     mdt = getattr(torch, opt_cfg.moment_dtype)
-    mom = lambda: tree_map(lambda p: meta(p.shape, mdt), params)  # noqa: E731
+    mom = lambda: tree_map(  # noqa: E731
+        lambda p: torch.empty(p.shape, dtype=mdt, device="meta"), params)
     return {"params": params, "opt": {"m": mom(), "v": mom()},
-            "step": meta((), torch.int32)}
+            "step": torch.empty((), dtype=torch.int32, device="meta")}
+
+
+def train_state_axes(model) -> dict:
+    """The train state's logical axes (the JAX package's)."""
+    paxes = model.axes()
+    return {"params": paxes, "opt": {"m": paxes, "v": paxes}, "step": None}
 
 
 def _loss_and_grads(model, params, batch):
@@ -68,6 +68,64 @@ def _loss_and_grads(model, params, batch):
             tree_map(lambda p: by_id[id(p)], leaves))
 
 
+def make_train_parts(
+    model,
+    opt_cfg: AdamWConfig,
+    *,
+    ga: int = 1,
+    accum_dtype: str = "float32",
+) -> tuple[Callable, Callable, Callable]:
+    """The three parts of :func:`make_train_step`'s step, which the dry
+    run counts apart (the microbatch ``ga`` times, the rest once):
+
+    * ``init(params) -> acc``: the accumulators (None at ``ga`` 1);
+    * ``micro(params, mb, acc) -> acc``: one microbatch's loss, metrics and
+      gradients; at ``ga`` > 1 added into ``acc`` (gradients in
+      ``accum_dtype``);
+    * ``update(state, acc) -> (state, metrics)``: the microbatches' mean,
+      the optimizer update and the step count.
+    """
+    _, opt_update = make_optimizer(opt_cfg)
+    adt = getattr(torch, accum_dtype)
+
+    def init(params):
+        if ga == 1:
+            return None
+        zero = torch.zeros((), dtype=torch.float32,
+                           device=tree_leaves(params)[0].device)
+        return ({"loss": zero, "ce": zero, "aux": zero},
+                tree_map(lambda p: torch.zeros(p.shape, dtype=adt,
+                                               device=p.device), params))
+
+    def micro(params, mb, acc):
+        loss, m, g = _loss_and_grads(model, params, mb)
+        if ga == 1:
+            return loss, m, g
+        sums, grads = acc
+        grads = tree_map(lambda a, gi: a + gi.to(adt), grads, g)
+        sums = {k: v + (loss if k == "loss" else m[k])
+                for k, v in sums.items()}
+        return sums, grads
+
+    def update(state, acc):
+        if ga == 1:
+            loss, metrics, grads = acc
+        else:
+            sums, grads = acc
+            grads = tree_map(lambda g: g / ga, grads)
+            loss = sums["loss"] / ga
+            # the microbatches' mean ce and aux (the moe router's loss)
+            metrics = {k: sums[k] / ga for k in ("ce", "aux")}
+        _, _, opt_metrics = opt_update(grads, state["opt"], state["params"],
+                                       state["step"])
+        state["step"] += 1
+        out_metrics = {"loss": loss, **{k: metrics[k] for k in ("ce", "aux")
+                                        if k in metrics}, **opt_metrics}
+        return state, out_metrics
+
+    return init, micro, update
+
+
 def make_train_step(
     model,
     opt_cfg: AdamWConfig,
@@ -76,42 +134,20 @@ def make_train_step(
     accum_dtype: str = "float32",
 ) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics)."""
-    _, opt_update = make_optimizer(opt_cfg)
-    adt = getattr(torch, accum_dtype)
+    init, micro, update = make_train_parts(model, opt_cfg, ga=ga,
+                                           accum_dtype=accum_dtype)
 
     def train_step(state, batch):
         params = state["params"]
-
-        if ga == 1:
-            loss, metrics, grads = _loss_and_grads(model, params, batch)
-        else:
-            def split(x, i):
+        acc = init(params)
+        for i in range(ga):
+            def split(x):
                 b = x.shape[0]
                 assert b % ga == 0, (b, ga)
                 return x[i * (b // ga):(i + 1) * (b // ga)]
 
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=adt,
-                                                   device=p.device), params)
-            zero = torch.zeros((), dtype=torch.float32,
-                               device=state["step"].device)
-            sums = {"loss": zero, "ce": zero, "aux": zero}
-            for i in range(ga):
-                mb = {k: split(v, i) for k, v in batch.items()}
-                loss, m, g = _loss_and_grads(model, params, mb)
-                grads = tree_map(lambda a, gi: a + gi.to(adt), grads, g)
-                sums = {k: v + (loss if k == "loss" else m[k])
-                        for k, v in sums.items()}
-            grads = tree_map(lambda g: g / ga, grads)
-            loss = sums["loss"] / ga
-            # the microbatches' mean ce and aux (the moe router's loss)
-            metrics = {k: sums[k] / ga for k in ("ce", "aux")}
-
-        _, _, opt_metrics = opt_update(grads, state["opt"], params,
-                                       state["step"])
-        state["step"] += 1
-        out_metrics = {"loss": loss, **{k: metrics[k] for k in ("ce", "aux")
-                                        if k in metrics}, **opt_metrics}
-        return state, out_metrics
+            acc = micro(params, {k: split(v) for k, v in batch.items()}, acc)
+        return update(state, acc)
 
     return train_step
 

@@ -54,6 +54,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.analysis.roofline import HW  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import ssd_scan as sk  # noqa: E402
 
@@ -61,7 +62,7 @@ OUT = ROOT / "build" / "ablation_ssd"
 LAYERS = 48
 P = 64
 SLEEP_CYCLES = 200_000_000
-HBM_BYTES_PER_S = 3.35e12
+HBM_BYTES_PER_S = HW().hbm_bw
 # the entering state's copies and the final state's stores
 NO_STATE_IO = [
     ("init_rows + (size_t)r * N +\n"

@@ -11,9 +11,11 @@ Phases (any failure exits non-zero):
    checkout (``nvcc``, sm_90a) and prints the build seconds, then the bf16
    tensor-core kernels' and the split decode kernel's registers and spill
    stores from ptxas' report and, from the card, their registers, local
-   bytes, dynamic shared memory and blocks per SM at D 64, 80 and 128; the
-   same for the SSD scan kernels (``ssd_scan_info``) at the calls phases
-   10-12 make.
+   bytes, dynamic shared memory and blocks per SM at D 64, 80 and 128
+   (the flash forward also in its training instance, which writes the
+   rows' logsumexp; the flash backward's dK/dV and dQ kernels through
+   ``flash_attention_backward_info``); the same for the SSD scan kernels
+   (``ssd_scan_info``) at the calls phases 10-12 make.
 3. kernels — each paged-attention kernel against its plain PyTorch version
    on the card, at the main path's widths (KVH 5, G 3, D 64, page 16), at
    llama3-8b's (KVH 8, G 4, D 128, page 8) and at zamba2-2.7b's (KVH 32,
@@ -259,31 +261,41 @@ Phases (any failure exits non-zero):
    kill of its second step: the ``report`` must equal
    ``Notebook.run_linear``'s and the killed step must have been retried.
 28. flash gradients — ``ops.flash_attention`` under autograd on the card
-   (the kernel's forward inside ``FlashAttentionFunction``, the plain
-   version's recompute for backward) against the plain version's own
-   autograd, with a loss whose upstream gradient depends on the output:
-   at the training shapes (B 16 x S 64, 15 / 5 heads, D 64) and at D 80
-   (32 / 32 heads) and D 128 (32 / 8), bf16 and f32; the q, k and v
-   gradients within 2e-2 (bf16) and 1e-3 (f32) of the gradient's largest
-   magnitude (at least 1). Prints the largest gaps. Then times the
-   kernel at the training shape (cycling over 32 layers' inputs) against
-   its plain version, SDPA and its bound, and forward + backward through
-   the autograd Function, the plain version's autograd and SDPA's (the
-   kernels line's flash ``train`` entry).
+   (``FlashAttentionFunction``: the forward kernel, which also writes the
+   rows' logsumexp, and the backward kernel, ``csrc/flash_backward.cu``)
+   against the plain version's own autograd, with a loss whose upstream
+   gradient depends on the output, and the backward kernel alone against
+   ``ref.flash_attention_bwd`` on the same inputs, at FLASH_GRAD_SHAPES:
+   the training shape (B 16 x S 64, 15 / 5 heads, D 64), D 80 (32 / 32
+   heads), D 128 (32 / 8) and group 6 (48 / 8), whisper-tiny's
+   encoder (not causal) and cross attention (Sq 37, Skv 300), and a
+   causal length of 300 that ``causal_flash`` pads to 512, bf16 and f32;
+   the q, k and v gradients within 2e-2 (bf16) and 1e-3 (f32) of the
+   gradient's largest magnitude (at least 1); each call one forward and
+   one backward launch; two backward runs bit-equal. Prints the largest
+   gaps. Then times, at the training shape (cycling over 32 layers'
+   inputs) and at phase 38's B 4 x S 4096 (over 4), the forward kernel
+   against its plain version, SDPA and its bound, the backward kernel
+   against ``ref.flash_attention_bwd``, SDPA's backward and its bound,
+   and forward + backward through the autograd Function, the plain
+   version's autograd and SDPA's (the kernels line's flash ``train``
+   entry and the backward's times).
 29. train — ``launch.train`` (``repro_torch.launch.train.run``) at full
    width as TRAIN_RUNS gives it: smollm-360m, 16 of its 32 layers, bf16
    parameters, f32 moments, B 16 x S 64, 60 steps at ``--lr`` 1e-2, a checkpoint
    every 20, ``--chaos`` (the train pod killed twice): the loss must
    improve and the eval loss lie below the first step's, the train step
-   must be retried twice, the flash kernel must launch (path ``train`` in
-   ``launches_by_path``: the counts reset just before the run and read
-   just after), and the third attempt must start within 64 MiB of the
+   must be retried twice, the flash forward and backward kernels must
+   launch (path ``train`` in ``launches_by_path``: the counts reset just
+   before the run and read just after), and the third attempt must start
+   within 64 MiB of the
    first attempt's device memory (the killed attempts' model and train
    state freed; what remains is a cuBLAS workspace per dead thread).
    Prints s/step and tokens/s, checkpoint save and restore seconds and
    bytes, device memory at each attempt's start and after the run, and a
    torch.profiler window over TRACE_TRAIN_STEPS train steps (device busy
-   share, the flash and SSD kernels' shares of it, the top device ops).
+   share, the flash forward, flash backward and SSD kernels' shares of
+   it, the top device ops).
    Then PARITY_LAYERS layers in f32 (TF32 off), 60 steps: through the
    kernel, again with ``--chaos`` (a checkpoint every 20 steps), through
    the plain version (``--attn-impl ref``) and through the plain version
@@ -429,9 +441,10 @@ Phases (any failure exits non-zero):
    it; each within DRYRUN_MEM_TOL, 10%), the cuBLAS workspaces' share of
    the resident bytes, the median of DRYRUN_STEPS steps, which must not
    be under the roofline bound (``RooflineTerms.bound_s``: a lower
-   bound), the bound's share of the step and the MFU. Flash and the SSD
-   scan launch there (paths ``dryrun smollm train``, ``dryrun mamba2
-   prefill``).
+   bound), the bound's share of the step and the MFU. Flash, its
+   backward and the SSD scan launch there (paths ``dryrun smollm
+   train``, ``dryrun mamba2 prefill``); since the backward kernel, the
+   smollm cell counts about 0.67 TB a step, not 5.67.
 
 Kernel and plain times are device time per call: the calls are enqueued
 behind a sleep kernel and timed with CUDA events, so the host's per-call
@@ -439,8 +452,10 @@ overhead stays out (``_time_ms``). A ``[t s] phase: s`` line after each
 phase gives the wall time so far and the phase's own (PERF.md has a
 run's).
 
-The line before the last is ``{"kernels": [...]}`` (all six ported
-kernels); each kernel's ``launches`` is the sum of ``launches_by_path``,
+The line before the last is ``{"kernels": [...]}`` (the six ported
+kernels and the flash backward, which replaces no Pallas kernel: its
+``replaces`` is the JAX function whose gradient it computes); each
+kernel's ``launches`` is the sum of ``launches_by_path``,
 the counts read after each engine path that ran it (each reset just
 before its path). The three paged kernels also carry ``int8``: the int8
 variant's max abs error, times and bound; the mixed kernel's ``ms`` is the
@@ -452,8 +467,12 @@ forward + backward); flash carries ``train``: phase 28's
 largest bf16 gradient gap at the training shape and the times there
 (forward, and forward + backward). Flash's ``train`` path counts its
 launches in phase 29's full-width run (each layer's forward, again in
-the backward's recompute, and the evaluation). The last line is
-``{"ok": true, "device": {...}}``.
+the layer's checkpointed recompute, and the evaluation); the backward's
+one per layer and step. The backward's own times are at the training
+shape, and its ``train_4k`` entry at B 4 x S 4096 (with the forward's
+times there and forward + backward through the Function, the plain
+autograd and SDPA). The last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -474,6 +493,7 @@ SRC = ROOT / "src"
 PAGED_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
 SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FLASH_BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_backward.cu"
 # kernel -> (its CUDA source, the Pallas function it replaces)
 KERNELS = {
     "paged_attention_bkgd": (
@@ -486,6 +506,10 @@ KERNELS = {
     "ssd_decode_step_bh": (SSD_SOURCE, "src/repro/kernels/ssd_scan.py:146"),
     "flash_attention_bhsd": (
         FLASH_SOURCE, "src/repro/kernels/flash_attention.py:87"),
+    # no Pallas backward: it replaces the gradient JAX takes of its plain
+    # chunked attention (``jax.vjp`` through ``jax.checkpoint``)
+    "flash_attention_bwd": (
+        FLASH_BWD_SOURCE, "src/repro/kernels/ref.py:76"),
 }
 # the card's data-sheet rates: one place states them,
 # src/repro_torch/analysis/roofline.py (HW); outside a checkout this import
@@ -593,6 +617,7 @@ ZAMBA_BF16_CHECK = (("paged_decode_split_kernel", "paged_prefill_mma_kernel",
                      "ssd_scan_mma_kernel", "ssd_decode_kernel"),
                     ("ssd_scan_kernel", "paged_prefill_f32_kernel"))
 FLASH_TRACE_KEYS = ("flash_attention_kernel", "flash_attention_mma_kernel")
+FLASH_BWD_TRACE_KEYS = ("flash_bwd_",)
 # cuBLAS GEMM kernels, by name (the H100's are "nvjet_*" and "*gemm*")
 GEMM_TRACE_KEYS = ("nvjet", "gemm", "gemv")
 # smollm-360m's whole-prompt paths: q heads, the engines' shapes
@@ -602,6 +627,22 @@ FLASH_H, LOCK_BATCH, LOCK_MAX_LEN, WHOLE_MAX_LEN = KVH * G, 8, 512, 1024
 # internvl2-26b (a group of 6)
 FLASH_WIDTHS = {"smollm D64": (FLASH_H, KVH, D), "llama3 D128": (32, 8, 128),
                 "zamba2 D80": (32, 32, 80), "dbrx D128": (48, 8, 128)}
+# phase 28: (B, Sq, Skv, H, KVH, D, causal) of the flash gradient checks,
+# every kind of call the trainers make: smollm's training shape, zamba2's
+# D 80, llama3's D 128, dbrx's and internvl2's group of 6, whisper-tiny's
+# encoder (not causal) and cross attention (Sq != Skv), and a causal
+# length that ``models/attention.py::causal_flash`` pads to a multiple of
+# 256 (FLASH_GRAD_REAL: the real length, padded to Sq inside the model)
+FLASH_GRAD_SHAPES = {
+    "train D 64": (16, 64, 64, FLASH_H, KVH, D, True),
+    "D 80": (2, 256, 256, 32, 32, 80, True),
+    "D 128": (2, 256, 256, 32, 8, 128, True),
+    "group 6 D 128": (2, 256, 256, 48, 8, 128, True),
+    "whisper encoder": (16, 64, 64, 6, 6, 64, False),
+    "whisper cross": (4, 37, 300, 6, 6, 64, False),
+    "causal_flash 300 -> 512": (1, 512, 512, FLASH_H, KVH, D, True),
+}
+FLASH_GRAD_REAL = {"causal_flash 300 -> 512": 300}
 # phases 33-35: dbrx-132b serves at MOE_LAYERS of its 40 layers (28.5 GB in
 # bf16; the whole model is 263 GB); internvl2-26b serves whole (48 layers,
 # 39.7 GB) on the paged engine and at VLM_LOCK_LAYERS on the lockstep
@@ -3179,119 +3220,237 @@ def run_notebook(torch):
         f"{sched._state[victim].image.tag}")
 
 
+def _grad_gap(got, want):
+    """The largest |gap| over max(1, the largest |gradient|)."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1.0)).item()
+
+
 def check_flash_grads(torch, ops, ref, fk):
-    """Phase 28: the flash kernel under autograd against the plain
-    version's autograd. Returns the largest bf16 gap over the training
-    shapes."""
-    shapes = {"train D 64": (16, 64, FLASH_H, KVH, D),
-              "D 80": (2, 256, 32, 32, 80), "D 128": (2, 256, 32, 8, 128)}
-    worst = {}
+    """Phase 28: the flash kernels under autograd against the plain
+    version's autograd, and the backward kernel against its plain version,
+    at every FLASH_GRAD_SHAPES entry, bf16 and f32. Returns the largest
+    bf16 gradient gap at the training shape (the Function against the
+    plain autograd) and the backward kernel's largest bf16 absolute error
+    against ``ref.flash_attention_bwd`` there."""
+    from repro_torch.models.attention import causal_flash
+
+    worst, bwd_abs = {}, 0.0
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
-        for wname, (b, s, h, kvh, d) in shapes.items():
+        for wname, (b, sq, skv, h, kvh, d, causal) in \
+                FLASH_GRAD_SHAPES.items():
             g = torch.Generator(device="cuda").manual_seed(43)
-            base = [torch.randn(b, s, n, d, generator=g, device="cuda")
-                    .to(dtype) for n in (h, kvh, kvh)]
-            w = torch.randn(b, s, h, d, generator=g, device="cuda")
+            # q, k, v on the op's (B, S, H, D) layouts, and a weight for a
+            # loss whose upstream gradient depends on the output
+            base = [torch.randn(b, n, m, d, generator=g, device="cuda")
+                    .to(dtype) for n, m in ((sq, h), (skv, kvh), (skv, kvh))]
+            w = torch.randn(b, sq, h, d, generator=g, device="cuda")
+            real = FLASH_GRAD_REAL.get(wname, sq)  # causal_flash's length
 
             def grads(attend):
-                q, k, v = (t.detach().clone().requires_grad_() for t in base)
+                q, k, v = (t[:, :real].detach().clone().requires_grad_()
+                           if real < sq else t.detach().clone()
+                           .requires_grad_() for t in base)
                 out = attend(q, k, v)
-                loss = (0.5 * out.float().square() + w * out.float()).sum()
+                loss = (0.5 * out.float().square()
+                        + w[:, :real] * out.float()).sum()
                 return out, torch.autograd.grad(loss, (q, k, v))
 
-            n0 = fk.LAUNCHES["flash_attention_bhsd"]
-            out, got = grads(lambda q, k, v: ops.flash_attention(q, k, v))
+            def kernel(q, k, v):
+                if real < sq:  # padded to sq inside, as the models run it
+                    return causal_flash(q, k, v, "auto")
+                return ops.flash_attention(q, k, v, causal=causal,
+                                           block_kv=skv if skv % 256 else 256)
+
+            n0 = dict(fk.LAUNCHES)
+            out, got = grads(kernel)
             if (type(out.grad_fn).__name__ != "FlashAttentionFunctionBackward"
-                    or fk.LAUNCHES["flash_attention_bhsd"] != n0 + 1):
-                raise AssertionError(f"flash grads [{wname}]: the forward did "
-                                     f"not run the kernel inside the Function")
-            _, want = grads(lambda q, k, v: ref.flash_attention_chunked(
-                q, k, v, causal=True, chunk_kv=256))
+                    and real == sq) or {
+                        n: fk.LAUNCHES[n] - n0[n] for n in n0} != {
+                        "flash_attention_bhsd": 1, "flash_attention_bwd": 1}:
+                raise AssertionError(
+                    f"flash grads [{wname}]: the Function did not run one "
+                    f"forward and one backward kernel: {fk.LAUNCHES} after "
+                    f"{n0}")
+            _, again = grads(kernel)
             torch.cuda.synchronize()
-            errs = [((a.float() - r.float()).abs().max()
-                     / r.float().abs().max().clamp_min(1.0)).item()
-                    for a, r in zip(got, want)]
+            if not all(torch.equal(a, c) for a, c in zip(got, again)):
+                raise AssertionError(f"flash grads [{wname}]: two backward "
+                                     f"runs differ")
+            _, want = grads(lambda q, k, v: ref.flash_attention_chunked(
+                q, k, v, causal=causal, chunk_kv=k.shape[1]))
+            # the backward kernel alone against its plain version
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in base)
+            dot = w.to(dtype).transpose(1, 2).contiguous()
+            with torch.no_grad():
+                o, lse = fk.flash_attention_bhsd(qt, kt, vt, causal=causal,
+                                                 return_lse=True)
+                kern = fk.flash_attention_bwd(qt, kt, vt, o, dot, lse,
+                                              causal=causal)
+                plain = ref.flash_attention_bwd(
+                    *base, o.transpose(1, 2), w.to(dtype), lse,
+                    causal=causal, block_kv=skv)
+            torch.cuda.synchronize()
+            errs = [_grad_gap(a, r) for a, r in zip(got, want)] + [
+                _grad_gap(a.transpose(1, 2), r) for a, r in zip(kern, plain)]
             label = f"{str(dtype).removeprefix('torch.')} {wname}"
             worst[label] = max(errs)
+            if dtype == torch.bfloat16 and wname == "train D 64":
+                bwd_abs = max((a.transpose(1, 2).float() - r.float()).abs()
+                              .max().item() for a, r in zip(kern, plain))
             if not max(errs) <= tol:
-                raise AssertionError(f"flash grads [{label}]: dq/dk/dv gaps "
-                                     f"{errs} > {tol}")
-    log("flash gradient check (the kernel's forward in the autograd "
-        "Function vs the plain version's autograd; max |gap| over max(1, "
-        "max |grad|)): " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
-        + f" (bounds bf16 {BF16_TOL}, f32 {F32_TOL})")
-    return worst["bfloat16 train D 64"]
+                raise AssertionError(
+                    f"flash grads [{label}]: dq/dk/dv gaps (the Function vs "
+                    f"the plain autograd; the backward kernel vs "
+                    f"ref.flash_attention_bwd) {errs} > {tol}")
+    log("flash gradient check (the forward and backward kernels in the "
+        "autograd Function vs the plain version's autograd, and the "
+        "backward kernel vs ref.flash_attention_bwd; max |gap| over max(1, "
+        "max |grad|); two backward runs bit-equal): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f" (bounds bf16 {BF16_TOL}, f32 {F32_TOL}); shapes (B, Sq, Skv, "
+        f"H, KVH, D, causal) {FLASH_GRAD_SHAPES}, causal_flash at "
+        f"{FLASH_GRAD_REAL}")
+    return worst["bfloat16 train D 64"], bwd_abs
+
+
+def _flash_bwd_bound(b, sq, skv, h, kvh, d, causal, elt):
+    """Least time for one backward call: q, k, v, o, dO and lse read once
+    and dq, dk, dv written once, against five products (S, dV, dP, dQ,
+    dK) of 2 D FLOPs a head per attended (query, key) pair. Returns (ms,
+    'bytes' | 'operations')."""
+    nbytes = elt * d * b * (4 * h * sq + 4 * kvh * skv) + 4 * b * h * sq
+    off = skv - sq
+    pairs = (sum(off + i + 1 for i in range(sq)) if causal else sq * skv) * b
+    flops = 5 * 2 * d * h * pairs
+    rate = BF16_FLOP_PER_S if elt == 2 else F32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def time_flash_train(torch, F, ops, ref, fk):
-    """The flash kernel at the trainer's shape (B 16 x S 64, 15 / 5 heads,
-    D 64, causal, bf16), cycling over 32 layers' inputs: the forward
-    (kernel, plain version, SDPA) against its bound, and forward +
+    """Flash at the trainer's shapes (15 / 5 heads, D 64, causal, bf16):
+    B 16 x S 64 (phase 29's), cycling over 32 layers' inputs, and B 4 x S
+    4096 (phase 38's), over 4. The forward (kernel, plain version, SDPA)
+    against its bound; the backward alone (kernel, ``ref.flash_attention_
+    bwd``, SDPA's backward through autograd) against its bound; forward +
     backward (``ops.flash_attention``'s autograd Function, the plain
-    version's autograd, SDPA's). Returns the kernels line's ``train``
-    entry."""
-    b, s, h, kvh, d = 16, 64, FLASH_H, KVH, D
-    g = torch.Generator(device="cuda").manual_seed(44)
+    version's autograd, SDPA's). Returns the kernels line's entries:
+    flash's ``train`` and the backward kernel's times."""
+    h, kvh, d = FLASH_H, KVH, D
+    rows = {}
+    for label, b, s, layers in (("train", 16, 64, LAYERS),
+                                ("train_4k", 4, 4096, 4)):
+        g = torch.Generator(device="cuda").manual_seed(44)
 
-    def make(n, grad=False):
-        return torch.randn(LAYERS, b, s, n, d, generator=g, device="cuda").to(
-            torch.bfloat16).requires_grad_(grad)
+        def make(n, grad=False):
+            return torch.randn(layers, b, s, n, d, generator=g,
+                               device="cuda").to(
+                torch.bfloat16).requires_grad_(grad)
 
-    q, k, v = make(h, True), make(kvh, True), make(kvh, True)
-    up = make(h)
-    qt, kt, vt = (x.detach().transpose(2, 3).contiguous() for x in (q, k, v))
-
-    def kernel(i):
-        l = i % LAYERS
-        fk.flash_attention_bhsd(qt[l], kt[l], vt[l], causal=True)
-
-    def plain(i):
-        l = i % LAYERS
+        q, k, v = make(h, True), make(kvh, True), make(kvh, True)
+        up = make(h)
+        qt, kt, vt, ut = (x.detach().transpose(2, 3).contiguous()
+                          for x in (q, k, v, up))
         with torch.no_grad():
-            ref.flash_attention_chunked(q[l], k[l], v[l], causal=True,
-                                        chunk_kv=256)
+            stats = [fk.flash_attention_bhsd(qt[l], kt[l], vt[l],
+                                             causal=True, return_lse=True)
+                     for l in range(layers)]
+            outs = [o.transpose(1, 2) for o, _ in stats]
+        # SDPA's graphs, kept for its backward alone
+        sdpa_in = [tuple(x[l].detach().requires_grad_() for x in (qt, kt, vt))
+                   for l in range(layers)]
+        sdpa_outs = [F.scaled_dot_product_attention(
+            *xs, is_causal=True, enable_gqa=True) for xs in sdpa_in]
 
-    def library(i):
-        l = i % LAYERS
-        F.scaled_dot_product_attention(qt[l], kt[l], vt[l], is_causal=True,
-                                       enable_gqa=True)
+        def kernel(i):
+            l = i % layers
+            fk.flash_attention_bhsd(qt[l], kt[l], vt[l], causal=True)
 
-    def both(attend):
-        def fn(i):
-            l = i % LAYERS
-            ql, kl, vl = q[l], k[l], v[l]
-            torch.autograd.grad(attend(ql, kl, vl), (ql, kl, vl), up[l])
-        return fn
+        def plain(i):
+            l = i % layers
+            with torch.no_grad():
+                ref.flash_attention_chunked(q[l], k[l], v[l], causal=True,
+                                            chunk_kv=256)
 
-    fwd_bwd = {
-        "kernel": both(lambda q_, k_, v_: ops.flash_attention(q_, k_, v_)),
-        "plain": both(lambda q_, k_, v_: ref.flash_attention_chunked(
-            q_, k_, v_, causal=True, chunk_kv=256)),
-        "sdpa": both(lambda q_, k_, v_: F.scaled_dot_product_attention(
-            q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2),
-            is_causal=True, enable_gqa=True).transpose(1, 2)),
-    }
-    p1 = _time_ms(torch, plain, iters=32)
-    k1 = _time_ms(torch, kernel)
-    k2 = _time_ms(torch, kernel)
-    p2 = _time_ms(torch, plain, iters=32)
-    lib = _time_ms(torch, library)
-    # 8 calls: their ~100 autograd launches each stay inside the sleep
-    # kernel's ~0.1 s, so the host's enqueue time stays out
-    both_ms = {name: _time_ms(torch, fn, iters=8)
-               for name, fn in fwd_bwd.items()}
-    bound = _flash_bound(b, s, s, True, 2)
-    log(f"timing flash_attention_bhsd train (B {b}, S {s}, H {h}, KVH {kvh}, "
-        f"causal, bf16): kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f}"
-        f" ms, sdpa {lib:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]}); "
-        f"forward + backward: autograd Function {both_ms['kernel']:.4f} ms, "
-        f"plain autograd {both_ms['plain']:.4f} ms, sdpa "
-        f"{both_ms['sdpa']:.4f} ms")
-    return dict(ms=min(k1, k2), plain_ms=min(p1, p2), library_ms=lib,
-                bound_ms=bound[0], bound_by=bound[1],
-                fwd_bwd_ms=both_ms["kernel"],
-                plain_fwd_bwd_ms=both_ms["plain"],
-                library_fwd_bwd_ms=both_ms["sdpa"])
+        def library(i):
+            l = i % layers
+            F.scaled_dot_product_attention(qt[l], kt[l], vt[l],
+                                           is_causal=True, enable_gqa=True)
+
+        def bwd_kernel(i):
+            l = i % layers
+            fk.flash_attention_bwd(qt[l], kt[l], vt[l], stats[l][0], ut[l],
+                                   stats[l][1], causal=True)
+
+        def bwd_plain(i):
+            l = i % layers
+            ref.flash_attention_bwd(q[l].detach(), k[l].detach(),
+                                    v[l].detach(), outs[l], up[l],
+                                    stats[l][1], causal=True, block_kv=256)
+
+        def bwd_library(i):
+            l = i % layers
+            torch.autograd.grad(sdpa_outs[l], sdpa_in[l], ut[l],
+                                retain_graph=True)
+
+        def both(attend):
+            def fn(i):
+                l = i % layers
+                ql, kl, vl = q[l], k[l], v[l]
+                torch.autograd.grad(attend(ql, kl, vl), (ql, kl, vl), up[l])
+            return fn
+
+        fwd_bwd = {
+            "kernel": both(lambda q_, k_, v_: ops.flash_attention(
+                q_, k_, v_)),
+            "plain": both(lambda q_, k_, v_: ref.flash_attention_chunked(
+                q_, k_, v_, causal=True, chunk_kv=256)),
+            "sdpa": both(lambda q_, k_, v_: F.scaled_dot_product_attention(
+                q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2),
+                is_causal=True, enable_gqa=True).transpose(1, 2)),
+        }
+        short = s == 64
+        n_fast, n_slow = (64, 32) if short else (8, 2)
+        p1 = _time_ms(torch, plain, iters=n_slow, warmup=2)
+        k1 = _time_ms(torch, kernel, iters=n_fast)
+        k2 = _time_ms(torch, kernel, iters=n_fast)
+        p2 = _time_ms(torch, plain, iters=n_slow, warmup=2)
+        lib = _time_ms(torch, library, iters=n_fast)
+        bp1 = _time_ms(torch, bwd_plain, iters=n_slow, warmup=2)
+        bk1 = _time_ms(torch, bwd_kernel, iters=n_fast)
+        bk2 = _time_ms(torch, bwd_kernel, iters=n_fast)
+        bp2 = _time_ms(torch, bwd_plain, iters=n_slow, warmup=2)
+        blib = _time_ms(torch, bwd_library, iters=n_fast)
+        # 8 calls: their ~100 autograd launches each stay inside the sleep
+        # kernel's ~0.1 s, so the host's enqueue time stays out
+        both_ms = {name: _time_ms(torch, fn, iters=8 if short or
+                                  name != "plain" else 2, warmup=2)
+                   for name, fn in fwd_bwd.items()}
+        bound = _flash_bound(b, s, s, True, 2)
+        bwd_bound = _flash_bwd_bound(b, s, s, h, kvh, d, True, 2)
+        log(f"timing flash {label} (B {b}, S {s}, H {h}, KVH {kvh}, causal, "
+            f"bf16): forward kernel {k1:.4f}/{k2:.4f} ms, plain "
+            f"{p1:.4f}/{p2:.4f} ms, sdpa {lib:.4f} ms, bound "
+            f"{bound[0]:.5f} ms ({bound[1]}); backward kernel "
+            f"{bk1:.4f}/{bk2:.4f} ms, plain {bp1:.4f}/{bp2:.4f} ms, sdpa "
+            f"{blib:.4f} ms, bound {bwd_bound[0]:.5f} ms ({bwd_bound[1]}); "
+            f"forward + backward: autograd Function "
+            f"{both_ms['kernel']:.4f} ms, plain autograd "
+            f"{both_ms['plain']:.4f} ms, sdpa {both_ms['sdpa']:.4f} ms")
+        rows[label] = dict(
+            fwd=dict(ms=min(k1, k2), plain_ms=min(p1, p2), library_ms=lib,
+                     bound_ms=bound[0], bound_by=bound[1],
+                     fwd_bwd_ms=both_ms["kernel"],
+                     plain_fwd_bwd_ms=both_ms["plain"],
+                     library_fwd_bwd_ms=both_ms["sdpa"]),
+            bwd=dict(ms=min(bk1, bk2), plain_ms=min(bp1, bp2),
+                     library_ms=blib, bound_ms=bwd_bound[0],
+                     bound_by=bwd_bound[1]))
+        del q, k, v, up, qt, kt, vt, ut, stats, outs, sdpa_in, sdpa_outs
+    return rows["train"]["fwd"], dict(**rows["train"]["bwd"], train_4k=dict(
+        **rows["train_4k"]["bwd"], forward=rows["train_4k"]["fwd"]))
 
 
 def _trace_train(torch, cfg, run, steps):
@@ -3336,6 +3495,7 @@ def _trace_train(torch, cfg, run, steps):
     shares = {label: sum(ms for name, (ms, _) in by_name.items()
                          if any(k in name for k in keys))
               for label, keys in (("flash", FLASH_TRACE_KEYS),
+                                  ("flash backward", FLASH_BWD_TRACE_KEYS),
                                   ("ssd", SSD_TRACE_KEYS))}
     log(f"train trace {cfg.name}: {steps} steps in {wall_ms:.1f} ms wall "
         f"({wall_ms / steps:.2f} ms/step); device busy {busy_ms:.1f} ms = "
@@ -4276,15 +4436,15 @@ def run_moe_vlm_train(torch, np, get_arch, fk, pk, sk, card):
     chaos, one checkpoint (after the last step, which the evaluation
     restores). Before each run, every leaf's first gradient (the driver's
     initial weights, the corpus's first batch) must be finite and nonzero,
-    the router's and ``vision_proj``'s included. Returns {path: flash
-    launches}."""
+    the router's and ``vision_proj``'s included. Returns {path: {kernel:
+    launches}} of the flash forward and backward kernels."""
     from repro_torch.data import DataConfig, SyntheticCorpus
     from repro_torch.models import build_model, frontend_len
     from repro_torch.models.common import flatten_tree
     from repro_torch.train import AdamWConfig, init_train_state
     from repro_torch.train.step import _loss_and_grads
 
-    flash = "flash_attention_bhsd"
+    flash = ("flash_attention_bhsd", "flash_attention_bwd")
     out = {}
     for arch in ("internvl2-26b", "dbrx-132b"):
         _free(torch)
@@ -4313,8 +4473,8 @@ def run_moe_vlm_train(torch, np, get_arch, fk, pk, sk, card):
                                  f"gradients: {dead}")
         del model, state, batch, grads, flat
         _free(torch)
-        launches = run_train(torch, cfg, fk, pk, sk, card, (flash,))
-        out[f"train {arch.split('-')[0]}"] = launches[flash]
+        launches = run_train(torch, cfg, fk, pk, sk, card, flash)
+        out[f"train {arch.split('-')[0]}"] = {k: launches[k] for k in flash}
     _free(torch)
     return out
 
@@ -4908,7 +5068,8 @@ def run_dryrun(torch, np, cells, fk, sk, card):
     log(f"dryrun: total_memory {total} B, HW().hbm_per_chip "
         f"{hw.hbm_per_chip:.0f} B"
         f"{'' if total == hw.hbm_per_chip else ' (differs)'}; {card}")
-    paths = {"flash_attention_bhsd": {}, "ssd_scan_bshp": {}}
+    paths = {"flash_attention_bhsd": {}, "flash_attention_bwd": {},
+             "ssd_scan_bshp": {}}
     for cell in cells:
         cfg, shape, batch, cost = (cell["cfg"], cell["shape"], cell["batch"],
                                    cell["cost"])
@@ -4939,6 +5100,7 @@ def run_dryrun(torch, np, cells, fk, sk, card):
             del out
             gc.collect()
         for name, counts in (("flash_attention_bhsd", fk.LAUNCHES),
+                             ("flash_attention_bwd", fk.LAUNCHES),
                              ("ssd_scan_bshp", sk.LAUNCHES)):
             if counts[name]:
                 paths[name][label] = counts[name]
@@ -4977,7 +5139,7 @@ def run_dryrun(torch, np, cells, fk, sk, card):
                 f"{label}: the step took {med * 1e3:.2f} ms, under the "
                 f"roofline bound {terms.bound_s * 1e3:.2f} ms: the count "
                 f"is wrong")
-    if not paths["flash_attention_bhsd"] or not paths["ssd_scan_bshp"]:
+    if not all(paths.values()):
         raise AssertionError(f"dryrun: a kernel did not launch: {paths}")
     return paths
 
@@ -5003,7 +5165,8 @@ def report_mma_kernels(build):
             d, groups = re.findall(r"Li(\d+)E", name)[:2]
             pages = " int8 pages" if "kernelIa" in name else ""
             rows = " mixed chunk rows" if "MixedChunkLimits" in name else ""
-            log(f"ptxas {lib} mma D {d}{pages}{rows} groups {groups}: "
+            lse = " lse" if "Lb1E" in name else ""  # the training forward
+            log(f"ptxas {lib} mma D {d}{pages}{rows}{lse} groups {groups}: "
                 f"{regs.group(1) if regs else '?'} registers, "
                 f"{spill.group(1) if spill else '?'} bytes spill stores")
         fn = getattr(build.load(lib), info_fn)
@@ -5021,6 +5184,38 @@ def report_mma_kernels(build):
                         f"{info[0]} registers, {info[1]} local bytes a "
                         f"thread, {info[2]} B dynamic shared memory, "
                         f"{info[3]} blocks per SM")
+
+
+def report_flash_backward(build, fk):
+    """Phase 2's report on the bf16 flash backward kernels (dK/dV and dQ)
+    at D 64, 80 and 128: registers and spill stores as ptxas gave them in
+    this process's build, then the card's figures through
+    ``flash_attention_backward_info``."""
+    import ctypes
+
+    entry = re.compile(r"Compiling entry function '(\w+)'")
+    parts = entry.split(build.build_log.get("flash_backward", ""))
+    for name, body in zip(parts[1::2], parts[2::2]):
+        if "_mma_kernel" not in name:
+            continue
+        regs = re.search(r"Used (\d+) registers", body)
+        spill = re.search(r"(\d+) bytes spill stores", body)
+        kind = "dkdv" if "dkdv" in name else "dq"
+        d = re.findall(r"Li(\d+)E", name)[0]
+        log(f"ptxas flash_backward {kind} mma D {d}: "
+            f"{regs.group(1) if regs else '?'} registers, "
+            f"{spill.group(1) if spill else '?'} bytes spill stores")
+    fn = fk._backward_library().flash_attention_backward_info
+    info = (ctypes.c_int * 4)()
+    for d in (64, 80, 128):
+        for which, kind in enumerate(("dkdv", "dq")):
+            err = fn(d, which, info)
+            if err != 0:
+                raise RuntimeError(f"flash_attention_backward_info({d}, "
+                                   f"{which}): error {err}")
+            log(f"card flash_backward {kind} mma D {d}: {info[0]} "
+                f"registers, {info[1]} local bytes a thread, {info[2]} B "
+                f"dynamic shared memory, {info[3]} blocks per SM")
 
 
 def report_decode_kernel(torch, build, pk):
@@ -5147,6 +5342,7 @@ def main() -> int:
             f"{spills} over {ptxas.count('Compiling entry function')} "
             f"kernel instances")
     report_mma_kernels(build)
+    report_flash_backward(build, fk)
     report_decode_kernel(torch, build, pk)
     report_ssd_scan(torch, build, sk)
 
@@ -5263,12 +5459,13 @@ def main() -> int:
     lap("put_tree")
     run_notebook(torch)
     lap("notebook")
-    train_grad_err = check_flash_grads(torch, ops, ref, fk)
-    train_flash = time_flash_train(torch, F, ops, ref, fk)
+    flash, flash_bwd = "flash_attention_bhsd", "flash_attention_bwd"
+    train_grad_err, errs[flash_bwd] = check_flash_grads(torch, ops, ref, fk)
+    train_flash, times[flash_bwd] = time_flash_train(torch, F, ops, ref, fk)
     lap("flash gradients and timing")
-    by_path["flash_attention_bhsd"]["train"] = run_train(
-        torch, cfg, fk, pk, sk, card, ("flash_attention_bhsd",))[
-        "flash_attention_bhsd"]
+    launches = run_train(torch, cfg, fk, pk, sk, card, (flash, flash_bwd))
+    for name in (flash, flash_bwd):
+        by_path[name]["train"] = launches[name]
     run_train_parity(torch, np, cfg, ("--attn-impl", "ref"))
     lap("train")
     ssd_grad_err = check_ssd_grads(torch, ops, sk)
@@ -5276,7 +5473,7 @@ def main() -> int:
     lap("ssd gradients and timing")
     by_path["ssd_scan_bshp"]["train"] = run_train(
         torch, mcfg, fk, pk, sk, card, ("ssd_scan_bshp",))["ssd_scan_bshp"]
-    both = ("flash_attention_bhsd", "ssd_scan_bshp")
+    both = (flash, flash_bwd, "ssd_scan_bshp")
     for name, n in run_train(torch, zcfg, fk, pk, sk, card, both).items():
         if name in both:
             by_path[name]["train zamba2"] = n
@@ -5285,9 +5482,9 @@ def main() -> int:
                                        "ref"))
     lap("ssm/hybrid train")
     wcfg = get_arch("whisper-tiny")
-    flash = "flash_attention_bhsd"
-    by_path[flash]["train whisper"] = run_train(
-        torch, wcfg, fk, pk, sk, card, (flash,))[flash]
+    launches = run_train(torch, wcfg, fk, pk, sk, card, (flash, flash_bwd))
+    for name in (flash, flash_bwd):
+        by_path[name]["train whisper"] = launches[name]
     paths, whisper_err = run_whisper(torch, np, wcfg, serving, models, fk,
                                      ref, card)
     by_path[flash].update(paths)
@@ -5306,8 +5503,10 @@ def main() -> int:
     lap("flash check at the group-6 width")
     run_moe_vlm_parity(torch, np, serving, models, get_arch)
     lap("dbrx and internvl2 parity")
-    by_path[flash].update(run_moe_vlm_train(torch, np, get_arch, fk, pk, sk,
-                                            card))
+    for path, counts in run_moe_vlm_train(torch, np, get_arch, fk, pk, sk,
+                                          card).items():
+        for name, n in counts.items():
+            by_path[name][path] = n
     lap("dbrx and internvl2 train")
     for path, counts in run_tp(torch, np, serving, models, get_arch, pk, fk,
                                sk, card).items():

@@ -32,9 +32,11 @@ Inside a region the FLOPs and unfused bytes count as usual, but
 once, and the peak counts only the outputs it allocated: what the kernel
 itself moves and holds (the counterpart of the analyzer's "innermost scan
 charged as a fused kernel", ``repro/analysis/hlo.py:427-466``). The
-backward of ``FlashAttentionFunction`` and ``SSDScanFunction`` is the
-plain version's recompute under autograd on the card too, so it is counted
-in full.
+backward of ``FlashAttentionFunction`` is a kernel too
+(``flash_attention_bwd``: q, k, v, the output, dO and the rows' logsumexp
+in, dq, dk and dv out); only ``SSDScanFunction``'s backward is still the
+plain version's recompute under autograd on the card, so it is counted in
+full.
 
 Collectives are not counted here: a step on one process issues none.
 ``launch/builders.py`` adds them analytically from the sharding
@@ -83,13 +85,18 @@ class StepCost:
     # their outputs only), and those still held when it returned
     peak_bytes: float = 0.0
     output_bytes: float = 0.0
-    # kernel regions entered, by kernel, and the FLOPs counted inside them
+    # kernel regions entered, and the FLOPs counted inside them, by kernel
     regions: dict[str, int] = field(default_factory=dict)
-    region_flops: float = 0.0
+    region_flops_by: dict[str, float] = field(default_factory=dict)
     ops: int = 0
     # the storages (``_key``) some op other than a view read: which
     # arguments the step uses
     read: set[int] = field(default_factory=set, repr=False)
+
+    @property
+    def region_flops(self) -> float:
+        """The FLOPs counted inside every kernel region."""
+        return sum(self.region_flops_by.values())
 
     @property
     def total_collective_bytes(self) -> float:
@@ -166,6 +173,7 @@ class _Counter(TorchDispatchMode):
         self.live = 0
         self.tracked: dict[int, tuple[weakref.ref, int]] = {}
         self.depth = 0  # kernel regions open
+        self.region_names: list[str] = []  # the open regions' kernels
 
     def _track(self, st) -> None:
         key = st._cdata
@@ -196,7 +204,9 @@ class _Counter(TorchDispatchMode):
             flops = rule(*args, **kwargs, out_val=out)
             self.cost.flops += flops
             if self.depth:
-                self.cost.region_flops += flops
+                by = self.cost.region_flops_by
+                name = self.region_names[0]
+                by[name] = by.get(name, 0.0) + flops
         ins, outs = _tensors((args, kwargs)), _tensors(out)
         if not _is_view(func):
             self.cost.read.update(_key(t) for t in ins)
@@ -211,10 +221,12 @@ class _Counter(TorchDispatchMode):
     def region(self, name: str, fn, args, kwargs):
         ins = _tensors((args, kwargs))
         self.depth += 1
+        self.region_names.append(name)
         try:
             out = fn(*args, **kwargs)
         finally:
             self.depth -= 1
+            self.region_names.pop()
         if self.depth == 0:
             outs = _tensors(out)
             self.cost.hbm_bytes_kernelized += _nbytes(ins) + _nbytes(outs)

@@ -31,7 +31,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
-SOURCES = ("paged_attention", "ssd_scan", "flash_attention")
+SOURCES = ("paged_attention", "ssd_scan", "flash_attention", "flash_backward")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _lock = threading.RLock()  # build() and load(); load() calls build()

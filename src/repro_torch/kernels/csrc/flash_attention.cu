@@ -57,12 +57,19 @@
 // and shared-memory descriptors with a fixed swizzle, which add risk and
 // no time at 120-480 blocks.
 //
-// f32 (flash_attention_kernel, unchanged from the first version): CUDA-core
-// f32 FMAs, 8 warps over 192 / 128 rows (12-24 a warp), K/V staged as f32
-// (D 80 staged as 96 zero-padded columns). It stays on CUDA cores because
-// it serves the f32 parity runs (TF32 off), whose token streams must equal
-// the plain version's: tensor-core products in TF32 would need the 1e-3
-// bound loosened.
+// f32 (flash_attention_kernel, unchanged from the first version but for
+// the row statistics below): CUDA-core f32 FMAs, 8 warps over 192 / 128
+// rows (12-24 a warp), K/V staged as f32 (D 80 staged as 96 zero-padded
+// columns). It stays on CUDA cores because it serves the f32 parity runs
+// (TF32 off), whose token streams must equal the plain version's:
+// tensor-core products in TF32 would need the 1e-3 bound loosened.
+//
+// Row statistics: given a non-null lse pointer (f32 (B, H, Sq)), either
+// kernel also writes each row's natural-log logsumexp of its scaled, masked
+// scores, m + ln(max(l, 1e-30)) (a row with no key: -1e30 + ln(1e-30)),
+// which the backward (flash_backward.cu) reads instead of recomputing the
+// softmax. It is a template flag (kLse): the serving launches, which pass
+// no pointer, compile to the kernels they were before it.
 //
 // Every launch goes on the caller's stream, allocates nothing, and returns
 // cudaGetLastError(), -1 for an unsupported head dim or dtype (which the
@@ -77,6 +84,7 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kBK = 64;  // keys per K/V tile: two per lane
@@ -126,11 +134,11 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ out, int h, int kvh, int sq,
-    int skv, int causal, float scale) {
+    const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
+    int h, int kvh, int sq, int skv, int causal, float scale) {
   using Cfg = Tile<D>;
   constexpr int RPW = Cfg::kRowsPerWarp;
   constexpr int ROWS = Cfg::kRows;
@@ -280,6 +288,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel(
       for (int c = 0; c < COLS; ++c)
         if (!kPadded || lane + 32 * c < D)
           o[lane + 32 * c] = from_f32<T>(acc[i][c] * inv);
+      if constexpr (kLse) {
+        if (lane == 0)
+          lse[((size_t)b * h + hk * group + g) * sq + pos] =
+              m[i] + logf(fmaxf(l[i], 1e-30f));
+      }
     }
   }
 }
@@ -303,14 +316,15 @@ struct MmaTile {
       (size_t)mma::kRows * Cfg::kLd * sizeof(__nv_bfloat16) + kRingBytes;
 };
 
-template <int D, int G>
+template <int D, int G, bool kLse>
 __global__ void __launch_bounds__(mma::Config<D, G>::kThreads,
                                   mma::Config<D, G>::kMinBlocks)
     flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                                const __nv_bfloat16* __restrict__ k,
                                const __nv_bfloat16* __restrict__ v,
-                               __nv_bfloat16* __restrict__ out, int h,
-                               int kvh, int sq, int skv, int causal,
+                               __nv_bfloat16* __restrict__ out,
+                               float* __restrict__ lse, int h, int kvh,
+                               int sq, int skv, int causal,
                                float scale_log2) {
   using Cfg = mma::Config<D, G>;
   constexpr int LD = Cfg::kLd, CH = Cfg::kChunks, NT = Cfg::kThreads;
@@ -389,22 +403,35 @@ __global__ void __launch_bounds__(mma::Config<D, G>::kThreads,
     __syncthreads();
   }
   mma::merge_groups<D, G>(att, reinterpret_cast<float*>(ks));
-  if (wg == 0)
+  if (wg == 0) {
+    if constexpr (kLse) {  // m is log2-domain: lse = (m + log2 l) ln 2
+      const float l0 = mma::quad_sum(att.l[0]), l1 = mma::quad_sum(att.l[1]);
+      if ((lane & 3) == 0) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = wrow0 + (lane >> 2) + 8 * e;
+          if (r < n_rows)
+            lse[((size_t)b * h + hk * group + r % group) * sq + r / group] =
+                (att.m[e] + log2f(fmaxf(e ? l1 : l0, 1e-30f))) * kLn2;
+        }
+      }
+    }
     att.finish(qw, [&](int i) -> __nv_bfloat16* {
       const int r = wrow0 + i;
       if (r >= n_rows) return nullptr;
       return out +
              (((size_t)b * h + hk * group + r % group) * sq + r / group) * D;
     });
+  }
 }
 
-template <int D, int G>
+template <int D, int G, bool kLse>
 int launch_groups(const void* q, const void* k, const void* v, void* out,
-                  int b, int h, int kvh, int sq, int skv, int causal,
-                  float scale, cudaStream_t stream) {
+                  float* lse, int b, int h, int kvh, int sq, int skv,
+                  int causal, float scale, cudaStream_t stream) {
   using Cfg = mma::Config<D, G>;
   const size_t smem = MmaTile<D, G>::kSmemBytes;
-  auto kernel = flash_attention_mma_kernel<D, G>;
+  auto kernel = flash_attention_mma_kernel<D, G, kLse>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -416,28 +443,39 @@ int launch_groups(const void* q, const void* k, const void* v, void* out,
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v),
-        static_cast<__nv_bfloat16*>(out), h, kvh, sq, skv, causal,
+        static_cast<__nv_bfloat16*>(out), lse, h, kvh, sq, skv, causal,
         scale * mma::kLog2e);
   }
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* out, int b,
-               int h, int kvh, int sq, int skv, int causal, float scale,
-               cudaStream_t stream) {
-  if (!mma::aligned16(q, k, v, out)) return -2;
+template <int D, bool kLse>
+int launch_lse(const void* q, const void* k, const void* v, void* out,
+               float* lse, int b, int h, int kvh, int sq, int skv, int causal,
+               float scale, cudaStream_t stream) {
   const int blocks = (sq * (h / kvh) + mma::kRows - 1) / mma::kRows * kvh * b;
   if (mma::warp_groups(blocks) == 2)
-    return launch_groups<D, 2>(q, k, v, out, b, h, kvh, sq, skv, causal,
+    return launch_groups<D, 2, kLse>(q, k, v, out, lse, b, h, kvh, sq, skv,
+                                     causal, scale, stream);
+  return launch_groups<D, 1, kLse>(q, k, v, out, lse, b, h, kvh, sq, skv,
+                                   causal, scale, stream);
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, void* out,
+               float* lse, int b, int h, int kvh, int sq, int skv, int causal,
+               float scale, cudaStream_t stream) {
+  if (!mma::aligned16(q, k, v, out)) return -2;
+  if (lse != nullptr)
+    return launch_lse<D, true>(q, k, v, out, lse, b, h, kvh, sq, skv, causal,
                                scale, stream);
-  return launch_groups<D, 1>(q, k, v, out, b, h, kvh, sq, skv, causal, scale,
-                             stream);
+  return launch_lse<D, false>(q, k, v, out, lse, b, h, kvh, sq, skv, causal,
+                              scale, stream);
 }
 
 template <int D, int G>
 int mma_info_groups(int* info) {
-  auto kernel = flash_attention_mma_kernel<D, G>;
+  auto kernel = flash_attention_mma_kernel<D, G, false>;
   const int smem = (int)MmaTile<D, G>::kSmemBytes;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -466,13 +504,13 @@ int mma_info(int groups, int* info) {
 // f32: the CUDA-core kernel above
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <typename T, int D, bool kLse>
 int launch_typed(const void* q, const void* k, const void* v, void* out,
-                 int b, int h, int kvh, int sq, int skv, int causal,
-                 float scale, cudaStream_t stream) {
+                 float* lse, int b, int h, int kvh, int sq, int skv,
+                 int causal, float scale, cudaStream_t stream) {
   using Cfg = Tile<D>;
   const size_t smem = Cfg::kSmemFloats * sizeof(float);
-  auto kernel = flash_attention_kernel<T, D>;
+  auto kernel = flash_attention_kernel<T, D, kLse>;
   // the opt-in above 48 KB is per device: made on every launch
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -482,8 +520,8 @@ int launch_typed(const void* q, const void* k, const void* v, void* out,
     dim3 grid((n_rows + mma::kRows - 1) / mma::kRows, kvh, b);
     kernel<<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out), h, kvh, sq, skv,
-        causal, scale);
+        static_cast<const T*>(v), static_cast<T*>(out), lse, h, kvh, sq,
+        skv, causal, scale);
   }
   return (int)cudaGetLastError();
 }
@@ -492,17 +530,22 @@ int launch_typed(const void* q, const void* k, const void* v, void* out,
 
 extern "C" {
 
-// q (B, H, Sq, D); k/v (B, KVH, Skv, D) -> out (B, H, Sq, D).
+// q (B, H, Sq, D); k/v (B, KVH, Skv, D) -> out (B, H, Sq, D) and, where
+// lse is not null, each row's logsumexp into lse (B, H, Sq) f32.
 // dtype: 0 = float32, 1 = bfloat16
 int flash_attention_forward(const void* q, const void* k, const void* v,
-                            void* out, int b, int h, int kvh, int sq, int skv,
-                            int head_dim, int causal, float scale, int dtype,
-                            void* stream) {
+                            void* out, void* lse_ptr, int b, int h, int kvh,
+                            int sq, int skv, int head_dim, int causal,
+                            float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FLASH_CASE(DIM) \
-  return launch_typed<float, DIM>(q, k, v, out, b, h, kvh, sq, skv, causal, scale, s)
+  float* lse = static_cast<float*>(lse_ptr);
+#define FLASH_CASE(DIM)                                                       \
+  return lse ? launch_typed<float, DIM, true>(q, k, v, out, lse, b, h, kvh,   \
+                                              sq, skv, causal, scale, s)      \
+             : launch_typed<float, DIM, false>(q, k, v, out, lse, b, h, kvh,  \
+                                               sq, skv, causal, scale, s)
 #define MMA_CASE(DIM) \
-  return launch_mma<DIM>(q, k, v, out, b, h, kvh, sq, skv, causal, scale, s)
+  return launch_mma<DIM>(q, k, v, out, lse, b, h, kvh, sq, skv, causal, scale, s)
   if (dtype == 0 && head_dim == 64) FLASH_CASE(64);
   if (dtype == 0 && head_dim == 80) FLASH_CASE(80);
   if (dtype == 0 && head_dim == 128) FLASH_CASE(128);

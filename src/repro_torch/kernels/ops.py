@@ -25,11 +25,12 @@ kernel (its inputs and outputs once), and training goes through the same
 autograd Functions as on the card.
 
 Gradients: on a CUDA tensor with grad mode on, ``flash_attention`` runs
-the kernel inside :class:`FlashAttentionFunction` and ``ssd_scan`` inside
-:class:`SSDScanFunction`; each one's backward recomputes the plain
-version under autograd and returns its vector-Jacobian product (the JAX
-package trains through its plain chunked versions; it has no backward
-kernel to port). The other ops serve inference only.
+the kernel inside :class:`FlashAttentionFunction`, whose backward is the
+hand-written backward kernel (``csrc/flash_backward.cu``), and
+``ssd_scan`` inside :class:`SSDScanFunction`, whose backward recomputes
+the plain scan under autograd and returns its vector-Jacobian product
+(the JAX package trains through its plain chunked versions; it has no
+backward kernel to port). The other ops serve inference only.
 
 Contract: :mod:`repro_torch.kernels.ref` is the ground truth; on the card
 each kernel matches it within the bounds ``chip_smoke.py`` states (1e-3 in
@@ -49,7 +50,8 @@ import torch.nn.functional as F
 
 from repro_torch.analysis.cost import kernel_region
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import flash_attention_bhsd
+from repro_torch.kernels.flash_attention import (flash_attention_bhsd,
+                                                 flash_attention_bwd)
 from repro_torch.kernels.paged_attention import (
     paged_attention_bkgd,
     paged_mixed_attention_rkgd,
@@ -110,60 +112,130 @@ def _grouped(q: torch.Tensor, kvh: int) -> torch.Tensor:
 
 
 class FlashAttentionFunction(torch.autograd.Function):
-    """Attention with a given forward and the plain version's gradient.
+    """Attention with a given forward and a given backward.
 
-    ``apply(q, k, v, causal, scale, block_kv, forward)``: the output is
-    ``forward(q, k, v, causal, scale)`` ((B, Sq, H, D) layouts, run with
-    grad mode off: on the card, :func:`_flash_kernel`); backward recomputes
-    ``ref.flash_attention_chunked(q, k, v, causal, scale, block_kv)`` under
-    autograd from the saved inputs and returns its vector-Jacobian product
-    for q, k and v. Taking the forward as an argument lets a CPU test run
-    the Function with the plain version standing in for the kernel."""
+    ``apply(q, k, v, causal, scale, forward, backward)`` on the op's
+    (B, S, H, D) layouts: ``forward(q, k, v, causal, scale)`` returns
+    ``(out, lse, saved)`` and runs with grad mode off; the Function
+    returns ``out`` and keeps ``saved`` (the tensors ``backward`` reads
+    for q, k, v and out, in whatever layout the pair agrees on) and lse,
+    the rows' logsumexp. ``backward(*saved, lse, grad_out, causal,
+    scale)`` returns the gradients of q, k and v. On the card the pair is
+    :func:`_flash_kernel_fwd` and :func:`_flash_kernel_bwd`, the two
+    hand-written kernels; taking them as arguments lets a CPU test run the
+    Function with the plain versions standing in (:func:`flash_plain`)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, block_kv, forward):
-        ctx.save_for_backward(q, k, v)
-        ctx.args = (causal, scale, block_kv)
-        return forward(q, k, v, causal, scale)
+    def forward(ctx, q, k, v, causal, scale, forward, backward):
+        out, lse, saved = forward(q, k, v, causal, scale)
+        ctx.save_for_backward(*saved, lse)
+        ctx.args = (causal, scale, backward)
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        causal, scale, block_kv = ctx.args
-        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
-        with torch.enable_grad():
-            out = ref.flash_attention_chunked(q, k, v, causal=causal,
-                                              scale=scale, chunk_kv=block_kv)
-            dq, dk, dv = torch.autograd.grad(out, (q, k, v), grad_out)
+        causal, scale, backward = ctx.args
+        dq, dk, dv = backward(*ctx.saved_tensors, grad_out, causal, scale)
         return dq, dk, dv, None, None, None, None
 
 
+def _bhsd(*ts):
+    """(B, S, H, D) -> contiguous (B, H, S, D) copies, the kernels' layout."""
+    return tuple(t.transpose(1, 2).contiguous() for t in ts)
+
+
+def _t(*ts):
+    return tuple(t.transpose(1, 2) for t in ts)
+
+
 def _flash_kernel(q, k, v, causal, scale, kernel=flash_attention_bhsd):
-    """The flash kernel on the op's (B, S, H, D) layouts."""
-    out = kernel(
-        q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-        v.transpose(1, 2).contiguous(), causal=causal, scale=scale)
-    return out.transpose(1, 2)
+    """The flash kernel on the op's (B, S, H, D) layouts (no statistics:
+    the serving paths)."""
+    return kernel(*_bhsd(q, k, v), causal=causal, scale=scale).transpose(1, 2)
+
+
+def _flash_kernel_fwd(q, k, v, causal, scale, kernel=flash_attention_bhsd):
+    """The flash kernel as :class:`FlashAttentionFunction`'s forward:
+    ``(out, lse, saved)``, ``saved`` the kernel-layout copies of q, k and v
+    and its output."""
+    qt, kt, vt = _bhsd(q, k, v)
+    out, lse = kernel(qt, kt, vt, causal=causal, scale=scale,
+                      return_lse=True)
+    return out.transpose(1, 2), lse, (qt, kt, vt, out)
+
+
+def _flash_kernel_bwd(qt, kt, vt, out, lse, grad_out, causal, scale,
+                      kernel=flash_attention_bwd):
+    """The backward kernel on :func:`_flash_kernel_fwd`'s saved tensors:
+    dO copied to the kernel's layout, the gradients handed back on the
+    op's layouts (views)."""
+    return _t(*kernel(qt, kt, vt, out, *_bhsd(grad_out), lse, causal=causal,
+                      scale=scale))
 
 
 # the K/V block of the flash op's length contract (its ``block_kv``)
 FLASH_BLOCK_KV = 256
 
 
-def _flash_bhsd_plain(q, k, v, *, causal, scale):
+def flash_plain(block_kv: int = FLASH_BLOCK_KV):
+    """The plain (forward, backward) pair of :class:`FlashAttentionFunction`
+    on the op's layouts: ``ref.flash_attention_lse`` and
+    ``ref.flash_attention_bwd`` over K/V blocks of ``block_kv``."""
+    def forward(q, k, v, causal, scale):
+        out, lse = ref.flash_attention_lse(q, k, v, causal=causal,
+                                           scale=scale, chunk_kv=block_kv)
+        return out, lse, (q, k, v, out)
+
+    def backward(q, k, v, out, lse, grad_out, causal, scale):
+        return ref.flash_attention_bwd(q, k, v, out, grad_out, lse,
+                                       causal=causal, scale=scale,
+                                       block_kv=block_kv)
+    return forward, backward
+
+
+def _flash_bhsd_plain(q, k, v, *, causal, scale, return_lse=False):
     """The plain version at the flash kernel's (B, H, S, D) layouts: the
     whole score matrix (the chunked version's FLOPs in a few ops; a
-    kernel region counts neither's internal bytes)."""
-    return ref.flash_attention_ref(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        causal=causal, scale=scale).transpose(1, 2)
+    kernel region counts neither's internal bytes); with ``return_lse``
+    the chunked version over one K/V block, and its statistics."""
+    if return_lse:
+        out, lse = ref.flash_attention_lse(*_t(q, k, v), causal=causal,
+                                           scale=scale, chunk_kv=k.shape[2])
+        return out.transpose(1, 2), lse
+    return ref.flash_attention_ref(*_t(q, k, v), causal=causal,
+                                   scale=scale).transpose(1, 2)
+
+
+def _flash_bwd_bhsd_plain(q, k, v, o, do, lse, *, causal, scale):
+    """The plain backward at the kernel's layouts, one K/V block."""
+    return _t(*ref.flash_attention_bwd(*_t(q, k, v, o, do), lse,
+                                       causal=causal, scale=scale,
+                                       block_kv=k.shape[2]))
+
+
+def _region(name, fn):
+    return lambda *a, **kw: kernel_region(name, fn, *a, **kw)
 
 
 def _flash_stand_in(q, k, v, causal, scale):
     """``_flash_kernel`` on meta tensors: its layout copies, and the plain
     version in a kernel region for the kernel."""
-    return _flash_kernel(q, k, v, causal, scale, kernel=lambda *a, **kw:
-                         kernel_region("flash_attention_bhsd",
-                                       _flash_bhsd_plain, *a, **kw))
+    return _flash_kernel(q, k, v, causal, scale, kernel=_region(
+        "flash_attention_bhsd", _flash_bhsd_plain))
+
+
+def _flash_fwd_stand_in(q, k, v, causal, scale):
+    """``_flash_kernel_fwd`` on meta tensors (the region's outputs: out and
+    lse)."""
+    return _flash_kernel_fwd(q, k, v, causal, scale, kernel=_region(
+        "flash_attention_bhsd", _flash_bhsd_plain))
+
+
+def _flash_bwd_stand_in(*args):
+    """``_flash_kernel_bwd`` on meta tensors: the plain backward in a
+    kernel region (q, k, v, out, dO and lse in, dq, dk and dv out)."""
+    return _flash_kernel_bwd(*args, kernel=_region("flash_attention_bwd",
+                                                   _flash_bwd_bhsd_plain))
 
 
 def flash_attention(
@@ -189,8 +261,8 @@ def flash_attention(
 
     On a CUDA tensor, with grad mode on and q, k or v requiring grad, the
     kernel runs inside :class:`FlashAttentionFunction` (gradients by the
-    plain version's autograd); on the CPU the plain version is
-    differentiable as it is."""
+    backward kernel); on the CPU the plain version is differentiable as
+    it is."""
     skv = k.shape[1]
     chunk = min(block_kv, skv)
     if chunk and skv % chunk:
@@ -202,10 +274,11 @@ def flash_attention(
     if route == "plain":
         return ref.flash_attention_chunked(q, k, v, causal=causal,
                                            scale=scale, chunk_kv=block_kv)
-    forward = _flash_kernel if route == "kernel" else _flash_stand_in
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return FlashAttentionFunction.apply(q, k, v, causal, scale, block_kv,
-                                            forward)
+        pair = ((_flash_kernel_fwd, _flash_kernel_bwd) if route == "kernel"
+                else (_flash_fwd_stand_in, _flash_bwd_stand_in))
+        return FlashAttentionFunction.apply(q, k, v, causal, scale, *pair)
+    forward = _flash_kernel if route == "kernel" else _flash_stand_in
     return forward(q, k, v, causal, scale)
 
 

@@ -25,6 +25,11 @@ masks and exact-zero conventions (``repro/kernels/ref.py``):
   ``chunk_kv``-sized K/V blocks, in the JAX package's op order
   (``ops.flash_attention`` runs it on the CPU, as the JAX op runs
   ``ref.flash_attention_chunked`` there).
+* ``flash_attention_lse`` — the same, also returning each row's logsumexp
+  (the forward kernel's ``return_lse``).
+* ``flash_attention_bwd`` — the gradients of dense attention from the
+  forward's output and logsumexp, over K/V blocks (the backward kernel's
+  plain version; JAX's is ``jax.vjp`` of its chunked version).
 * ``ssd_sequential``  — the literal Mamba2 recurrence, one token at a time.
 * ``ssd_chunked``     — the block (chunked) decomposition of the same scan,
   in the JAX package's op order (``ops.ssd_scan`` runs it on the CPU, as
@@ -275,6 +280,31 @@ def flash_attention_chunked(
     scaled before the dot, masked scores set to ``NEG_INF``, ``l`` floored
     at 1e-30, the output cast back to q's dtype. Like it, this needs Skv to
     be a multiple of ``min(chunk_kv, Skv)``. Returns (B, Sq, H, D)."""
+    return _flash_online(q, k, v, causal, scale, chunk_kv)[0]
+
+
+def flash_attention_lse(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Skv, KVH, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    scale: float | None = None,
+    chunk_kv: int = 512,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_chunked`'s output and each row's natural-log
+    logsumexp of its scaled, masked scores, ``m + ln(max(l, 1e-30))``:
+    (out (B, Sq, H, D), lse (B, H, Sq) f32), as the forward kernel returns
+    them with ``return_lse``."""
+    out, m, l = _flash_online(q, k, v, causal, scale, chunk_kv)
+    b, sq, h, _ = out.shape
+    lse = m + torch.log(l.clamp_min(1e-30))
+    return out, lse.reshape(b, sq, h).transpose(1, 2)
+
+
+def _flash_online(q, k, v, causal, scale, chunk_kv):
+    """The online softmax of :func:`flash_attention_chunked`: its output
+    and the final m and l, (B, Sq, KVH, G) f32."""
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     scale = scale if scale is not None else d ** -0.5
@@ -305,7 +335,60 @@ def flash_attention_chunked(
                                                    vblk)
         m = m_new
     out = acc / l.clamp_min(1e-30)[..., None]
-    return out.reshape(b, sq, h, d).to(q.dtype)
+    return out.reshape(b, sq, h, d).to(q.dtype), m, l
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,     # (B, Sq, H, D)
+    k: torch.Tensor,     # (B, Skv, KVH, D)
+    v: torch.Tensor,
+    o: torch.Tensor,     # (B, Sq, H, D): the forward's output
+    do: torch.Tensor,    # (B, Sq, H, D): the upstream gradient
+    lse: torch.Tensor,   # (B, H, Sq): the forward's logsumexp
+    *,
+    causal: bool = True,
+    scale: float | None = None,
+    block_kv: int = 512,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The vector-Jacobian product of dense attention for q, k and v, by
+    the formulas the backward kernel runs, in f32 over K/V blocks of
+    ``min(block_kv, Skv)`` (any Skv; the last block may be short):
+    P = exp(scale q k^T - lse) (masked entries 0), di = rowsum(do * o),
+    dV = P^T do, dS = P (do V^T - di), dQ = scale dS K, dK = scale dS^T q,
+    dK and dV summed over each kv head's group. Causal queries are the
+    last Sq of the Skv positions. Returns (dq, dk, dv) in q's, k's and
+    v's dtypes."""
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    group = h // kvh
+    scale = scale if scale is not None else d ** -0.5
+    qg = q.reshape(b, sq, kvh, group, d).float()
+    dog = do.reshape(b, sq, kvh, group, d).float()
+    di = (dog * o.reshape(b, sq, kvh, group, d).float()).sum(dim=-1)
+    lse_g = lse.float().transpose(1, 2).reshape(b, sq, kvh, group, 1)
+    qpos = torch.arange(sq, device=q.device) + (skv - sq)
+    dq = torch.zeros_like(qg)
+    dks, dvs = [], []
+    step = max(1, min(block_kv, skv))
+    for start in range(0, skv, step):
+        kblk = k[:, start:start + step].float()
+        vblk = v[:, start:start + step].float()
+        p = torch.exp(torch.einsum("bqhgd,bkhd->bqhgk", qg, kblk) * scale
+                      - lse_g)
+        if causal:
+            kpos = start + torch.arange(kblk.shape[1], device=q.device)
+            mask = kpos[None, :] <= qpos[:, None]  # (sq, block)
+            p = torch.where(mask[None, :, None, None, :], p,
+                            torch.zeros_like(p))
+        dvs.append(torch.einsum("bqhgk,bqhgd->bkhd", p, dog))
+        dp = torch.einsum("bqhgd,bkhd->bqhgk", dog, vblk)
+        ds = p * (dp - di[..., None])
+        dq = dq + torch.einsum("bqhgk,bkhd->bqhgd", ds, kblk)
+        dks.append(torch.einsum("bqhgk,bqhgd->bkhd", ds, qg))
+    dk = torch.cat(dks, dim=1) * scale if dks else torch.zeros_like(k)
+    dv = torch.cat(dvs, dim=1) if dvs else torch.zeros_like(v)
+    return ((dq * scale).reshape(b, sq, h, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 # ---------------------------------------------------------------------------

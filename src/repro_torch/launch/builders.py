@@ -301,10 +301,11 @@ def count_cell(plan: CellPlan, rows: int) -> StepCost:
         out.flops += n * c.flops
         out.hbm_bytes += n * c.hbm_bytes
         out.hbm_bytes_kernelized += n * c.hbm_bytes_kernelized
-        out.region_flops += n * c.region_flops
         out.ops += n * c.ops
         for k, v in c.regions.items():
             out.regions[k] = out.regions.get(k, 0) + n * v
+        for k, v in c.region_flops_by.items():
+            out.region_flops_by[k] = out.region_flops_by.get(k, 0.0) + n * v
         out.read |= c.read
     acc_bytes = sum(t.numel() * t.element_size()
                     for t in tree_leaves(acc[0]) + tree_leaves(acc[1]))

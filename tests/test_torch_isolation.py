@@ -20,6 +20,7 @@ PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 KERNEL_CALLS = {
     "flash_attention", "flash_attention_bhsd", "flash_attention_forward",
+    "flash_attention_bwd", "flash_attention_backward",
     "paged_attention", "paged_prefill_attention", "paged_mixed_attention",
     "paged_attention_bkgd", "paged_prefill_attention_ckgd",
     "paged_mixed_attention_rkgd", "paged_attention_decode",

@@ -48,11 +48,12 @@ The flash kernel runs the JAX package's flash sweep (batch 1-2, Sq 16-192,
 Skv >= Sq up to two blocks further, GQA 1-2, causal and not) with head
 dims mapped into {64, 80, 128}, f32 and bf16, against
 ``ref.flash_attention_ref``; its gradient arm trains through
-``ops.flash_attention`` on the same cases (the kernel's forward inside
-``FlashAttentionFunction``, one launch, none in backward) with a loss whose
-upstream gradient depends on the output, against the plain version's own
-autograd: q, k and v gradients within the same bounds, taken relative to
-each gradient's largest magnitude (at least 1).
+``ops.flash_attention`` on the same cases (inside
+``FlashAttentionFunction``: one forward launch, one launch of the backward
+kernel) with a loss whose upstream gradient depends on the output, against
+the plain version's own autograd: q, k and v gradients within the same
+bounds, taken relative to each gradient's largest magnitude (at least 1),
+and a second backward bit-equal to the first.
 
 Marked ``cuda``; no JAX here, so this runs on a machine with only PyTorch:
 
@@ -156,7 +157,12 @@ def test_flash_gradient_fuzz(params, dtype):
     out, got = grads(lambda q, k, v: ops.flash_attention(
         q, k, v, causal=causal, block_kv=skv))
     assert type(out.grad_fn).__name__ == "FlashAttentionFunctionBackward"
-    assert fk.LAUNCHES["flash_attention_bhsd"] == 1  # forward only
+    assert fk.LAUNCHES == {"flash_attention_bhsd": 1,
+                           "flash_attention_bwd": 1}
+    # deterministic: no atomics, so a second run gives the same bits
+    _, again = grads(lambda q, k, v: ops.flash_attention(
+        q, k, v, causal=causal, block_kv=skv))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     _, want = grads(lambda q, k, v: ref.flash_attention_chunked(
         q, k, v, causal=causal, chunk_kv=skv))
     torch.cuda.synchronize()

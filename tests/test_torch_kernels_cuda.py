@@ -3,7 +3,8 @@ over int8 pools, flash attention, Mamba2 SSD) against their plain versions,
 on the card, at head dims 64, 80 and 128 (and at dbrx-132b's and
 internvl2-26b's 48 q over 8 kv heads of D 128: a group of 6); bf16 flash
 and the bf16 chunked prefill at the shapes that reach their tensor-core
-kernels' one- and two-warp-group blocks.
+kernels' one- and two-warp-group blocks; the flash backward kernel and the
+forward's row statistics at the shapes the trainers give them.
 
 Marked ``cuda``: these skip without a GPU (the kernels have no CPU mode;
 the CPU suite holds the plain versions against JAX in
@@ -18,7 +19,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention_bhsd  # noqa: E402
+from repro_torch.kernels.flash_attention import (flash_attention_bhsd,  # noqa: E402
+                                                 flash_attention_bwd)
 
 
 @pytest.mark.cuda
@@ -198,6 +200,53 @@ def test_flash_bf16_tensor_core_kernel(width, case):
     shifted.copy_(q)
     with pytest.raises(RuntimeError, match="error -2"):
         flash_attention_bhsd(shifted, k, v, causal=causal)
+
+
+# (B, Sq, Skv, H, KVH, D, causal) of the trainers' flash calls
+FLASH_BWD_CASES = {
+    "smollm train": (16, 64, 64, 15, 5, 64, True),
+    "zamba2 D80": (2, 256, 256, 32, 32, 80, True),
+    "group 6 D128": (2, 256, 256, 48, 8, 128, True),
+    "whisper encoder": (4, 100, 100, 6, 6, 64, False),
+    "whisper cross": (4, 37, 300, 6, 6, 64, False),
+    "causal Sq < Skv": (2, 64, 320, 15, 5, 64, True),
+    "causal_flash 512": (1, 512, 512, 15, 5, 64, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FLASH_BWD_CASES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_backward_kernel(dtype, case):
+    """The forward's row statistics (``return_lse``) against
+    ``ref.flash_attention_lse`` within 1e-4, and the backward kernel
+    against ``ref.flash_attention_bwd`` on the same inputs: f32 within 1e-3
+    and bf16 within 2e-2 of each gradient's largest magnitude (at least 1);
+    a second call gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    b, sq, skv, h, kvh, d, causal = FLASH_BWD_CASES[case]
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    q, do = (torch.randn(b, h, sq, d, generator=g, device="cuda").to(dt)
+             for _ in range(2))
+    k, v = (torch.randn(b, kvh, skv, d, generator=g, device="cuda").to(dt)
+            for _ in range(2))
+    out, lse = flash_attention_bhsd(q, k, v, causal=causal, return_lse=True)
+    t = (lambda x: x.transpose(1, 2))
+    _, want_lse = ref.flash_attention_lse(t(q), t(k), t(v), causal=causal,
+                                          chunk_kv=skv)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+    got = flash_attention_bwd(q, k, v, out, do, lse, causal=causal)
+    want = ref.flash_attention_bwd(t(q), t(k), t(v), t(out), t(do), lse,
+                                   causal=causal, block_kv=skv)
+    tol = 1e-3 if dtype == "float32" else 2e-2
+    for name, a, r in zip("qkv", got, want):
+        r = t(r).float()
+        err = ((a.float() - r).abs().max() / r.abs().max().clamp_min(1.0))
+        assert err.item() <= tol, f"d{name}: {err.item():.3e}"
+    again = flash_attention_bwd(q, k, v, out, do, lse, causal=causal)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
 
 
 @pytest.mark.cuda

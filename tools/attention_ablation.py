@@ -116,7 +116,7 @@ def make_variants() -> dict[tuple[str, str], ctypes.CDLL]:
         lib = ctypes.CDLL(str(so))
         if key[1] == "flash_attention":
             lib.flash_attention_forward.argtypes = (
-                [P] * 4 + [I] * 7 + [ctypes.c_float, I, P])
+                [P] * 5 + [I] * 7 + [ctypes.c_float, I, P])
         else:
             lib.paged_attention_prefill.argtypes = (
                 [P] * 9 + [I] * 6 + [ctypes.c_float, I, P])
@@ -173,8 +173,8 @@ def flash_rows(libs):
                     l = i % LAYERS
                     err = lib.flash_attention_forward(
                         q[l].data_ptr(), k[l].data_ptr(), v[l].data_ptr(),
-                        out[l].data_ptr(), b, h, kvh, s, s, d, 1, d ** -0.5,
-                        1, stream)
+                        out[l].data_ptr(), None, b, h, kvh, s, s, d, 1,
+                        d ** -0.5, 1, stream)
                     if err:
                         raise RuntimeError(f"launch error {err}")
                 return fn

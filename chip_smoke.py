@@ -268,8 +268,10 @@ Phases (any failure exits non-zero):
    ``ref.flash_attention_bwd`` on the same inputs, at FLASH_GRAD_SHAPES:
    the training shape (B 16 x S 64, 15 / 5 heads, D 64), D 80 (32 / 32
    heads), D 128 (32 / 8) and group 6 (48 / 8), whisper-tiny's
-   encoder (not causal) and cross attention (Sq 37, Skv 300), and a
-   causal length of 300 that ``causal_flash`` pads to 512, bf16 and f32;
+   encoder (not causal) and cross attention (Sq 37, Skv 300), a causal
+   length of 300 that ``causal_flash`` pads to 512, and the backward's
+   ragged edges (Skv 200, not a multiple of its 128-key blocks; Sq 45
+   over Skv 320), bf16 and f32;
    the q, k and v gradients within 2e-2 (bf16) and 1e-3 (f32) of the
    gradient's largest magnitude (at least 1); each call one forward and
    one backward launch; two backward runs bit-equal. Prints the largest
@@ -279,7 +281,14 @@ Phases (any failure exits non-zero):
    against ``ref.flash_attention_bwd``, SDPA's backward and its bound,
    and forward + backward through the autograd Function, the plain
    version's autograd and SDPA's (the kernels line's flash ``train``
-   entry and the backward's times).
+   entry and the backward's times); then the backward kernel alone at
+   FLASH_BWD_WIDTHS (zamba2's D 80, 32 / 32 heads, and the group of 6 at
+   D 128, 48 / 8, B 1 x S 4096) beside SDPA's backward and its bound, and
+   the wrapper's host enqueue time a call at the training shape (1000
+   calls, no synchronise). At each timed backward shape one layer's dq,
+   dk and dv from the kernel are held against ``ref.flash_attention_bwd``
+   on the same inputs within 2e-2 of each gradient's scale, and two
+   kernel calls must give the same bits.
 29. train — ``launch.train`` (``repro_torch.launch.train.run``) at full
    width as TRAIN_RUNS gives it: smollm-360m, 16 of its 32 layers, bf16
    parameters, f32 moments, B 16 x S 64, 60 steps at ``--lr`` 1e-2, a checkpoint
@@ -471,7 +480,8 @@ the layer's checkpointed recompute, and the evaluation); the backward's
 one per layer and step. The backward's own times are at the training
 shape, and its ``train_4k`` entry at B 4 x S 4096 (with the forward's
 times there and forward + backward through the Function, the plain
-autograd and SDPA). The last
+autograd and SDPA), its ``zamba2 D80`` and ``group 6 D128`` entries at S
+4096 and its ``host_enqueue_us``. The last
 line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -632,7 +642,9 @@ FLASH_WIDTHS = {"smollm D64": (FLASH_H, KVH, D), "llama3 D128": (32, 8, 128),
 # D 80, llama3's D 128, dbrx's and internvl2's group of 6, whisper-tiny's
 # encoder (not causal) and cross attention (Sq != Skv), and a causal
 # length that ``models/attention.py::causal_flash`` pads to a multiple of
-# 256 (FLASH_GRAD_REAL: the real length, padded to Sq inside the model)
+# 256 (FLASH_GRAD_REAL: the real length, padded to Sq inside the model);
+# and the backward kernels' ragged edges: Skv not a multiple of their
+# 128-key blocks, and Sq < Skv with Sq not a multiple of 64
 FLASH_GRAD_SHAPES = {
     "train D 64": (16, 64, 64, FLASH_H, KVH, D, True),
     "D 80": (2, 256, 256, 32, 32, 80, True),
@@ -641,6 +653,8 @@ FLASH_GRAD_SHAPES = {
     "whisper encoder": (16, 64, 64, 6, 6, 64, False),
     "whisper cross": (4, 37, 300, 6, 6, 64, False),
     "causal_flash 300 -> 512": (1, 512, 512, FLASH_H, KVH, D, True),
+    "Skv 200": (2, 200, 200, FLASH_H, KVH, D, True),
+    "Sq 45 over 320": (2, 45, 320, FLASH_H, KVH, D, True),
 }
 FLASH_GRAD_REAL = {"causal_flash 300 -> 512": 300}
 # phases 33-35: dbrx-132b serves at MOE_LAYERS of its 40 layers (28.5 GB in
@@ -3329,19 +3343,39 @@ def _flash_bwd_bound(b, sq, skv, h, kvh, d, causal, elt):
                                        else "operations")
 
 
+def _check_bwd(torch, label, got, again, want):
+    """The backward kernel's (B, H, S, D) dq, dk, dv against the plain
+    version's (B, S, H, D) on the same inputs: each within BF16_TOL of its
+    gradient's scale (``_grad_gap``), and a second call bit-equal. Returns
+    the largest gap."""
+    torch.cuda.synchronize()
+    gaps = [_grad_gap(a.transpose(1, 2), r) for a, r in zip(got, want)]
+    if not max(gaps) <= BF16_TOL:
+        raise AssertionError(f"flash backward {label}: dq/dk/dv gaps vs "
+                             f"ref.flash_attention_bwd {gaps} > {BF16_TOL}")
+    if not all(torch.equal(a, c) for a, c in zip(got, again)):
+        raise AssertionError(f"flash backward {label}: two calls differ")
+    return max(gaps)
+
+
+# phase 28's training shapes (label, B, S, layers whose inputs the timing
+# cycles over): phase 29's and phase 38's smollm-360m flash calls (15 / 5
+# heads, D 64, causal, bf16)
+FLASH_TRAIN_SHAPES = (("train", 16, 64, LAYERS), ("train_4k", 4, 4096, 4))
+
+
 def time_flash_train(torch, F, ops, ref, fk):
-    """Flash at the trainer's shapes (15 / 5 heads, D 64, causal, bf16):
-    B 16 x S 64 (phase 29's), cycling over 32 layers' inputs, and B 4 x S
-    4096 (phase 38's), over 4. The forward (kernel, plain version, SDPA)
-    against its bound; the backward alone (kernel, ``ref.flash_attention_
-    bwd``, SDPA's backward through autograd) against its bound; forward +
-    backward (``ops.flash_attention``'s autograd Function, the plain
-    version's autograd, SDPA's). Returns the kernels line's entries:
-    flash's ``train`` and the backward kernel's times."""
+    """Flash at FLASH_TRAIN_SHAPES. The forward (kernel, plain version,
+    SDPA) against its bound; the backward alone (kernel, ``ref.flash_
+    attention_bwd``, SDPA's backward through autograd) against its bound,
+    the kernel held against the plain version on one layer's inputs
+    (``_check_bwd``); forward + backward (``ops.flash_attention``'s
+    autograd Function, the plain version's autograd, SDPA's). Returns the
+    kernels line's entries: flash's ``train`` and the backward kernel's
+    times."""
     h, kvh, d = FLASH_H, KVH, D
     rows = {}
-    for label, b, s, layers in (("train", 16, 64, LAYERS),
-                                ("train_4k", 4, 4096, 4)):
+    for label, b, s, layers in FLASH_TRAIN_SHAPES:
         g = torch.Generator(device="cuda").manual_seed(44)
 
         def make(n, grad=False):
@@ -3381,14 +3415,14 @@ def time_flash_train(torch, F, ops, ref, fk):
 
         def bwd_kernel(i):
             l = i % layers
-            fk.flash_attention_bwd(qt[l], kt[l], vt[l], stats[l][0], ut[l],
-                                   stats[l][1], causal=True)
+            return fk.flash_attention_bwd(qt[l], kt[l], vt[l], stats[l][0],
+                                          ut[l], stats[l][1], causal=True)
 
         def bwd_plain(i):
             l = i % layers
-            ref.flash_attention_bwd(q[l].detach(), k[l].detach(),
-                                    v[l].detach(), outs[l], up[l],
-                                    stats[l][1], causal=True, block_kv=256)
+            return ref.flash_attention_bwd(
+                q[l].detach(), k[l].detach(), v[l].detach(), outs[l], up[l],
+                stats[l][1], causal=True, block_kv=256)
 
         def bwd_library(i):
             l = i % layers
@@ -3423,6 +3457,8 @@ def time_flash_train(torch, F, ops, ref, fk):
         bk2 = _time_ms(torch, bwd_kernel, iters=n_fast)
         bp2 = _time_ms(torch, bwd_plain, iters=n_slow, warmup=2)
         blib = _time_ms(torch, bwd_library, iters=n_fast)
+        gap = _check_bwd(torch, label, bwd_kernel(0), bwd_kernel(0),
+                         bwd_plain(0))
         # 8 calls: their ~100 autograd launches each stay inside the sleep
         # kernel's ~0.1 s, so the host's enqueue time stays out
         both_ms = {name: _time_ms(torch, fn, iters=8 if short or
@@ -3435,8 +3471,9 @@ def time_flash_train(torch, F, ops, ref, fk):
             f"{p1:.4f}/{p2:.4f} ms, sdpa {lib:.4f} ms, bound "
             f"{bound[0]:.5f} ms ({bound[1]}); backward kernel "
             f"{bk1:.4f}/{bk2:.4f} ms, plain {bp1:.4f}/{bp2:.4f} ms, sdpa "
-            f"{blib:.4f} ms, bound {bwd_bound[0]:.5f} ms ({bwd_bound[1]}); "
-            f"forward + backward: autograd Function "
+            f"{blib:.4f} ms, bound {bwd_bound[0]:.5f} ms ({bwd_bound[1]}), "
+            f"gap vs plain {gap:.3e} (bound {BF16_TOL}; two calls "
+            f"bit-equal); forward + backward: autograd Function "
             f"{both_ms['kernel']:.4f} ms, plain autograd "
             f"{both_ms['plain']:.4f} ms, sdpa {both_ms['sdpa']:.4f} ms")
         rows[label] = dict(
@@ -3447,10 +3484,89 @@ def time_flash_train(torch, F, ops, ref, fk):
                      library_fwd_bwd_ms=both_ms["sdpa"]),
             bwd=dict(ms=min(bk1, bk2), plain_ms=min(bp1, bp2),
                      library_ms=blib, bound_ms=bwd_bound[0],
-                     bound_by=bwd_bound[1]))
+                     bound_by=bwd_bound[1], max_gap=gap))
         del q, k, v, up, qt, kt, vt, ut, stats, outs, sdpa_in, sdpa_outs
+    widths = time_flash_bwd_widths(torch, F, fk, ref)
     return rows["train"]["fwd"], dict(**rows["train"]["bwd"], train_4k=dict(
-        **rows["train_4k"]["bwd"], forward=rows["train_4k"]["fwd"]))
+        **rows["train_4k"]["bwd"], forward=rows["train_4k"]["fwd"]),
+        **widths)
+
+
+# phase 28: the backward alone at the other trainers' head dims, S 4096
+# (B, H, KVH, D): zamba2-2.7b's D 80 and dbrx's / internvl2's group of 6
+FLASH_BWD_WIDTHS = {"zamba2 D80": (1, 32, 32, 80),
+                    "group 6 D128": (1, 48, 8, 128)}
+
+
+def time_flash_bwd_widths(torch, F, fk, ref, s=4096, layers=4):
+    """Phase 28's backward kernel alone at FLASH_BWD_WIDTHS (causal, bf16,
+    S 4096, cycling over 4 layers' inputs) beside SDPA's backward through
+    autograd and ``_flash_bwd_bound``, held against ``ref.flash_attention_
+    bwd`` on one layer's inputs (``_check_bwd``); and the wrapper's host
+    enqueue time at the short training shape (B 16 x S 64: 1000 calls, no
+    synchronise; it builds four tensor maps a call). Returns {label:
+    times, ..., "host_enqueue_us": x}."""
+    out = {}
+    for label, (b, h, kvh, d) in FLASH_BWD_WIDTHS.items():
+        g = torch.Generator(device="cuda").manual_seed(45)
+        sets = []
+        for _ in range(layers):
+            q, up = (torch.randn(b, h, s, d, generator=g, device="cuda")
+                     .to(torch.bfloat16) for _ in range(2))
+            k, v = (torch.randn(b, kvh, s, d, generator=g, device="cuda")
+                    .to(torch.bfloat16) for _ in range(2))
+            with torch.no_grad():
+                o, lse = fk.flash_attention_bhsd(q, k, v, causal=True,
+                                                 return_lse=True)
+            xs = tuple(x.detach().requires_grad_() for x in (q, k, v))
+            sets.append((q, k, v, o, up, lse, xs,
+                         F.scaled_dot_product_attention(
+                             *xs, is_causal=True, enable_gqa=True)))
+
+        def kernel(i):
+            q, k, v, o, up, lse, _, _ = sets[i % layers]
+            return fk.flash_attention_bwd(q, k, v, o, up, lse, causal=True)
+
+        def library(i):
+            _, _, _, _, up, _, xs, o = sets[i % layers]
+            torch.autograd.grad(o, xs, up, retain_graph=True)
+
+        k1 = _time_ms(torch, kernel, iters=8, warmup=2)
+        lib = _time_ms(torch, library, iters=8, warmup=2)
+        k2 = _time_ms(torch, kernel, iters=8, warmup=2)
+        q, k, v, o, up, lse, _, _ = sets[0]
+        gap = _check_bwd(torch, label, kernel(0), kernel(0),
+                         ref.flash_attention_bwd(
+                             *(x.transpose(1, 2) for x in (q, k, v, o, up)),
+                             lse, causal=True, block_kv=256))
+        bound = _flash_bwd_bound(b, s, s, h, kvh, d, True, 2)
+        log(f"timing flash backward {label} (B {b}, S {s}, H {h}, KVH {kvh}, "
+            f"D {d}, causal, bf16): kernel {k1:.4f}/{k2:.4f} ms, sdpa "
+            f"backward {lib:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]}), "
+            f"gap vs plain {gap:.3e} (bound {BF16_TOL}; two calls "
+            f"bit-equal)")
+        out[label] = dict(ms=min(k1, k2), library_ms=lib, bound_ms=bound[0],
+                          bound_by=bound[1], max_gap=gap)
+        del sets
+    g = torch.Generator(device="cuda").manual_seed(46)
+    q, up = (torch.randn(16, FLASH_H, 64, D, generator=g, device="cuda")
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(16, KVH, 64, D, generator=g, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    with torch.no_grad():
+        o, lse = fk.flash_attention_bhsd(q, k, v, causal=True, return_lse=True)
+    for _ in range(20):
+        fk.flash_attention_bwd(q, k, v, o, up, lse)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        fk.flash_attention_bwd(q, k, v, o, up, lse)
+    host = (time.perf_counter() - t0) / 1000 * 1e6
+    torch.cuda.synchronize()
+    log(f"flash backward host enqueue (B 16 x S 64): {host:.1f} us a call "
+        f"(1000 calls, no synchronise)")
+    out["host_enqueue_us"] = host
+    return out
 
 
 def _trace_train(torch, cfg, run, steps):
@@ -5187,24 +5303,28 @@ def report_mma_kernels(build):
 
 
 def report_flash_backward(build, fk):
-    """Phase 2's report on the bf16 flash backward kernels (dK/dV and dQ)
-    at D 64, 80 and 128: registers and spill stores as ptxas gave them in
-    this process's build, then the card's figures through
-    ``flash_attention_backward_info``."""
+    """Phase 2's report on the bf16 flash backward kernels (dK/dV and dQ,
+    wgmma) at D 64, 80 and 128: registers and spill stores as ptxas gave
+    them in this process's build, and any wgmma it serialised, then the
+    card's figures through ``flash_attention_backward_info``."""
     import ctypes
 
     entry = re.compile(r"Compiling entry function '(\w+)'")
-    parts = entry.split(build.build_log.get("flash_backward", ""))
+    log_text = build.build_log.get("flash_backward", "")
+    parts = entry.split(log_text)
     for name, body in zip(parts[1::2], parts[2::2]):
-        if "_mma_kernel" not in name:
+        if "_wgmma_kernel" not in name:
             continue
         regs = re.search(r"Used (\d+) registers", body)
         spill = re.search(r"(\d+) bytes spill stores", body)
         kind = "dkdv" if "dkdv" in name else "dq"
         d = re.findall(r"Li(\d+)E", name)[0]
-        log(f"ptxas flash_backward {kind} mma D {d}: "
+        log(f"ptxas flash_backward {kind} wgmma D {d}: "
             f"{regs.group(1) if regs else '?'} registers, "
             f"{spill.group(1) if spill else '?'} bytes spill stores")
+    for line in log_text.splitlines():
+        if "wgmma.mma_async instructions are serialized" in line:
+            log(f"ptxas flash_backward: {line.strip()}")
     fn = fk._backward_library().flash_attention_backward_info
     info = (ctypes.c_int * 4)()
     for d in (64, 80, 128):
@@ -5213,7 +5333,7 @@ def report_flash_backward(build, fk):
             if err != 0:
                 raise RuntimeError(f"flash_attention_backward_info({d}, "
                                    f"{which}): error {err}")
-            log(f"card flash_backward {kind} mma D {d}: {info[0]} "
+            log(f"card flash_backward {kind} wgmma D {d}: {info[0]} "
                 f"registers, {info[1]} local bytes a thread, {info[2]} B "
                 f"dynamic shared memory, {info[3]} blocks per SM")
 

@@ -31,49 +31,68 @@
 // 128. Outputs in the input type, every sum in f32.
 //
 // Three kernels, FA2's backward with the dQ pass split out, so that no two
-// blocks write one element: deterministic, no atomics (f32 chaos replay
-// must give the same losses run to run):
+// blocks write one element: deterministic, no float atomics (one shared
+// integer counter orders the ring's refill at D 128) and no dQ scratch
+// summed in launch order (f32 chaos replay must give the same losses run to
+// run, and two bf16 calls the same bits):
 //   (a) flash_bwd_dot_kernel: di, one warp a row;
-//   (b) dK/dV: a block owns (b, kv head, 64 keys) and walks every tile of
-//       flattened (query position, grouped head) rows, so the GQA sum over
-//       the G heads stays in its registers; under causal masking it starts
-//       at the first tile whose rows attend its first key;
-//   (c) dQ: a block owns (b, kv head, 64 flattened rows), as the forward
-//       does, and walks the K/V tiles its rows attend.
+//   (b) dK/dV: a block owns (b, kv head, a run of keys) and walks every
+//       query tile of each of the G grouped heads, so the GQA sum over the
+//       G heads stays in its registers; under causal masking it starts at
+//       the first tile whose rows attend its first key, and the blocks of
+//       the first keys (the most tiles) start first;
+//   (c) dQ: a block owns (b, q head, a run of query rows) and walks the
+//       key tiles its rows attend, heaviest first.
+// The split costs seven products instead of five (S and dP twice), which
+// caps the pair at 5/7 of the five-product operations bound; one dQ pass
+// with float atomics, or a per-block dQ scratch, would not give the same
+// bits run to run.
 //
 // What bounds it on the H100: at the trainer's shapes the five products
-// (S, dV, dP, dQ, dK; the kernels run seven, S and dP twice) are 0.2-0.5
-// GFLOP a call at B 16 x S 64 and ~160 GFLOP at B 4 x S 4096 (causal:
-// half), against ~4 MB and ~90 MB of q, k, v, o, dO and the gradients: the
-// long sequence is bound by operations, the short one by the launch and
-// each block's serial chain. The design keeps P, dP and dS in registers
-// (never in device memory), runs every product on tensor cores in bf16, and
-// overlaps the next tile's loads with this one's products.
+// (S, dV, dP, dQ, dK) are 0.2-0.5 GFLOP a call at B 16 x S 64 and ~320
+// GFLOP at B 4 x S 4096 (the causal half of the pairs), against ~10 MB and
+// ~170 MB of q, k, v, o, dO and the gradients: the long sequence is bound
+// by operations, the short one by the launch and each block's serial
+// chain. P, dP and dS stay in registers (never in device memory) and every
+// product runs on tensor cores in bf16 with f32 sums. What is left between the tensor rate and
+// these kernels is the chain inside a warpgroup (a tile's products wait on
+// its exponentials and on each other: two warpgroups a block hide part of
+// it) and the exponentials themselves (one a pair in each kernel, 16 a
+// clock an SM).
 //
-// bf16 (flash_bwd_dkdv_mma_kernel, flash_bwd_dq_mma_kernel):
-// attention_mma.cuh's parts (mma.sync m16n8k16, ldmatrix, cp.async). A
-// block is 4 warps; a warp owns 16 keys (dK/dV) or 16 rows (dQ), the M
-// side of every product. In the dK/dV kernel the scores are computed
-// transposed, S^T = K Q^T, so a lane's accumulators hold P^T and dS^T in
-// the A-fragment layout of dV += P^T dO and dK += dS^T Q (no trip through
-// shared memory); the (query, d) operands of those products are read with
-// ldmatrix .trans. The query tiles (q, dO, lse, di and each row's last key)
-// stream through a ring of two stages filled by cp.async; K and V of the
-// block's keys stay in shared memory. D 128 takes 32-row query tiles (64
-// accumulators of dK and of dV a thread), D 64 and 80 take 64. P and dS are
-// rounded to bf16 only as mma operands.
-// Why mma.sync and not wgmma: at B 16 x S 64 a block walks one to three
-// tiles and the call is bound by latency, not by tensor-core rate; at
-// B 4 x S 4096 the products dominate, and wgmma (64-row warpgroup tiles
-// read through shared-memory descriptors with a fixed swizzle, the
-// transposed operands as MN-major descriptors) would raise the rate at the
-// cost of a second tile engine beside the forward's. This first backward
-// reuses the forward's fragment layouts; a later PR may take wgmma at long
-// sequences.
+// bf16 (flash_bwd_dkdv_wgmma_kernel, flash_bwd_dq_wgmma_kernel): Hopper's
+// wgmma and TMA through hopper.cuh. A block is two consumer warpgroups of
+// 64 rows each, the M side of every product: dK/dV 128 keys (64 a
+// warpgroup), dQ 128 query rows. Every tile is 64 rows of D columns in
+// shared memory, 128-byte swizzled (32-byte at D 80: 16-column chunks),
+// brought by TMA boxes of 64 rows from one (b, head) matrix, so rows past
+// the matrix read as zeros; the ragged and causal masks are applied to P in
+// registers. K and V of the dK/dV block's keys (q and dO of the dQ block's
+// rows) arrive once; the streamed tiles (q, dO and the rows' lse and di;
+// K and V) go through a ring of three stages, each guarded by an mbarrier
+// that counts the TMA bytes. The dK/dV kernel computes the scores
+// transposed, S^T = K q^T and dP^T = V dO^T (both operands K-major
+// descriptors), so a lane's accumulators hold P^T and dS^T in the layout
+// of wgmma's A from registers: dV += P^T dO and dK += dS^T q read them as
+// they stand, with dO and q as MN-major descriptors of the same tiles. The
+// dQ kernel computes S = q K^T and dP = dO V^T and dQ += dS K (K as an
+// MN-major descriptor). Each tile issues S and dP together, takes P while
+// dP runs, and issues dV before it waits for dP. P and dS are rounded to
+// bf16 only as wgmma operands. At D 64 and 80 a third, producer warpgroup
+// (one warp of it) fills the ring and setmaxnreg gives its registers to the
+// consumers; ptxas keeps the consumers near the launch's 168 registers all
+// the same, which D 64 fits (D 80's dK/dV kernel spills a little and ptxas
+// serialises its wgmma, yet it runs faster so than without the producer).
+// D 128's dK and dV (128 f32 a thread) do not fit: its blocks are the two
+// consumer warpgroups alone (255 registers a thread, without which ptxas
+// serialises every wgmma), and the last warp done with a stage refills it.
+// Blocks launch heaviest first across the whole grid (every head's first
+// keys for dK/dV, last rows for dQ), so no long causal walk starts last.
 //
 // f32 (flash_bwd_stats_f64_kernel, flash_bwd_dkdv_kernel,
 // flash_bwd_dq_kernel): CUDA cores (TF32 off, as the forward's f32 kernel),
-// 8 warps a block, 4 keys or rows a warp, lanes over 64 tile columns for
+// blocks over flattened (query position, grouped head) rows, 8 warps a
+// block, 4 keys or rows a warp, lanes over 64 tile columns for
 // the dot products and over D for the sums; D 80 staged as 96 zero-padded
 // columns. They serve the f32 parity runs, which hold f32 training through
 // the kernels against the plain f32 path and its distance to f64: so they
@@ -86,20 +105,19 @@
 // caller's scratch: f32 (B, H, Sq) for bf16, f64 (B, H, Sq, 2) for f32);
 // the entry returns cudaGetLastError() of the first failing launch, -1 for
 // an unsupported head dim or dtype (the Python wrapper rules both out
-// before calling), or -2 when a bf16 input pointer is not 16-byte aligned.
+// before calling), -2 when a bf16 input pointer is not 16-byte aligned, or
+// -3 when the CUDA driver does not encode a tensor map.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "attention_mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 namespace mma = attn_mma;
 using bf16 = __nv_bfloat16;
-
-constexpr int kBlockKeys = 64;  // keys a dK/dV block owns; keys a dQ stage
-constexpr int kBlockRows = 64;  // flattened rows a dQ block owns
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -134,361 +152,501 @@ __global__ void __launch_bounds__(256) flash_bwd_dot_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor-core products on one warp's 16 rows
+// bf16 on Hopper: wgmma products on TMA tiles
 // ---------------------------------------------------------------------------
 
-// c[N/8][4] += A . B^T: A the warp's 16 rows of K columns (row-major, ld
-// elements a row, in shared memory), B N rows of K columns (row-major): the
-// "col" operand as stored. The forward's S = Q K^T.
-template <int K, int N>
-__device__ __forceinline__ void mma_abt(float (&c)[N / 8][4], const bf16* a,
-                                        const bf16* b, int ld) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    uint32_t af[4];
-    mma::ldsm_x4(af, a + (lane & 15) * ld + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-    for (int nn = 0; nn < N / 16; ++nn) {
-      uint32_t bf[4];
-      mma::ldsm_x4(bf, b + (nn * 16 + (lane & 7) + ((lane >> 4) << 3)) * ld +
-                           kk * 16 + ((lane >> 3) & 1) * 8);
-      mma::mma_bf16(c[2 * nn], af, bf[0], bf[1]);
-      mma::mma_bf16(c[2 * nn + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// c[N/8][4] += P . B: P the warp's 16 x K accumulators p[K/8][4] (rounded
-// to bf16 here: the accumulator layout of two n-tiles is the A fragment of
-// one k-step), B K rows of N columns (row-major, read transposed). The
-// forward's O += P V.
-template <int K, int N>
-__device__ __forceinline__ void mma_pb(float (&c)[N / 8][4],
-                                       const float (&p)[K / 8][4],
-                                       const bf16* b, int ld) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    const uint32_t a[4] = {mma::pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                           mma::pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                           mma::pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                           mma::pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int dn = 0; dn < N / 16; ++dn) {
-      uint32_t bf[4];
-      mma::ldsm_x4_t(bf, b + (kk * 16 + (lane & 15)) * ld + dn * 16 +
-                             (lane >> 4) * 8);
-      mma::mma_bf16(c[2 * dn], a, bf[0], bf[1]);
-      mma::mma_bf16(c[2 * dn + 1], a, bf[2], bf[3]);
-    }
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&c)[N][4]) {
-#pragma unroll
-  for (int n = 0; n < N; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
-}
+constexpr int kWgRows = 64;   // rows (keys or queries) a warpgroup owns
+constexpr int kWgGroups = 2;  // consumer warpgroups a block
+constexpr int kWgBlockRows = kWgGroups * kWgRows;  // keys (dK/dV) or
+                                                   // rows (dQ) a block
+constexpr int kWgStages = 3;  // the ring of streamed tiles
 
 template <int D>
-struct BwdMma {
-  static constexpr int kThreads = 128;  // 4 warps, 16 keys or rows each
-  static constexpr int kLd = D + 8;     // padded shared row, in elements
-  static constexpr int kChunks = D / 8;
-  static constexpr int kStages = 2;
-  // dK/dV: query rows a stage (D 128: 32, to hold dK and dV's 2 x 64
-  // accumulators a thread)
-  static constexpr int kQ = D <= 80 ? 64 : 32;
-  // dK/dV: K, V [64][kLd]; per stage q, dO [kQ][kLd] bf16 and lse, di,
-  // each row's last key [kQ] (4 bytes each)
+struct BwdWg {
+  // D 64 and 80: a third, producer warpgroup fills the ring and gives its
+  // registers to the consumers (setmaxnreg 24 / 240); D 128's dK and dV
+  // (128 accumulators a thread) need more than the 168 a thread of three
+  // warpgroups, so its blocks are the two consumer warpgroups alone (255
+  // registers a thread) and the last warp done with a stage refills it
+  static constexpr bool kProducer = D <= 80;
+  static constexpr int kThreads = 128 * (kWgGroups + kProducer);
+  static constexpr int kW = D == 80 ? 16 : 64;  // columns a swizzle chunk
+  using T = hopper::Tile<D, kW>;
+  static constexpr size_t kTile = T::kBytes;
+  // each stage's full and empty barriers and count of warps done with it,
+  // and the fixed tiles' barrier
+  static constexpr size_t kBars =
+      (2 * kWgStages + 1) * sizeof(uint64_t) + kWgStages * sizeof(int);
+  // dK/dV: K and V of the block's keys (a 64-row tile each warpgroup), the
+  // ring's q and dO tiles, then each ring row's lse (log2 domain) and di
   static constexpr size_t kDkdvSmem =
-      (size_t)(2 * kBlockKeys + kStages * 2 * kQ) * kLd * sizeof(bf16) +
-      (size_t)kStages * kQ * 3 * 4;
-  // dQ: q, dO [64][kLd]; per stage K, V [64][kLd]
+      1024 + (2 * kWgGroups + 2 * kWgStages) * kTile +
+      2 * kWgStages * kWgRows * sizeof(float) + kBars;
+  // dQ: q and dO of the block's rows, the ring's K and V tiles
   static constexpr size_t kDqSmem =
-      (size_t)(2 * kBlockRows + kStages * 2 * kBlockKeys) * kLd * sizeof(bf16);
+      1024 + (2 * kWgGroups + 2 * kWgStages) * kTile + kBars;
 };
 
-// (b) dK and dV of 64 keys of one (b, kv head), bf16 on tensor cores
+// Whether the calling warp is the last of the block's consumer warps to be
+// done with a ring stage (`done`: the stage's count of warps done, which
+// the last one resets). Without a producer that warp refills the stage, so
+// no warp waits for another to free one.
+__device__ __forceinline__ bool last_done(int* done) {
+  int last = 0;
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) {
+    __threadfence_block();  // this warp's reads of the stage come first
+    last = atomicAdd(done, 1) == 4 * kWgGroups - 1;
+    if (last) *done = 0;
+  }
+  last = __shfl_sync(0xffffffffu, last, 0);
+  if (last) __threadfence_block();
+  return last != 0;
+}
+
+// the first 1024-byte boundary at or after p (the dynamic shared memory is
+// asked for 1024 bytes more than it uses)
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  const uint32_t a = hopper::smem_u32(p);
+  return p + ((1024 - (a & 1023)) & 1023);
+}
+
+// One tile of 64 keys (the warpgroup's) against 64 query rows: S^T and
+// dP^T on both operands' descriptors, then dV += P^T dO and dK += dS^T q
+// with P^T and dS^T from registers. lse2 and di_t: the tile rows' lse (log2
+// domain) and di; lim(p): the last key tile row p attends.
+template <int D, typename Lim>
+__device__ __forceinline__ void dkdv_tile(float (&dka)[D / 2],
+                                          float (&dva)[D / 2], uint32_t k_t,
+                                          uint32_t v_t, uint32_t q_t,
+                                          uint32_t do_t, const float* lse2,
+                                          const float* di_t, int key0,
+                                          bool masked, float scale_log2,
+                                          Lim lim) {
+  using T = typename BwdWg<D>::T;
+  const int lane = threadIdx.x & 31;
+  float sa[32], dpa[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sa[i] = dpa[i] = 0.f;
+  hopper::fence_operand(sa);
+  hopper::fence_operand(dpa);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)  // S^T = K Q^T
+    hopper::wgmma_ss_n64(sa, T::k_major(k_t, kk), T::k_major(q_t, kk), kk);
+  hopper::wgmma_commit();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)  // dP^T = V dO^T
+    hopper::wgmma_ss_n64(dpa, T::k_major(v_t, kk), T::k_major(do_t, kk), kk);
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<1>();
+  hopper::fence_operand(sa);
+  // P^T: the lane's keys key0 and key0 + 8, tile rows 8j + 2 (lane % 4) + e
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 8 * j + 2 * (lane & 3) + e;
+      const float l2 = lse2[col];
+      float p0 = mma::ex2(fmaf(sa[4 * j + e], scale_log2, -l2));
+      float p1 = mma::ex2(fmaf(sa[4 * j + 2 + e], scale_log2, -l2));
+      if (masked) {
+        const int l = lim(col);
+        if (key0 > l) p0 = 0.f;
+        if (key0 + 8 > l) p1 = 0.f;
+      }
+      sa[4 * j + e] = p0;
+      sa[4 * j + 2 + e] = p1;
+    }
+  }
+  uint32_t pa[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      pa[kk][i] = mma::pack_bf16(sa[8 * kk + 2 * i], sa[8 * kk + 2 * i + 1]);
+  hopper::fence_operand(dva);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)  // dV += P^T dO
+    hopper::wgmma_rs<D>(dva, pa[kk], T::mn_major(do_t, kk));
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<1>();  // dP^T is in; dV may still run
+  hopper::fence_operand(dpa);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float d = di_t[8 * j + 2 * (lane & 3) + e];
+      sa[4 * j + e] *= dpa[4 * j + e] - d;  // dS^T = P^T (dP^T - di)
+      sa[4 * j + 2 + e] *= dpa[4 * j + 2 + e] - d;
+    }
+  }
+  uint32_t da[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      da[kk][i] = mma::pack_bf16(sa[8 * kk + 2 * i], sa[8 * kk + 2 * i + 1]);
+  hopper::fence_operand(dka);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)  // dK += dS^T q (scaled at the end)
+    hopper::wgmma_rs<D>(dka, da[kk], T::mn_major(q_t, kk));
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  // the products read their A registers until the wait: kept live to here
+  hopper::fence_operand(pa);
+  hopper::fence_operand(da);
+  hopper::fence_operand(dka);
+  hopper::fence_operand(dva);
+}
+
+// (b) dK and dV of 128 keys of one (b, kv head), bf16 on wgmma
 template <int D>
-__global__ void __launch_bounds__(128, 2) flash_bwd_dkdv_mma_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ di,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, int h, int kvh, int sq,
-    int skv, int causal, float scale) {
-  using Cfg = BwdMma<D>;
-  constexpr int LD = Cfg::kLd, CH = Cfg::kChunks, QT = Cfg::kQ;
-  constexpr int NS = Cfg::kStages, NT = Cfg::kThreads;
+__global__ void __launch_bounds__(BwdWg<D>::kThreads, 1)
+    flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                const __grid_constant__ CUtensorMap tm_k,
+                                const __grid_constant__ CUtensorMap tm_v,
+                                const __grid_constant__ CUtensorMap tm_do,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ di,
+                                bf16* __restrict__ dk, bf16* __restrict__ dv,
+                                int h, int kvh, int sq, int skv, int causal,
+                                float scale) {
+  using Cfg = BwdWg<D>;
+  using T = typename Cfg::T;
+  constexpr int NS = kWgStages, R = kWgRows;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [64][LD]
-  bf16* vs = ks + kBlockKeys * LD;
-  bf16* qs = vs + kBlockKeys * LD;   // [NS][QT][LD]
-  bf16* dos = qs + NS * QT * LD;     // [NS][QT][LD]
-  float* lses = reinterpret_cast<float*>(dos + NS * QT * LD);  // [NS][QT]
-  float* dis = lses + NS * QT;
-  int* lims = reinterpret_cast<int*>(dis + NS * QT);
+  unsigned char* ks = align_1024(smem_raw);  // [warpgroup] K tiles
+  unsigned char* vs = ks + kWgGroups * T::kBytes;  // [warpgroup] V tiles
+  unsigned char* qs = vs + kWgGroups * T::kBytes;  // [stage] q tiles
+  unsigned char* dos = qs + NS * T::kBytes;        // [stage] dO tiles
+  float* lse_s = reinterpret_cast<float*>(dos + NS * T::kBytes);  // [NS][R]
+  float* di_s = lse_s + NS * R;
+  uint64_t* full = reinterpret_cast<uint64_t*>(di_s + NS * R);  // [NS]
+  uint64_t* empty = full + NS;                                   // [NS]
+  uint64_t* kv_full = empty + NS;
+  int* done = reinterpret_cast<int*>(kv_full + 1);  // [NS]
 
+  // blocks in launch order: every (b, kv head)'s first keys (the most
+  // query tiles) first, so the longest walks start first on the card
   const int group = h / kvh;
-  const int n_rows = sq * group;  // flattened (position, g) rows
-  const int k0 = blockIdx.x * kBlockKeys;  // tile 0, the heaviest, first
-  const int hk = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.y * kWgBlockRows;
+  const int hk = blockIdx.x % kvh, b = blockIdx.x / kvh;
   const int q_offset = skv - sq;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  // the last key a flattened row attends; -1 past the last row
-  auto lim_of = [&](int r) {
-    return r >= n_rows ? -1
-           : causal    ? min(skv - 1, q_offset + r / group)
-                       : skv - 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // the last key query position p attends; -1 past the last position
+  auto lim_of = [&](int p) {
+    return p >= sq ? -1 : causal ? min(skv - 1, q_offset + p) : skv - 1;
   };
-  // (b, head, position) of flattened row r, in rows of D
-  auto row_of = [&](int r) {
-    return ((size_t)b * h + hk * group + r % group) * sq + r / group;
-  };
-  // causal: the rows before the first that attends key k0 are skipped
-  const int t_first =
-      (causal ? max(0, k0 - q_offset) * group : 0) / QT;
-  const int n_tiles = (n_rows + QT - 1) / QT;
+  // the walk: for each of the G heads of the group, the query tiles from
+  // the first whose last row attends key k0 (causal) to the last
+  const int n_qt = (sq + R - 1) / R;
+  const int t_first = causal ? max(0, k0 - q_offset) / R : 0;
+  const int per_head = n_qt - t_first;
+  const int n_tiles = group * per_head;
 
-  // the block's K and V, zeros past skv (they ride with the first stage)
-  const bf16* kh = k + ((size_t)b * kvh + hk) * skv * D;
-  const bf16* vh = v + ((size_t)b * kvh + hk) * skv * D;
-  for (int idx = tid; idx < kBlockKeys * CH; idx += NT) {
-    const int j = idx / CH, c = idx % CH;
-    const bool ok = k0 + j < skv;
-    const size_t off = ok ? (size_t)(k0 + j) * D + c * 8 : 0;
-    mma::cp_async_16(ks + j * LD + c * 8, kh + off, ok);
-    mma::cp_async_16(vs + j * LD + c * 8, vh + off, ok);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      hopper::mbar_init(&full[s], 32);  // a warp's lanes
+      hopper::mbar_init(&empty[s], 4 * kWgGroups);  // consumer warps
+      done[s] = 0;
+    }
+    hopper::mbar_init(kv_full, 1);
+    hopper::fence_barrier_init();
   }
-  auto load_rows = [&](int t) {  // stage t into slot t % NS; zeros past n_rows
-    const int r0 = t * QT, slot = t % NS;
-    bf16* qd = qs + slot * QT * LD;
-    bf16* dd = dos + slot * QT * LD;
-    for (int idx = tid; idx < QT * CH; idx += NT) {
-      const int i = idx / CH, c = idx % CH, r = r0 + i;
-      const bool ok = r < n_rows;
-      const size_t off = ok ? row_of(r) * D + c * 8 : 0;
-      mma::cp_async_16(qd + i * LD + c * 8, q + off, ok);
-      mma::cp_async_16(dd + i * LD + c * 8, dout + off, ok);
+  __syncthreads();
+  // one thread: the block's K and V tiles
+  auto load_kv = [&] {
+    hopper::mbar_arrive_expect_tx(kv_full, 2 * kWgGroups * T::kBytes);
+    for (int i = 0; i < kWgGroups; ++i)
+      for (int c = 0; c < T::kChunks; ++c) {
+        const int x = c * Cfg::kW, y = k0 + i * R, z = b * kvh + hk;
+        const uint32_t off = i * T::kBytes + c * T::kChunkBytes;
+        hopper::tma_load_3d(ks + off, &tm_k, kv_full, x, y, z);
+        hopper::tma_load_3d(vs + off, &tm_v, kv_full, x, y, z);
+      }
+  };
+  // a whole warp: tile t into its stage t % NS, which no warp reads
+  auto produce = [&](int t) {
+    const int s = t % NS;
+    const int mat = b * h + hk * group + t / per_head;  // (b, q head)
+    const int p0 = (t_first + t % per_head) * R;
+    for (int i = lane; i < R; i += 32) {
+      const bool ok = p0 + i < sq;
+      const size_t off = (size_t)mat * sq + p0 + i;
+      lse_s[s * R + i] = ok ? lse[off] * mma::kLog2e : 0.f;
+      di_s[s * R + i] = ok ? di[off] : 0.f;
     }
-    for (int i = tid; i < QT; i += NT) {
-      const int r = r0 + i;
-      const bool ok = r < n_rows;
-      const size_t off = ok ? row_of(r) : 0;
-      mma::cp_async_4(lses + slot * QT + i, lse + off, ok);
-      mma::cp_async_4(dis + slot * QT + i, di + off, ok);
-      lims[slot * QT + i] = lim_of(r);  // seen after the next barrier
+    if (lane == 0) {
+      hopper::mbar_arrive_expect_tx(&full[s], 2 * T::kBytes);
+      for (int c = 0; c < T::kChunks; ++c) {
+        const uint32_t off = s * T::kBytes + c * T::kChunkBytes;
+        hopper::tma_load_3d(qs + off, &tm_q, &full[s], c * Cfg::kW, p0, mat);
+        hopper::tma_load_3d(dos + off, &tm_do, &full[s], c * Cfg::kW, p0,
+                            mat);
+      }
+    } else {
+      hopper::mbar_arrive(&full[s]);
     }
   };
-  if (t_first < n_tiles) load_rows(t_first);
-  mma::cp_async_commit();
 
-  const int kw = k0 + warp * 16;  // the warp's first key
-  const int key0 = kw + (lane >> 2), key1 = key0 + 8;  // the lane's two
-  const float scale_log2 = scale * mma::kLog2e;
-  float dka[D / 8][4], dva[D / 8][4];
-  zero(dka);
-  zero(dva);
-  for (int t = t_first; t < n_tiles; ++t) {
-    mma::cp_async_wait<0>();
-    __syncthreads();  // stage t visible; every warp is done with t - 1
-    if (t + 1 < n_tiles) load_rows(t + 1);  // the slot of t - 1
-    mma::cp_async_commit();
-    const int r0 = t * QT, slot = t % NS;
-    // rows attend a prefix of keys that grows with the row: the tile's
-    // last live row attends the most, its first the least
-    if (kw > lim_of(min(r0 + QT, n_rows) - 1)) continue;  // nothing attended
-    const bool masked = kw + 15 > lim_of(r0) || r0 + QT > n_rows;
-    const bf16* qt = qs + slot * QT * LD;
-    const bf16* dot = dos + slot * QT * LD;
-    const float* lse_t = lses + slot * QT;
-    const float* di_t = dis + slot * QT;
-    const int* lim_t = lims + slot * QT;
-
-    // S^T = K_w Q^T: the lane holds keys key0 / key1 (rows g, g + 8) of
-    // columns (tile rows) 8j + 2 (lane % 4) + {0, 1}
-    float s[QT / 8][4];
-    zero(s);
-    mma_abt<D, QT>(s, ks + warp * 16 * LD, qt, LD);
+  if (Cfg::kProducer && warp >= 4 * kWgGroups) {  // the producer warpgroup
+    hopper::setmaxnreg_dec<24>();
+    if (warp != 4 * kWgGroups) return;  // one warp loads
+    if (lane == 0) load_kv();
+    for (int t = 0; t < n_tiles; ++t) {
+      hopper::mbar_wait(&empty[t % NS], ((t / NS) & 1) ^ 1);
+      produce(t);
+    }
+  } else {  // consumer warpgroup wg: keys kw..kw+63
+    if constexpr (Cfg::kProducer) hopper::setmaxnreg_inc<240>();
+    if (!Cfg::kProducer && warp == 0) {  // the ring's first fill
+      if (lane == 0) load_kv();
+      for (int t = 0; t < NS && t < n_tiles; ++t) produce(t);
+    }
+    const int wg = warp >> 2;
+    const int kw = k0 + wg * R;
+    const int key0 = kw + (warp & 3) * 16 + (lane >> 2), key1 = key0 + 8;
+    const uint32_t k_t = hopper::smem_u32(ks + wg * T::kBytes);
+    const uint32_t v_t = hopper::smem_u32(vs + wg * T::kBytes);
+    const float scale_log2 = scale * mma::kLog2e;
+    float dka[D / 2], dva[D / 2];
 #pragma unroll
-    for (int j = 0; j < QT / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = j * 8 + (lane & 3) * 2 + e;
-        const float l2 = lse_t[col] * mma::kLog2e;
-        float p0 = mma::ex2(fmaf(s[j][e], scale_log2, -l2));
-        float p1 = mma::ex2(fmaf(s[j][2 + e], scale_log2, -l2));
-        if (masked) {
-          const int lim = lim_t[col];
-          if (key0 > lim) p0 = 0.f;
-          if (key1 > lim) p1 = 0.f;
-        }
-        s[j][e] = p0;
-        s[j][2 + e] = p1;
+    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+    hopper::mbar_wait(kv_full, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % NS;
+      const int p0 = (t_first + t % per_head) * R;
+      hopper::mbar_wait(&full[s], (t / NS) & 1);
+      // rows attend a prefix of keys that grows with the row: the tile's
+      // last live row attends the most, its first the least
+      if (kw <= lim_of(min(p0 + R, sq) - 1)) {
+        const bool masked = kw + R - 1 > lim_of(p0) || p0 + R > sq;
+        dkdv_tile<D>(dka, dva, k_t, v_t,
+                     hopper::smem_u32(qs + s * T::kBytes),
+                     hopper::smem_u32(dos + s * T::kBytes), lse_s + s * R,
+                     di_s + s * R, key0, masked, scale_log2,
+                     [&](int col) { return lim_of(p0 + col); });
+      }
+      if constexpr (Cfg::kProducer) {
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&empty[s]);
+      } else if (last_done(&done[s]) && t + NS < n_tiles) {
+        produce(t + NS);
       }
     }
-    mma_pb<QT, D>(dva, s, dot, LD);  // dV += P^T dO
-    float dp[QT / 8][4];
-    zero(dp);
-    mma_abt<D, QT>(dp, vs + warp * 16 * LD, dot, LD);  // dP^T = V_w dO^T
+    const size_t base = ((size_t)b * kvh + hk) * skv * D;
 #pragma unroll
-    for (int j = 0; j < QT / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float d = di_t[j * 8 + (lane & 3) * 2 + e];
-        s[j][e] *= dp[j][e] - d;  // dS^T = P^T (dP^T - di)
-        s[j][2 + e] *= dp[j][2 + e] - d;
+    for (int n = 0; n < D / 8; ++n) {
+      const int c = n * 8 + (lane & 3) * 2;
+      if (key0 < skv) {
+        *reinterpret_cast<uint32_t*>(dk + base + (size_t)key0 * D + c) =
+            mma::pack_bf16(dka[4 * n] * scale, dka[4 * n + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dv + base + (size_t)key0 * D + c) =
+            mma::pack_bf16(dva[4 * n], dva[4 * n + 1]);
       }
-    }
-    mma_pb<QT, D>(dka, s, qt, LD);  // dK += dS^T Q (scaled at the end)
-  }
-  mma::cp_async_wait<0>();  // no copy outlives the block
-
-  bf16* dkh = dk + ((size_t)b * kvh + hk) * skv * D;
-  bf16* dvh = dv + ((size_t)b * kvh + hk) * skv * D;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int c = n * 8 + (lane & 3) * 2;
-    if (key0 < skv) {
-      *reinterpret_cast<uint32_t*>(dkh + (size_t)key0 * D + c) =
-          mma::pack_bf16(dka[n][0] * scale, dka[n][1] * scale);
-      *reinterpret_cast<uint32_t*>(dvh + (size_t)key0 * D + c) =
-          mma::pack_bf16(dva[n][0], dva[n][1]);
-    }
-    if (key1 < skv) {
-      *reinterpret_cast<uint32_t*>(dkh + (size_t)key1 * D + c) =
-          mma::pack_bf16(dka[n][2] * scale, dka[n][3] * scale);
-      *reinterpret_cast<uint32_t*>(dvh + (size_t)key1 * D + c) =
-          mma::pack_bf16(dva[n][2], dva[n][3]);
+      if (key1 < skv) {
+        *reinterpret_cast<uint32_t*>(dk + base + (size_t)key1 * D + c) =
+            mma::pack_bf16(dka[4 * n + 2] * scale, dka[4 * n + 3] * scale);
+        *reinterpret_cast<uint32_t*>(dv + base + (size_t)key1 * D + c) =
+            mma::pack_bf16(dva[4 * n + 2], dva[4 * n + 3]);
+      }
     }
   }
 }
 
-// (c) dQ of 64 flattened rows of one (b, kv head), bf16 on tensor cores
+// (c) dQ of 128 query rows of one (b, q head), bf16 on wgmma
 template <int D>
-__global__ void __launch_bounds__(128, 2) flash_bwd_dq_mma_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ di,
-    bf16* __restrict__ dq, int h, int kvh, int sq, int skv, int causal,
-    float scale) {
-  using Cfg = BwdMma<D>;
-  constexpr int LD = Cfg::kLd, CH = Cfg::kChunks, NS = Cfg::kStages;
-  constexpr int NT = Cfg::kThreads, SK = kBlockKeys;
+__global__ void __launch_bounds__(BwdWg<D>::kThreads, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const __grid_constant__ CUtensorMap tm_do,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ di,
+                              bf16* __restrict__ dq, int h, int kvh, int sq,
+                              int skv, int causal, float scale) {
+  using Cfg = BwdWg<D>;
+  using T = typename Cfg::T;
+  constexpr int NS = kWgStages, R = kWgRows;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [64][LD]
-  bf16* dos = qs + kBlockRows * LD;
-  bf16* ks = dos + kBlockRows * LD;  // [NS][64][LD]
-  bf16* vs = ks + NS * SK * LD;
+  unsigned char* qs = align_1024(smem_raw);  // [warpgroup] q tiles
+  unsigned char* dos = qs + kWgGroups * T::kBytes;  // [warpgroup] dO tiles
+  unsigned char* ks = dos + kWgGroups * T::kBytes;  // [stage] K tiles
+  unsigned char* vs = ks + NS * T::kBytes;          // [stage] V tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(vs + NS * T::kBytes);
+  uint64_t* empty = full + NS;
+  uint64_t* q_full = empty + NS;
+  int* done = reinterpret_cast<int*>(q_full + 1);  // [NS]
 
+  // blocks in launch order: every (b, head)'s last rows (the most keys)
+  // first
   const int group = h / kvh;
-  const int n_rows = sq * group;
-  const int base = (gridDim.x - 1 - blockIdx.x) * kBlockRows;  // heaviest first
-  const int hk = blockIdx.y, b = blockIdx.z;
+  const int p0 = (gridDim.y - 1 - blockIdx.y) * kWgBlockRows;
+  const int mat = blockIdx.x, kv_mat = mat / h * kvh + mat % h / group;
   const int q_offset = skv - sq;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  auto lim_of = [&](int r) {
-    return r >= n_rows ? -1
-           : causal    ? min(skv - 1, q_offset + r / group)
-                       : skv - 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  auto lim_of = [&](int p) {
+    return p >= sq ? -1 : causal ? min(skv - 1, q_offset + p) : skv - 1;
   };
-  auto row_of = [&](int r) {
-    return ((size_t)b * h + hk * group + r % group) * sq + r / group;
-  };
-  const int n_keys = lim_of(min(base + kBlockRows, n_rows) - 1) + 1;
-  const int n_stages = (n_keys + SK - 1) / SK;
-  const bf16* kh = k + ((size_t)b * kvh + hk) * skv * D;
-  const bf16* vh = v + ((size_t)b * kvh + hk) * skv * D;
+  const int n_keys = lim_of(min(p0 + kWgBlockRows, sq) - 1) + 1;
+  const int n_tiles = (n_keys + R - 1) / R;
 
-  // the block's q and dO rows (zeros past the last), with stage 0
-  for (int idx = tid; idx < kBlockRows * CH; idx += NT) {
-    const int i = idx / CH, c = idx % CH, r = base + i;
-    const bool ok = r < n_rows;
-    const size_t off = ok ? row_of(r) * D + c * 8 : 0;
-    mma::cp_async_16(qs + i * LD + c * 8, q + off, ok);
-    mma::cp_async_16(dos + i * LD + c * 8, dout + off, ok);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 4 * kWgGroups);
+      done[s] = 0;
+    }
+    hopper::mbar_init(q_full, 1);
+    hopper::fence_barrier_init();
   }
-  auto load_kv = [&](int t) {  // stage t into slot t % NS; zeros past skv
-    const int k0 = t * SK;
-    bf16* kd = ks + (t % NS) * SK * LD;
-    bf16* vd = vs + (t % NS) * SK * LD;
-    for (int idx = tid; idx < SK * CH; idx += NT) {
-      const int j = idx / CH, c = idx % CH;
-      const bool ok = k0 + j < skv;
-      const size_t off = ok ? (size_t)(k0 + j) * D + c * 8 : 0;
-      mma::cp_async_16(kd + j * LD + c * 8, kh + off, ok);
-      mma::cp_async_16(vd + j * LD + c * 8, vh + off, ok);
+  __syncthreads();
+  // one thread: the block's q and dO tiles
+  auto load_rows = [&] {
+    hopper::mbar_arrive_expect_tx(q_full, 2 * kWgGroups * T::kBytes);
+    for (int i = 0; i < kWgGroups; ++i)
+      for (int c = 0; c < T::kChunks; ++c) {
+        const uint32_t off = i * T::kBytes + c * T::kChunkBytes;
+        hopper::tma_load_3d(qs + off, &tm_q, q_full, c * Cfg::kW, p0 + i * R,
+                            mat);
+        hopper::tma_load_3d(dos + off, &tm_do, q_full, c * Cfg::kW,
+                            p0 + i * R, mat);
+      }
+  };
+  // one thread: key tile t into its stage t % NS, which no warp reads
+  auto produce = [&](int t) {
+    const int s = t % NS;
+    hopper::mbar_arrive_expect_tx(&full[s], 2 * T::kBytes);
+    for (int c = 0; c < T::kChunks; ++c) {
+      const uint32_t off = s * T::kBytes + c * T::kChunkBytes;
+      hopper::tma_load_3d(ks + off, &tm_k, &full[s], c * Cfg::kW, t * R,
+                          kv_mat);
+      hopper::tma_load_3d(vs + off, &tm_v, &full[s], c * Cfg::kW, t * R,
+                          kv_mat);
     }
   };
-  if (n_stages > 0) load_kv(0);
-  mma::cp_async_commit();
 
-  const int wrow0 = base + warp * 16;
-  const mma::RowLimits lim(lim_of(wrow0 + (lane & 15)));
-  // lse (log2 domain) and di of the lane's rows g and g + 8
-  const int ra = wrow0 + (lane >> 2), rb = ra + 8;
-  const float lse_a = ra < n_rows ? lse[row_of(ra)] * mma::kLog2e : 0.f;
-  const float lse_b = rb < n_rows ? lse[row_of(rb)] * mma::kLog2e : 0.f;
-  const float di_a = ra < n_rows ? di[row_of(ra)] : 0.f;
-  const float di_b = rb < n_rows ? di[row_of(rb)] : 0.f;
-  const float scale_log2 = scale * mma::kLog2e;
-  const bf16* qw = qs + warp * 16 * LD;
-  const bf16* dow = dos + warp * 16 * LD;
-  float dqa[D / 8][4];
-  zero(dqa);
-  for (int t = 0; t < n_stages; ++t) {
-    mma::cp_async_wait<0>();
-    __syncthreads();
-    if (t + 1 < n_stages) load_kv(t + 1);
-    mma::cp_async_commit();
-    const int k0 = t * SK;
-    if (!lim.live(k0)) continue;
-    const bool masked = lim.masked(k0);
-    const bf16* kt = ks + (t % NS) * SK * LD;
-    const bf16* vt = vs + (t % NS) * SK * LD;
-    float s[SK / 8][4];
-    zero(s);
-    mma_abt<D, SK>(s, qw, kt, LD);  // S = Q_w K^T
-    const int kl = k0 + (lane & 3) * 2;
+  if (Cfg::kProducer && warp >= 4 * kWgGroups) {  // the producer warpgroup
+    hopper::setmaxnreg_dec<24>();
+    if (warp != 4 * kWgGroups || lane != 0) return;  // one thread loads
+    load_rows();
+    for (int t = 0; t < n_tiles; ++t) {
+      hopper::mbar_wait(&empty[t % NS], ((t / NS) & 1) ^ 1);
+      produce(t);
+    }
+  } else {  // consumer warpgroup wg: query rows wrow..wrow+63
+    if constexpr (Cfg::kProducer) hopper::setmaxnreg_inc<240>();
+    if (!Cfg::kProducer && threadIdx.x == 0) {  // the ring's first fill
+      load_rows();
+      for (int t = 0; t < NS && t < n_tiles; ++t) produce(t);
+    }
+    const int wg = warp >> 2;
+    const int wrow = p0 + wg * R;
+    const int r0 = wrow + (warp & 3) * 16 + (lane >> 2), r1 = r0 + 8;
+    // the warpgroup's least and largest limits (-1: no live row)
+    const int wg_lo = lim_of(wrow);
+    const int wg_hi = wrow < sq ? lim_of(min(wrow + R, sq) - 1) : -1;
+    const int lim0 = lim_of(r0), lim1 = lim_of(r1);
+    const size_t row0 = (size_t)mat * sq + r0, row1 = row0 + 8;
+    const float lse0 = r0 < sq ? lse[row0] * mma::kLog2e : 0.f;
+    const float lse1 = r1 < sq ? lse[row1] * mma::kLog2e : 0.f;
+    const float di0 = r0 < sq ? di[row0] : 0.f;
+    const float di1 = r1 < sq ? di[row1] : 0.f;
+    const uint32_t q_t = hopper::smem_u32(qs + wg * T::kBytes);
+    const uint32_t do_t = hopper::smem_u32(dos + wg * T::kBytes);
+    const float scale_log2 = scale * mma::kLog2e;
+    float dqa[D / 2];
 #pragma unroll
-    for (int j = 0; j < SK / 8; ++j) {
+    for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+    hopper::mbar_wait(q_full, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % NS, kt0 = t * R;
+      hopper::mbar_wait(&full[s], (t / NS) & 1);
+      if (kt0 <= wg_hi) {
+        const bool masked = kt0 + R - 1 > wg_lo || wrow + R > sq;
+        const uint32_t k_t = hopper::smem_u32(ks + s * T::kBytes);
+        const uint32_t v_t = hopper::smem_u32(vs + s * T::kBytes);
+        float sa[32], dpa[32];
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float pa = mma::ex2(fmaf(s[j][e], scale_log2, -lse_a));
-        float pb = mma::ex2(fmaf(s[j][2 + e], scale_log2, -lse_b));
-        if (masked) {
-          const int key = kl + j * 8 + e;
-          if (key > lim.lim0) pa = 0.f;
-          if (key > lim.lim1) pb = 0.f;
+        for (int i = 0; i < 32; ++i) sa[i] = dpa[i] = 0.f;
+        hopper::fence_operand(sa);
+        hopper::fence_operand(dpa);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)  // S = Q K^T
+          hopper::wgmma_ss_n64(sa, T::k_major(q_t, kk), T::k_major(k_t, kk),
+                               kk);
+        hopper::wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)  // dP = dO V^T
+          hopper::wgmma_ss_n64(dpa, T::k_major(do_t, kk),
+                               T::k_major(v_t, kk), kk);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();
+        hopper::fence_operand(sa);
+        const int kl = kt0 + (lane & 3) * 2;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float pa = mma::ex2(fmaf(sa[4 * j + e], scale_log2, -lse0));
+            float pb = mma::ex2(fmaf(sa[4 * j + 2 + e], scale_log2, -lse1));
+            if (masked) {
+              const int key = kl + 8 * j + e;
+              if (key > lim0) pa = 0.f;
+              if (key > lim1) pb = 0.f;
+            }
+            sa[4 * j + e] = pa;
+            sa[4 * j + 2 + e] = pb;
+          }
         }
-        s[j][e] = pa;
-        s[j][2 + e] = pb;
+        hopper::wgmma_wait<0>();
+        hopper::fence_operand(dpa);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          sa[4 * j] *= dpa[4 * j] - di0;  // dS = P (dP - di)
+          sa[4 * j + 1] *= dpa[4 * j + 1] - di0;
+          sa[4 * j + 2] *= dpa[4 * j + 2] - di1;
+          sa[4 * j + 3] *= dpa[4 * j + 3] - di1;
+        }
+        uint32_t da[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            da[kk][i] =
+                mma::pack_bf16(sa[8 * kk + 2 * i], sa[8 * kk + 2 * i + 1]);
+        hopper::fence_operand(dqa);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)  // dQ += dS K (scaled at the end)
+          hopper::wgmma_rs<D>(dqa, da[kk], T::mn_major(k_t, kk));
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_operand(da);
+        hopper::fence_operand(dqa);
+      }
+      if constexpr (Cfg::kProducer) {
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&empty[s]);
+      } else if (last_done(&done[s]) && t + NS < n_tiles) {
+        if (lane == 0) produce(t + NS);
+        __syncwarp();
       }
     }
-    float dp[SK / 8][4];
-    zero(dp);
-    mma_abt<D, SK>(dp, dow, vt, LD);  // dP = dO_w V^T
 #pragma unroll
-    for (int j = 0; j < SK / 8; ++j) {
-      s[j][0] *= dp[j][0] - di_a;  // dS = P (dP - di)
-      s[j][1] *= dp[j][1] - di_a;
-      s[j][2] *= dp[j][2] - di_b;
-      s[j][3] *= dp[j][3] - di_b;
+    for (int n = 0; n < D / 8; ++n) {
+      const int c = n * 8 + (lane & 3) * 2;
+      if (r0 < sq)
+        *reinterpret_cast<uint32_t*>(dq + row0 * D + c) =
+            mma::pack_bf16(dqa[4 * n] * scale, dqa[4 * n + 1] * scale);
+      if (r1 < sq)
+        *reinterpret_cast<uint32_t*>(dq + row1 * D + c) =
+            mma::pack_bf16(dqa[4 * n + 2] * scale, dqa[4 * n + 3] * scale);
     }
-    mma_pb<SK, D>(dqa, s, kt, LD);  // dQ += dS K (scaled at the end)
-  }
-  mma::cp_async_wait<0>();
-
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int c = n * 8 + (lane & 3) * 2;
-    if (ra < n_rows)
-      *reinterpret_cast<uint32_t*>(dq + row_of(ra) * D + c) =
-          mma::pack_bf16(dqa[n][0] * scale, dqa[n][1] * scale);
-    if (rb < n_rows)
-      *reinterpret_cast<uint32_t*>(dq + row_of(rb) * D + c) =
-          mma::pack_bf16(dqa[n][2] * scale, dqa[n][3] * scale);
   }
 }
 
@@ -905,37 +1063,47 @@ int launch_dot(const Args& a) {
   return (int)cudaGetLastError();
 }
 
+// b, sq and skv all > 0
 template <int D>
-int launch_mma(const Args& a) {
-  if (!mma::aligned16(a.q, a.k, a.v, a.dout)) return -2;
-  int err = launch_dot<D>(a);
+int launch_wgmma(const Args& a) {
+  using Cfg = BwdWg<D>;
+  constexpr int W = Cfg::kW;
+  CUtensorMap tq, tk, tv, tdo;  // 64-row boxes of every (b, head) matrix
+  if (hopper::make_tile_map(&tq, a.q, D, a.sq, a.b * a.h, W, kWgRows) ||
+      hopper::make_tile_map(&tdo, a.dout, D, a.sq, a.b * a.h, W, kWgRows) ||
+      hopper::make_tile_map(&tk, a.k, D, a.skv, a.b * a.kvh, W, kWgRows) ||
+      hopper::make_tile_map(&tv, a.v, D, a.skv, a.b * a.kvh, W, kWgRows))
+    return -3;
+  const float* di = static_cast<const float*>(a.di);
+  auto dkdv = flash_bwd_dkdv_wgmma_kernel<D>;
+  int err = (int)allow_smem(dkdv, Cfg::kDkdvSmem);
   if (err) return err;
-  using Cfg = BwdMma<D>;
-  const int n_rows = a.sq * (a.h / a.kvh);
-  if (a.b > 0 && a.skv > 0) {
-    auto kernel = flash_bwd_dkdv_mma_kernel<D>;
-    if ((err = (int)allow_smem(kernel, Cfg::kDkdvSmem))) return err;
-    dim3 grid((a.skv + kBlockKeys - 1) / kBlockKeys, a.kvh, a.b);
-    kernel<<<grid, Cfg::kThreads, Cfg::kDkdvSmem, a.stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-        a.lse, static_cast<const float*>(a.di), static_cast<bf16*>(a.dk),
-        static_cast<bf16*>(a.dv), a.h,
-        a.kvh, a.sq, a.skv, a.causal, a.scale);
-    if ((err = (int)cudaGetLastError())) return err;
-  }
-  if (a.b > 0 && n_rows > 0) {
-    auto kernel = flash_bwd_dq_mma_kernel<D>;
-    if ((err = (int)allow_smem(kernel, Cfg::kDqSmem))) return err;
-    dim3 grid((n_rows + kBlockRows - 1) / kBlockRows, a.kvh, a.b);
-    kernel<<<grid, Cfg::kThreads, Cfg::kDqSmem, a.stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-        a.lse, static_cast<const float*>(a.di), static_cast<bf16*>(a.dq), a.h,
-        a.kvh, a.sq, a.skv,
-        a.causal, a.scale);
-  }
+  dkdv<<<dim3(a.b * a.kvh, (a.skv + kWgBlockRows - 1) / kWgBlockRows),
+         Cfg::kThreads, Cfg::kDkdvSmem, a.stream>>>(
+      tq, tk, tv, tdo, a.lse, di, static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), a.h, a.kvh, a.sq, a.skv, a.causal, a.scale);
+  if ((err = (int)cudaGetLastError())) return err;
+  auto dq = flash_bwd_dq_wgmma_kernel<D>;
+  if ((err = (int)allow_smem(dq, Cfg::kDqSmem))) return err;
+  dq<<<dim3(a.b * a.h, (a.sq + kWgBlockRows - 1) / kWgBlockRows), Cfg::kThreads,
+       Cfg::kDqSmem, a.stream>>>(tq, tk, tv, tdo, a.lse, di,
+                                 static_cast<bf16*>(a.dq), a.h, a.kvh, a.sq,
+                                 a.skv, a.causal, a.scale);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_bf16(const Args& a) {
+  if (!mma::aligned16(a.q, a.k, a.v, a.dout)) return -2;
+  if (a.b == 0) return 0;
+  if (a.sq == 0 || a.skv == 0) {  // no attended pair: zero gradients
+    cudaMemsetAsync(a.dq, 0, (size_t)a.b * a.h * a.sq * D * 2, a.stream);
+    cudaMemsetAsync(a.dk, 0, (size_t)a.b * a.kvh * a.skv * D * 2, a.stream);
+    cudaMemsetAsync(a.dv, 0, (size_t)a.b * a.kvh * a.skv * D * 2, a.stream);
+    return (int)cudaGetLastError();
+  }
+  const int err = launch_dot<D>(a);
+  return err ? err : launch_wgmma<D>(a);
 }
 
 template <int D>
@@ -992,13 +1160,16 @@ int kernel_info(Kernel kernel, int threads, size_t smem, int* info) {
   return 0;
 }
 
+// which: 0 dK/dV, 1 dQ
 template <int D>
-int mma_info(int which, int* info) {
-  using Cfg = BwdMma<D>;
-  auto dkdv = flash_bwd_dkdv_mma_kernel<D>;
-  auto dq = flash_bwd_dq_mma_kernel<D>;
-  if (which == 0) return kernel_info(dkdv, Cfg::kThreads, Cfg::kDkdvSmem, info);
-  if (which == 1) return kernel_info(dq, Cfg::kThreads, Cfg::kDqSmem, info);
+int bf16_info(int which, int* info) {
+  using Cfg = BwdWg<D>;
+  if (which == 0)
+    return kernel_info(flash_bwd_dkdv_wgmma_kernel<D>, Cfg::kThreads,
+                       Cfg::kDkdvSmem, info);
+  if (which == 1)
+    return kernel_info(flash_bwd_dq_wgmma_kernel<D>, Cfg::kThreads,
+                       Cfg::kDqSmem, info);
   return -1;
 }
 
@@ -1022,20 +1193,21 @@ int flash_attention_backward(const void* q, const void* k, const void* v,
   if (dtype == 0 && head_dim == 64) return launch_f32<64>(a);
   if (dtype == 0 && head_dim == 80) return launch_f32<80>(a);
   if (dtype == 0 && head_dim == 128) return launch_f32<128>(a);
-  if (dtype == 1 && head_dim == 64) return launch_mma<64>(a);
-  if (dtype == 1 && head_dim == 80) return launch_mma<80>(a);
-  if (dtype == 1 && head_dim == 128) return launch_mma<128>(a);
+  if (dtype == 1 && head_dim == 64) return launch_bf16<64>(a);
+  if (dtype == 1 && head_dim == 80) return launch_bf16<80>(a);
+  if (dtype == 1 && head_dim == 128) return launch_bf16<128>(a);
   return -1;
 }
 
 // The bf16 dK/dV (which 0) or dQ (which 1) kernel at head_dim as the card
-// runs it: info[0] registers a thread, [1] local (spilled) bytes a thread,
-// [2] dynamic shared memory bytes a block, [3] blocks resident per SM.
-// Returns 0 or a CUDA error.
+// runs it: info[0] registers a thread at launch (setmaxnreg then moves
+// them from the producer warpgroup to the consumers at D 64 and 80), [1]
+// local (spilled) bytes a thread, [2] dynamic shared memory bytes a block,
+// [3] blocks resident per SM. Returns 0 or a CUDA error.
 int flash_attention_backward_info(int head_dim, int which, int* info) {
-  if (head_dim == 64) return mma_info<64>(which, info);
-  if (head_dim == 80) return mma_info<80>(which, info);
-  if (head_dim == 128) return mma_info<128>(which, info);
+  if (head_dim == 64) return bf16_info<64>(which, info);
+  if (head_dim == 80) return bf16_info<80>(which, info);
+  if (head_dim == 128) return bf16_info<128>(which, info);
   return -1;
 }
 

@@ -20,9 +20,10 @@ With ``return_lse=True`` the forward also returns each row's logsumexp
 replaces no Pallas kernel (the JAX package differentiates its plain
 chunked version): from q, k, v, the forward's output and row statistics
 and the upstream gradient it returns dq, dk and dv in the inputs' dtype
-(``mma.sync`` kernels for bf16 with f32 sums; CUDA-core ones for f32,
-which take their own row statistics and every sum in f64; no atomics: two
-calls give the same bits). It adds one to
+(for bf16, Hopper ``wgmma`` kernels on TMA tiles with f32 sums, which
+build four tensor maps on the host each call; CUDA-core ones for f32,
+which take their own row statistics and every sum in f64; no float
+atomics: two calls give the same bits). It adds one to
 ``LAUNCHES["flash_attention_bwd"]`` per call.
 
 Neither wrapper's output has a ``grad_fn``. So the forward refuses

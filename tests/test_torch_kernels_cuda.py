@@ -211,6 +211,16 @@ FLASH_BWD_CASES = {
     "whisper cross": (4, 37, 300, 6, 6, 64, False),
     "causal Sq < Skv": (2, 64, 320, 15, 5, 64, True),
     "causal_flash 512": (1, 512, 512, 15, 5, 64, True),
+    # the bf16 kernels' edges: Skv not a multiple of their 128-key blocks,
+    # causal and not; Sq < Skv with Sq not a multiple of their 64-row
+    # tiles; fewer blocks than the card's 132 SMs; the long causal walk
+    # through the ring (192 tiles for the first keys' block)
+    "Skv 200 causal": (2, 200, 200, 15, 5, 64, True),
+    "Skv 200": (2, 200, 200, 15, 5, 64, False),
+    "Sq 45 over 320": (2, 45, 320, 15, 5, 64, True),
+    "D80 Sq 45 over 200": (1, 45, 200, 4, 2, 80, True),
+    "few blocks D128": (1, 256, 256, 6, 2, 128, True),
+    "B 1 x S 4096": (1, 4096, 4096, 15, 5, 64, True),
 }
 
 
